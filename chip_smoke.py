@@ -1,0 +1,421 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+It imports nothing of JAX and nothing of the JAX package.  Phases, each
+printing one JSON line; any failure raises and exits non-zero:
+
+  device   the card's name, capability, power limit.
+  build    the three CUDA kernels compiled from ``kernels/*/csrc/*.cu``
+           (one nvcc each, all started together); build time and the ptxas
+           register / shared-memory report.
+  small    the soma-clustering model at the quickstart's smoke size (120
+           agents, 10^3 boxes, resolution 20) for 8 steps on the card, held
+           against the same model on the CPU (the kernels' plain versions):
+           positions atol 1e-4, fields rtol 1e-5.
+  slice    the main path: the 600,000-agent soma-clustering model over 100^3
+           boxes with two 200^3 substances, built through
+           ``repro_torch.Simulation`` with every kernel switched on, 20 steps
+           through ``BuiltSimulation.run``.  The kernels' launch counters are
+           zeroed just before the run and read just after it.
+  kernels  each kernel at the main path's shapes (taken from the final state
+           of that run) against its plain PyTorch version on the same card:
+           cell_rank exact (plus a stable-sort oracle, one crowded box and an
+           all-dead pool), diffusion rtol=atol=1e-6, cell_list_force atol
+           1e-5 * max|F| over every box.  CUDA-event times of the kernel, the
+           plain version and, where one exists, a single PyTorch call that
+           computes the same function; the bound from this run's inputs.
+
+Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12          # f32 outside the tensor cores; also used for int32 ALU work
+
+STEPS = 20
+N_AGENTS = 600_000
+SPACE = 1000.0                 # 100^3 boxes of 10 um
+RESOLUTION = 200               # 5 um voxels
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time of ``fn()`` over ``reps`` back-to-back calls,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# --------------------------------------------------------------------- model
+
+def soma_model(n, space, resolution, seed, device, concentration=None):
+    """The soma-clustering model of examples/quickstart.py (paper §4.7.1),
+    with every kernel of the slice switched on."""
+    from repro_torch import Simulation
+    from repro_torch.core import ForceParams, chemotaxis, concentration_at, secretion
+
+    def exposure_op(ctx, state):
+        """Integrate each agent's own-substance concentration."""
+        pool = state.pool
+        c0 = concentration_at(state.grids["substance_0"], pool.position)
+        c1 = concentration_at(state.grids["substance_1"], pool.position)
+        own = torch.where(pool.kind == 0, c0, c1)
+        dose = torch.where(pool.alive, own * ctx.config.dt, 0.0)
+        return dataclasses.replace(
+            state, pool=pool.set_attr("exposure", pool.get("exposure") + dose))
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(10, space - 10, (n, 3)).astype(np.float32)
+    kind = (rng.random(n) < 0.5).astype(np.int32)
+    conc = concentration or (None, None)
+    return (
+        Simulation(space=(0.0, space), cell_size=10.0, boundary="closed", dt=1.0,
+                   max_per_cell=64, seed=seed, rank_impl="cuda", device=device)
+        .add_agents(n, position=pos, diameter=5.0, kind=kind, exposure=0.0)
+        .add_substance("substance_0", diffusion=4.0, decay=0.002,
+                       resolution=resolution, concentration=conc[0])
+        .add_substance("substance_1", diffusion=4.0, decay=0.002,
+                       resolution=resolution, concentration=conc[1])
+        .use(secretion("substance_0", 1.0, kind=0), secretion("substance_1", 1.0, kind=1),
+             chemotaxis("substance_0", 0.75, kind=0),
+             chemotaxis("substance_1", 0.75, kind=1))
+        .mechanics(ForceParams(), impl="fused", diffusion_impl="cuda")
+        .op(exposure_op, name="exposure", phase="post")
+    )
+
+
+def ramp_fields(resolution):
+    """Smooth initial fields whose gradients stay far from zero, so that
+    chemotaxis directions do not hinge on the last ulp."""
+    i, j, k = np.meshgrid(*[np.arange(resolution, dtype=np.float32)] * 3, indexing="ij")
+    return ((2.0 + 0.6 * i + 0.4 * j + 0.2 * k).astype(np.float32),
+            (2.0 + 0.1 * i + 0.3 * j + 0.2 * k).astype(np.float32))
+
+
+def phase_small():
+    """The quickstart smoke model on the card against the CPU port."""
+    fields = ramp_fields(20)
+    finals = {}
+    for dev in ("cuda", "cpu"):
+        built = soma_model(120, 100.0, 20, 0, dev, concentration=fields).build()
+        finals[dev], _ = built.run(8)
+    gpu, cpu = finals["cuda"], finals["cpu"]
+    pos_err = float((gpu.pool.position.cpu() - cpu.pool.position).abs().max())
+    if not pos_err <= 1e-4:
+        raise AssertionError(f"small: positions differ from the CPU run by {pos_err}")
+    field_err = 0.0
+    for name in gpu.grids:
+        g, c = gpu.grids[name].concentration.cpu(), cpu.grids[name].concentration
+        torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5 * float(c.abs().max()))
+        field_err = max(field_err, float((g - c).abs().max()))
+    if not bool(torch.equal(gpu.pool.alive.cpu(), cpu.pool.alive)):
+        raise AssertionError("small: alive masks differ")
+    emit("small", agents=120, steps=8, max_position_err=pos_err, max_field_err=field_err)
+
+
+# --------------------------------------------------------------------- slice
+
+def phase_slice(kernels):
+    t0 = time.perf_counter()
+    sim = soma_model(N_AGENTS, SPACE, RESOLUTION, 0, "cuda")
+    step_ends = []
+
+    def clock(state):
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+        return torch.zeros((), dtype=torch.int32, device=state.pool.device)
+
+    sim.observe("step_clock", clock).observe_kinds(frequency=STEPS // 4)
+    built = sim.build()
+    spec = built.config.spec
+    assert spec.dims == (int(SPACE / 10.0),) * 3 and spec.rank_impl == "cuda"
+    assert built.state.grids["substance_0"].resolution == (RESOLUTION,) * 3
+    alive0 = int(built.state.pool.alive.sum())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    for module in kernels.values():
+        module.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    final, obs = built.run(STEPS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - start
+    launches = {name: module.launches for name, module in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    step_s = [b - a for a, b in zip([start] + step_ends[:-1], step_ends)]
+    pool, health = final.pool, final.health
+    alive = pool.alive
+    if int(final.step) != STEPS or len(step_s) != STEPS:
+        raise AssertionError(f"slice: ran {int(final.step)} steps")
+    if int(alive.sum()) != alive0:
+        raise AssertionError(f"slice: alive count {int(alive.sum())} != {alive0}")
+    if not bool(torch.isfinite(pool.position[alive]).all()):
+        raise AssertionError("slice: non-finite agent positions")
+    bad = {f.name: int(getattr(health, f.name)) for f in dataclasses.fields(health)
+           if int(getattr(health, f.name)) != 0}
+    if bad:
+        raise AssertionError(f"slice: health not clean: {bad}")
+    exposure = pool.get("exposure")[alive]
+    if not bool((exposure > 0).any()) or not bool(torch.isfinite(exposure).all()):
+        raise AssertionError("slice: the exposure op did not fire")
+    for name, g in final.grids.items():
+        if not bool(torch.isfinite(g.concentration).all()):
+            raise AssertionError(f"slice: non-finite field {name}")
+    kinds = obs["kind_counts"]
+    if tuple(kinds.shape) != (4, 2) or int(kinds[-1].sum()) != alive0:
+        raise AssertionError(f"slice: kind counts {kinds.tolist()}")
+    want = {"cell_rank": STEPS + 2, "cell_list_force": STEPS, "diffusion3d": 2 * STEPS}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"slice: {name} launched {launches[name]} times, want {n}")
+    emit("slice", agents=alive0, boxes=spec.n_cells, voxels_per_substance=RESOLUTION**3,
+         steps=STEPS, setup_s=setup_s, run_s=total_s,
+         median_step_ms=1e3 * statistics.median(step_s),
+         min_step_ms=1e3 * min(step_s), max_step_ms=1e3 * max(step_s),
+         step_ms=[1e3 * t for t in step_s],
+         peak_memory_bytes=peak, launches=launches,
+         exposure_mean=float(exposure.mean()))
+    return built, final, launches
+
+
+# ------------------------------------------------------------------- kernels
+
+def rank_oracle(cid: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """Within-cell ranks from a stable sort (used here only)."""
+    order = torch.sort(cid.long(), stable=True).indices
+    counts = torch.bincount(cid.long(), minlength=n_cells + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(cid)
+    sorted_cid = cid.long()[order]
+    rank[order] = (torch.arange(cid.shape[0], device=cid.device)
+                   - starts[sorted_cid]).to(torch.int32)
+    return rank
+
+
+def check_cell_rank(cid: torch.Tensor, n_cells: int):
+    from repro_torch.kernels.cell_rank import kernel as cr_k
+    from repro_torch.kernels.cell_rank import ops as cr_ops
+
+    got = cr_k.cell_rank_cuda(cid, n_cells)
+    plain = cr_ops.cell_rank_tiled(cid, n_cells)
+    oracle = rank_oracle(cid, n_cells)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, plain) and torch.equal(got, oracle)):
+        raise AssertionError(
+            f"cell_rank: {int((got != plain).sum())} ranks differ from the plain "
+            f"version, {int((got != oracle).sum())} from the sort oracle")
+    return 0.0
+
+
+def phase_kernels(built, final, launches):
+    from repro_torch.core.grid import _live_cell_ids, build_index
+    from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.cell_force.ref import cell_list_force_ref
+    from repro_torch.kernels.cell_rank import kernel as cr_k
+    from repro_torch.kernels.cell_rank import ops as cr_ops
+    from repro_torch.kernels.diffusion3d import kernel as d3_k
+    from repro_torch.kernels.diffusion3d.ref import diffusion_step_ref
+
+    spec, pool = built.config.spec, final.pool
+    n_cells = spec.n_cells
+    rows = []
+
+    # ---- cell_rank: the env_build input of the final state.
+    cid = _live_cell_ids(spec, pool.position, pool.alive)
+    check_cell_rank(cid, n_cells)
+    crowded = torch.full((65_536,), 4242, dtype=torch.int32, device=cid.device)
+    check_cell_rank(crowded, n_cells)           # every agent in one box
+    check_cell_rank(torch.full_like(cid, n_cells), n_cells)
+    counts = torch.bincount(cid.long(), minlength=n_cells + 1)[:n_cells]
+    rank_bytes = 2 * cid.numel() * 4
+    rank_ops = int((counts * counts).sum()) + 4 * cid.numel()
+    rows.append(dict(
+        name="cell_rank", route="cuda",
+        source="src/repro_torch/kernels/cell_rank/csrc/cell_rank.cu",
+        replaces="src/repro/kernels/cell_rank/kernel.py:88",
+        launches=launches["cell_rank"], max_abs_err=0.0,
+        ms=cuda_ms(lambda: cr_k.cell_rank_cuda(cid, n_cells), 50),
+        plain_ms=cuda_ms(lambda: cr_ops.cell_rank_tiled(cid, n_cells), 5),
+        library_ms=None,
+        **bound(rank_bytes, rank_ops),
+        crowded_box_ms=cuda_ms(lambda: cr_k.cell_rank_cuda(crowded, n_cells), 3),
+    ))
+
+    # ---- cell_list_force: the final state's cell list, every box.
+    index = build_index(spec, pool)
+    if bool(index.overflowed):
+        raise AssertionError("kernels: the final state overflowed a box")
+    radius = pool.radius()
+    args = (pool.position, radius, index.cell_list, spec.dims)
+    got = cf_k.cell_list_force_cuda(*args, num_out=pool.capacity)
+    m = spec.max_per_cell
+    cnt = index.cell_count.long()
+    # The plain version builds (boxes, k, 27k) pair tensors, k the fullest
+    # box: evaluate it over chunks of query boxes of about 1e8 pairs each.
+    k_max = max(int(cnt.max()), 1)
+    chunk = max(1, int(1e8 // (27 * k_max * k_max)))
+    plain_f = lambda: sum(cell_list_force_ref(*args, num_out=pool.capacity,
+                                              cells=(lo, min(lo + chunk, n_cells)))
+                          for lo in range(0, n_cells, chunk))
+    want = plain_f()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not scale > 0 or not err <= 1e-5 * scale:
+        raise AssertionError(f"cell_list_force: max error {err} vs max|F| {scale}")
+    # Bytes this run's data needs: each row's occupied slots and its first
+    # sentinel in 32-byte sectors, position + radius of each listed agent,
+    # and the (C, 3) output.  Operations: ~12 f32 ops per pair evaluation.
+    ints = torch.clamp(cnt + 1, max=m)
+    sectors = int(((ints * 4 + 31) // 32).sum())
+    listed = int(torch.clamp(cnt, max=m).sum())
+    force_bytes = sectors * 32 + listed * 16 + pool.capacity * 12
+    nx, ny, nz = spec.dims
+    padded = torch.nn.functional.pad(cnt.reshape(nx, ny, nz), (1, 1, 1, 1, 1, 1))
+    box27 = sum(padded[a:a + nx, b:b + ny, c:c + nz]
+                for a in range(3) for b in range(3) for c in range(3))
+    pairs = int((cnt * (box27.reshape(-1) - 1)).sum())
+    rows.append(dict(
+        name="cell_list_force", route="cuda",
+        source="src/repro_torch/kernels/cell_force/csrc/cell_list_force.cu",
+        replaces="src/repro/kernels/cell_force/kernel.py:186",
+        launches=launches["cell_list_force"], max_abs_err=err,
+        ms=cuda_ms(lambda: cf_k.cell_list_force_cuda(*args, num_out=pool.capacity), 20),
+        plain_ms=cuda_ms(plain_f, 1),
+        library_ms=None,
+        **bound(force_bytes, 12 * pairs),
+        pair_evaluations=pairs, max_force=scale, fullest_box=k_max,
+    ))
+
+    # ---- diffusion3d: a substance field of the final state.
+    u = final.grids["substance_0"].concentration.contiguous()
+    g = final.grids["substance_0"]
+    nu = g.diffusion_coefficient * built.config.dt / g.spacing**2
+    decay = g.decay_constant * built.config.dt
+    got = d3_k.diffusion_step_cuda(u, nu, decay)
+    want = diffusion_step_ref(u, nu, decay)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    err = float((got - want).abs().max())
+    # One PyTorch call for the same function: a 3x3x3 convolution (full f32).
+    torch.backends.cudnn.allow_tf32 = False
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float32, device=u.device)
+    w[0, 0, 1, 1, 1] = (1.0 - decay) - 6.0 * nu
+    for a, b, c in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        w[0, 0, a, b, c] = nu
+    conv = lambda: torch.nn.functional.conv3d(u[None, None], w, padding=1)
+    conv_err = float((conv()[0, 0] - want).abs().max())
+    rows.append(dict(
+        name="diffusion3d", route="cuda",
+        source="src/repro_torch/kernels/diffusion3d/csrc/diffusion3d.cu",
+        replaces="src/repro/kernels/diffusion3d/kernel.py:61",
+        launches=launches["diffusion3d"], max_abs_err=err,
+        ms=cuda_ms(lambda: d3_k.diffusion_step_cuda(u, nu, decay), 50),
+        plain_ms=cuda_ms(lambda: diffusion_step_ref(u, nu, decay), 20),
+        library_ms=cuda_ms(conv, 20),
+        **bound(2 * u.numel() * 4, 8 * u.numel()),
+        library_max_abs_err=conv_err,
+    ))
+    for r in rows:
+        emit("kernel", **r)
+    return rows
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=n_bytes, ops=n_ops)
+
+
+# ---------------------------------------------------------------------- main
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; run it "
+              f"from the root of a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    emit("device", name=name, capability=list(torch.cuda.get_device_capability(0)),
+         count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0])
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.cell_rank import kernel as cr_k
+    from repro_torch.kernels.diffusion3d import kernel as d3_k
+
+    t0 = time.perf_counter()
+    built_libs = _build.build(_build.SOURCES)
+    emit("build", wall_s=time.perf_counter() - t0, flags=list(_build.NVCC_FLAGS),
+         kernels={k: {"seconds": r.seconds, "library": str(r.library.relative_to(ROOT)),
+                      "ptxas": [ln for ln in r.ptxas.splitlines()
+                                if "registers" in ln or "spill" in ln]}
+                  for k, r in built_libs.items()})
+    kernels = {"cell_rank": cr_k, "cell_list_force": cf_k, "diffusion3d": d3_k}
+
+    phase_small()
+    built, final, launches = phase_slice(kernels)
+    rows = phase_kernels(built, final, launches)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

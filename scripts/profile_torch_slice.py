@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Where the time of the port's main path goes, on one NVIDIA GPU.
+
+Run from the root of a checkout:
+
+    python3 scripts/profile_torch_slice.py [--steps 6] [--trace trace.json]
+
+Builds the soma-clustering slice of ``chip_smoke.py`` (600,000 agents in
+100^3 boxes, two 200^3 substances, every kernel switched on), runs a few
+steps to warm up, times ``--steps`` steps without the profiler (host clock
+around ``torch.cuda.synchronize()``), then the same number of steps under
+``torch.profiler``.  Prints one JSON line: the step time, the device's busy
+time per step (the union of kernel and copy intervals) and idle share, the
+kernels and copies per step, and the top device consumers by name.  The
+profiler's own overhead lengthens the profiled window, so the idle share is
+an upper bound.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def busy_us(intervals):
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--trace", help="write the profiler's Chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+
+    built = cs.soma_model(cs.N_AGENTS, cs.SPACE, cs.RESOLUTION, 0, "cuda").build()
+    state, _ = built.run(4)                         # warm-up: builds the kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = built.run(args.steps, state=state)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = built.run(args.steps, state=state)
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in device:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.end - e.time_range.start
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in device)
+    copies = sum(n for name, (n, _) in by_name.items() if "memcpy" in name.lower())
+    dtoh = sum(n for name, (n, _) in by_name.items()
+               if "memcpy" in name.lower() and "dtoh" in name.lower())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "steps": args.steps,
+        "step_ms": step_ms,
+        "profiled_step_ms": window_us / 1e3 / args.steps,
+        "device_busy_ms_per_step": busy / 1e3 / args.steps,
+        "device_idle_share": 1.0 - busy / window_us,
+        "device_activities_per_step": len(device) / args.steps,
+        "copies_per_step": copies / args.steps,
+        "device_to_host_copies_per_step": dtoh / args.steps,
+        "top": [{"name": name[:90], "per_step": n / args.steps,
+                 "ms_per_step": us / 1e3 / args.steps} for name, (n, us) in top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,94 @@
+"""Carry a simulation state across, as numpy.
+
+The layout is a nested dict of numpy arrays and python numbers — the
+leaves of the reference's ``SimulationState``:
+
+    {"pool":   {"position", "diameter", "kind", "age", "alive", "static",
+                "overflow", "attrs": {name: array}},
+     "grids":  {name: {"concentration", "origin", "spacing",
+                       "diffusion_coefficient", "decay_constant"}},
+     "rng":    (2,) uint32 raw key data,
+     "step":   int,
+     "health": {field: int}}
+
+:func:`state_from_numpy` builds the port's state from it and
+:func:`state_to_numpy` goes the other way, so that two engines can start
+from one state and be compared leaf by leaf.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .core.agents import AgentPool
+from .core.diffusion import DiffusionGrid
+from .core.engine import SimulationState
+from .core.schedule import HEALTH_FIELDS, HealthReport
+
+POOL_FIELDS = ("position", "diameter", "kind", "age", "alive", "static", "overflow")
+GRID_META = ("origin", "spacing", "diffusion_coefficient", "decay_constant")
+
+_DTYPES = {
+    "position": torch.float32, "diameter": torch.float32, "kind": torch.int32,
+    "age": torch.float32, "alive": torch.bool, "static": torch.bool,
+    "overflow": torch.int32,
+}
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+
+def state_from_numpy(arrays: Dict[str, Any], device: torch.device | str) -> SimulationState:
+    """The port's :class:`SimulationState` on ``device`` from numpy leaves."""
+    p = arrays["pool"]
+    pool = AgentPool(
+        **{f: _tensor(p[f], device, _DTYPES[f]) for f in POOL_FIELDS},
+        attrs={k: _tensor(v, device) for k, v in p["attrs"].items()},
+    )
+    grids = {
+        name: DiffusionGrid(
+            concentration=_tensor(g["concentration"], device, torch.float32),
+            origin=tuple(float(x) for x in g["origin"]),
+            spacing=float(g["spacing"]),
+            diffusion_coefficient=float(g["diffusion_coefficient"]),
+            decay_constant=float(g["decay_constant"]),
+        )
+        for name, g in arrays["grids"].items()
+    }
+    rng = np.asarray(arrays["rng"], dtype=np.uint32).reshape(2)
+    health = HealthReport(**{
+        f: torch.tensor(int(arrays["health"][f]), dtype=torch.int32, device=device)
+        for f in HEALTH_FIELDS
+    })
+    return SimulationState(
+        pool=pool,
+        grids=grids,
+        rng=_tensor(rng, device),
+        step=torch.tensor(int(arrays["step"]), dtype=torch.int32, device=device),
+        health=health,
+    )
+
+
+def state_to_numpy(state: SimulationState) -> Dict[str, Any]:
+    """The numpy leaves of a port state (the layout above)."""
+    np_ = lambda t: t.detach().cpu().numpy()
+    pool = state.pool
+    return {
+        "pool": {
+            **{f: np_(getattr(pool, f)) for f in POOL_FIELDS},
+            "attrs": {k: np_(v) for k, v in pool.attrs.items()},
+        },
+        "grids": {
+            name: {"concentration": np_(g.concentration),
+                   **{m: getattr(g, m) for m in GRID_META}}
+            for name, g in state.grids.items()
+        },
+        "rng": np_(state.rng).astype(np.uint32),
+        "step": int(state.step),
+        "health": {f: int(getattr(state.health, f)) for f in HEALTH_FIELDS},
+    }

@@ -1,0 +1,437 @@
+"""The model API: one declarative description builds the engine (§4.4).
+
+Port of the single-node surface of ``repro.core.api``:
+
+    sim = (Simulation(space=(0, 100), cell_size=10.0, boundary="closed")
+           .add_agents(600, position=pos, diameter=5.0, kind=kinds, exposure=0.0)
+           .add_substance("attractant", diffusion=4.0, decay=0.002, resolution=20)
+           .use(secretion("attractant", 1.0), chemotaxis("attractant", 0.75))
+           .mechanics(ForceParams(), impl="fused", diffusion_impl="cuda")
+           .observe("counts", my_counts_fn, frequency=4))
+    final, obs = sim.run(300)
+
+``build()`` returns the ``(EngineConfig, Scheduler, SimulationState)``
+triple through the same primitives a hand-wired pipeline uses.  The port
+adds two arguments: ``device`` (the card unless ``"cpu"`` is asked for) and
+``rank_impl``, which reaches ``spec_for_space`` (the reference's facade
+cannot select it).  Batched runs, checkpoints and the distributed engine
+are later slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import diffusion as dgrid
+from . import engine as _engine
+from .agents import as_tensor, attr_signature, canonicalize_attr, check_attr_schema, make_pool
+from .behaviors import Behavior
+from .engine import EngineConfig, SimulationState, init_state
+from .forces import ForceParams
+from .grid import spec_for_space
+from .schedule import Operation, Scheduler
+
+# Pool fields that are not free-form attrs (have dedicated arguments).
+_RESERVED_ATTRS = ("position", "diameter", "kind", "age", "alive", "static",
+                   "overflow")
+
+
+def _not_ported(what: str, item: int):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1 item {item}")
+
+
+@dataclasses.dataclass(frozen=True)
+class _AgentGroup:
+    n: int
+    position: torch.Tensor   # (n, 3) f32
+    diameter: torch.Tensor   # (n,) f32
+    kind: torch.Tensor       # (n,) i32
+    attrs: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Observable:
+    """A recorded time series: ``fn(state)`` on the post-step state of every
+    iteration whose pre-increment counter is ``≡ 0 (mod frequency)``;
+    ``frequency=0`` disables it."""
+
+    name: str
+    fn: Callable[[Any], torch.Tensor]
+    frequency: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class _CustomOp:
+    op: Operation
+    before: Optional[str] = None
+    after: Optional[str] = None
+    replaces: Optional[str] = None
+
+
+class Simulation:
+    """Declarative model builder.  Registration methods return ``self``;
+    ``build()`` freezes the description into a :class:`BuiltSimulation`.
+
+    space:       extent (``100.0`` means ``[0, 100]``) or ``(min, max)``.
+    cell_size:   neighbor-grid box size; defaults to the largest diameter.
+    boundary:    "open" | "closed" | "toroidal".
+    capacity:    pool capacity; defaults to the registered population.
+    rank_impl:   within-cell ranking of the grid: "tiled" | "cuda" |
+                 "reference".
+    device:      where the state lives: ``None``/"cuda" (the card; raises
+                 without one) or "cpu".
+    dt, max_per_cell, seed, sort_frequency, diffusion_frequency, use_morton:
+                 as in EngineConfig / GridSpec.
+    """
+
+    def __init__(
+        self,
+        space,
+        cell_size: Optional[float] = None,
+        boundary: str = "open",
+        dt: float = 1.0,
+        capacity: Optional[int] = None,
+        max_per_cell: int = 16,
+        seed: int = 0,
+        sort_frequency: int = 16,
+        diffusion_frequency: int = 1,
+        use_morton: bool = True,
+        rank_impl: str = "tiled",
+        device: str | torch.device | None = None,
+    ):
+        if np.ndim(space) == 0:
+            lo, hi = 0.0, float(space)
+        else:
+            lo, hi = float(space[0]), float(space[1])
+        if not hi > lo:
+            raise ValueError(f"space must have max > min, got ({lo}, {hi})")
+        if boundary not in _engine.BOUNDARIES:
+            raise ValueError(f"unknown boundary {boundary!r}")
+        self.device = resolve_device(device)
+        self.min_bound, self.max_bound = lo, hi
+        self.cell_size = None if cell_size is None else float(cell_size)
+        self.boundary = boundary
+        self.dt = float(dt)
+        self.capacity = capacity
+        self.max_per_cell = int(max_per_cell)
+        self.seed = int(seed)
+        self.sort_frequency = int(sort_frequency)
+        self.diffusion_frequency = int(diffusion_frequency)
+        self.use_morton = bool(use_morton)
+        self.rank_impl = rank_impl
+
+        self._groups: List[_AgentGroup] = []
+        self._attr_schema: Dict[str, tuple] = {}
+        self._grids: Dict[str, dgrid.DiffusionGrid] = {}
+        self._behaviors: List[Behavior] = []
+        self._force_params: Optional[ForceParams] = None
+        self._force_opts: Dict[str, Any] = {}
+        self._custom_ops: List[_CustomOp] = []
+        self._observables: List[Observable] = []
+
+    # ------------------------------------------------------------ agents
+
+    def add_agents(self, n: Optional[int] = None, *, position, diameter=10.0,
+                   kind=0, **attrs) -> "Simulation":
+        """Register a group of agents; groups share one validated SoA attr
+        schema.  ``diameter`` / ``kind`` / ``**attrs`` are scalars
+        (broadcast) or per-agent with ``n`` rows."""
+        dev = self.device
+        position = as_tensor(position, dev, torch.float32)
+        if position.ndim != 2 or position.shape[1] != 3:
+            raise ValueError(f"position must be (n, 3), got shape {tuple(position.shape)}")
+        n_here = int(position.shape[0])
+        if n is not None and int(n) != n_here:
+            raise ValueError(f"n={n} but position has {n_here} rows")
+        if n_here:
+            pmin, pmax = float(position.min()), float(position.max())
+            if pmin < self.min_bound or pmax > self.max_bound:
+                raise ValueError(
+                    f"positions outside the declared space "
+                    f"[{self.min_bound}, {self.max_bound}]: range [{pmin:.3g}, {pmax:.3g}]"
+                )
+        diam = canonicalize_attr("diameter", diameter, n_here, dev).to(torch.float32)
+        kind_arr = canonicalize_attr("kind", kind, n_here, dev)
+        if kind_arr.is_floating_point() or kind_arr.dtype == torch.bool:
+            raise TypeError(f"kind must be integer, got dtype {kind_arr.dtype}")
+        kind_arr = kind_arr.to(torch.int32)
+
+        group_attrs: Dict[str, torch.Tensor] = {}
+        for name, value in attrs.items():
+            if name in _RESERVED_ATTRS:
+                raise ValueError(f"attr {name!r} is a built-in pool field — pass it "
+                                 f"via its dedicated argument")
+            arr = canonicalize_attr(name, value, n_here, dev)
+            if name in self._attr_schema:
+                check_attr_schema(name, arr, self._attr_schema)
+            group_attrs[name] = arr
+        missing = set(self._attr_schema) - set(group_attrs)
+        extra = set(group_attrs) - set(self._attr_schema) if self._groups else set()
+        if missing or extra:
+            raise ValueError(
+                f"agent groups must share one attr schema: missing "
+                f"{sorted(missing)}, new {sorted(extra)} "
+                f"(schema so far: {sorted(self._attr_schema)})"
+            )
+        for name, arr in group_attrs.items():
+            self._attr_schema.setdefault(name, attr_signature(arr))
+
+        if self.capacity is not None:
+            n_before = sum(g.n for g in self._groups)
+            if n_before + n_here > int(self.capacity):
+                raise ValueError(
+                    f"add_agents: group of {n_here} agents would bring the "
+                    f"registered population to {n_before + n_here}, beyond the "
+                    f"declared capacity {int(self.capacity)} ({n_before} already "
+                    f"registered)"
+                )
+        self._groups.append(_AgentGroup(n=n_here, position=position, diameter=diam,
+                                        kind=kind_arr, attrs=group_attrs))
+        return self
+
+    # -------------------------------------------------------- substances
+
+    def add_substance(self, name: str, diffusion: float, decay: float = 0.0,
+                      resolution: int = 32, concentration=None) -> "Simulation":
+        """Register an extracellular substance (Eq 4.3) on a ``resolution³``
+        grid over the declared space; ``concentration`` sets the initial field."""
+        if name in self._grids:
+            raise ValueError(f"substance {name!r} already registered")
+        grid = dgrid.make_grid(self.min_bound, self.max_bound, int(resolution),
+                               diffusion_coefficient=float(diffusion),
+                               decay_constant=float(decay), device=self.device)
+        if concentration is not None:
+            conc = as_tensor(concentration, self.device, torch.float32)
+            if tuple(conc.shape) != grid.resolution:
+                raise ValueError(f"substance {name!r}: concentration shape "
+                                 f"{tuple(conc.shape)} != grid {grid.resolution}")
+            grid = dataclasses.replace(grid, concentration=conc.contiguous())
+        self._grids[name] = grid
+        return self
+
+    # --------------------------------------------- behaviors / mechanics
+
+    def use(self, *behaviors: Behavior) -> "Simulation":
+        """Register agent behaviors (Algorithm 8 L7–11), in execution order."""
+        for b in behaviors:
+            if not callable(b):
+                raise TypeError(f"behavior {b!r} is not callable")
+        self._behaviors.extend(behaviors)
+        return self
+
+    def mechanics(
+        self,
+        params: Optional[ForceParams] = ForceParams(),
+        impl: str = "reference",
+        active_capacity: Optional[int] = None,
+        tile: Optional[int] = None,
+        overflow_fallback: bool = True,
+        diffusion_impl: str = "reference",
+        tile_order: str = "linear",
+    ) -> "Simulation":
+        """Enable Eq-4.1 contact mechanics and choose the engine impls:
+        ``impl`` "reference" | "fused", ``diffusion_impl`` "reference" |
+        "cuda"; ``params=None`` disables the force ops."""
+        self._force_params = params
+        self._force_opts = dict(
+            force_impl=impl,
+            active_capacity=active_capacity,
+            force_tile=tile,
+            fused_overflow_fallback=overflow_fallback,
+            diffusion_impl=diffusion_impl,
+            tile_order=tile_order,
+        )
+        return self
+
+    # -------------------------------------------------------- operations
+
+    def op(self, fn, *, name: Optional[str] = None, phase: str = "post",
+           frequency: int = 1, gate: str = "cond", before: Optional[str] = None,
+           after: Optional[str] = None, replaces: Optional[str] = None) -> "Simulation":
+        """Register a custom scheduler operation, ``(OpContext, state) ->
+        state`` (or a ready-made :class:`Operation`), anchored by at most one
+        of ``before=`` / ``after=`` / ``replaces=``; appended by default."""
+        if sum(x is not None for x in (before, after, replaces)) > 1:
+            raise ValueError("pass at most one of before=/after=/replaces=")
+        if isinstance(fn, Operation):
+            if name is not None or (phase, frequency, gate) != ("post", 1, "cond"):
+                raise ValueError("pass scheduling fields on the Operation itself when "
+                                 "registering a ready-made Operation")
+            operation = fn
+        else:
+            if name is None:
+                name = getattr(fn, "__name__", None)
+                if not name or name == "<lambda>":
+                    raise ValueError("op(fn) needs name= for anonymous functions")
+            operation = Operation(name=name, fn=fn, phase=phase, frequency=frequency,
+                                  gate=gate)
+        self._custom_ops.append(_CustomOp(op=operation, before=before, after=after,
+                                          replaces=replaces))
+        return self
+
+    # ------------------------------------------------------- observables
+
+    def observe(self, name: str, fn: Callable, frequency: int = 1) -> "Simulation":
+        """Record ``fn(state)`` as a named time series: ⌈n/k⌉ rows over an
+        n-step run from step 0."""
+        if any(o.name == name for o in self._observables):
+            raise ValueError(f"observable {name!r} already registered")
+        if not isinstance(frequency, (int, np.integer)) or frequency < 0:
+            raise ValueError(f"frequency must be a non-negative int, got {frequency!r}")
+        self._observables.append(Observable(name=name, fn=fn, frequency=int(frequency)))
+        return self
+
+    def observe_kinds(self, name: str = "kind_counts", frequency: int = 1,
+                      n_kinds: Optional[int] = None) -> "Simulation":
+        """Built-in observable: per-kind alive counts (Fig 4.17)."""
+        if n_kinds is None:
+            if not self._groups:
+                raise ValueError("observe_kinds before add_agents needs explicit n_kinds=")
+            n_kinds = 1 + max(int(g.kind.max()) if g.n else 0 for g in self._groups)
+        fn = functools.partial(_engine.count_kinds, n_kinds=int(n_kinds))
+        return self.observe(name, fn, frequency)
+
+    # ------------------------------------------------------------- build
+
+    def interaction_radius(self) -> float:
+        """The neighbor-grid box size: ``cell_size``, else the largest diameter."""
+        if self.cell_size is not None:
+            return self.cell_size
+        if not self._groups:
+            raise ValueError("no agents registered — call add_agents first")
+        d = max(float(g.diameter.max()) for g in self._groups)
+        if d <= 0.0:
+            raise ValueError("cannot derive cell_size from zero diameters — pass "
+                             "cell_size= explicitly")
+        return d
+
+    def _pool(self):
+        if not self._groups:
+            raise ValueError("no agents registered — call add_agents first")
+        n_total = sum(g.n for g in self._groups)
+        capacity = n_total if self.capacity is None else int(self.capacity)
+        if n_total > capacity:
+            raise ValueError(f"{n_total} registered agents exceed capacity {capacity}")
+        cat = lambda xs: torch.cat(xs, dim=0)
+        return make_pool(
+            capacity,
+            cat([g.position for g in self._groups]),
+            diameter=cat([g.diameter for g in self._groups]),
+            kind=cat([g.kind for g in self._groups]),
+            attrs={name: cat([g.attrs[name] for g in self._groups])
+                   for name in self._attr_schema},
+            device=self.device,
+        )
+
+    def _engine_config(self) -> EngineConfig:
+        spec = spec_for_space(self.min_bound, self.max_bound, self.interaction_radius(),
+                              max_per_cell=self.max_per_cell, use_morton=self.use_morton,
+                              rank_impl=self.rank_impl)
+        return EngineConfig(
+            spec=spec,
+            behaviors=tuple(self._behaviors),
+            force_params=self._force_params,
+            dt=self.dt,
+            min_bound=self.min_bound,
+            max_bound=self.max_bound,
+            boundary=self.boundary,
+            sort_frequency=self.sort_frequency,
+            diffusion_frequency=self.diffusion_frequency,
+            **self._force_opts,
+        )
+
+    def _apply_custom_ops(self, sched: Scheduler) -> Scheduler:
+        for c in self._custom_ops:
+            if c.replaces is not None:
+                sched = sched.replace_op(c.replaces, c.op)
+            elif c.before is not None:
+                sched = sched.insert_before(c.before, c.op)
+            elif c.after is not None:
+                sched = sched.insert_after(c.after, c.op)
+            else:
+                sched = sched.append(c.op)
+        return sched
+
+    def build(self, seed: Optional[int] = None) -> "BuiltSimulation":
+        """Compile the description into the explicit engine triple."""
+        config = self._engine_config()
+        scheduler = self._apply_custom_ops(Scheduler.default(config))
+        state = init_state(self._pool(), dict(self._grids),
+                           seed=self.seed if seed is None else seed)
+        return BuiltSimulation(config=config, scheduler=scheduler, state=state,
+                               observables=tuple(self._observables))
+
+    # -------------------------------------------------------- execution
+
+    def run(self, n_steps: int, seed: Optional[int] = None, **run_kwargs):
+        """Build and run from a fresh initial state."""
+        return self.build(seed=seed).run(n_steps, **run_kwargs)
+
+    def run_jit(self, n_steps: int, seed: Optional[int] = None, **run_kwargs):
+        """:meth:`run` (the port runs eagerly; there is nothing to compile)."""
+        return self.build(seed=seed).run_jit(n_steps, **run_kwargs)
+
+    def run_batch(self, *args, **kwargs):
+        _not_ported("Simulation.run_batch (batched serving)", 13)
+
+    def resume(self, *args, **kwargs):
+        _not_ported("Simulation.resume (checkpointing)", 12)
+
+    def distribute(self, *args, **kwargs):
+        _not_ported("Simulation.distribute (the distributed engine)", 14)
+
+
+def _slice_observed(observables, ys: Dict[str, torch.Tensor], start: int,
+                    n_steps: int) -> Dict[str, torch.Tensor]:
+    """Trim each frequency-k buffer to the firings inside the window."""
+    out: Dict[str, torch.Tensor] = {}
+    for o in observables:
+        k = o.frequency
+        if k == 0:
+            continue
+        if k == 1:
+            out[o.name] = ys[o.name]
+            continue
+        first = (-start) % k
+        fired = 0 if first >= n_steps else -(-(n_steps - first) // k)
+        out[o.name] = ys[o.name][:fired]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BuiltSimulation:
+    """The built model: the explicit engine triple + observables.  ``run``
+    defaults to the built initial state; pass ``state=`` to continue."""
+
+    config: EngineConfig
+    scheduler: Scheduler
+    state: SimulationState
+    observables: Tuple[Observable, ...] = ()
+
+    def run(self, n_steps: int, state: Optional[SimulationState] = None, *,
+            checkpoint_dir: Optional[str] = None, **checkpoint_kwargs):
+        """Run ``n_steps`` → ``(final_state, {name: rows})``."""
+        if checkpoint_dir is not None or checkpoint_kwargs:
+            _not_ported("checkpointed runs (checkpoint_dir=, checkpoint_every=)", 12)
+        state = self.state if state is None else state
+        start = int(state.step)
+        triples = tuple((o.name, o.fn, o.frequency) for o in self.observables
+                        if o.frequency > 0)
+        final, ys = _engine.run(self.config, state, n_steps, scheduler=self.scheduler,
+                                observables=triples or None)
+        obs = _slice_observed(self.observables, ys, start, n_steps) if triples else {}
+        return final, obs
+
+    run_jit = run
+
+    def run_batch(self, *args, **kwargs):
+        _not_ported("BuiltSimulation.run_batch (batched serving)", 13)
+
+    def resume(self, *args, **kwargs):
+        _not_ported("BuiltSimulation.resume (checkpointing)", 12)

@@ -1,0 +1,248 @@
+"""Mechanical contact forces between spherical agents (§4.5.1, Eq 4.1).
+
+    F_N = k·δ − γ·√(r̄·δ),   δ = r₁ + r₂ − |x₁ − x₂|,   r̄ = r₁r₂/(r₁+r₂)
+
+Port of ``repro.core.forces``.  ``impl="reference"`` sums pair forces over
+the dense candidate tensor; ``impl="fused"`` runs the cell-list kernel of
+``kernels/cell_force`` (CUDA on the card, its plain version on CPU
+tensors), which never builds that tensor.
+
+The reference's data-dependent ``lax.cond``s — the fused path's fallback
+when a cell overflowed and the §5.5 compaction's fallback when the active
+set overflowed — are host-side ``if``s on a device scalar here: one
+synchronisation each, taken on every call that reaches them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .agents import AgentPool, compact_indices
+from .grid import GridIndex, GridSpec, neighbor_cell_ids
+from .neighbors import NeighborContext
+
+IMPLS = ("reference", "fused")
+TILE_ORDERS = ("linear",)
+
+
+def check_impl(impl: str, tile_order: str = "linear") -> None:
+    """Raise on a force impl or tile order the port does not run."""
+    if impl == "pallas":
+        raise NotImplementedError(
+            "force_impl='pallas' (the dense pairwise_force kernel) is not "
+            "ported yet: ROADMAP queue 2 item 5"
+        )
+    if impl not in IMPLS:
+        raise ValueError(f"unknown force impl {impl!r}; expected {IMPLS}")
+    if tile_order == "morton":
+        raise NotImplementedError(
+            "tile_order='morton' (the cell_window_force kernel) is not ported "
+            "yet: ROADMAP queue 2 item 4"
+        )
+    if tile_order not in TILE_ORDERS:
+        raise ValueError(f"unknown tile_order {tile_order!r}; expected "
+                         f"{TILE_ORDERS + ('morton',)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ForceParams:
+    """Eq 4.1 parameters.  BioDynaMo/Cortex3D defaults: k=2, γ=1."""
+
+    repulsion_k: float = 2.0
+    attraction_gamma: float = 1.0
+    # Displacement below this (per iteration) marks an agent "not moved" for
+    # the §5.5 static-agent detection.
+    static_tolerance: float = 1e-4
+
+
+def pair_force(dx: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor,
+               params: ForceParams) -> torch.Tensor:
+    """Force on agent 1 from agent 2.  dx = x1 - x2, shape (..., 3)."""
+    # Explicit left-associated squared distance, as in the reference and the
+    # kernels (a reduction's association is implementation-defined).
+    d2 = dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1] + dx[..., 2] * dx[..., 2]
+    dist = torch.sqrt(d2 + 1e-20)
+    delta = r1 + r2 - dist
+    overlap = delta > 0.0
+    rbar = r1 * r2 / torch.clamp(r1 + r2, min=1e-20)
+    magnitude = (
+        params.repulsion_k * delta
+        - params.attraction_gamma * torch.sqrt(torch.clamp(rbar * delta, min=0.0))
+    )
+    direction = dx / dist[..., None]
+    return torch.where(overlap[..., None], magnitude[..., None] * direction, 0.0)
+
+
+def _tree_sum(f: torch.Tensor) -> torch.Tensor:
+    """Fixed-association pairwise sum over axis 1 (the reference's balanced
+    add tree)."""
+    k = f.shape[1]
+    while k > 1:
+        half = k // 2
+        s = f[:, :half] + f[:, half:2 * half]
+        if k % 2:
+            s = torch.cat([s, f[:, 2 * half:]], dim=1)
+        f = s
+        k = (k + 1) // 2
+    return f[:, 0]
+
+
+def forces_from_candidates(
+    position: torch.Tensor,
+    radius: torch.Tensor,
+    cand: torch.Tensor,
+    cand_mask: torch.Tensor,
+    params: ForceParams,
+    all_position: Optional[torch.Tensor] = None,
+    all_radius: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sum Eq-4.1 forces over each agent's candidate set: ``cand (N, K)``
+    indices into the source arrays (default: the query arrays)."""
+    src_pos = position if all_position is None else all_position
+    src_rad = radius if all_radius is None else all_radius
+    safe = torch.where(cand_mask, cand, 0).long()
+    npos = src_pos[safe]                                    # (N, K, 3)
+    nrad = src_rad[safe]                                    # (N, K)
+    dx = position[:, None, :] - npos
+    f = pair_force(dx, radius[:, None], nrad, params)
+    f = torch.where(cand_mask[:, :, None], f, 0.0)
+    return _tree_sum(f)
+
+
+def forces_from_candidates_tiled(
+    position, radius, cand, cand_mask, params, all_position, all_radius, tile: int
+) -> torch.Tensor:
+    """Tile-wise :func:`forces_from_candidates`, bounding the (tile, K, 3)
+    working set."""
+    outs = [
+        forces_from_candidates(
+            position[i:i + tile], radius[i:i + tile], cand[i:i + tile],
+            cand_mask[i:i + tile], params, all_position, all_radius,
+        )
+        for i in range(0, position.shape[0], tile)
+    ]
+    if not outs:
+        return torch.zeros((0, 3), dtype=torch.float32, device=position.device)
+    return torch.cat(outs, dim=0)
+
+
+def mechanical_forces(
+    spec: GridSpec,
+    index: GridIndex,
+    pool: AgentPool,
+    params: ForceParams,
+    active_capacity: Optional[int] = None,
+    impl: str = "reference",
+    neighbors: Optional[NeighborContext] = None,
+    fused_fallback: bool = True,
+    tile: Optional[int] = None,
+    tile_order: str = "linear",
+    row_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Net mechanical force per agent, (C, 3).
+
+    ``impl``: "reference" (dense candidates) or "fused" (the cell-list
+    kernel).  ``fused_fallback``: when a cell overflowed ``max_per_cell``
+    the fused path re-evaluates through the dense candidates (the cell list
+    dropped agents).  ``active_capacity``: §5.5 work compaction — only
+    ``alive & ~static`` agents are evaluated, through an ``(A, 27M)``
+    candidate subset; more active agents than that falls back to the full
+    evaluation.  ``tile``: evaluate the dense path in agent tiles.
+    ``row_mask``: rows outside it get zero force (output masking only).
+    """
+    check_impl(impl, tile_order)
+    if neighbors is None:
+        neighbors = NeighborContext.for_pool(spec, index, pool)
+    radius = pool.radius()
+    c = pool.capacity
+    out_mask = pool.alive if row_mask is None else pool.alive & row_mask
+    if neighbors.src_position.shape[0] != c:
+        raise NotImplementedError(
+            "ghost-extended neighbor sources (the distributed engine) are not "
+            "ported yet: ROADMAP queue 1 item 14"
+        )
+    src_pos, src_rad = pool.position, radius
+
+    def dense_eval(cache: bool) -> torch.Tensor:
+        cand, mask = neighbors.candidates(cache=cache)
+        if tile:
+            return forces_from_candidates_tiled(
+                pool.position, radius, cand, mask, params, src_pos, src_rad, tile,
+            )
+        return forces_from_candidates(pool.position, radius, cand, mask, params,
+                                      all_position=src_pos, all_radius=src_rad)
+
+    def dense() -> torch.Tensor:
+        if impl == "reference":
+            return dense_eval(cache=True)
+        if fused_fallback and bool(index.overflowed):
+            return dense_eval(cache=False)
+        from repro_torch.kernels.cell_force import ops as cf_ops
+
+        return cf_ops.cell_list_force(
+            src_pos, src_rad, index.cell_list, spec.dims,
+            k=params.repulsion_k, gamma=params.attraction_gamma,
+            impl="cuda", num_out=c,
+        )
+
+    if active_capacity is None:
+        return torch.where(out_mask[:, None], dense(), 0.0)
+
+    # ---- §5.5 static-agent omission via work compaction -------------------
+    a = int(active_capacity)
+    active = pool.alive & ~pool.static
+    if int(active.sum()) > a:
+        return torch.where(out_mask[:, None], dense(), 0.0)
+    act_ids, act_valid, _ = compact_indices(active, a)
+    cand, mask = neighbors.candidates_for(act_ids, act_valid)
+    ids = act_ids.long()
+    sub_force = forces_from_candidates(
+        pool.position[ids], radius[ids], cand, mask & act_valid[:, None], params,
+        all_position=src_pos, all_radius=src_rad,
+    )
+    force = torch.zeros((c, 3), dtype=sub_force.dtype, device=pool.device)
+    force.index_put_((ids,), torch.where(act_valid[:, None], sub_force, 0.0),
+                     accumulate=True)
+    return torch.where(out_mask[:, None], force, 0.0)
+
+
+def update_static_flags(pool: AgentPool, displacement: torch.Tensor,
+                        cand: torch.Tensor, cand_mask: torch.Tensor,
+                        params: ForceParams) -> AgentPool:
+    """§5.5 static detection over dense candidates: an agent may be skipped
+    next iteration iff neither it nor any neighbor moved this iteration."""
+    moved = _moved(pool, displacement, params)
+    safe = torch.where(cand_mask, cand, 0).long()
+    neighbor_moved = (moved[safe] & cand_mask).any(dim=1)
+    return pool.replace(static=pool.alive & ~moved & ~neighbor_moved)
+
+
+def _moved(pool: AgentPool, displacement: torch.Tensor, params: ForceParams):
+    norm = torch.sqrt((displacement * displacement).sum(dim=-1))
+    return (norm > params.static_tolerance) & pool.alive
+
+
+def update_static_flags_celllist(
+    spec: GridSpec,
+    index: GridIndex,
+    pool: AgentPool,
+    displacement: torch.Tensor,
+    params: ForceParams,
+    query_position: Optional[torch.Tensor] = None,
+) -> AgentPool:
+    """§5.5 static detection through the cell list — no dense candidates:
+    "any agent in the 27-box moved" from a per-cell any-reduction over
+    ``cell_list`` and an (N, 27) cell-level gather.  ``query_position``: the
+    positions the index was built from (default: the pool's current ones).
+    """
+    moved = _moved(pool, displacement, params)
+    slot_valid = index.cell_list < moved.shape[0]
+    safe = torch.where(slot_valid, index.cell_list, 0).long()
+    cell_moved = (moved[safe] & slot_valid).any(dim=1)                # (n_cells,)
+    qpos = pool.position if query_position is None else query_position
+    nbr_cid, in_range = neighbor_cell_ids(spec, qpos)                 # (N, 27)
+    neighbor_moved = (cell_moved[nbr_cid.long()] & in_range).any(dim=1)
+    return pool.replace(static=pool.alive & ~moved & ~neighbor_moved)

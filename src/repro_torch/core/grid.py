@@ -1,0 +1,272 @@
+"""Uniform-grid environment: fixed-radius neighbor search (§5.3.1).
+
+Port of ``repro.core.grid``.  The build is rank + scatter, no sort: each
+agent's rank within its cell comes from ``kernels/cell_rank`` and the agent
+id is scattered into a dense ``(n_cells, max_per_cell)`` cell list.  The
+§5.4.2 layout sort (:func:`sort_agents`) is a counting sort over Z-ordered
+cells built from the same primitive.  Neighbor queries gather the 27-box
+stencil.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from . import morton
+from .agents import AgentPool, permute, permute_to
+
+RANK_IMPLS = ("tiled", "cuda", "reference")
+
+
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """Static description of the uniform grid.
+
+    ``rank_impl`` selects the within-cell ranking of the build and the
+    layout sort: ``"tiled"`` (plain PyTorch tiled histogram, the
+    reference's ``"xla"``), ``"cuda"`` (the hand-written kernel) or
+    ``"reference"`` (the O(C²) oracle).
+    """
+
+    origin: Tuple[float, float, float]
+    box_size: float
+    dims: Tuple[int, int, int]
+    max_per_cell: int
+    use_morton: bool = True
+    rank_impl: str = "tiled"
+
+    def __post_init__(self):
+        if self.rank_impl not in RANK_IMPLS:
+            raise ValueError(
+                f"unknown rank_impl {self.rank_impl!r}; expected {RANK_IMPLS}"
+            )
+
+    @property
+    def n_cells(self) -> int:
+        nx, ny, nz = self.dims
+        return nx * ny * nz
+
+
+@dataclasses.dataclass(frozen=True)
+class GridIndex:
+    """Built neighbor index over one agent pool.
+
+    cell_of_agent: (C,)  int32 — linear cell id per agent (dead → n_cells).
+    cell_list:     (n_cells, M) int32 — agent index per slot, C where empty;
+                   slots ``0..min(count, M)-1`` of a row are filled, in
+                   agent-index order.
+    cell_count:    (n_cells,) int32 — #agents per cell (may exceed M).
+    overflowed:    () bool — any cell exceeded max_per_cell.
+    """
+
+    cell_of_agent: torch.Tensor
+    cell_list: torch.Tensor
+    cell_count: torch.Tensor
+    overflowed: torch.Tensor
+
+
+def fdiv(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` in f32 with true division.  A python-scalar divisor would
+    let CUDA multiply by its reciprocal instead, which can move a value
+    across a cell or voxel boundary."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def cell_coords(spec: GridSpec, position: torch.Tensor) -> torch.Tensor:
+    """(N,3) float positions → (N,3) int32 cell coordinates, clipped to grid."""
+    origin = torch.tensor(spec.origin, dtype=torch.float32, device=position.device)
+    rel = fdiv(position - origin, spec.box_size)
+    ijk = torch.floor(rel).to(torch.int32)
+    dims = torch.tensor(spec.dims, dtype=torch.int32, device=position.device)
+    return torch.minimum(torch.clamp(ijk, min=0), dims - 1)
+
+
+def linear_cell_id(spec: GridSpec, ijk: torch.Tensor) -> torch.Tensor:
+    nx, ny, nz = spec.dims
+    return (ijk[..., 0] * ny + ijk[..., 1]) * nz + ijk[..., 2]
+
+
+def sort_key(spec: GridSpec, ijk: torch.Tensor) -> torch.Tensor:
+    """Sort key per agent (int64): Morton code or row-major linear id."""
+    if spec.use_morton:
+        return morton.encode3_torch(ijk[..., 0], ijk[..., 1], ijk[..., 2])
+    return linear_cell_id(spec, ijk).to(torch.int64)
+
+
+def layout_rank_table(spec: GridSpec, device: torch.device) -> torch.Tensor:
+    """(n_cells + 1,) int32: linear cell id → rank in layout (Z-)order; slot
+    ``n_cells`` is the dead-agent bin and ranks last."""
+    zrank = morton.cell_zrank(spec.dims, spec.use_morton)
+    table = torch.empty((spec.n_cells + 1,), dtype=torch.int32)
+    table[:-1] = torch.from_numpy(zrank)
+    table[-1] = spec.n_cells
+    return table.to(device)
+
+
+def _live_cell_ids(spec: GridSpec, position: torch.Tensor, alive: torch.Tensor):
+    cid = linear_cell_id(spec, cell_coords(spec, position))
+    return torch.where(alive, cid, spec.n_cells).to(torch.int32)
+
+
+def sort_agents(spec: GridSpec, pool: AgentPool, rank_tile: int | None = None
+                ) -> AgentPool:
+    """§5.4.2 agent sorting: reorder the pool along the space-filling curve,
+    dead agents to the back.
+
+    Counting sort: ``dest[i] = z_offset[cell[i]] + rank_within_cell[i]`` —
+    exactly the slot a stable argsort on the Morton key gives agent ``i``.
+    Grids past ``MAX_TABLE_CELLS`` use that stable argsort directly.
+    """
+    from repro_torch.kernels.cell_rank import ops as cr_ops
+
+    if spec.n_cells > morton.MAX_TABLE_CELLS:
+        key = sort_key(spec, cell_coords(spec, pool.position))
+        key = torch.where(pool.alive, key, 0xFFFFFFFF)
+        perm = torch.sort(key, stable=True).indices
+        return permute(pool, perm)
+
+    n_cells = spec.n_cells
+    cid = _live_cell_ids(spec, pool.position, pool.alive)
+    zid = layout_rank_table(spec, pool.device)[cid.long()]
+    rank = cr_ops.cell_rank(zid, n_cells=n_cells, impl=spec.rank_impl, tile=rank_tile)
+    counts = torch.bincount(zid.long(), minlength=n_cells + 1).to(torch.int32)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    dest = offsets[zid.long()] + rank
+    return permute_to(pool, dest)
+
+
+def cell_starts_sorted(spec: GridSpec, cell_count: torch.Tensor):
+    """Per-cell ``[start, end)`` row ranges of a layout-sorted pool."""
+    order = torch.from_numpy(
+        morton.zorder_cells(spec.dims, spec.use_morton)
+    ).to(cell_count.device).long()
+    zcounts = cell_count[order]
+    zstarts = torch.cumsum(zcounts, 0, dtype=torch.int32) - zcounts
+    start = torch.zeros_like(cell_count)
+    start[order] = zstarts
+    return start, start + cell_count
+
+
+def build_index_arrays(
+    spec: GridSpec,
+    position: torch.Tensor,
+    alive: torch.Tensor,
+    rank_tile: int | None = None,
+    assume_sorted: bool = False,
+) -> GridIndex:
+    """Build the cell list (the §5.3.1 build stage): cell id per agent, rank
+    within its cell (``kernels/cell_rank``, or ``row − cell_start`` when
+    ``assume_sorted`` promises a layout-sorted pool), scatter into
+    ``cell_list[cell, rank]``."""
+    from repro_torch.kernels.cell_rank import ops as cr_ops
+
+    c = position.shape[0]
+    dev = position.device
+    n_cells = spec.n_cells
+    cid = _live_cell_ids(spec, position, alive)
+
+    counts = torch.bincount(cid.long(), minlength=n_cells + 1).to(torch.int32)
+    cell_count = counts[:n_cells]
+
+    if assume_sorted:
+        start, _ = cell_starts_sorted(spec, cell_count)
+        start_ext = torch.cat([start, torch.zeros((1,), dtype=torch.int32, device=dev)])
+        rank = torch.arange(c, dtype=torch.int32, device=dev) - start_ext[cid.long()]
+    else:
+        rank = cr_ops.cell_rank(cid, n_cells=n_cells, impl=spec.rank_impl,
+                                tile=rank_tile)
+    overflowed = (cell_count > spec.max_per_cell).any()
+
+    # Scatter into the dense cell list; overflow and dead agents all write
+    # the spare last slot, which is cut off.
+    m = spec.max_per_cell
+    valid = alive & (rank < m)
+    flat_idx = torch.where(valid, cid * m + rank, n_cells * m)
+    cell_list = torch.full((n_cells * m + 1,), c, dtype=torch.int32, device=dev)
+    cell_list[flat_idx.long()] = torch.arange(c, dtype=torch.int32, device=dev)
+    cell_list = cell_list[: n_cells * m].reshape(n_cells, m)
+
+    return GridIndex(
+        cell_of_agent=cid,
+        cell_list=cell_list,
+        cell_count=cell_count,
+        overflowed=overflowed,
+    )
+
+
+def build_index(spec: GridSpec, pool: AgentPool, rank_tile: int | None = None,
+                assume_sorted: bool = False) -> GridIndex:
+    return build_index_arrays(spec, pool.position, pool.alive,
+                              rank_tile=rank_tile, assume_sorted=assume_sorted)
+
+
+NEIGHBOR_OFFSETS = torch.tensor(
+    [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
+    dtype=torch.int32,
+)  # (27, 3)
+
+
+def neighbor_cell_ids(spec: GridSpec, position: torch.Tensor):
+    """27-box stencil cells per query: ``(nbr_cid, in_range)``, both (N, 27);
+    ids are clipped into the grid — consult ``in_range`` before trusting one."""
+    dev = position.device
+    dims = torch.tensor(spec.dims, dtype=torch.int32, device=dev)
+    nbr = cell_coords(spec, position)[:, None, :] + NEIGHBOR_OFFSETS.to(dev)[None]
+    in_range = ((nbr >= 0) & (nbr < dims)).all(dim=-1)
+    nbr_cid = linear_cell_id(spec, torch.minimum(torch.clamp(nbr, min=0), dims - 1))
+    return nbr_cid, in_range
+
+
+def candidate_neighbors_arrays(
+    spec: GridSpec,
+    index: GridIndex,
+    query_position: torch.Tensor,
+    query_alive: torch.Tensor,
+    query_ids: torch.Tensor | None = None,
+):
+    """Candidate neighbor ids per query (27-box stencil): ``(cand, mask)``,
+    ``cand (N, 27·M) int32`` into the indexed set (indexed capacity where
+    empty), ``mask (N, 27·M) bool`` (valid ∧ ¬self ∧ query alive)."""
+    n = query_position.shape[0]
+    m = spec.max_per_cell
+    nbr_cid, in_range = neighbor_cell_ids(spec, query_position)
+    cand = index.cell_list[nbr_cid.long()]                       # (N, 27, M)
+    sentinel = index.cell_of_agent.shape[0]
+    valid = in_range[:, :, None] & (cand < sentinel)
+    cand = torch.where(valid, cand, sentinel).reshape(n, 27 * m)
+    valid = valid.reshape(n, 27 * m)
+    if query_ids is None:
+        query_ids = torch.arange(n, dtype=torch.int32, device=query_position.device)
+    mask = valid & (cand != query_ids[:, None]) & query_alive[:, None]
+    return cand, mask
+
+
+def candidate_neighbors(spec: GridSpec, index: GridIndex, pool: AgentPool):
+    """Candidate neighbors of every agent in the pool (mask: valid ∧ ¬self)."""
+    return candidate_neighbors_arrays(spec, index, pool.position, pool.alive)
+
+
+def spec_for_space(
+    min_bound: float,
+    max_bound: float,
+    interaction_radius: float,
+    max_per_cell: int = 16,
+    use_morton: bool = True,
+    rank_impl: str = "tiled",
+) -> GridSpec:
+    """Cubic simulation space with box size ≥ the interaction radius."""
+    extent = float(max_bound - min_bound)
+    n = max(int(extent / interaction_radius), 1)
+    n = min(n, morton.max_grid_dim())
+    box = extent / n
+    return GridSpec(
+        origin=(min_bound, min_bound, min_bound),
+        box_size=box,
+        dims=(n, n, n),
+        max_per_cell=max_per_cell,
+        use_morton=use_morton,
+        rank_impl=rank_impl,
+    )

@@ -1,0 +1,413 @@
+"""Algorithm 8 as data: the operation scheduler (paper §4.4).
+
+Port of ``repro.core.schedule``.  An :class:`Operation` is a named
+``(OpContext, state) -> state`` transform with a phase (``pre`` /
+``agent`` / ``post``), a frequency (fires when ``step % frequency == 0``;
+0 disables it) and a gate.  :class:`Scheduler` composes them; ``step`` runs
+the phase partition in order.
+
+Eager execution replaces the reference's tracing: the step counter is read
+to the host once per step, and a frequency gate is a plain ``if`` on it.
+Both gates skip the work when the op does not fire; ``"mask"`` still runs
+the op's function (its context writes happen, as in the reference) and
+discards the result.  The reference's rounding pins (``seal`` and the
+``any(alive)`` fusion fence of the force pass) have no counterpart: eager
+PyTorch runs each op on its own and contracts nothing across ops.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from . import diffusion as dgrid
+from . import prng
+from .behaviors import StepContext
+from .forces import mechanical_forces, update_static_flags_celllist
+from .grid import build_index, sort_agents
+from .neighbors import NeighborContext
+
+PHASES = ("pre", "agent", "post")
+GATES = ("cond", "mask")
+
+
+# ---------------------------------------------------------------------------
+# Health telemetry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthReport:
+    """Saturation / corruption telemetry folded per step by the ``health``
+    op; every field is a () int32 tensor.
+
+    pool_overflow:       cumulative agents dropped by pool saturation.
+    migrate_overflow:    distributed migration-buffer overflow (0 here).
+    halo_overflow:       distributed halo-buffer overflow (0 here).
+    cell_overflow_steps: steps on which a grid cell exceeded max_per_cell.
+    nonfinite_agents:    live agents with a non-finite position or float
+                         attribute on the latest inspected step.
+    nonfinite_steps:     cumulative steps with any non-finite live agent.
+    """
+
+    pool_overflow: torch.Tensor
+    migrate_overflow: torch.Tensor
+    halo_overflow: torch.Tensor
+    cell_overflow_steps: torch.Tensor
+    nonfinite_agents: torch.Tensor
+    nonfinite_steps: torch.Tensor
+
+
+HEALTH_FIELDS = tuple(f.name for f in dataclasses.fields(HealthReport))
+
+
+def empty_health(device: torch.device | str = "cpu") -> HealthReport:
+    return HealthReport(**{
+        name: torch.zeros((), dtype=torch.int32, device=device)
+        for name in HEALTH_FIELDS
+    })
+
+
+# ---------------------------------------------------------------------------
+# Operation protocol
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class OpContext:
+    """Per-iteration scratch threaded through the ops of one step.
+
+    config:        the EngineConfig the schedule was built from.
+    step:          this iteration's counter (pre-increment), on the host.
+    rng:           this iteration's folded key, (2,) uint32.
+    index:         the GridIndex built by ``env_build``.
+    neighbors:     the step's NeighborContext (lazy dense candidates).
+    sctx:          the behaviors' StepContext.
+    pre_positions: pool positions at environment-build time (§5.5).
+    extras:        free-form scratch for custom ops.
+    """
+
+    config: Any
+    step: int
+    rng: torch.Tensor
+    index: Any = None
+    neighbors: Optional[NeighborContext] = None
+    sctx: Optional[StepContext] = None
+    pre_positions: Optional[torch.Tensor] = None
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class Operation:
+    """One schedulable unit of Algorithm 8.
+
+    fn:        ``(OpContext, state) -> state`` transform.
+    phase:     "pre" | "agent" | "post".
+    frequency: fire on iterations where ``step % frequency == 0``; 1 = every
+               iteration, 0 = disabled.
+    gate:      "cond" (skip the work) or "mask" (run, then keep the old
+               state when the op does not fire).
+    """
+
+    name: str
+    fn: Callable[[OpContext, Any], Any]
+    phase: str = "agent"
+    frequency: int = 1
+    gate: str = "cond"
+
+    def __post_init__(self):
+        if self.phase not in PHASES:
+            raise ValueError(f"unknown phase {self.phase!r}; expected {PHASES}")
+        if self.gate not in GATES:
+            raise ValueError(f"unknown gate {self.gate!r}; expected {GATES}")
+        if self.frequency < 0:
+            raise ValueError(f"frequency must be >= 0, got {self.frequency}")
+
+
+def run_op(op: Operation, ctx: OpContext, state):
+    """Execute one op with its frequency gate applied."""
+    if op.frequency == 0:
+        return state
+    fires = ctx.step % op.frequency == 0
+    if op.gate == "cond" and not fires:
+        return state
+    new = op.fn(ctx, state)
+    return new if fires else state
+
+
+# ---------------------------------------------------------------------------
+# The scheduler
+# ---------------------------------------------------------------------------
+
+
+def _fold_rng(state, step: int) -> torch.Tensor:
+    """Default per-step key derivation: ``fold_in(state.rng, step)``."""
+    return prng.fold_in(state.rng, step)
+
+
+@dataclasses.dataclass(frozen=True)
+class Scheduler:
+    """An immutable operation schedule; ``step`` is the Algorithm-8 body.
+
+    ``ops`` holds the operations in insertion order; execution partitions
+    them by phase (pre → agent → post, stable within each phase).
+    """
+
+    config: Any
+    ops: Tuple[Operation, ...]
+    fold_rng: Callable[[Any, int], torch.Tensor] = _fold_rng
+
+    @classmethod
+    def default(cls, config) -> "Scheduler":
+        """The default pipeline: sort, env build, behaviors, forces,
+        boundary, static flags, diffusion, age, health.  Force ops are
+        omitted when ``config.force_params`` is None."""
+        ops = [sort_op(config), env_build_op(config), behaviors_op(config)]
+        if config.force_params is not None:
+            ops.append(forces_op(config))
+        ops.append(boundary_op(config))
+        if config.force_params is not None:
+            ops.append(static_flags_op(config))
+        ops.append(diffusion_op(config))
+        ops.append(age_op(config))
+        ops.append(health_op(config))
+        return cls(config=config, ops=tuple(ops))
+
+    def ordered_ops(self) -> Tuple[Operation, ...]:
+        """Execution order: the phase partition of ``ops``."""
+        return tuple(op for phase in PHASES for op in self.ops if op.phase == phase)
+
+    def step(self, state):
+        """One iteration of Algorithm 8 over this schedule."""
+        step = int(state.step)
+        ctx = OpContext(config=self.config, step=step, rng=self.fold_rng(state, step))
+        for op in self.ordered_ops():
+            state = run_op(op, ctx, state)
+        return dataclasses.replace(state, step=state.step + 1)
+
+    # -- composition --------------------------------------------------------
+
+    def op_names(self) -> Tuple[str, ...]:
+        return tuple(op.name for op in self.ops)
+
+    def _index_of(self, name: str) -> int:
+        names = self.op_names()
+        if names.count(name) == 0:
+            raise KeyError(f"no op named {name!r}; have {names}")
+        if names.count(name) > 1:
+            raise KeyError(f"ambiguous op name {name!r} in {names}")
+        return names.index(name)
+
+    def _check_new(self, op: Operation):
+        if op.name in self.op_names():
+            raise KeyError(f"op named {op.name!r} already scheduled")
+
+    def insert_after(self, anchor: str, op: Operation) -> "Scheduler":
+        self._check_new(op)
+        i = self._index_of(anchor) + 1
+        return dataclasses.replace(self, ops=self.ops[:i] + (op,) + self.ops[i:])
+
+    def insert_before(self, anchor: str, op: Operation) -> "Scheduler":
+        self._check_new(op)
+        i = self._index_of(anchor)
+        return dataclasses.replace(self, ops=self.ops[:i] + (op,) + self.ops[i:])
+
+    def append(self, op: Operation) -> "Scheduler":
+        self._check_new(op)
+        return dataclasses.replace(self, ops=self.ops + (op,))
+
+    def replace_op(self, name: str, op: Operation) -> "Scheduler":
+        """Swap the op named ``name`` for ``op``, keeping its position."""
+        i = self._index_of(name)
+        if op.name != name:
+            self._check_new(op)
+        return dataclasses.replace(self, ops=self.ops[:i] + (op,) + self.ops[i + 1:])
+
+    def remove_op(self, name: str) -> "Scheduler":
+        i = self._index_of(name)
+        return dataclasses.replace(self, ops=self.ops[:i] + self.ops[i + 1:])
+
+
+# ---------------------------------------------------------------------------
+# Default operations
+# ---------------------------------------------------------------------------
+
+
+def apply_boundary(config, position: torch.Tensor) -> torch.Tensor:
+    """§4.4.11 boundary policies over ``[min_bound, max_bound]``."""
+    lo, hi = config.min_bound, config.max_bound
+    if config.boundary == "closed":
+        return torch.clamp(position, lo, hi)
+    if config.boundary == "toroidal":
+        return lo + torch.remainder(position - lo, hi - lo)
+    return position
+
+
+def sort_op(config) -> Operation:
+    """§5.4.2 agent sorting at its configured frequency (pre standalone)."""
+
+    def fn(ctx: OpContext, state):
+        return dataclasses.replace(state, pool=sort_agents(config.spec, state.pool))
+
+    return Operation("sort", fn, phase="pre", frequency=config.sort_frequency,
+                     gate="cond")
+
+
+def env_build_op(config) -> Operation:
+    """Environment build (pre standalone): one GridIndex + lazy
+    NeighborContext per iteration, the step-start positions and the
+    behaviors' StepContext, published on the OpContext.  At
+    ``sort_frequency=1`` the pool was just layout-sorted, so the build skips
+    the within-cell rank pass."""
+
+    def fn(ctx: OpContext, state):
+        index = build_index(config.spec, state.pool,
+                            assume_sorted=config.sort_frequency == 1)
+        ctx.index = index
+        ctx.neighbors = NeighborContext.for_pool(config.spec, index, state.pool)
+        ctx.pre_positions = state.pool.position
+        ctx.sctx = StepContext(
+            rng=ctx.rng,
+            grids=dict(state.grids),
+            neighbors=ctx.neighbors,
+            dt=torch.full((), config.dt, dtype=torch.float32,
+                          device=state.pool.device),
+            step=ctx.step,
+            min_bound=config.min_bound,
+            max_bound=config.max_bound,
+        )
+        return state
+
+    return Operation("env_build", fn, phase="pre")
+
+
+def behaviors_op(config) -> Operation:
+    """The agent-op loop (Algorithm 8 L7–11)."""
+
+    def fn(ctx: OpContext, state):
+        sctx, pool = ctx.sctx, state.pool
+        for behavior in config.behaviors:
+            sctx, pool = behavior(sctx, pool)
+        ctx.sctx = sctx
+        return dataclasses.replace(state, pool=pool, grids=dict(sctx.grids))
+
+    return Operation("behaviors", fn, phase="agent")
+
+
+def force_pass(config, ctx: OpContext, state, *, row_mask=None) -> torch.Tensor:
+    """One ``mechanical_forces`` dispatch with the config's knobs applied."""
+    return mechanical_forces(
+        config.spec,
+        ctx.index,
+        state.pool,
+        config.force_params,
+        active_capacity=config.active_capacity,
+        impl=config.force_impl,
+        neighbors=ctx.neighbors,
+        fused_fallback=config.fused_overflow_fallback,
+        tile=config.force_tile,
+        tile_order=config.tile_order,
+        row_mask=row_mask,
+    )
+
+
+def apply_force(pool, force: torch.Tensor, dt: float):
+    """``position += force · dt``, the product rounded on its own."""
+    return pool.replace(position=pool.position + force * dt)
+
+
+def forces_op(config) -> Operation:
+    """Mechanical forces (§4.5.1) + displacement (agent op)."""
+
+    def fn(ctx: OpContext, state):
+        force = force_pass(config, ctx, state)
+        return dataclasses.replace(state, pool=apply_force(state.pool, force, config.dt))
+
+    return Operation("forces", fn, phase="agent")
+
+
+def boundary_op(config) -> Operation:
+    """§4.4.11 boundary condition (post standalone)."""
+
+    def fn(ctx: OpContext, state):
+        pool = state.pool
+        return dataclasses.replace(
+            state, pool=pool.replace(position=apply_boundary(config, pool.position))
+        )
+
+    return Operation("boundary", fn, phase="post")
+
+
+def static_flags_op(config) -> Operation:
+    """§5.5 static-agent detection for the next iteration (post standalone)."""
+
+    def fn(ctx: OpContext, state):
+        pool = state.pool
+        pool = update_static_flags_celllist(
+            config.spec, ctx.index, pool, pool.position - ctx.pre_positions,
+            config.force_params, query_position=ctx.neighbors.query_position,
+        )
+        return dataclasses.replace(state, pool=pool)
+
+    return Operation("static_flags", fn, phase="post")
+
+
+def diffusion_op(config) -> Operation:
+    """Extracellular diffusion (Eq 4.3) at its frequency; dt is scaled by the
+    frequency so skipped iterations are integrated on the firing one."""
+
+    def fn(ctx: OpContext, state):
+        if not state.grids:
+            return state
+        dt = config.dt * max(config.diffusion_frequency, 1)
+        grids = {
+            name: dgrid.diffuse(g, dt, impl=config.diffusion_impl)
+            for name, g in state.grids.items()
+        }
+        return dataclasses.replace(state, grids=grids)
+
+    return Operation("diffusion", fn, phase="post",
+                     frequency=config.diffusion_frequency, gate="cond")
+
+
+def age_op(config) -> Operation:
+    """Advance the age of live agents (post standalone)."""
+
+    def fn(ctx: OpContext, state):
+        pool = state.pool
+        pool = pool.replace(age=pool.age + torch.where(pool.alive, config.dt, 0.0))
+        return dataclasses.replace(state, pool=pool)
+
+    return Operation("age", fn, phase="post")
+
+
+def health_op(config) -> Operation:
+    """Fold saturation / corruption telemetry into ``state.health`` (last
+    post op).  Pure reductions on the device; nothing is read to the host."""
+
+    def fn(ctx: OpContext, state):
+        pool = state.pool
+        bad = ~torch.isfinite(pool.position).all(dim=-1)
+        bad |= ~torch.isfinite(pool.diameter) | ~torch.isfinite(pool.age)
+        for v in pool.attrs.values():
+            if v.is_floating_point():
+                bad |= ~torch.isfinite(v.reshape(v.shape[0], -1)).all(dim=-1)
+        n_bad = (bad & pool.alive).sum(dtype=torch.int32)
+        prev = state.health
+        cell_ovf = (
+            ctx.index.overflowed.to(torch.int32) if ctx.index is not None
+            else torch.zeros((), dtype=torch.int32, device=pool.device)
+        )
+        report = dataclasses.replace(
+            prev,
+            pool_overflow=pool.overflow.to(torch.int32),
+            cell_overflow_steps=prev.cell_overflow_steps + cell_ovf,
+            nonfinite_agents=n_bad,
+            nonfinite_steps=prev.nonfinite_steps + (n_bad > 0).to(torch.int32),
+        )
+        return dataclasses.replace(state, health=report)
+
+    return Operation("health", fn, phase="post",
+                     frequency=config.health_frequency, gate="cond")

@@ -1,0 +1,74 @@
+"""ctypes wrapper of ``csrc/cell_list_force.cu`` (replaces the Pallas
+``cell_list_force_planar``; the design note is in the source).
+
+Agent order in, agent order out: no planar cell-major layout is built.
+``launches`` counts the wrapper's kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+launches = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    lib = _build.load("cell_list_force")
+    if not getattr(lib, "_typed", False):
+        lib.cell_list_force_launch.argtypes = [
+            _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
+        ]
+        lib.cell_list_force_launch.restype = _I
+        lib._typed = True
+    return lib
+
+
+def cell_list_force_cuda(
+    position: torch.Tensor,    # (S, 3) f32
+    radius: torch.Tensor,      # (S,) f32
+    cell_list: torch.Tensor,   # (n_cells, M) int32, empty slots = S
+    dims: tuple,
+    k: float = 2.0,
+    gamma: float = 1.0,
+    num_out: int | None = None,
+) -> torch.Tensor:
+    """Net Eq-4.1 force per agent, ``(num_out, 3)`` f32: every listed agent
+    against the other listed agents of its 27-box.  Rows not listed (dead
+    agents, agents dropped by an overflowed cell) are zero."""
+    global launches
+    nx, ny, nz = (int(d) for d in dims)
+    s = position.shape[0]
+    n_cells, m = cell_list.shape
+    out_n = s if num_out is None else int(num_out)
+    if n_cells != nx * ny * nz:
+        raise ValueError(f"cell_list_force: cell_list has {n_cells} rows, dims {dims}")
+    if position.shape != (s, 3) or radius.shape != (s,):
+        raise ValueError(f"cell_list_force: position {tuple(position.shape)} / "
+                         f"radius {tuple(radius.shape)} must be (S, 3) / (S,)")
+    if position.dtype != torch.float32 or radius.dtype != torch.float32:
+        raise ValueError("cell_list_force: position and radius must be float32")
+    if cell_list.dtype != torch.int32:
+        raise ValueError("cell_list_force: cell_list must be int32")
+    if not 0 <= out_n <= s:
+        raise ValueError(f"cell_list_force: num_out {out_n} outside [0, {s}]")
+    _build.require_cuda("cell_list_force", position, radius, cell_list)
+    out = torch.zeros((out_n, 3), dtype=torch.float32, device=position.device)
+    if n_cells == 0 or out_n == 0:
+        return out
+    lib = _lib()
+    _build.check(
+        lib.cell_list_force_launch(
+            position.device.index, _build.ptr(position), _build.ptr(radius),
+            _build.ptr(cell_list), nx, ny, nz, m, s, out_n, float(k),
+            float(gamma), _build.ptr(out), _build.stream_of(position),
+        ),
+        "cell_list_force",
+    )
+    launches += 1
+    return out

@@ -1,0 +1,250 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+Tests marked ``cuda`` need an NVIDIA GPU and ``nvcc``; without a card they
+skip (the decision is taken inside the ``card`` fixture, never at import).
+On the card:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX, so it runs where only PyTorch is installed.
+Tolerances: ranks exact; forces ``atol=1e-5`` (the plain version sums the
+pairs of a box in another order); diffusion ``rtol=atol=1e-6`` (the kernel
+keeps the plain version's sum order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import agents, grid
+from repro_torch.kernels import _build
+from repro_torch.kernels.cell_force import kernel as cf_kernel
+from repro_torch.kernels.cell_force import ops as cf_ops
+from repro_torch.kernels.cell_force.ref import cell_list_force_ref
+from repro_torch.kernels.cell_rank import kernel as cr_kernel
+from repro_torch.kernels.cell_rank import ops as cr_ops
+from repro_torch.kernels.cell_rank.ref import cell_rank_ref
+from repro_torch.kernels.diffusion3d import kernel as d3_kernel
+from repro_torch.kernels.diffusion3d import ops as d3_ops
+from repro_torch.kernels.diffusion3d.ref import diffusion_step_ref
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: python -m pytest -m cuda tests/test_torch_cuda.py")
+    return torch.device("cuda", 0)
+
+
+# ------------------------------------------------------------------ cell_rank
+
+def _cid_case(name):
+    """(cid (C,) int32, n_cells) of one named input."""
+    rng = np.random.default_rng(len(name))
+    if name == "random":
+        n_cells, cid = 512, rng.integers(0, 513, 3000)
+    elif name == "crowded_box":
+        n_cells = 64
+        cid = rng.integers(0, 65, 5000)
+        cid[rng.random(5000) < 0.8] = 17                 # one box holds most agents
+    elif name == "all_dead":
+        n_cells, cid = 64, np.full(700, 64)
+    elif name == "single":
+        n_cells, cid = 64, np.array([5])
+    elif name == "empty":
+        n_cells, cid = 64, np.zeros(0, np.int64)
+    elif name == "noncubic_8x1x4":
+        n_cells, cid = 32, rng.integers(0, 33, 257)
+    else:
+        raise KeyError(name)
+    return torch.from_numpy(cid.astype(np.int32)), n_cells
+
+
+RANK_CASES = ["random", "crowded_box", "all_dead", "single", "empty", "noncubic_8x1x4"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RANK_CASES)
+def test_cell_rank_kernel_matches_plain(card, case):
+    cid, n_cells = _cid_case(case)
+    want = cell_rank_ref(cid)
+    before = cr_kernel.launches
+    got = cr_ops.cell_rank(cid.to(card), n_cells, impl="cuda")
+    torch.cuda.synchronize()
+    assert got.device == card and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        cr_ops.cell_rank_tiled(cid.to(card), n_cells).cpu().numpy(), want.numpy())
+    assert cr_kernel.launches == before + (1 if cid.numel() else 0)
+
+
+# ------------------------------------------------------------ cell_list_force
+
+FORCE_CASES = {
+    "generic": dict(n=600, extent=(40.0, 40.0, 40.0), box=5.0, m=16),
+    "boundary_2x2x2": dict(n=40, extent=(12.0, 12.0, 12.0), box=6.0, m=32),
+    "noncubic_8x1x4": dict(n=80, extent=(16.0, 2.0, 8.0), box=2.0, m=16),
+    "near_empty": dict(n=3, extent=(10.0, 10.0, 10.0), box=5.0, m=4),
+    "overflowed": dict(n=200, extent=(20.0, 20.0, 20.0), box=5.0, m=4, clump=20),
+    "full_row": dict(n=40, extent=(5.0, 5.0, 5.0), box=5.0, m=32),    # 32 alive, M = 32
+}
+
+
+def _force_inputs(case):
+    """(position, radius, index, spec, capacity) on the CPU."""
+    p = FORCE_CASES[case]
+    rng = np.random.default_rng(sorted(FORCE_CASES).index(case))
+    n, extent, box = p["n"], np.asarray(p["extent"], np.float32), p["box"]
+    pos = (rng.uniform(0, 1, (n, 3)) * extent).astype(np.float32)
+    if p.get("clump"):
+        c = p["clump"]
+        pos[:c] = (box * 0.1 + rng.uniform(0, box * 0.8, (c, 3))).astype(np.float32)
+    diam = rng.uniform(1.0, 6.0, n).astype(np.float32)
+    cap = n + 7
+    alive = np.ones(cap, bool)
+    alive[n:] = False
+    alive[rng.choice(n, n // 5, replace=False)] = False
+    spec = grid.GridSpec(origin=(0.0, 0.0, 0.0), box_size=box,
+                         dims=tuple(int(e // box) for e in extent), max_per_cell=p["m"])
+    pool = agents.make_pool(cap, pos, diameter=diam, device=CPU)
+    pool = pool.replace(alive=torch.from_numpy(alive))
+    return pool.position, pool.radius(), grid.build_index(spec, pool), spec, cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FORCE_CASES))
+def test_cell_list_force_kernel_matches_plain(card, case):
+    pos, rad, index, spec, cap = _force_inputs(case)
+    assert bool(index.overflowed) == (case == "overflowed")
+    want = cell_list_force_ref(pos, rad, index.cell_list, spec.dims)
+    args = [t.to(card) for t in (pos, rad, index.cell_list)]
+    before = cf_kernel.launches
+    got = cf_ops.cell_list_force(*args, spec.dims, impl="cuda")
+    torch.cuda.synchronize()
+    assert cf_kernel.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    on_card = cf_ops.cell_list_force(*args, spec.dims, impl="reference")
+    np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(), atol=1e-5)
+    if case != "near_empty":
+        assert float(want.abs().max()) > 0.1
+    # Rows past num_out drop; the rows kept are unchanged.
+    part = cf_ops.cell_list_force(*args, spec.dims, impl="cuda", num_out=cap // 2)
+    np.testing.assert_array_equal(part.cpu().numpy(), got.cpu().numpy()[: cap // 2])
+
+
+# ----------------------------------------------------------------- diffusion
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 1), (8, 1, 4), (17, 9, 5), (64, 64, 64)])
+def test_diffusion_kernel_matches_plain(card, shape):
+    rng = np.random.default_rng(sum(shape))
+    u = torch.from_numpy(rng.uniform(0, 10, shape).astype(np.float32))
+    want = diffusion_step_ref(u, 0.16, 0.002)
+    before = d3_kernel.launches
+    got = d3_ops.diffusion_step(u.to(card), 0.16, 0.002, impl="cuda")
+    torch.cuda.synchronize()
+    assert d3_kernel.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    on_card = diffusion_step_ref(u.to(card), 0.16, 0.002)
+    np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+# --------------------------------------------------------------- the slice
+
+def _soma(device, steps=8):
+    from repro_torch import Simulation
+    from repro_torch.core import ForceParams, chemotaxis, secretion
+
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(10, 90, (120, 3)).astype(np.float32)
+    kind = (rng.random(120) < 0.5).astype(np.int32)
+    i, j, k = np.meshgrid(*[np.arange(20, dtype=np.float32)] * 3, indexing="ij")
+    sim = (Simulation(space=(0.0, 100.0), cell_size=10.0, boundary="closed",
+                      max_per_cell=64, rank_impl="cuda", device=device)
+           .add_agents(120, position=pos, diameter=5.0, kind=kind)
+           .add_substance("s0", diffusion=4.0, decay=0.002, resolution=20,
+                          concentration=2.0 + 0.6 * i + 0.4 * j + 0.2 * k)
+           .add_substance("s1", diffusion=4.0, decay=0.002, resolution=20,
+                          concentration=2.0 + 0.1 * i + 0.3 * j + 0.2 * k)
+           .use(secretion("s0", 1.0, kind=0), secretion("s1", 1.0, kind=1),
+                chemotaxis("s0", 0.75, kind=0), chemotaxis("s1", 0.75, kind=1))
+           .mechanics(ForceParams(), impl="fused", diffusion_impl="cuda"))
+    return sim.run(steps)[0]
+
+
+@pytest.mark.cuda
+def test_slice_on_card_matches_cpu(card):
+    counts = [m.launches for m in (cr_kernel, cf_kernel, d3_kernel)]
+    gpu = _soma("cuda")
+    torch.cuda.synchronize()
+    assert [m.launches - c for m, c in zip((cr_kernel, cf_kernel, d3_kernel), counts)] \
+        == [8 + 1, 8, 16]
+    cpu = _soma("cpu")
+    np.testing.assert_allclose(gpu.pool.position.cpu().numpy(),
+                               cpu.pool.position.numpy(), atol=1e-4)
+    for name in cpu.grids:
+        np.testing.assert_allclose(gpu.grids[name].concentration.cpu().numpy(),
+                                   cpu.grids[name].concentration.numpy(), rtol=1e-5)
+
+
+# ------------------------------------------- wrappers (run without a card)
+
+def test_wrappers_refuse_cpu_tensors_and_bad_inputs():
+    cid = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        cr_kernel.cell_rank_cuda(cid, 8)
+    with pytest.raises(ValueError, match="int32"):
+        cr_kernel.cell_rank_cuda(cid.long(), 8)
+    pos, rad, index, spec, _ = _force_inputs("near_empty")
+    with pytest.raises(ValueError, match="CUDA"):
+        cf_kernel.cell_list_force_cuda(pos, rad, index.cell_list, spec.dims)
+    with pytest.raises(ValueError, match="float32"):
+        cf_kernel.cell_list_force_cuda(pos.double(), rad, index.cell_list, spec.dims)
+    with pytest.raises(ValueError, match="rows"):
+        cf_kernel.cell_list_force_cuda(pos, rad, index.cell_list, (1, 1, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        d3_kernel.diffusion_step_cuda(torch.zeros((2, 2, 2)), 0.1, 0.0)
+    with pytest.raises(ValueError, match="float32"):
+        d3_kernel.diffusion_step_cuda(torch.zeros((2, 2, 2), dtype=torch.float64), 0.1, 0.0)
+
+
+def test_kernel_impls_on_cpu_tensors_take_the_plain_versions():
+    counts = [m.launches for m in (cr_kernel, cf_kernel, d3_kernel)]
+    cid, n_cells = _cid_case("random")
+    np.testing.assert_array_equal(cr_ops.cell_rank(cid, n_cells, impl="cuda").numpy(),
+                                  cell_rank_ref(cid).numpy())
+    pos, rad, index, spec, _ = _force_inputs("generic")
+    np.testing.assert_array_equal(
+        cf_ops.cell_list_force(pos, rad, index.cell_list, spec.dims, impl="cuda").numpy(),
+        cell_list_force_ref(pos, rad, index.cell_list, spec.dims).numpy())
+    u = torch.rand((5, 6, 7), generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(d3_ops.diffusion_step(u, 0.1, 0.01, impl="cuda").numpy(),
+                                  diffusion_step_ref(u, 0.1, 0.01).numpy())
+    assert counts == [m.launches for m in (cr_kernel, cf_kernel, d3_kernel)]
+
+
+def test_build_recipe():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    for name, src in _build.SOURCES.items():
+        text = src.read_text()
+        assert "Replaces: src/repro/kernels/" in text, name
+        assert 'extern "C"' in text and "cudaGetLastError" in text, name
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+@pytest.mark.parametrize("case", ["generic", "overflowed", "full_row"])
+def test_cell_list_rows_stop_at_first_sentinel(case):
+    """The force kernel stops a row walk at its first sentinel, so the
+    build must fill slots 0..min(count, M)-1 of each row and nothing else."""
+    pos, _, index, spec, cap = _force_inputs(case)
+    occupied = index.cell_list.numpy() < cap
+    filled = np.minimum(index.cell_count.numpy(), spec.max_per_cell)
+    np.testing.assert_array_equal(
+        occupied, np.arange(spec.max_per_cell)[None, :] < filled[:, None])
+    if case == "full_row":
+        assert occupied.all() and not bool(index.overflowed)

@@ -1,0 +1,222 @@
+"""Contact forces: the port vs the JAX reference.
+
+Forces agree to ``atol=1e-5`` — the port sums pairs in another order, and
+the reference holds its own Pallas kernel to its plain version at the same
+tolerance (tests/test_cell_force.py:56).  Static flags are exact.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import agents as j_agents
+from repro.core import forces as j_forces
+from repro.core import grid as j_grid
+from repro.kernels.cell_force import ops as j_cf
+from repro_torch.core import agents as t_agents
+from repro_torch.core import forces as t_forces
+from repro_torch.core import grid as t_grid
+from repro_torch.kernels.cell_force import ops as t_cf
+from torch_parity import CPU, to_np
+
+ATOL = 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(case):
+    """Both packages' (spec, pool, index) of one named case (built once)."""
+    return _build_setup(**{**KERNEL_CASES, **MECH_CASES}[case])
+
+
+def _build_setup(n, cap, extent, box, m, dead_frac=0.2, seed=0, clump=0, static_frac=0.0):
+    """(spec, pool, index) of both packages over one random pool.  ``extent``
+    is the per-axis space size (non-cubic grids allowed)."""
+    rng = np.random.default_rng(seed)
+    extent = np.broadcast_to(np.asarray(extent, np.float32), (3,))
+    pos = (rng.uniform(0, 1, (n, 3)) * extent).astype(np.float32)
+    if clump:
+        pos[:clump] = (box * 1.2 + rng.uniform(0, box * 0.6, (clump, 3))).astype(np.float32)
+    diam = rng.uniform(1.0, 6.0, n).astype(np.float32)
+    alive = np.ones(cap, bool)
+    alive[n:] = False
+    alive[rng.choice(n, int(n * dead_frac), replace=False)] = False
+    static = (rng.random(cap) < static_frac) & alive
+    dims = tuple(int(e // box) for e in extent)
+    common = dict(origin=(0.0, 0.0, 0.0), box_size=box, dims=dims, max_per_cell=m)
+    jspec, tspec = j_grid.GridSpec(**common), t_grid.GridSpec(**common)
+    jpool = j_agents.make_pool(cap, jnp.asarray(pos), diameter=jnp.asarray(diam))
+    jpool = jpool.replace(alive=jnp.asarray(alive), static=jnp.asarray(static))
+    tpool = t_agents.make_pool(cap, pos, diameter=diam, device=CPU)
+    tpool = tpool.replace(alive=torch.from_numpy(alive), static=torch.from_numpy(static))
+    return (jspec, jpool, j_grid.build_index(jspec, jpool),
+            tspec, tpool, t_grid.build_index(tspec, tpool))
+
+
+# Coarse grids: interpret-mode Pallas time grows with the (x, y) column count.
+KERNEL_CASES = {
+    "generic": dict(n=60, cap=80, extent=20.0, box=5.0, m=16),
+    "boundary_2x2x2": dict(n=30, cap=64, extent=12.0, box=6.0, m=32),
+    "noncubic_8x1x4": dict(n=50, cap=64, extent=(16.0, 2.0, 8.0), box=2.0, m=16),
+    "near_empty": dict(n=5, cap=8, extent=10.0, box=5.0, m=4),
+    "overflowed": dict(n=60, cap=64, extent=20.0, box=5.0, m=4, clump=12),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_kernel_force(case):
+    jspec, jpool, jidx, *_ = _setup(case)
+    assert bool(jidx.overflowed) == (case == "overflowed")
+    return to_np(j_cf.cell_list_force(jpool.position, jpool.radius(), jidx.cell_list,
+                                      jspec.dims, impl="pallas"))
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+@pytest.mark.parametrize("impl", ["reference", "cuda"])
+def test_cell_list_force_matches_jax_kernel(case, impl):
+    *_, tspec, tpool, tidx = _setup(case)
+    want = _jax_kernel_force(case)
+    got = t_cf.cell_list_force(tpool.position, tpool.radius(), tidx.cell_list,
+                               tspec.dims, impl=impl)
+    np.testing.assert_allclose(to_np(got), want, atol=ATOL)
+    if case != "near_empty":
+        assert np.abs(want).max() > 0.1           # some pairs really overlap
+
+
+def test_cell_list_force_num_out_and_cell_ranges():
+    jspec, jpool, jidx, tspec, tpool, tidx = _setup("generic")
+    full = t_cf.cell_list_force(tpool.position, tpool.radius(), tidx.cell_list,
+                                tspec.dims, impl="reference")
+    part = t_cf.cell_list_force(tpool.position, tpool.radius(), tidx.cell_list,
+                                tspec.dims, impl="reference", num_out=30)
+    np.testing.assert_array_equal(to_np(part), to_np(full)[:30])
+    want = j_cf.cell_list_force(jpool.position, jpool.radius(), jidx.cell_list,
+                                jspec.dims, impl="reference", num_out=30)
+    np.testing.assert_allclose(to_np(part), to_np(want), atol=ATOL)
+    # Evaluating the query cells in pieces adds up to the whole.
+    from repro_torch.kernels.cell_force.ref import cell_list_force_ref
+
+    n_cells = tspec.n_cells
+    pieces = sum(
+        cell_list_force_ref(tpool.position, tpool.radius(), tidx.cell_list, tspec.dims,
+                            cells=(lo, min(lo + 7, n_cells)))
+        for lo in range(0, n_cells, 7)
+    )
+    np.testing.assert_array_equal(to_np(pieces), to_np(full))
+
+
+@pytest.mark.parametrize("case", ["generic", "overflowed", "noncubic_8x1x4"])
+def test_cell_list_rows_are_filled_from_slot_zero(case):
+    """The CUDA kernel stops a row walk at its first sentinel: the build must
+    fill slots 0..min(count, M)-1 of every row and nothing else."""
+    *_, tspec, tpool, tidx = _setup(case)
+    occupied = to_np(tidx.cell_list) < tpool.capacity
+    filled = np.minimum(to_np(tidx.cell_count), tspec.max_per_cell)
+    np.testing.assert_array_equal(occupied.sum(1), filled)
+    np.testing.assert_array_equal(
+        occupied, np.arange(tspec.max_per_cell)[None, :] < filled[:, None])
+
+
+MECH_CASES = {
+    "m_plain": dict(n=60, cap=80, extent=20.0, box=5.0, m=16, static_frac=0.3),
+    "m_overflowed": dict(n=60, cap=64, extent=20.0, box=5.0, m=4, clump=12,
+                         static_frac=0.3),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mechanical(case, impl, active_capacity, masked=False):
+    jspec, jpool, jidx, *_ = _setup(case)
+    rmask = jnp.asarray(_row_mask(jpool.capacity)) if masked else None
+    return to_np(j_forces.mechanical_forces(
+        jspec, jidx, jpool, j_forces.ForceParams(), active_capacity=active_capacity,
+        impl=impl, row_mask=rmask))
+
+
+def _row_mask(c):
+    return np.arange(c) % 3 != 0
+
+
+# active_capacity: None (no compaction), 16 (more active agents than that:
+# the full evaluation), 80 (the compacted path).
+@pytest.mark.parametrize("case", ["plain", "overflowed"])
+@pytest.mark.parametrize("impl", ["reference", "fused"])
+@pytest.mark.parametrize("active_capacity", [None, 16, 80])
+@pytest.mark.parametrize("masked", [False, True])
+def test_mechanical_forces_match_jax(case, impl, active_capacity, masked):
+    *_, tspec, tpool, tidx = _setup("m_" + case)
+    want = _jax_mechanical("m_" + case, impl, active_capacity)
+    rmask = None
+    if masked:
+        # row_mask is output masking only (the reference's contract).
+        rmask = _row_mask(tpool.capacity)
+        want = np.where(rmask[:, None], want, 0.0)
+        rmask = torch.from_numpy(rmask)
+    got = t_forces.mechanical_forces(tspec, tidx, tpool, t_forces.ForceParams(),
+                                     active_capacity=active_capacity, impl=impl,
+                                     row_mask=rmask)
+    np.testing.assert_allclose(to_np(got), want, atol=ATOL)
+
+
+def test_row_mask_matches_jax_row_mask():
+    *_, tspec, tpool, tidx = _setup("m_overflowed")
+    want = _jax_mechanical("m_overflowed", "fused", 80, masked=True)
+    got = t_forces.mechanical_forces(
+        tspec, tidx, tpool, t_forces.ForceParams(), active_capacity=80, impl="fused",
+        row_mask=torch.from_numpy(_row_mask(tpool.capacity)))
+    np.testing.assert_allclose(to_np(got), want, atol=ATOL)
+
+
+def test_fused_without_fallback_drops_overflowed_agents():
+    """``fused_fallback=False`` on an overflowed grid runs the kernel alone,
+    like the reference: agents cut from the cell list get no force."""
+    jspec, jpool, jidx, tspec, tpool, tidx = _setup("m_overflowed")
+    want = j_forces.mechanical_forces(jspec, jidx, jpool, j_forces.ForceParams(),
+                                      impl="fused", fused_fallback=False)
+    got = t_forces.mechanical_forces(tspec, tidx, tpool, t_forces.ForceParams(),
+                                     impl="fused", fused_fallback=False)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=ATOL)
+
+
+def test_dense_helpers_match_jax():
+    rng = np.random.default_rng(3)
+    dx = rng.normal(0, 2, (40, 7, 3)).astype(np.float32)
+    r1 = rng.uniform(1, 3, (40, 1)).astype(np.float32)
+    r2 = rng.uniform(1, 3, (40, 7)).astype(np.float32)
+    jp, tp = j_forces.ForceParams(), t_forces.ForceParams()
+    want = j_forces.pair_force(jnp.asarray(dx), jnp.asarray(r1), jnp.asarray(r2), jp)
+    got = t_forces.pair_force(*map(torch.from_numpy, (dx, r1, r2)), tp)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=1e-6, atol=1e-6)
+    f = rng.normal(size=(9, 13, 3)).astype(np.float32)
+    np.testing.assert_array_equal(to_np(t_forces._tree_sum(torch.from_numpy(f))),
+                                  to_np(j_forces._tree_sum(jnp.asarray(f))))
+    jspec, jpool, jidx, tspec, tpool, tidx = _setup("m_plain")
+    jc, jm = j_grid.candidate_neighbors(jspec, jidx, jpool)
+    tc, tm = t_grid.candidate_neighbors(tspec, tidx, tpool)
+    want = j_forces.forces_from_candidates_tiled(
+        jpool.position, jpool.radius(), jc, jm, jp, jpool.position, jpool.radius(), tile=32)
+    got = t_forces.forces_from_candidates_tiled(
+        tpool.position, tpool.radius(), tc, tm, tp, tpool.position, tpool.radius(), tile=32)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["plain", "overflowed"])
+def test_static_flags_match_jax(case):
+    jspec, jpool, jidx, tspec, tpool, tidx = _setup("m_" + case)
+    rng = np.random.default_rng(11)
+    disp = rng.normal(0, 1e-4, (jpool.capacity, 3)).astype(np.float32)
+    disp[rng.random(jpool.capacity) < 0.7] = 0.0
+    params = (j_forces.ForceParams(), t_forces.ForceParams())
+    want = j_forces.update_static_flags_celllist(jspec, jidx, jpool, jnp.asarray(disp),
+                                                 params[0])
+    got = t_forces.update_static_flags_celllist(tspec, tidx, tpool, torch.from_numpy(disp),
+                                                params[1])
+    np.testing.assert_array_equal(to_np(got.static), to_np(want.static))
+    assert 0 < to_np(got.static).sum() < to_np(got.alive).sum()
+    jc, jm = j_grid.candidate_neighbors(jspec, jidx, jpool)
+    tc, tm = t_grid.candidate_neighbors(tspec, tidx, tpool)
+    want = j_forces.update_static_flags(jpool, jnp.asarray(disp), jc, jm, params[0])
+    got = t_forces.update_static_flags(tpool, torch.from_numpy(disp), tc, tm, params[1])
+    np.testing.assert_array_equal(to_np(got.static), to_np(want.static))

@@ -1,0 +1,125 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no silent fallback."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_slice.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_reference(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.convert\n"
+        "from repro_torch import Simulation\n"
+        "import repro_torch.kernels.cell_rank, repro_torch.kernels.cell_force\n"
+        "import repro_torch.kernels.diffusion3d\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
+
+
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    from repro_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from repro_torch import Simulation
+
+        Simulation(space=10.0)
+
+
+def _unknown_impl_calls():
+    from repro_torch.core import EngineConfig, ForceParams, diffuse, make_grid, spec_for_space
+    from repro_torch.core.forces import mechanical_forces
+    from repro_torch.kernels.cell_force import ops as cf_ops
+    from repro_torch.kernels.cell_rank import ops as cr_ops
+    from repro_torch.kernels.diffusion3d import ops as d3_ops
+
+    spec = spec_for_space(0.0, 10.0, 5.0)
+    u = torch.zeros((2, 2, 2))
+    cid = torch.zeros((3,), dtype=torch.int32)
+    pos = torch.zeros((1, 3))
+    return {
+        "cell_rank": lambda: cr_ops.cell_rank(cid, 8, impl="xla"),
+        "cell_list_force": lambda: cf_ops.cell_list_force(
+            pos, torch.ones(1), torch.ones((1, 4), dtype=torch.int32), (1, 1, 1),
+            impl="pallas"),
+        "diffusion_step": lambda: d3_ops.diffusion_step(u, 0.1, impl="pallas"),
+        "diffuse": lambda: diffuse(make_grid(0.0, 1.0, 2, 0.1), 1.0, impl="pallas"),
+        "rank_impl": lambda: spec_for_space(0.0, 10.0, 5.0, rank_impl="xla"),
+        "force_impl": lambda: EngineConfig(spec=spec, force_impl="refrence"),
+        "diffusion_impl": lambda: EngineConfig(spec=spec, diffusion_impl="fused"),
+        "tile_order": lambda: EngineConfig(spec=spec, tile_order="hilbert"),
+        "boundary": lambda: EngineConfig(spec=spec, boundary="wrap"),
+        "mechanical_forces": lambda: mechanical_forces(
+            spec, None, None, ForceParams(), impl="cuda"),
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_unknown_impl_calls()))
+def test_unknown_impl_raises(what):
+    with pytest.raises(ValueError):
+        _unknown_impl_calls()[what]()
+
+
+@pytest.mark.parametrize("kw, item", [
+    (dict(force_impl="pallas"), "queue 2 item 5"),
+    (dict(force_impl="fused", tile_order="morton"), "queue 2 item 4"),
+])
+def test_unported_paths_name_their_roadmap_item(kw, item):
+    from repro_torch.core import EngineConfig, spec_for_space
+
+    with pytest.raises(NotImplementedError, match=item):
+        EngineConfig(spec=spec_for_space(0.0, 10.0, 5.0), **kw)
+
+
+def test_unported_facade_entry_points_raise():
+    import numpy as np
+
+    from repro_torch import Simulation
+    from repro_torch.kernels.cell_force import ops as cf_ops
+
+    sim = Simulation(space=10.0, device="cpu").add_agents(
+        position=np.full((2, 3), 5.0, np.float32))
+    built = sim.build()
+    for call, item in [
+        (lambda: sim.run_batch(2), "item 13"),
+        (lambda: sim.resume("ckpt"), "item 12"),
+        (lambda: sim.distribute(None, None), "item 14"),
+        (lambda: built.run(2, checkpoint_dir="ckpt"), "item 12"),
+        (lambda: cf_ops.cell_window_force(), "queue 2 item 4"),
+    ]:
+        with pytest.raises(NotImplementedError, match=item):
+            call()
