@@ -8,26 +8,40 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It imports nothing of JAX and nothing of the JAX package.  Phases, each
 printing one JSON line; any failure raises and exits non-zero:
 
-  device   the card's name, capability, power limit.
-  build    the three CUDA kernels compiled from ``kernels/*/csrc/*.cu``
-           (one nvcc each, all started together); build time and the ptxas
-           register / shared-memory report.
-  small    the soma-clustering model at the quickstart's smoke size (120
-           agents, 10^3 boxes, resolution 20) for 8 steps on the card, held
-           against the same model on the CPU (the kernels' plain versions):
-           positions atol 1e-4, fields rtol 1e-5.
-  slice    the main path: the 600,000-agent soma-clustering model over 100^3
-           boxes with two 200^3 substances, built through
-           ``repro_torch.Simulation`` with every kernel switched on, 20 steps
-           through ``BuiltSimulation.run``.  The kernels' launch counters are
-           zeroed just before the run and read just after it.
-  kernels  each kernel at the main path's shapes (taken from the final state
-           of that run) against its plain PyTorch version on the same card:
-           cell_rank exact (plus a stable-sort oracle, one crowded box and an
-           all-dead pool), diffusion rtol=atol=1e-6, cell_list_force atol
-           1e-5 * max|F| over every box.  CUDA-event times of the kernel, the
-           plain version and, where one exists, a single PyTorch call that
-           computes the same function; the bound from this run's inputs.
+  device          the card's name, capability, power limit.
+  build           the five CUDA kernels compiled from ``kernels/*/csrc/*.cu``
+                  (one nvcc each, all started together); build time and the
+                  ptxas register / shared-memory report.
+  small           the soma-clustering model at the quickstart's smoke size
+                  (120 agents, 10^3 boxes, resolution 20) for 8 steps on the
+                  card, held against the same model on the CPU (the kernels'
+                  plain versions): positions atol 1e-4, fields rtol 1e-5.
+  slice           path 1: the 600,000-agent soma-clustering model over 100^3
+                  boxes with two 200^3 substances, built through
+                  ``repro_torch.Simulation`` with cell_rank, cell_list_force
+                  and diffusion3d switched on, 20 steps.
+  spheroid_small  the tumor-spheroid model (births, deaths, threefry draws) at
+                  2,000 cells for 8 steps, Morton windows covering the pool,
+                  on the card against the CPU: alive flags, kinds and counts
+                  exact, positions atol 1e-4.
+  spheroid        path 2: the 100,000-cell tumor spheroid (space 1008 um, 56^3
+                  boxes, capacity 131,072), sorted every step, forces by
+                  cell_window_force at the covering half-window W (+25%), 20
+                  steps; then ``spheroid_dense``: the same start with the dense
+                  pairwise_force kernel, 4 steps.
+  kernels         each kernel at its path's shapes (taken from the final state
+                  of that path's run) against its plain PyTorch version on the
+                  same card: cell_rank exact (plus a stable-sort oracle, one
+                  crowded box and an all-dead pool), diffusion rtol=atol=1e-6,
+                  the three force kernels atol 1e-5 * max|F|, the window and
+                  dense ones also against cell_list_force.  CUDA-event times of
+                  the kernel, the plain version and, where one exists, a single
+                  PyTorch call that computes the same function; the bound from
+                  this run's inputs.
+
+Each path is driven with every launch counter set to 0 just before it and
+read just after; the ``kernels`` line gives each kernel's count from the path
+it belongs to.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -57,6 +71,15 @@ N_AGENTS = 600_000
 SPACE = 1000.0                 # 100^3 boxes of 10 um
 RESOLUTION = 200               # 5 um voxels
 
+# The tumor spheroid of examples/tumor_spheroid.py at the size of a mature
+# MCF-7 spheroid: 100,000 cells about 0.7 mm across.
+SPH_CELLS = 100_000
+SPH_SPACE = (0.0, 1008.0)      # 56^3 boxes of 18 um
+SPH_CAPACITY = 131_072
+SPH_STEPS = 20
+SPH_DENSE_STEPS = 4
+SPH_BLOCK = 128
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -83,6 +106,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_counters():
+    """Each kernel's launch counter: ``name -> (module, attribute)``."""
+    from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.cell_rank import kernel as cr_k
+    from repro_torch.kernels.diffusion3d import kernel as d3_k
+    from repro_torch.kernels.pairwise_force import kernel as pf_k
+
+    return {"cell_rank": (cr_k, "launches"), "cell_list_force": (cf_k, "launches"),
+            "cell_window_force": (cf_k, "window_launches"),
+            "pairwise_force": (pf_k, "launches"), "diffusion3d": (d3_k, "launches")}
+
+
+def reset_counts() -> None:
+    for module, attr in kernel_counters().values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(m, a) for name, (m, a) in kernel_counters().items()}
 
 
 # --------------------------------------------------------------------- model
@@ -154,7 +198,7 @@ def phase_small():
 
 # --------------------------------------------------------------------- slice
 
-def phase_slice(kernels):
+def phase_slice():
     t0 = time.perf_counter()
     sim = soma_model(N_AGENTS, SPACE, RESOLUTION, 0, "cuda")
     step_ends = []
@@ -174,14 +218,13 @@ def phase_slice(kernels):
     setup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    for module in kernels.values():
-        module.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
     final, obs = built.run(STEPS)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - start
-    launches = {name: module.launches for name, module in kernels.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     step_s = [b - a for a, b in zip([start] + step_ends[:-1], step_ends)]
@@ -206,7 +249,8 @@ def phase_slice(kernels):
     kinds = obs["kind_counts"]
     if tuple(kinds.shape) != (4, 2) or int(kinds[-1].sum()) != alive0:
         raise AssertionError(f"slice: kind counts {kinds.tolist()}")
-    want = {"cell_rank": STEPS + 2, "cell_list_force": STEPS, "diffusion3d": 2 * STEPS}
+    want = {"cell_rank": STEPS + 2, "cell_list_force": STEPS, "diffusion3d": 2 * STEPS,
+            "cell_window_force": 0, "pairwise_force": 0}
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"slice: {name} launched {launches[name]} times, want {n}")
@@ -218,6 +262,220 @@ def phase_slice(kernels):
          peak_memory_bytes=peak, launches=launches,
          exposure_mean=float(exposure.mean()))
     return built, final, launches
+
+
+# ------------------------------------------------------------------ spheroid
+
+def spheroid_model(position, diameter, space, capacity, device, **mechanics):
+    """The tumor-spheroid model of examples/tumor_spheroid.py (paper §4.6.2,
+    Algorithm 2): Brownian motion, growth, division and apoptosis at the
+    Table 4.2 rates, Eq 4.1 mechanics, 18 um boxes, max_per_cell 96, dt 1 h,
+    closed boundary, sorted every step, and the mask-gated radial census
+    (frequency 8) at the centre of the space."""
+    from repro_torch import Simulation
+    from repro_torch.core import (ForceParams, Operation, apoptosis, brownian_motion,
+                                  cell_division, growth)
+
+    lo, hi = space
+    center = (lo + hi) / 2.0
+
+    def census(ctx, state):
+        pool = state.pool
+        r = torch.linalg.vector_norm(pool.position - center, dim=-1)
+        return dataclasses.replace(
+            state, pool=pool.set_attr("radial", torch.where(pool.alive, r, 0.0)))
+
+    return (
+        Simulation(space=(lo, hi), cell_size=18.0, boundary="closed", dt=1.0,
+                   capacity=capacity, max_per_cell=96, seed=0, sort_frequency=1,
+                   rank_impl="cuda", device=device)
+        .add_agents(len(position), position=position, diameter=diameter, radial=0.0)
+        .use(brownian_motion(0.15), growth(60.0, 18.0),
+             cell_division(0.02, trigger_diameter=17.0), apoptosis(0.002, min_age=87.0))
+        .mechanics(ForceParams(), **mechanics)
+        .op(Operation("radial_census", census, phase="post", frequency=8, gate="mask"))
+    )
+
+
+def spheroid_start(n, space, lattice, seed=0):
+    """A grown spheroid: the ``n`` sites of a cubic ``lattice`` (um) nearest
+    the centre of ``space``, jittered by U(-1, 1) um; diameters U[14, 18),
+    ages U[20, 220) h.  Numpy ``(position, diameter, age)``."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil((2 * n) ** (1 / 3))) + 2
+    g = (np.arange(side) - (side - 1) / 2.0) * lattice
+    sites = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    order = np.argsort(np.linalg.norm(sites, axis=1), kind="stable")[:n]
+    pos = sites[order] + (space[0] + space[1]) / 2.0 + rng.uniform(-1.0, 1.0, (n, 3))
+    return (pos.astype(np.float32), rng.uniform(14.0, 18.0, n).astype(np.float32),
+            rng.uniform(20.0, 220.0, n).astype(np.float32))
+
+
+def with_ages(built, age):
+    """The built initial state with the first ``len(age)`` agents' ages set."""
+    pool = built.state.pool
+    ages = torch.zeros_like(pool.age)
+    ages[: len(age)] = torch.from_numpy(age).to(ages.device)
+    return dataclasses.replace(built.state, pool=pool.replace(age=ages))
+
+
+def phase_spheroid_small():
+    """2,000 cells, 8 steps, Morton windows covering the whole pool, on the
+    card against the CPU.  A looser start than the slice's (a 20 um lattice,
+    centred on 0): in a packed spheroid every contact is stiff at dt = 1 h,
+    and a pair's separation error grows about 3x a step, so the two devices'
+    sum orders would part by more than 1e-4 within 8 steps."""
+    space, capacity, steps = (-200.0, 200.0), 4096, 8
+    pos, diam, age = spheroid_start(2000, space, lattice=20.0)
+    window = capacity // SPH_BLOCK - 1
+    finals, obs = {}, {}
+    for dev in ("cuda", "cpu"):
+        built = (spheroid_model(pos, diam, space, capacity, dev, impl="fused",
+                                tile_order="morton", morton_window=window)
+                 .observe_kinds(n_kinds=1).build())
+        if dev == "cuda":
+            reset_counts()
+        finals[dev], obs[dev] = built.run(steps, state=with_ages(built, age))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts()
+    gpu, cpu = finals["cuda"].pool, finals["cpu"].pool
+    for f in ("alive", "kind", "overflow"):
+        if not torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)):
+            raise AssertionError(f"spheroid_small: {f} differs between the card and the CPU")
+    if not torch.equal(obs["cuda"]["kind_counts"].cpu(), obs["cpu"]["kind_counts"]):
+        raise AssertionError("spheroid_small: kind counts differ")
+    pos_err = float((gpu.position.cpu() - cpu.position).abs().max())
+    if not pos_err <= 1e-4:
+        raise AssertionError(f"spheroid_small: positions differ from the CPU run by {pos_err}")
+    want = {"cell_rank": steps, "cell_window_force": steps, "cell_list_force": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"spheroid_small: launches {launches}, want {want}")
+    n1 = int(cpu.alive.sum())
+    births = int((cpu.alive & (cpu.age <= steps)).sum())
+    emit("spheroid_small", cells=2000, capacity=capacity, steps=steps, half_window=window,
+         max_position_err=pos_err, cells_end=n1, births=births, deaths=2000 + births - n1,
+         launches=launches)
+
+
+def covering_window(built, state):
+    """The least half-window (blocks of SPH_BLOCK) that covers the pool once
+    it is Z-sorted, as the coverage gate reckons it."""
+    from repro_torch.core.forces import covering_half_window
+    from repro_torch.core.grid import build_index, sort_agents
+
+    spec = built.config.spec
+    pool = sort_agents(spec, state.pool)
+    return covering_half_window(spec, build_index(spec, pool, assume_sorted=True),
+                                SPH_BLOCK)
+
+
+def run_spheroid(sim, state, steps, name):
+    """Drive ``steps`` steps through ``BuiltSimulation.run`` with the
+    counters zeroed just before and read just after; per-step host times
+    around ``synchronize()`` and per-step launch counts."""
+    step_ends, step_counts = [], []
+
+    def clock(s):
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+        step_counts.append(read_counts())
+        return torch.zeros((), dtype=torch.int32, device=s.pool.device)
+
+    built = sim.observe("step_clock", clock).build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    final, _ = built.run(steps, state=state)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - start
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([start] + step_ends[:-1], step_ends)]
+    if int(final.step) != steps or len(step_s) != steps:
+        raise AssertionError(f"{name}: ran {int(final.step)} steps")
+    pool, health = final.pool, final.health
+    bad = {f.name: int(getattr(health, f.name)) for f in dataclasses.fields(health)
+           if int(getattr(health, f.name)) != 0}
+    if bad or int(pool.overflow) != 0:
+        raise AssertionError(f"{name}: health not clean: {bad}, overflow {int(pool.overflow)}")
+    alive = pool.alive
+    if not bool(torch.isfinite(pool.position[alive]).all()):
+        raise AssertionError(f"{name}: non-finite agent positions")
+    # A child is born at age 0 and ages with its step, so it is at most
+    # ``steps`` old at the end; the initial cells are at least 20 + steps.
+    n1 = int(alive.sum())
+    births = int((alive & (pool.age <= steps)).sum())
+    deaths = SPH_CELLS + births - n1
+    per_step = [{k: c[k] - p[k] for k in c}
+                for p, c in zip([{k: 0 for k in launches}] + step_counts[:-1], step_counts)]
+    stats = dict(cells_start=SPH_CELLS, cells_end=n1, births=births, deaths=deaths,
+                 steps=steps, run_s=total_s, median_step_ms=1e3 * statistics.median(step_s),
+                 min_step_ms=1e3 * min(step_s), max_step_ms=1e3 * max(step_s),
+                 step_ms=[1e3 * t for t in step_s], peak_memory_bytes=peak,
+                 launches=launches)
+    return built, final, per_step, stats
+
+
+def spheroid_setup():
+    """The 100,000-cell start on the card: ``(morton, dense, state, cover,
+    window)`` — the two model declarations (not built), the initial state
+    with its ages, the covering half-window of the Z-sorted start and W, that
+    plus 25% capped at the block count."""
+    pos, diam, age = spheroid_start(SPH_CELLS, SPH_SPACE, lattice=12.0)
+    dense = spheroid_model(pos, diam, SPH_SPACE, SPH_CAPACITY, "cuda", impl="cuda")
+    built = dense.build()
+    state = with_ages(built, age)
+    n = int((SPH_SPACE[1] - SPH_SPACE[0]) / 18.0)
+    assert built.config.spec.dims == (n, n, n) and n ** 3 <= 1 << 20
+    cover = covering_window(built, state)
+    window = min(cover + -(-cover // 4), SPH_CAPACITY // SPH_BLOCK)
+    morton = spheroid_model(pos, diam, SPH_SPACE, SPH_CAPACITY, "cuda", impl="fused",
+                            tile_order="morton", morton_block=SPH_BLOCK,
+                            morton_window=window)
+    return morton, dense, state, cover, window
+
+
+def phase_spheroid():
+    from repro_torch.kernels.cell_force.ops import window_defaults
+
+    t0 = time.perf_counter()
+    sim, dense, state, cover, window = spheroid_setup()
+    n_blocks = SPH_CAPACITY // SPH_BLOCK
+    default = window_defaults(SPH_CAPACITY, SPH_BLOCK, None)[1]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    built, final, per_step, stats = run_spheroid(sim, state, SPH_STEPS, "spheroid")
+    spec = built.config.spec
+    fell_back = [i for i, c in enumerate(per_step)
+                 if c["cell_list_force"] or c["cell_window_force"] != 1]
+    if fell_back:
+        raise AssertionError(f"spheroid: steps {fell_back} took the linear fallback "
+                             f"(launches {[per_step[i] for i in fell_back]}); widen the "
+                             f"window margin")
+    want = {"cell_rank": SPH_STEPS, "cell_window_force": SPH_STEPS, "cell_list_force": 0,
+            "pairwise_force": 0, "diffusion3d": 0}
+    if stats["launches"] != want:
+        raise AssertionError(f"spheroid: launches {stats['launches']}, want {want}")
+    if not stats["births"] > 0 or not stats["deaths"] > 0:
+        raise AssertionError(f"spheroid: births {stats['births']}, deaths {stats['deaths']}")
+    radial = final.pool.get("radial")[final.pool.alive]
+    if not bool((radial > 0).any()):
+        raise AssertionError("spheroid: the radial census did not fire")
+    emit("spheroid", boxes=spec.n_cells, capacity=SPH_CAPACITY, block=SPH_BLOCK,
+         half_window=window, covering_half_window=cover, default_half_window=default,
+         blocks=n_blocks, setup_s=setup_s, radial_p95=float(radial.quantile(0.95)), **stats)
+
+    _, _, _, dstats = run_spheroid(dense, state, SPH_DENSE_STEPS, "spheroid_dense")
+    want = {"cell_rank": SPH_DENSE_STEPS, "pairwise_force": SPH_DENSE_STEPS,
+            "cell_window_force": 0, "cell_list_force": 0, "diffusion3d": 0}
+    if dstats["launches"] != want:
+        raise AssertionError(f"spheroid_dense: launches {dstats['launches']}, want {want}")
+    emit("spheroid_dense", **dstats)
+    return built, final, window, stats["launches"], dstats["launches"]
 
 
 # ------------------------------------------------------------------- kernels
@@ -361,6 +619,130 @@ def phase_kernels(built, final, launches):
     return rows
 
 
+def box_pairs(counts: torch.Tensor, dims) -> int:
+    """Ordered pairs (i, j), i != j, of agents in 27-adjacent boxes: the pair
+    evaluations the 27-box force sum needs for these cell counts."""
+    nx, ny, nz = dims
+    cnt = counts.long()
+    padded = torch.nn.functional.pad(cnt.reshape(nx, ny, nz), (1, 1, 1, 1, 1, 1))
+    box27 = sum(padded[a:a + nx, b:b + ny, c:c + nz]
+                for a in range(3) for b in range(3) for c in range(3))
+    return int((cnt * (box27.reshape(-1) - 1)).sum())
+
+
+def window_sweep(cid, dims, block, window):
+    """Pair tests of the reference's window sweep (in-range window blocks x
+    block^2) and of the blocks left after the kernel's bounding-box skip, and
+    the most window blocks any one query tile keeps."""
+    nx, ny, nz = dims
+    n_cells = nx * ny * nz
+    c = cid.shape[0]
+    nbw = -(-c // block)
+    live = cid < n_cells
+    xyz = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], -1).long()
+    xyz_pad = torch.zeros((nbw * block, 3), dtype=torch.long, device=cid.device)
+    live_pad = torch.zeros((nbw * block,), dtype=torch.bool, device=cid.device)
+    xyz_pad[:c], live_pad[:c] = xyz, live
+    big = 1 << 40
+    lo = torch.where(live_pad[:, None], xyz_pad, big).reshape(nbw, block, 3).amin(1)
+    hi = torch.where(live_pad[:, None], xyz_pad, -big).reshape(nbw, block, 3).amax(1)
+    tiles = torch.arange(nbw, device=cid.device)
+    w = tiles[:, None] + torch.arange(-window, window + 1, device=cid.device)[None]
+    in_range = (w >= 0) & (w < nbw)
+    wc = w.clamp(0, nbw - 1)
+    empty = (lo[:, 0] > hi[:, 0])
+    touch = ((lo[wc] <= hi[:, None] + 1) & (hi[wc] >= lo[:, None] - 1)).all(-1)
+    touch &= ~empty[:, None] & ~empty[wc] & in_range
+    return (int(in_range.sum()) * block * block, int(touch.sum()) * block * block,
+            int(touch.sum(1).max()))
+
+
+def spheroid_kernel_rows(built, final, window, launches, dense_launches):
+    """cell_window_force and pairwise_force at the spheroid's final state,
+    sorted as the next step would sort it."""
+    from repro_torch.core.forces import _morton_window_ok
+    from repro_torch.core.grid import build_index, candidate_neighbors_arrays, sort_agents
+    from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.cell_force.ref import cell_window_force_ref
+    from repro_torch.kernels.pairwise_force import kernel as pf_k
+    from repro_torch.kernels.pairwise_force.ref import pairwise_force_ref
+
+    spec = built.config.spec
+    pool = sort_agents(spec, final.pool)
+    index = build_index(spec, pool, assume_sorted=True)
+    if not bool(_morton_window_ok(spec, index, SPH_BLOCK, window) & ~index.overflowed):
+        raise AssertionError("kernels: the window does not cover the final state")
+    pos, rad, cid = pool.position, pool.radius(), index.cell_of_agent
+    c = pool.capacity
+    nbw = -(-c // SPH_BLOCK)
+    linear = cf_k.cell_list_force_cuda(pos, rad, index.cell_list, spec.dims, num_out=c)
+    pairs = box_pairs(index.cell_count, spec.dims)
+    rows = []
+
+    # ---- cell_window_force at W: plain version over chunks of 64 query tiles.
+    win = lambda: cf_k.cell_window_force_cuda(pos, rad, cid, spec.dims, block=SPH_BLOCK,
+                                              half_window=window)
+    plain = lambda: sum(cell_window_force_ref(pos, rad, cid, spec.dims, block=SPH_BLOCK,
+                                              half_window=window, tiles=(t, min(t + 64, nbw)))
+                        for t in range(0, nbw, 64))
+    got, want = win(), plain()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    witness = float((got - linear).abs().max())
+    if not scale > 0 or not err <= 1e-5 * scale or not witness <= 1e-5 * scale:
+        raise AssertionError(f"cell_window_force: max error {err} (vs cell_list_force "
+                             f"{witness}) vs max|F| {scale}")
+    sweep, kept, kept_max = window_sweep(cid, spec.dims, SPH_BLOCK, window)
+    rows.append(dict(
+        name="cell_window_force", route="cuda",
+        source="src/repro_torch/kernels/cell_force/csrc/cell_window_force.cu",
+        replaces="src/repro/kernels/cell_force/kernel.py:330",
+        launches=launches["cell_window_force"], max_abs_err=err,
+        ms=cuda_ms(win, 20), plain_ms=cuda_ms(plain, 1), library_ms=None,
+        # Bytes: position, radius and cell id read once, the output written
+        # once.  Operations: ~12 f32 ops per true 27-box pair.
+        **bound(32 * c, 12 * pairs),
+        half_window=window, block=SPH_BLOCK, pair_evaluations=pairs,
+        reference_sweep_pair_tests=sweep, pair_tests_after_bbox_skip=kept,
+        most_window_blocks_kept_by_a_tile=kept_max,
+        max_force=scale, max_err_vs_cell_list_force=witness,
+    ))
+
+    # ---- pairwise_force on the same state's dense candidates.
+    cand, mask = candidate_neighbors_arrays(spec, index, pos, pool.alive)
+    kdim = cand.shape[1]
+    dense = lambda: pf_k.pairwise_force_cuda(pos, rad, cand, mask)
+    chunk = 8192
+    plain = lambda: torch.cat([
+        pairwise_force_ref(pos[i:i + chunk], rad[i:i + chunk], cand[i:i + chunk],
+                           mask[i:i + chunk], all_position=pos, all_radius=rad)
+        for i in range(0, c, chunk)])
+    got, want = dense(), plain()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    witness = float((got - linear).abs().max())
+    if not scale > 0 or not err <= 1e-5 * scale or not witness <= 1e-5 * scale:
+        raise AssertionError(f"pairwise_force: max error {err} (vs cell_list_force "
+                             f"{witness}) vs max|F| {scale}")
+    slots = int(mask.sum())
+    rows.append(dict(
+        name="pairwise_force", route="cuda",
+        source="src/repro_torch/kernels/pairwise_force/csrc/pairwise_force.cu",
+        replaces="src/repro/kernels/pairwise_force/kernel.py:107",
+        launches=dense_launches["pairwise_force"], max_abs_err=err,
+        ms=cuda_ms(dense, 20), plain_ms=cuda_ms(plain, 1), library_ms=None,
+        # Bytes these inputs need: every mask byte, the ids of the masked-in
+        # slots, position + radius once (sources are the queries), the output.
+        **bound(c * kdim + 4 * slots + c * 16 + c * 12, 12 * slots),
+        candidate_slots=c * kdim, masked_in_slots=slots, pair_evaluations=pairs,
+        max_force=scale, max_err_vs_cell_list_force=witness,
+    ))
+    del cand, mask
+    for r in rows:
+        emit("kernel", **r)
+    return rows
+
+
 def bound(n_bytes: int, n_ops: int) -> dict:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -390,9 +772,6 @@ def main() -> int:
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.cell_force import kernel as cf_k
-    from repro_torch.kernels.cell_rank import kernel as cr_k
-    from repro_torch.kernels.diffusion3d import kernel as d3_k
 
     t0 = time.perf_counter()
     built_libs = _build.build(_build.SOURCES)
@@ -401,11 +780,14 @@ def main() -> int:
                       "ptxas": [ln for ln in r.ptxas.splitlines()
                                 if "registers" in ln or "spill" in ln]}
                   for k, r in built_libs.items()})
-    kernels = {"cell_rank": cr_k, "cell_list_force": cf_k, "diffusion3d": d3_k}
 
     phase_small()
-    built, final, launches = phase_slice(kernels)
+    built, final, launches = phase_slice()
     rows = phase_kernels(built, final, launches)
+    del built, final
+    phase_spheroid_small()
+    sph = phase_spheroid()
+    rows += spheroid_kernel_rows(*sph)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes, on one NVIDIA GPU.
+"""Where the time of the port's paths goes, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
-    python3 scripts/profile_torch_slice.py [--steps 6] [--trace trace.json]
+    python3 scripts/profile_torch_slice.py [--model soma|spheroid|spheroid_dense]
+                                           [--steps 6] [--trace trace.json]
 
-Builds the soma-clustering slice of ``chip_smoke.py`` (600,000 agents in
-100^3 boxes, two 200^3 substances, every kernel switched on), runs a few
-steps to warm up, times ``--steps`` steps without the profiler (host clock
-around ``torch.cuda.synchronize()``), then the same number of steps under
-``torch.profiler``.  Prints one JSON line: the step time, the device's busy
-time per step (the union of kernel and copy intervals) and idle share, the
-kernels and copies per step, and the top device consumers by name.  The
-profiler's own overhead lengthens the profiled window, so the idle share is
-an upper bound.
+Builds one path of ``chip_smoke.py``: ``soma`` (600,000 agents in 100^3
+boxes, two 200^3 substances, cell_rank + cell_list_force + diffusion3d),
+``spheroid`` (the 100,000-cell tumor spheroid sorted every step, forces by
+cell_window_force at the covering window W) or ``spheroid_dense`` (the same
+start, forces by pairwise_force).  Runs a few steps to warm up, times
+``--steps`` steps without the profiler (host clock around
+``torch.cuda.synchronize()``), then the same number of steps under
+``torch.profiler``.  Prints one JSON line: the card and its power limit, the
+step time, the device's busy time per step (the union of kernel and copy
+intervals) and idle share, the kernels and copies per step, and the top
+device consumers by name.  The profiler's own overhead lengthens the
+profiled window, so the idle share is an upper bound.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ def busy_us(intervals):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("soma", "spheroid", "spheroid_dense"),
+                    default="soma")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
     args = ap.parse_args()
@@ -56,8 +62,13 @@ def main() -> int:
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
 
-    built = cs.soma_model(cs.N_AGENTS, cs.SPACE, cs.RESOLUTION, 0, "cuda").build()
-    state, _ = built.run(4)                         # warm-up: builds the kernels
+    if args.model == "soma":
+        built = cs.soma_model(cs.N_AGENTS, cs.SPACE, cs.RESOLUTION, 0, "cuda").build()
+        state = built.state
+    else:
+        morton, dense, state, _, _ = cs.spheroid_setup()
+        built = (morton if args.model == "spheroid" else dense).build()
+    state, _ = built.run(4, state=state)            # warm-up: builds the kernels
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = built.run(args.steps, state=state)
@@ -86,7 +97,9 @@ def main() -> int:
                if "memcpy" in name.lower() and "dtoh" in name.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps({
+        "model": args.model,
         "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": cs.nvidia_smi_line(),
         "steps": args.steps,
         "step_ms": step_ms,
         "profiled_step_ms": window_us / 1e3 / args.steps,

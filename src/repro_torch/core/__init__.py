@@ -8,15 +8,38 @@ Layer map (same module names as the reference):
   neighbors    per-step neighbor dataflow, built once
   forces       mechanical contact forces + static omission (§4.5.1, §5.5)
   diffusion    extracellular diffusion, Eq 4.3 (§4.5.2)
-  prng         threefry keys, bit for bit as jax.random
-  behaviors    the deterministic behaviours of App. D
+  prng         threefry keys and draws, bit for bit as jax.random
+  behaviors    the behaviours of App. D
   schedule     Algorithm 8 as data: Operation / Scheduler
   engine       the default schedule stepped eagerly
 """
 
-from .agents import AgentPool, compact_indices, make_pool, permute, permute_to
+from .agents import (
+    AgentPool,
+    add_agents,
+    compact,
+    compact_indices,
+    make_pool,
+    permute,
+    permute_to,
+    remove_agents,
+)
 from .api import BuiltSimulation, Observable, Simulation
-from .behaviors import StepContext, chemotaxis, growth, secretion
+from .behaviors import (
+    INFECTED,
+    RECOVERED,
+    SUSCEPTIBLE,
+    StepContext,
+    apoptosis,
+    brownian_motion,
+    cell_division,
+    chemotaxis,
+    growth,
+    random_movement,
+    secretion,
+    sir_infection,
+    sir_recovery,
+)
 from .diffusion import (
     DiffusionGrid,
     analytical_point_source,
@@ -48,8 +71,11 @@ from .schedule import HealthReport, Operation, OpContext, Scheduler
 
 __all__ = [
     "Simulation", "BuiltSimulation", "Observable",
-    "AgentPool", "compact_indices", "make_pool", "permute", "permute_to",
-    "StepContext", "chemotaxis", "growth", "secretion",
+    "AgentPool", "add_agents", "compact", "compact_indices", "make_pool", "permute",
+    "permute_to", "remove_agents",
+    "INFECTED", "RECOVERED", "SUSCEPTIBLE", "StepContext", "apoptosis",
+    "brownian_motion", "cell_division", "chemotaxis", "growth", "random_movement",
+    "secretion", "sir_infection", "sir_recovery",
     "DiffusionGrid", "analytical_point_source", "concentration_at", "diffuse",
     "gradient_at", "increase_concentration", "make_grid",
     "EngineConfig", "SimulationState", "count_kinds", "init_state", "run",

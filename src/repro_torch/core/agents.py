@@ -3,8 +3,8 @@
 Port of ``repro.core.agents``: one fixed-capacity tensor per attribute plus
 an ``alive`` mask.  Dtypes follow the reference (f32 floats, i32 ids and
 kinds, bool masks); indices are cast to int64 only where torch indexes.
-``add_agents`` / ``remove_agents`` come with the stochastic behaviours in
-the next slice of the port.
+Births and deaths are the §5.3.2 parallel add / remove: prefix-sum ranks and
+one scatter, no sort.
 """
 
 from __future__ import annotations
@@ -217,6 +217,59 @@ def free_slot_table(alive: torch.Tensor) -> torch.Tensor:
     return ids
 
 
+def remove_agents(pool: AgentPool, remove_mask: torch.Tensor) -> AgentPool:
+    """Remove agents by mask (clear ``alive``; no data moves)."""
+    return pool.replace(alive=pool.alive & ~remove_mask)
+
+
+def add_agents(
+    pool: AgentPool,
+    spawn_mask: torch.Tensor,
+    position: torch.Tensor,
+    diameter: torch.Tensor,
+    kind: torch.Tensor,
+    attrs: Mapping[str, torch.Tensor] | None = None,
+    age: torch.Tensor | None = None,
+) -> AgentPool:
+    """Commit spawn requests into free slots (deterministic, parallel).
+
+    ``spawn_mask`` (C,) marks live spawners; the value arrays are aligned
+    with it (row i describes the child of agent i).  The k-th spawn in index
+    order takes the k-th free slot; spawns beyond the free slots are dropped
+    and counted in ``overflow``.  Attrs not given are inherited from the
+    spawner, ``age`` defaults to 0 and ``static`` is cleared.
+    """
+    spawn_mask = spawn_mask & pool.alive
+    c = pool.capacity
+    spawn_rank = torch.cumsum(spawn_mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_free = (~pool.alive).sum(dtype=torch.int32)
+    n_spawn = spawn_mask.sum(dtype=torch.int32)
+    free_slots = free_slot_table(pool.alive)
+    fits = spawn_mask & (spawn_rank < n_free)
+    # Index c is the reference's mode="drop": a spare row, cut off below.
+    target = torch.where(fits, free_slots[torch.clamp(spawn_rank, 0, c - 1).long()], c)
+    target = target.long()
+
+    def put(dst: torch.Tensor, src) -> torch.Tensor:
+        src = torch.as_tensor(src, dtype=dst.dtype, device=dst.device)
+        out = torch.cat([dst, dst[:1]], dim=0)
+        out[target] = src.expand_as(dst)
+        return out[:c]
+
+    age_src = torch.zeros((c,), dtype=torch.float32, device=pool.device) if age is None else age
+    attrs = dict(attrs or {})
+    return pool.replace(
+        position=put(pool.position, position),
+        diameter=put(pool.diameter, diameter),
+        kind=put(pool.kind, kind),
+        age=put(pool.age, age_src),
+        alive=put(pool.alive, True),
+        static=put(pool.static, False),
+        attrs={name: put(arr, attrs.get(name, arr)) for name, arr in pool.attrs.items()},
+        overflow=pool.overflow + torch.clamp(n_spawn - n_free, min=0),
+    )
+
+
 def permute(pool: AgentPool, perm: torch.Tensor) -> AgentPool:
     """Reorder all agent attributes by ``perm`` (gather form)."""
     p = perm.long()
@@ -251,3 +304,10 @@ def permute_to(pool: AgentPool, dest: torch.Tensor) -> AgentPool:
         static=scat(pool.static),
         attrs={k: scat(v) for k, v in pool.attrs.items()},
     )
+
+
+def compact(pool: AgentPool) -> AgentPool:
+    """Move alive agents to the front, stably (restores density after
+    removal)."""
+    perm = torch.sort((~pool.alive).to(torch.int32), stable=True).indices
+    return permute(pool, perm)

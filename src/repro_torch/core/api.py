@@ -234,10 +234,15 @@ class Simulation:
         overflow_fallback: bool = True,
         diffusion_impl: str = "reference",
         tile_order: str = "linear",
+        morton_block: Optional[int] = None,
+        morton_window: Optional[int] = None,
+        morton_window_fallback: bool = True,
     ) -> "Simulation":
         """Enable Eq-4.1 contact mechanics and choose the engine impls:
-        ``impl`` "reference" | "fused", ``diffusion_impl`` "reference" |
-        "cuda"; ``params=None`` disables the force ops."""
+        ``impl`` "reference" | "cuda" | "fused", ``diffusion_impl``
+        "reference" | "cuda"; ``tile_order="morton"`` (fused) runs the
+        Morton-window kernel with the ``morton_*`` knobs of EngineConfig;
+        ``params=None`` disables the force ops."""
         self._force_params = params
         self._force_opts = dict(
             force_impl=impl,
@@ -246,6 +251,9 @@ class Simulation:
             fused_overflow_fallback=overflow_fallback,
             diffusion_impl=diffusion_impl,
             tile_order=tile_order,
+            morton_block=morton_block,
+            morton_window=morton_window,
+            morton_window_fallback=morton_window_fallback,
         )
         return self
 

@@ -2,9 +2,10 @@
 
 Port of ``repro.core.behaviors``.  A behavior is a function
 ``(ctx, pool) -> (ctx, pool)`` over all agents at once; it reads the
-environment through :class:`StepContext`.  This slice holds the
-deterministic behaviours (secretion, chemotaxis, growth); the six that draw
-random numbers come with ``prng.uniform`` / ``normal`` in the next slice.
+environment through :class:`StepContext`.  The behaviours that draw random
+numbers split the same keys and draw the same shapes as the reference, so
+that with ``prng``'s bit-exact ``uniform`` every decision (divide, die,
+infect, recover) is the reference's; ``normal`` directions agree to 3 ulp.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from . import diffusion as dgrid
 from . import prng
-from .agents import AgentPool
+from .agents import AgentPool, add_agents, remove_agents
 from .neighbors import NeighborContext
 
 
@@ -71,6 +72,44 @@ def _kind_mask(pool: AgentPool, kind: Optional[int]) -> torch.Tensor:
     return pool.alive & (pool.kind == kind)
 
 
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    """Rows of ``v`` scaled to unit length (zero rows stay zero)."""
+    norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return v / torch.clamp(norm, min=1e-12)
+
+
+# ------------------------------------------------------------------ motion
+
+def brownian_motion(rate: float, kind: Optional[int] = None) -> Behavior:
+    """Tumor-spheroid random migration (Algorithm 2 L1–3): unit random
+    direction scaled by the displacement rate."""
+
+    def run(ctx: StepContext, pool: AgentPool):
+        ctx, key = ctx.next_rng()
+        step = _unit(prng.normal(key, pool.position.shape)) * rate
+        mask = _kind_mask(pool, kind)
+        return ctx, pool.replace(
+            position=pool.position + torch.where(mask[:, None], step, 0.0)
+        )
+
+    return run
+
+
+def random_movement(max_step: float, kind: Optional[int] = None) -> Behavior:
+    """SIR random movement (Algorithm 5): uniform vector with clamped length."""
+
+    def run(ctx: StepContext, pool: AgentPool):
+        ctx, key = ctx.next_rng()
+        vec = prng.uniform(key, pool.position.shape, minval=-1.0, maxval=1.0)
+        step = _unit(vec) * max_step
+        mask = _kind_mask(pool, kind)
+        return ctx, pool.replace(
+            position=pool.position + torch.where(mask[:, None], step, 0.0)
+        )
+
+    return run
+
+
 def chemotaxis(grid_name: str, weight: float, kind: Optional[int] = None) -> Behavior:
     """Algorithm 7: move along the normalized substance gradient."""
 
@@ -98,7 +137,9 @@ def secretion(grid_name: str, quantity: float, kind: Optional[int] = None) -> Be
 
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
-    """Real cube root (torch has no ``cbrt``); within an ulp or two of it."""
+    """Real cube root (torch has no ``cbrt``).  Within 2 ulp of ``jnp.cbrt``
+    on the growth step's inputs (1.4% of them differ); no torch formula is
+    bit-exact with XLA here (ROADMAP §3)."""
     return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
 
 
@@ -116,5 +157,90 @@ def growth(rate: float, max_diameter: float, kind: Optional[int] = None) -> Beha
         return ctx, pool.replace(
             diameter=torch.where(mask, torch.clamp(new_d, max=max_diameter), d)
         )
+
+    return run
+
+
+def cell_division(
+    division_probability: float,
+    trigger_diameter: Optional[float] = None,
+    kind: Optional[int] = None,
+    volume_split: float = 0.5,
+    separation: float = 0.5,
+) -> Behavior:
+    """Algorithm 2 L11–12: divide into two daughters.  The mother keeps
+    ``volume_split`` of the volume; the daughter appears in a random
+    direction at ``separation``·radius.  New agents become visible to
+    neighbour queries next iteration (§4.4.2)."""
+
+    def run(ctx: StepContext, pool: AgentPool):
+        ctx, key = ctx.next_rng()
+        k_prob, k_dir = prng.split(key)
+        u = prng.uniform(k_prob, (pool.capacity,))
+        mask = _kind_mask(pool, kind) & (u < division_probability)
+        if trigger_diameter is not None:
+            mask = mask & (pool.diameter >= trigger_diameter)
+
+        vol = math.pi / 6.0 * pool.diameter**3
+        d_mother = _cbrt(6.0 * vol * volume_split / math.pi)
+        d_child = _cbrt(6.0 * vol * (1.0 - volume_split) / math.pi)
+        direction = _unit(prng.normal(k_dir, pool.position.shape))
+        child_pos = pool.position + direction * (separation * 0.5 * pool.diameter)[:, None]
+
+        pool = pool.replace(diameter=torch.where(mask, d_mother, pool.diameter))
+        pool = add_agents(pool, spawn_mask=mask, position=child_pos,
+                          diameter=d_child, kind=pool.kind)
+        return ctx, pool
+
+    return run
+
+
+def apoptosis(death_probability: float, min_age: float = 0.0,
+              kind: Optional[int] = None) -> Behavior:
+    """Algorithm 2 L4–7: stochastic death after a minimum age."""
+
+    def run(ctx: StepContext, pool: AgentPool):
+        ctx, key = ctx.next_rng()
+        u = prng.uniform(key, (pool.capacity,))
+        mask = _kind_mask(pool, kind) & (pool.age >= min_age) & (u < death_probability)
+        return ctx, remove_agents(pool, mask)
+
+    return run
+
+
+# ---------------------------------------------------------------- SIR model
+
+SUSCEPTIBLE, INFECTED, RECOVERED = 0, 1, 2
+
+
+def sir_infection(infection_radius: float, infection_probability: float) -> Behavior:
+    """Algorithm 3, pull formulation (§2.1.1): a susceptible agent infects
+    itself when an infected agent is within the infection radius."""
+
+    def run(ctx: StepContext, pool: AgentPool):
+        ctx, key = ctx.next_rng()
+        u = prng.uniform(key, (pool.capacity,))
+        # Over the masked-in candidate slots only (most slots are empty).
+        rows, cols = ctx.cand_mask.nonzero(as_tuple=True)
+        src = ctx.cand[rows, cols].long()
+        dist2 = ((pool.position[rows] - ctx.src_position[src]) ** 2).sum(dim=-1)
+        close_infected = (ctx.src_kind[src] == INFECTED) & (dist2 <= infection_radius**2)
+        exposed = torch.zeros_like(pool.alive)
+        exposed[rows[close_infected]] = True
+        becomes = (pool.alive & (pool.kind == SUSCEPTIBLE) & exposed
+                   & (u < infection_probability))
+        return ctx, pool.replace(kind=torch.where(becomes, INFECTED, pool.kind))
+
+    return run
+
+
+def sir_recovery(recovery_probability: float) -> Behavior:
+    """Algorithm 4: infected → recovered with fixed probability per step."""
+
+    def run(ctx: StepContext, pool: AgentPool):
+        ctx, key = ctx.next_rng()
+        u = prng.uniform(key, (pool.capacity,))
+        becomes = pool.alive & (pool.kind == INFECTED) & (u < recovery_probability)
+        return ctx, pool.replace(kind=torch.where(becomes, RECOVERED, pool.kind))
 
     return run

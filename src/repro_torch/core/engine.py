@@ -28,10 +28,15 @@ BOUNDARIES = ("open", "closed", "toroidal")
 class EngineConfig:
     """Static engine configuration.
 
-    ``force_impl``: "reference" | "fused" (the cell-list kernel);
-    ``diffusion_impl``: "reference" | "cuda" (the stencil kernel).  The
-    reference's ``kernel_interpret`` has no counterpart, and the Morton
-    window knobs wait for ``tile_order="morton"``.
+    ``force_impl``: "reference" | "cuda" (the pairwise_force kernel, the
+    reference's "pallas") | "fused" (the cell-list kernel);
+    ``diffusion_impl``: "reference" | "cuda" (the stencil kernel).
+    ``tile_order="morton"`` (fused only) runs the Morton-window kernel over
+    the layout-sorted pool, guarded per step by a coverage check that falls
+    back to the linear kernel (``morton_window_fallback``); block and window
+    default per pool size (``kernels.cell_force.ops.window_defaults``, whose
+    default window does not cover a Z-sorted pool).  The reference's
+    ``kernel_interpret`` has no counterpart.
     """
 
     spec: GridSpec
@@ -50,7 +55,10 @@ class EngineConfig:
     # "fused" only: fall back to the dense candidate path when a cell
     # overflows max_per_cell (the cell list dropped agents).
     fused_overflow_fallback: bool = True
-    tile_order: str = "linear"
+    tile_order: str = "linear"                       # linear | morton
+    morton_block: Optional[int] = None
+    morton_window: Optional[int] = None
+    morton_window_fallback: bool = True
     health_frequency: int = 1
 
     def __post_init__(self):

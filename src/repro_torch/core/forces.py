@@ -3,14 +3,18 @@
     F_N = k·δ − γ·√(r̄·δ),   δ = r₁ + r₂ − |x₁ − x₂|,   r̄ = r₁r₂/(r₁+r₂)
 
 Port of ``repro.core.forces``.  ``impl="reference"`` sums pair forces over
-the dense candidate tensor; ``impl="fused"`` runs the cell-list kernel of
-``kernels/cell_force`` (CUDA on the card, its plain version on CPU
-tensors), which never builds that tensor.
+the dense candidate tensor; ``impl="cuda"`` (the reference's ``"pallas"``)
+runs the ``kernels/pairwise_force`` kernel over the same tensor;
+``impl="fused"`` runs the cell-list kernel of ``kernels/cell_force``, which
+never builds that tensor, or with ``tile_order="morton"`` the Morton-window
+kernel over the layout-sorted pool.  A kernel impl on CPU tensors runs the
+kernel's plain version.
 
 The reference's data-dependent ``lax.cond``s — the fused path's fallback
-when a cell overflowed and the §5.5 compaction's fallback when the active
-set overflowed — are host-side ``if``s on a device scalar here: one
-synchronisation each, taken on every call that reaches them.
+when a cell overflowed, the Morton window's coverage gate and the §5.5
+compaction's fallback when the active set overflowed — are host-side
+``if``s on a device scalar here: one synchronisation each, taken on every
+call that reaches them.
 """
 
 from __future__ import annotations
@@ -21,30 +25,71 @@ from typing import Optional
 import torch
 
 from .agents import AgentPool, compact_indices
-from .grid import GridIndex, GridSpec, neighbor_cell_ids
+from .grid import NEIGHBOR_OFFSETS, GridIndex, GridSpec, neighbor_cell_ids
 from .neighbors import NeighborContext
 
-IMPLS = ("reference", "fused")
-TILE_ORDERS = ("linear",)
+IMPLS = ("reference", "fused", "cuda")
+TILE_ORDERS = ("linear", "morton")
 
 
 def check_impl(impl: str, tile_order: str = "linear") -> None:
-    """Raise on a force impl or tile order the port does not run."""
-    if impl == "pallas":
-        raise NotImplementedError(
-            "force_impl='pallas' (the dense pairwise_force kernel) is not "
-            "ported yet: ROADMAP queue 2 item 5"
-        )
+    """Raise on a force impl or tile order the port does not know."""
     if impl not in IMPLS:
-        raise ValueError(f"unknown force impl {impl!r}; expected {IMPLS}")
-    if tile_order == "morton":
-        raise NotImplementedError(
-            "tile_order='morton' (the cell_window_force kernel) is not ported "
-            "yet: ROADMAP queue 2 item 4"
-        )
+        hint = " (the port names the reference's 'pallas' 'cuda')" if impl == "pallas" else ""
+        raise ValueError(f"unknown force impl {impl!r}{hint}; expected {IMPLS}")
     if tile_order not in TILE_ORDERS:
-        raise ValueError(f"unknown tile_order {tile_order!r}; expected "
-                         f"{TILE_ORDERS + ('morton',)}")
+        raise ValueError(f"unknown tile_order {tile_order!r}; expected {TILE_ORDERS}")
+
+
+def _window_need(spec: GridSpec, index: GridIndex, block: int) -> torch.Tensor:
+    """(C,) int32: the half-window, in blocks of ``block`` rows, that each
+    live agent needs to see the lowest and highest row of its 27-box (from
+    the stale cell ids the kernels use); 0 for dead rows."""
+    cid = index.cell_of_agent
+    c = cid.shape[0]
+    dev = cid.device
+    n_cells = spec.n_cells
+    nx, ny, nz = spec.dims
+    rows = torch.arange(c, dtype=torch.int32, device=dev)
+    ci = cid.long()
+    rmin = torch.full((n_cells + 1,), c, dtype=torch.int32, device=dev)
+    rmin = rmin.scatter_reduce(0, ci, rows, "amin")
+    rmax = torch.full((n_cells + 1,), -1, dtype=torch.int32, device=dev)
+    rmax = rmax.scatter_reduce(0, ci, rows, "amax")
+    ijk = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], dim=-1)
+    nbr = ijk[:, None, :] + NEIGHBOR_OFFSETS.to(dev)[None]              # (C, 27, 3)
+    dims = torch.tensor(spec.dims, dtype=torch.int32, device=dev)
+    in_range = ((nbr >= 0) & (nbr < dims)).all(dim=-1)
+    ncid = torch.clamp((nbr[..., 0] * ny + nbr[..., 1]) * nz + nbr[..., 2], 0, n_cells - 1)
+    ncid = ncid.long()
+    nmn = torch.where(in_range, rmin[ncid], c).amin(dim=1)
+    nmx = torch.where(in_range, rmax[ncid], -1).amax(dim=1)
+    blk = rows // block
+    need = torch.maximum(blk - nmn // block, nmx // block - blk)
+    return torch.where(cid < n_cells, need, 0)
+
+
+def _morton_window_ok(spec: GridSpec, index: GridIndex, block: Optional[int],
+                      window: Optional[int]) -> torch.Tensor:
+    """() bool: may this step run the Morton-window kernel exactly?  True iff
+    every live agent's 27-box neighbours sit within ``± half_window`` blocks
+    of its own row, checked from the actual rows (an unsorted pool simply
+    fails and takes the linear path)."""
+    from repro_torch.kernels.cell_force import ops as cf_ops
+
+    bw, h = cf_ops.window_defaults(index.cell_of_agent.shape[0], block, window)
+    return (_window_need(spec, index, bw) <= h).all()
+
+
+def covering_half_window(spec: GridSpec, index: GridIndex, block: Optional[int] = None
+                         ) -> int:
+    """The least ``half_window`` (in blocks) for which the Morton coverage
+    gate passes on this index."""
+    from repro_torch.kernels.cell_force import ops as cf_ops
+
+    c = index.cell_of_agent.shape[0]
+    bw, _ = cf_ops.window_defaults(c, block, None)
+    return int(_window_need(spec, index, bw).max()) if c else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,12 +148,13 @@ def forces_from_candidates(
     indices into the source arrays (default: the query arrays)."""
     src_pos = position if all_position is None else all_position
     src_rad = radius if all_radius is None else all_radius
-    safe = torch.where(cand_mask, cand, 0).long()
-    npos = src_pos[safe]                                    # (N, K, 3)
-    nrad = src_rad[safe]                                    # (N, K)
-    dx = position[:, None, :] - npos
-    f = pair_force(dx, radius[:, None], nrad, params)
-    f = torch.where(cand_mask[:, :, None], f, 0.0)
+    # Pair forces of the masked-in slots only (most slots are empty), placed
+    # into zeros: the same (N, K, 3) values as masking a full evaluation.
+    rows, cols = cand_mask.nonzero(as_tuple=True)
+    src = cand[rows, cols].long()
+    f = torch.zeros(cand.shape + (3,), dtype=position.dtype, device=position.device)
+    f[rows, cols] = pair_force(position[rows] - src_pos[src], radius[rows], src_rad[src],
+                               params)
     return _tree_sum(f)
 
 
@@ -141,11 +187,19 @@ def mechanical_forces(
     tile: Optional[int] = None,
     tile_order: str = "linear",
     row_mask: Optional[torch.Tensor] = None,
+    morton_block: Optional[int] = None,
+    morton_window: Optional[int] = None,
+    morton_fallback: bool = True,
 ) -> torch.Tensor:
     """Net mechanical force per agent, (C, 3).
 
-    ``impl``: "reference" (dense candidates) or "fused" (the cell-list
-    kernel).  ``fused_fallback``: when a cell overflowed ``max_per_cell``
+    ``impl``: "reference" (dense candidates), "cuda" (the pairwise_force
+    kernel over the dense candidates) or "fused" (the cell-list kernel).
+    ``tile_order="morton"`` (fused only): the Morton-window kernel with
+    ``morton_block`` / ``morton_window`` (see ``window_defaults``), guarded
+    by the coverage gate — a failed gate, or an overflowed cell, takes the
+    linear kernel — unless ``morton_fallback=False``.
+    ``fused_fallback``: when a cell overflowed ``max_per_cell``
     the fused path re-evaluates through the dense candidates (the cell list
     dropped agents).  ``active_capacity``: §5.5 work compaction — only
     ``alive & ~static`` agents are evaluated, through an ``(A, 27M)``
@@ -175,18 +229,41 @@ def mechanical_forces(
         return forces_from_candidates(pool.position, radius, cand, mask, params,
                                       all_position=src_pos, all_radius=src_rad)
 
-    def dense() -> torch.Tensor:
-        if impl == "reference":
-            return dense_eval(cache=True)
-        if fused_fallback and bool(index.overflowed):
-            return dense_eval(cache=False)
+    def fused() -> torch.Tensor:
         from repro_torch.kernels.cell_force import ops as cf_ops
 
+        if tile_order == "morton":
+            ok = True
+            if morton_fallback:
+                ok = bool(_morton_window_ok(spec, index, morton_block, morton_window)
+                          & ~index.overflowed)
+            if ok:
+                return cf_ops.cell_window_force(
+                    pool.position, radius, index.cell_of_agent, spec.dims,
+                    k=params.repulsion_k, gamma=params.attraction_gamma,
+                    block=morton_block, window=morton_window, impl="cuda",
+                )
         return cf_ops.cell_list_force(
             src_pos, src_rad, index.cell_list, spec.dims,
             k=params.repulsion_k, gamma=params.attraction_gamma,
             impl="cuda", num_out=c,
         )
+
+    def dense() -> torch.Tensor:
+        if impl == "reference":
+            return dense_eval(cache=True)
+        if impl == "cuda":
+            from repro_torch.kernels.pairwise_force import ops as pf_ops
+
+            cand, mask = neighbors.candidates()
+            return pf_ops.pairwise_force(
+                pool.position, radius, cand, mask,
+                k=params.repulsion_k, gamma=params.attraction_gamma, impl="cuda",
+                all_position=src_pos, all_radius=src_rad,
+            )
+        if fused_fallback and bool(index.overflowed):
+            return dense_eval(cache=False)
+        return fused()
 
     if active_capacity is None:
         return torch.where(out_mask[:, None], dense(), 0.0)

@@ -310,6 +310,9 @@ def force_pass(config, ctx: OpContext, state, *, row_mask=None) -> torch.Tensor:
         tile=config.force_tile,
         tile_order=config.tile_order,
         row_mask=row_mask,
+        morton_block=config.morton_block,
+        morton_window=config.morton_window,
+        morton_fallback=config.morton_window_fallback,
     )
 
 

@@ -38,6 +38,8 @@ NVCC_FLAGS = (
 SOURCES = {
     "cell_rank": _PKG / "cell_rank" / "csrc" / "cell_rank.cu",
     "cell_list_force": _PKG / "cell_force" / "csrc" / "cell_list_force.cu",
+    "cell_window_force": _PKG / "cell_force" / "csrc" / "cell_window_force.cu",
+    "pairwise_force": _PKG / "pairwise_force" / "csrc" / "pairwise_force.cu",
     "diffusion3d": _PKG / "diffusion3d" / "csrc" / "diffusion3d.cu",
 }
 

@@ -1,8 +1,11 @@
-"""ctypes wrapper of ``csrc/cell_list_force.cu`` (replaces the Pallas
-``cell_list_force_planar``; the design note is in the source).
+"""ctypes wrappers of ``csrc/cell_list_force.cu`` and
+``csrc/cell_window_force.cu`` (they replace the Pallas
+``cell_list_force_planar`` and ``cell_window_force_planar``; the design
+notes are in the sources).
 
-Agent order in, agent order out: no planar cell-major layout is built.
-``launches`` counts the wrapper's kernel launches.
+Agent order in, agent order out: no planar layout is built.  ``launches``
+counts ``cell_list_force_cuda``'s kernel launches and ``window_launches``
+``cell_window_force_cuda``'s (one per call each).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 from .. import _build
 
 launches = 0
+window_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -25,6 +29,17 @@ def _lib():
             _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
         ]
         lib.cell_list_force_launch.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _window_lib():
+    lib = _build.load("cell_window_force")
+    if not getattr(lib, "_typed", False):
+        lib.cell_window_force_launch.argtypes = [
+            _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
+        ]
+        lib.cell_window_force_launch.restype = _I
         lib._typed = True
     return lib
 
@@ -71,4 +86,52 @@ def cell_list_force_cuda(
         "cell_list_force",
     )
     launches += 1
+    return out
+
+
+def cell_window_force_cuda(
+    position: torch.Tensor,       # (C, 3) f32
+    radius: torch.Tensor,         # (C,) f32
+    cell_of_agent: torch.Tensor,  # (C,) int32 (≥ n_cells: dead)
+    dims: tuple,
+    k: float = 2.0,
+    gamma: float = 1.0,
+    block: int = 128,
+    half_window: int = 8,
+) -> torch.Tensor:
+    """Net Eq-4.1 force per agent, ``(C, 3)`` f32: each query tile of
+    ``block`` rows against the rows of window blocks ``tile ± half_window``
+    (those that exist), pairs masked by 27-box adjacency, liveness and row
+    identity.  Dead rows are zero."""
+    global window_launches
+    nx, ny, nz = (int(d) for d in dims)
+    c = position.shape[0]
+    if position.shape != (c, 3) or radius.shape != (c,) or cell_of_agent.shape != (c,):
+        raise ValueError(f"cell_window_force: position {tuple(position.shape)} / radius "
+                         f"{tuple(radius.shape)} / cell_of_agent "
+                         f"{tuple(cell_of_agent.shape)} must be (C, 3) / (C,) / (C,)")
+    if position.dtype != torch.float32 or radius.dtype != torch.float32:
+        raise ValueError("cell_window_force: position and radius must be float32")
+    if cell_of_agent.dtype != torch.int32:
+        raise ValueError("cell_window_force: cell_of_agent must be int32")
+    if not (0 < block <= 1024 and block & (block - 1) == 0) or half_window < 0:
+        raise ValueError(f"cell_window_force: block {block} must be a power of two "
+                         f"in [1, 1024] and half_window {half_window} >= 0")
+    _build.require_cuda("cell_window_force", position, radius, cell_of_agent)
+    out = torch.zeros((c, 3), dtype=torch.float32, device=position.device)
+    if c == 0:
+        return out
+    nbw = -(-c // block)
+    # Per-block bounding boxes of the live cell coordinates (scratch).
+    bbox = torch.empty((nbw, 6), dtype=torch.int32, device=position.device)
+    lib = _window_lib()
+    _build.check(
+        lib.cell_window_force_launch(
+            position.device.index, _build.ptr(position), _build.ptr(radius),
+            _build.ptr(cell_of_agent), nx, ny, nz, c, block, half_window, float(k),
+            float(gamma), _build.ptr(bbox), _build.ptr(out), _build.stream_of(position),
+        ),
+        "cell_window_force",
+    )
+    window_launches += 1
     return out

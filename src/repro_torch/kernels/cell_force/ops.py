@@ -1,4 +1,7 @@
-"""Dispatch for the fused cell-list force (Eq 4.1 straight from the cell list).
+"""Dispatch for the two fused force kernels (Eq 4.1 without the dense
+candidate tensor): ``cell_list_force`` straight from the cell list, and
+``cell_window_force`` over Morton windows of the layout-sorted pool
+(``tile_order="morton"``).
 
 Semantics match the dense candidate path when no cell overflowed: the pair
 set is "all agents in the 27-box neighborhood, minus self".  Agents dropped
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import kernel as _kernel
-from .ref import cell_list_force_ref
+from .ref import cell_list_force_ref, cell_window_force_ref
 
 IMPLS = ("cuda", "reference")
 
@@ -45,9 +48,51 @@ def cell_list_force(
                                gamma=gamma, num_out=num_out)
 
 
-def cell_window_force(*args, **kwargs):
-    """The Morton-window force (``tile_order="morton"``) is not ported yet."""
-    raise NotImplementedError(
-        "cell_window_force (tile_order='morton') is not ported yet: "
-        "ROADMAP queue 2 item 4"
-    )
+def window_defaults(c: int, block: int | None, window: int | None
+                    ) -> tuple[int, int]:
+    """The Morton window geometry ``(block, half_window)`` for a pool of
+    ``c`` rows (the reference's, copied).
+
+    block:  tile/window width (default 128), halved until it is ≤ c.
+    window: half-window in blocks; default ±⌈blocks/8⌉.  A Z-sorted pool's
+            neighbours across the curve's octant seams sit about half a pool
+            apart, so the default does not cover a sorted pool and the
+            coverage gate of ``core.forces`` falls back to the linear kernel;
+            ``core.forces.covering_half_window`` gives the least that covers.
+    """
+    b = 128 if block is None else int(block)
+    while b > 1 and b > c:
+        b //= 2
+    nbw = -(-c // b)
+    h = max(1, -(-nbw // 8)) if window is None else int(window)
+    return b, h
+
+
+def cell_window_force(
+    position: torch.Tensor,       # (C, 3) f32 layout-sorted pool positions
+    radius: torch.Tensor,         # (C,) f32
+    cell_of_agent: torch.Tensor,  # (C,) int32 linear cell id (dead → n_cells)
+    dims: tuple,                  # (nx, ny, nz)
+    k: float = 2.0,
+    gamma: float = 1.0,
+    block: int | None = None,
+    window: int | None = None,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """Net Eq-4.1 force per agent, ``(C, 3)``, via the Morton window: each
+    query tile of ``block`` rows against the rows of ``± half_window``
+    contiguous blocks, pairs masked by 27-box adjacency of their cell ids.
+    Exact iff every agent's neighbourhood lies in its window (the dispatcher
+    checks that per step; ``window ≥ ⌈C/block⌉`` is all-pairs).  Dead rows
+    get zero.  Agent order in and out: no planar copy."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown cell_window_force impl {impl!r}; expected {IMPLS}")
+    bw, h = window_defaults(position.shape[0], block, window)
+    if impl == "cuda" and position.device.type != "cpu":
+        return _kernel.cell_window_force_cuda(
+            position.contiguous(), radius.contiguous(),
+            cell_of_agent.to(torch.int32).contiguous(), dims, k=k, gamma=gamma,
+            block=bw, half_window=h,
+        )
+    return cell_window_force_ref(position, radius, cell_of_agent, dims, k=k, gamma=gamma,
+                                 block=bw, half_window=h)

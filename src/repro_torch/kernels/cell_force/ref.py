@@ -1,11 +1,14 @@
-"""Plain PyTorch version of the fused cell-list force kernel (Eq 4.1).
+"""Plain PyTorch versions of the two cell-force kernels (Eq 4.1).
 
-Port of ``repro/kernels/cell_force/ref.py``: slot-centric like the kernel —
+``cell_list_force_ref`` is the port of ``repro/kernels/cell_force/ref.py``:
+slot-centric like the kernel —
 the queries are the agents listed in the cell list — but computed the
 obvious way, materializing each query cell's 27-box candidate slots and
 summing pair forces.  ``cells=(lo, hi)`` evaluates only query cells
 ``lo..hi-1`` (agents listed elsewhere get zero), so the dense
 ``(cells, M, 27·M)`` pair tensors can be built in pieces at full size.
+``cell_window_force_ref`` is the Morton-window sweep of the Pallas
+``_window_force_kernel``, one query tile at a time.
 """
 
 from __future__ import annotations
@@ -92,3 +95,53 @@ def cell_list_force_ref(
     out = torch.zeros((out_n + 1, 3), dtype=torch.float32, device=dev)
     out.index_put_((slots,), slot_force.reshape(-1, 3), accumulate=True)
     return out[:out_n]
+
+
+def cell_window_force_ref(
+    position: torch.Tensor,       # (C, 3) f32
+    radius: torch.Tensor,         # (C,) f32
+    cell_of_agent: torch.Tensor,  # (C,) int32 linear cell id (≥ n_cells: dead)
+    dims: tuple,                  # (nx, ny, nz)
+    k: float = 2.0,
+    gamma: float = 1.0,
+    block: int = 128,
+    half_window: int = 8,
+    tiles: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """The Morton-window sweep, the plain way: query tile ``i`` (rows
+    ``i·block ..``) against the contiguous rows of window blocks
+    ``i − half_window .. i + half_window`` that exist, pairs masked by decoded
+    27-box adjacency, liveness and row identity.  ``tiles=(lo, hi)``
+    evaluates only query tiles ``lo..hi-1`` (other rows get zero)."""
+    nx, ny, nz = dims
+    n_cells = nx * ny * nz
+    c = position.shape[0]
+    nbw = -(-c // block)
+    lo_t, hi_t = (0, nbw) if tiles is None else (int(tiles[0]), int(tiles[1]))
+    cid = cell_of_agent.to(torch.int32)
+    live = cid < n_cells
+    coords = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], dim=-1)
+    rows = torch.arange(c, device=position.device)
+    out = torch.zeros((c, 3), dtype=torch.float32, device=position.device)
+    for i in range(lo_t, hi_t):
+        q = slice(i * block, min((i + 1) * block, c))
+        w = slice(max(i - half_window, 0) * block, min((i + half_window + 1) * block, c))
+        pair = (
+            ((coords[q, None, :] - coords[None, w, :]).abs() <= 1).all(dim=-1)
+            & live[q, None] & live[None, w]
+            & (rows[q, None] != rows[None, w])
+        )
+        dxc = position[q, None, 0] - position[None, w, 0]
+        dyc = position[q, None, 1] - position[None, w, 1]
+        dzc = position[q, None, 2] - position[None, w, 2]
+        dist = torch.sqrt(dxc * dxc + dyc * dyc + dzc * dzc + 1e-20)
+        qr = radius[q, None]
+        wr = radius[None, w]
+        delta = qr + wr - dist
+        overlap = (delta > 0.0) & pair
+        rbar = qr * wr / torch.clamp(qr + wr, min=1e-20)
+        mag = k * delta - gamma * torch.sqrt(torch.clamp(rbar * delta, min=0.0))
+        scale = torch.where(overlap, mag / dist, 0.0)
+        out[q] = torch.stack([(scale * dxc).sum(1), (scale * dyc).sum(1),
+                              (scale * dzc).sum(1)], dim=-1)
+    return out

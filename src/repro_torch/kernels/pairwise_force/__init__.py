@@ -1,0 +1,2 @@
+"""pairwise_force kernel package."""
+from . import kernel, ops, ref  # noqa: F401

@@ -7,10 +7,12 @@ On the card:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances: ranks exact; forces ``atol=1e-5`` (the plain version sums the
-pairs of a box in another order); diffusion ``rtol=atol=1e-6`` (the kernel
-keeps the plain version's sum order).
+Tolerances: ranks exact; forces ``atol=1e-5`` (the plain versions sum the
+pairs in another order); diffusion ``rtol=atol=1e-6`` (the kernel keeps the
+plain version's sum order).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,15 +22,24 @@ from repro_torch.core import agents, grid
 from repro_torch.kernels import _build
 from repro_torch.kernels.cell_force import kernel as cf_kernel
 from repro_torch.kernels.cell_force import ops as cf_ops
-from repro_torch.kernels.cell_force.ref import cell_list_force_ref
+from repro_torch.kernels.cell_force.ref import cell_list_force_ref, cell_window_force_ref
 from repro_torch.kernels.cell_rank import kernel as cr_kernel
 from repro_torch.kernels.cell_rank import ops as cr_ops
 from repro_torch.kernels.cell_rank.ref import cell_rank_ref
 from repro_torch.kernels.diffusion3d import kernel as d3_kernel
 from repro_torch.kernels.diffusion3d import ops as d3_ops
 from repro_torch.kernels.diffusion3d.ref import diffusion_step_ref
+from repro_torch.kernels.pairwise_force import kernel as pf_kernel
+from repro_torch.kernels.pairwise_force import ops as pf_ops
+from repro_torch.kernels.pairwise_force.ref import pairwise_force_ref
 
 CPU = torch.device("cpu")
+
+# One intra-op thread, as tests/torch_parity.py sets for the other port
+# tests: with several, the first torch.sqrt of a process on the CPU has been
+# seen to return values up to 2.5e-4 off (torch 2.13, AVX512), which made
+# the plain-version comparisons below flaky.
+torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -134,6 +145,84 @@ def test_cell_list_force_kernel_matches_plain(card, case):
     np.testing.assert_array_equal(part.cpu().numpy(), got.cpu().numpy()[: cap // 2])
 
 
+# ---------------------------------------------------------- cell_window_force
+
+# (force case, layout-sorted, block, half_window): C = n + 7 is never a
+# multiple of the block, every case has dead rows; windows clipped at both
+# ends of the pool, narrow, and all-pairs.
+WINDOW_CASES = {
+    "allpairs_unsorted": ("generic", False, 64, 20),
+    "sorted_narrow": ("generic", True, 32, 2),
+    "sorted_clipped_both_ends": ("noncubic_8x1x4", True, 32, 1),
+    "sorted_block_128": ("overflowed", True, 128, 1),
+    "tiny_block": ("near_empty", False, 4, 1),
+}
+
+
+def _window_inputs(name):
+    case, is_sorted, block, window = WINDOW_CASES[name]
+    pos, rad, index, spec, cap = _force_inputs(case)
+    if is_sorted:
+        pool = agents.make_pool(cap, pos, diameter=2.0 * rad, device=CPU)
+        pool = pool.replace(alive=index.cell_of_agent < spec.n_cells)
+        pool = grid.sort_agents(spec, pool)
+        index = grid.build_index(spec, pool, assume_sorted=True)
+        pos, rad = pool.position, pool.radius()
+    return pos, rad, index, spec, block, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+def test_cell_window_force_kernel_matches_plain(card, name):
+    pos, rad, index, spec, block, window = _window_inputs(name)
+    cid = index.cell_of_agent
+    want = cell_window_force_ref(pos, rad, cid, spec.dims, block=block, half_window=window)
+    before = cf_kernel.window_launches
+    got = cf_ops.cell_window_force(pos.to(card), rad.to(card), cid.to(card), spec.dims,
+                                   block=block, window=window, impl="cuda")
+    torch.cuda.synchronize()
+    assert cf_kernel.window_launches == before + 1
+    assert pos.shape[0] % block != 0
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    dead = (cid >= spec.n_cells).numpy()
+    assert dead.any() and not got.cpu().numpy()[dead].any()
+    if name == "allpairs_unsorted":
+        # All pairs: the 27-box sum, a second witness.
+        linear = cell_list_force_ref(pos, rad, index.cell_list, spec.dims)
+        np.testing.assert_allclose(got.cpu().numpy(), linear.numpy(), atol=1e-5)
+    if name != "tiny_block":
+        assert float(want.abs().max()) > 0.1
+
+
+# ------------------------------------------------------------- pairwise_force
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["generic", "overflowed", "near_empty"])
+def test_pairwise_force_kernel_matches_plain(card, case):
+    pos, rad, index, spec, cap = _force_inputs(case)
+    alive = index.cell_of_agent < spec.n_cells
+    cand, mask = grid.candidate_neighbors_arrays(spec, index, pos, alive)
+    # K not a multiple of 32, and some rows with every slot masked out.
+    cand, mask = cand[:, :45].contiguous(), mask[:, :45].clone()
+    mask[::3] = False
+    want = pairwise_force_ref(pos, rad, cand, mask)
+    before = pf_kernel.launches
+    got = pf_ops.pairwise_force(pos.to(card), rad.to(card), cand.to(card), mask.to(card),
+                                impl="cuda")
+    torch.cuda.synchronize()
+    assert pf_kernel.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    assert not got.cpu().numpy()[::3].any()
+    # Sources longer than the queries.
+    q = cap // 2
+    want = pairwise_force_ref(pos[:q], rad[:q], cand[:q], mask[:q],
+                              all_position=pos, all_radius=rad)
+    got = pf_ops.pairwise_force(pos[:q].to(card), rad[:q].to(card), cand[:q].to(card),
+                                mask[:q].to(card), impl="cuda",
+                                all_position=pos.to(card), all_radius=rad.to(card))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
 # ----------------------------------------------------------------- diffusion
 
 @pytest.mark.cuda
@@ -190,6 +279,35 @@ def test_slice_on_card_matches_cpu(card):
                                    cpu.grids[name].concentration.numpy(), rtol=1e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["morton", "dense"])
+def test_spheroid_on_card_matches_cpu(card, variant):
+    """The tumor-spheroid model (births, deaths, threefry draws) 8 steps on
+    the card against the CPU run: decisions exact, positions atol 1e-4."""
+    import torch_usecases as U
+
+    pos, diam, age = U.spheroid_start(300, 200.0, seed=0, lattice=20.0)
+    kw = (dict(impl="fused", tile_order="morton", morton_window=7) if variant == "morton"
+          else dict(impl="cuda"))
+    finals = {}
+    counts = (cf_kernel.window_launches, pf_kernel.launches)
+    for dev in ("cuda", "cpu"):
+        built = U.spheroid(pos, diam, space=200.0, capacity=1024, device=dev,
+                           sort_frequency=1, rank_impl="cuda", **kw).build()
+        ages = torch.zeros(1024, device=built.state.pool.device)
+        ages[:300] = torch.from_numpy(age)
+        state = dataclasses.replace(built.state, pool=built.state.pool.replace(age=ages))
+        finals[dev], _ = built.run(8, state=state)
+    torch.cuda.synchronize()
+    launched = (cf_kernel.window_launches - counts[0], pf_kernel.launches - counts[1])
+    assert launched == ((8, 0) if variant == "morton" else (0, 8))
+    gpu, cpu = finals["cuda"].pool, finals["cpu"].pool
+    for f in ("alive", "kind", "overflow"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    np.testing.assert_allclose(gpu.position.cpu().numpy(), cpu.position.numpy(), atol=1e-4)
+    assert int(cpu.alive.sum()) != 300
+
+
 # ------------------------------------------- wrappers (run without a card)
 
 def test_wrappers_refuse_cpu_tensors_and_bad_inputs():
@@ -206,13 +324,29 @@ def test_wrappers_refuse_cpu_tensors_and_bad_inputs():
     with pytest.raises(ValueError, match="rows"):
         cf_kernel.cell_list_force_cuda(pos, rad, index.cell_list, (1, 1, 1))
     with pytest.raises(ValueError, match="CUDA"):
+        cf_kernel.cell_window_force_cuda(pos, rad, index.cell_of_agent, spec.dims, block=4)
+    with pytest.raises(ValueError, match="power of two"):
+        cf_kernel.cell_window_force_cuda(pos, rad, index.cell_of_agent, spec.dims, block=6)
+    with pytest.raises(ValueError, match="int32"):
+        cf_kernel.cell_window_force_cuda(pos, rad, index.cell_of_agent.long(), spec.dims)
+    cand = torch.zeros((pos.shape[0], 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pf_kernel.pairwise_force_cuda(pos, rad, cand, cand > 0)
+    with pytest.raises(ValueError, match="bool"):
+        pf_kernel.pairwise_force_cuda(pos, rad, cand, cand)
+    with pytest.raises(ValueError, match="S >= N"):
+        pf_kernel.pairwise_force_cuda(pos, rad, cand, cand > 0, all_position=pos[:1],
+                                      all_radius=rad[:1])
+    with pytest.raises(ValueError, match="CUDA"):
         d3_kernel.diffusion_step_cuda(torch.zeros((2, 2, 2)), 0.1, 0.0)
     with pytest.raises(ValueError, match="float32"):
         d3_kernel.diffusion_step_cuda(torch.zeros((2, 2, 2), dtype=torch.float64), 0.1, 0.0)
 
 
 def test_kernel_impls_on_cpu_tensors_take_the_plain_versions():
-    counts = [m.launches for m in (cr_kernel, cf_kernel, d3_kernel)]
+    counters = lambda: [m.launches for m in (cr_kernel, cf_kernel, d3_kernel, pf_kernel)] + [
+        cf_kernel.window_launches]
+    counts = counters()
     cid, n_cells = _cid_case("random")
     np.testing.assert_array_equal(cr_ops.cell_rank(cid, n_cells, impl="cuda").numpy(),
                                   cell_rank_ref(cid).numpy())
@@ -223,7 +357,16 @@ def test_kernel_impls_on_cpu_tensors_take_the_plain_versions():
     u = torch.rand((5, 6, 7), generator=torch.Generator().manual_seed(0))
     np.testing.assert_array_equal(d3_ops.diffusion_step(u, 0.1, 0.01, impl="cuda").numpy(),
                                   diffusion_step_ref(u, 0.1, 0.01).numpy())
-    assert counts == [m.launches for m in (cr_kernel, cf_kernel, d3_kernel)]
+    cid = index.cell_of_agent
+    np.testing.assert_array_equal(
+        cf_ops.cell_window_force(pos, rad, cid, spec.dims, block=32, window=3,
+                                 impl="cuda").numpy(),
+        cell_window_force_ref(pos, rad, cid, spec.dims, block=32, half_window=3).numpy())
+    cand, mask = grid.candidate_neighbors_arrays(spec, index, pos, cid < spec.n_cells)
+    np.testing.assert_array_equal(
+        pf_ops.pairwise_force(pos, rad, cand, mask, impl="cuda").numpy(),
+        pairwise_force_ref(pos, rad, cand, mask).numpy())
+    assert counts == counters()
 
 
 def test_build_recipe():

@@ -2,7 +2,9 @@
 
 Forces agree to ``atol=1e-5`` — the port sums pairs in another order, and
 the reference holds its own Pallas kernel to its plain version at the same
-tolerance (tests/test_cell_force.py:56).  Static flags are exact.
+tolerance (tests/test_cell_force.py:56).  Static flags and the Morton
+coverage gate are exact, and a failed gate gives the linear fused result
+bit for bit.
 """
 
 import functools
@@ -16,10 +18,12 @@ from repro.core import agents as j_agents
 from repro.core import forces as j_forces
 from repro.core import grid as j_grid
 from repro.kernels.cell_force import ops as j_cf
+from repro.kernels.pairwise_force import ops as j_pf
 from repro_torch.core import agents as t_agents
 from repro_torch.core import forces as t_forces
 from repro_torch.core import grid as t_grid
 from repro_torch.kernels.cell_force import ops as t_cf
+from repro_torch.kernels.pairwise_force import ops as t_pf
 from torch_parity import CPU, to_np
 
 ATOL = 1e-5
@@ -220,3 +224,133 @@ def test_static_flags_match_jax(case):
     want = j_forces.update_static_flags(jpool, jnp.asarray(disp), jc, jm, params[0])
     got = t_forces.update_static_flags(tpool, torch.from_numpy(disp), tc, tm, params[1])
     np.testing.assert_array_equal(to_np(got.static), to_np(want.static))
+
+
+# --------------------------------------------------- Morton window (sorted)
+
+@functools.lru_cache(maxsize=None)
+def _sorted_setup(case):
+    """``case``'s pool in both packages after the layout sort, with the grid
+    rebuilt over the sorted pool (as env_build does at sort_frequency=1)."""
+    jspec, jpool, _, tspec, tpool, _ = _setup(case)
+    jpool, tpool = j_grid.sort_agents(jspec, jpool), t_grid.sort_agents(tspec, tpool)
+    np.testing.assert_array_equal(to_np(tpool.position), to_np(jpool.position))
+    return (jspec, jpool, j_grid.build_index(jspec, jpool),
+            tspec, tpool, t_grid.build_index(tspec, tpool, assume_sorted=True))
+
+
+# (case, sorted, block, window): an all-pairs window over an unsorted pool
+# (exact for any layout), and narrow windows over the sorted pool, one of
+# them clipped at both ends of the pool.
+WINDOW_CASES = {
+    "allpairs_unsorted": ("generic", False, 16, 5),
+    "sorted_narrow": ("generic", True, 16, 2),
+    "sorted_clipped_both_ends": ("noncubic_8x1x4", True, 32, 1),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_window_force(name):
+    case, is_sorted, block, window = WINDOW_CASES[name]
+    jspec, jpool, jidx, *_ = (_sorted_setup if is_sorted else _setup)(case)
+    return to_np(j_cf.cell_window_force(jpool.position, jpool.radius(), jidx.cell_of_agent,
+                                        jspec.dims, block=block, window=window))
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+@pytest.mark.parametrize("impl", ["reference", "cuda"])
+def test_cell_window_force_matches_jax_kernel(name, impl):
+    case, is_sorted, block, window = WINDOW_CASES[name]
+    *_, tspec, tpool, tidx = (_sorted_setup if is_sorted else _setup)(case)
+    want = _jax_window_force(name)
+    got = t_cf.cell_window_force(tpool.position, tpool.radius(), tidx.cell_of_agent,
+                                 tspec.dims, block=block, window=window, impl=impl)
+    np.testing.assert_allclose(to_np(got), want, atol=ATOL)
+    assert np.abs(want).max() > 0.1
+    if name == "allpairs_unsorted":
+        # All pairs: the 27-box sum, the same function as the cell-list kernel.
+        linear = t_cf.cell_list_force(tpool.position, tpool.radius(), tidx.cell_list,
+                                      tspec.dims, impl="reference")
+        np.testing.assert_allclose(to_np(got), to_np(linear), atol=ATOL)
+
+
+def test_window_defaults_match_jax():
+    for c in (0, 1, 5, 100, 128, 129, 4096, 131072):
+        for block, window in ((None, None), (32, None), (None, 3), (1000, 2)):
+            assert t_cf.window_defaults(c, block, window) == \
+                j_cf.window_defaults(c, block, window), (c, block, window)
+
+
+@pytest.mark.parametrize("case", ["generic", "noncubic_8x1x4", "overflowed"])
+@pytest.mark.parametrize("is_sorted", [False, True])
+def test_morton_window_ok_matches_jax(case, is_sorted):
+    jspec, _, jidx, tspec, _, tidx = (_sorted_setup if is_sorted else _setup)(case)
+    cover = t_forces.covering_half_window(tspec, tidx, 16)
+    verdicts = []
+    for block, window in ((16, 0), (16, 1), (16, cover - 1), (16, cover), (None, None),
+                          (8, 3), (64, 1)):
+        want = bool(j_forces._morton_window_ok(jspec, jidx, block, window))
+        assert bool(t_forces._morton_window_ok(tspec, tidx, block, window)) == want
+        verdicts.append(want)
+    assert verdicts[2:4] == [cover == 0, True]     # the least covering window
+
+
+MORTON_CASES = {"sorted": "generic", "overflowed": "overflowed"}
+
+
+@pytest.mark.parametrize("case", sorted(MORTON_CASES))
+def test_morton_dispatch_matches_jax(case):
+    """Covering window: the window kernel, against JAX's morton dispatch.
+    Narrow window: the gate fails and the result is the linear fused one,
+    bit for bit.  An overflowed grid takes the dense fallback in both."""
+    jspec, jpool, jidx, tspec, tpool, tidx = _sorted_setup(MORTON_CASES[case])
+    cover = t_forces.covering_half_window(tspec, tidx, 16)
+    params = (j_forces.ForceParams(), t_forces.ForceParams())
+    linear = t_forces.mechanical_forces(tspec, tidx, tpool, params[1], impl="fused")
+    for window in (cover, max(cover - 1, 0)):
+        want = j_forces.mechanical_forces(jspec, jidx, jpool, params[0], impl="fused",
+                                          tile_order="morton", morton_block=16,
+                                          morton_window=window)
+        got = t_forces.mechanical_forces(tspec, tidx, tpool, params[1], impl="fused",
+                                         tile_order="morton", morton_block=16,
+                                         morton_window=window)
+        np.testing.assert_allclose(to_np(got), to_np(want), atol=ATOL)
+        window_ran = window == cover and case == "sorted"
+        gate = bool(t_forces._morton_window_ok(tspec, tidx, 16, window)
+                    & ~tidx.overflowed)
+        assert gate == window_ran
+        if not window_ran:
+            np.testing.assert_array_equal(to_np(got), to_np(linear))
+    assert cover > 1
+
+
+# ------------------------------------------------- dense pairwise kernel
+
+@pytest.mark.parametrize("case", ["m_plain", "m_overflowed"])
+@pytest.mark.parametrize("impl", ["reference", "cuda"])
+def test_pairwise_force_matches_jax_kernel(case, impl):
+    jspec, jpool, jidx, tspec, tpool, tidx = _setup(case)
+    jc, jm = j_grid.candidate_neighbors(jspec, jidx, jpool)
+    tcand, tm = t_grid.candidate_neighbors(tspec, tidx, tpool)
+    want = to_np(j_pf.pairwise_force(jpool.position, jpool.radius(), jc, jm, impl="pallas"))
+    got = t_pf.pairwise_force(tpool.position, tpool.radius(), tcand, tm, impl=impl)
+    np.testing.assert_allclose(to_np(got), want, atol=ATOL)
+    assert np.abs(want).max() > 0.1
+    # Sources longer than the queries: the first 30 agents as queries.
+    want = to_np(j_pf.pairwise_force(
+        jpool.position[:30], jpool.radius()[:30], jc[:30], jm[:30], impl="pallas",
+        all_position=jpool.position, all_radius=jpool.radius()))
+    got = t_pf.pairwise_force(tpool.position[:30], tpool.radius()[:30], tcand[:30],
+                              tm[:30], impl=impl, all_position=tpool.position,
+                              all_radius=tpool.radius())
+    np.testing.assert_allclose(to_np(got), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["plain", "overflowed"])
+@pytest.mark.parametrize("active_capacity", [None, 16, 80])
+def test_mechanical_forces_cuda_matches_jax_pallas(case, active_capacity):
+    *_, tspec, tpool, tidx = _setup("m_" + case)
+    want = _jax_mechanical("m_" + case, "pallas", active_capacity)
+    got = t_forces.mechanical_forces(tspec, tidx, tpool, t_forces.ForceParams(),
+                                     active_capacity=active_capacity, impl="cuda")
+    np.testing.assert_allclose(to_np(got), want, atol=ATOL)

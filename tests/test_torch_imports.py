@@ -37,7 +37,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.core, repro_torch.convert\n"
         "from repro_torch import Simulation\n"
         "import repro_torch.kernels.cell_rank, repro_torch.kernels.cell_force\n"
-        "import repro_torch.kernels.diffusion3d\n"
+        "import repro_torch.kernels.diffusion3d, repro_torch.kernels.pairwise_force\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -66,6 +66,7 @@ def _unknown_impl_calls():
     from repro_torch.kernels.cell_force import ops as cf_ops
     from repro_torch.kernels.cell_rank import ops as cr_ops
     from repro_torch.kernels.diffusion3d import ops as d3_ops
+    from repro_torch.kernels.pairwise_force import ops as pf_ops
 
     spec = spec_for_space(0.0, 10.0, 5.0)
     u = torch.zeros((2, 2, 2))
@@ -84,7 +85,14 @@ def _unknown_impl_calls():
         "tile_order": lambda: EngineConfig(spec=spec, tile_order="hilbert"),
         "boundary": lambda: EngineConfig(spec=spec, boundary="wrap"),
         "mechanical_forces": lambda: mechanical_forces(
-            spec, None, None, ForceParams(), impl="cuda"),
+            spec, None, None, ForceParams(), impl="pallas"),
+        "cell_window_force": lambda: cf_ops.cell_window_force(
+            pos, torch.ones(1), torch.zeros(1, dtype=torch.int32), (1, 1, 1),
+            impl="pallas"),
+        "pairwise_force": lambda: pf_ops.pairwise_force(
+            pos, torch.ones(1), torch.zeros((1, 2), dtype=torch.int32),
+            torch.zeros((1, 2), dtype=torch.bool), impl="pallas"),
+        "force_impl_pallas": lambda: EngineConfig(spec=spec, force_impl="pallas"),
     }
 
 
@@ -94,22 +102,34 @@ def test_unknown_impl_raises(what):
         _unknown_impl_calls()[what]()
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(force_impl="pallas"), "queue 2 item 5"),
-    (dict(force_impl="fused", tile_order="morton"), "queue 2 item 4"),
-])
-def test_unported_paths_name_their_roadmap_item(kw, item):
-    from repro_torch.core import EngineConfig, spec_for_space
+# Ported in slice 2: the dense pairwise_force kernel (the reference's
+# force_impl="pallas") and the Morton-window path now run.
+@pytest.mark.parametrize("kw", [
+    dict(impl="cuda"),
+    dict(impl="fused", tile_order="morton", morton_window=4),
+], ids=["force_impl_cuda", "tile_order_morton"])
+def test_ported_force_paths_run(kw):
+    import numpy as np
 
-    with pytest.raises(NotImplementedError, match=item):
-        EngineConfig(spec=spec_for_space(0.0, 10.0, 5.0), **kw)
+    from repro_torch import Simulation
+    from repro_torch.core import ForceParams
+
+    pos = np.random.default_rng(0).uniform(20, 30, (40, 3)).astype(np.float32)
+    sim = (Simulation(space=50.0, cell_size=5.0, sort_frequency=1, device="cpu")
+           .add_agents(position=pos, diameter=4.0)
+           .mechanics(ForceParams(), **kw))
+    built = sim.build()
+    assert built.config.force_impl == kw["impl"]
+    assert built.config.tile_order == kw.get("tile_order", "linear")
+    final, _ = built.run(2)
+    moved = (final.pool.position - built.state.pool.position).abs().amax(dim=1)
+    assert bool((moved > 0).any()) and bool(torch.isfinite(final.pool.position).all())
 
 
 def test_unported_facade_entry_points_raise():
     import numpy as np
 
     from repro_torch import Simulation
-    from repro_torch.kernels.cell_force import ops as cf_ops
 
     sim = Simulation(space=10.0, device="cpu").add_agents(
         position=np.full((2, 3), 5.0, np.float32))
@@ -119,7 +139,8 @@ def test_unported_facade_entry_points_raise():
         (lambda: sim.resume("ckpt"), "item 12"),
         (lambda: sim.distribute(None, None), "item 14"),
         (lambda: built.run(2, checkpoint_dir="ckpt"), "item 12"),
-        (lambda: cf_ops.cell_window_force(), "queue 2 item 4"),
+        (lambda: built.run_batch(2), "item 13"),
+        (lambda: built.resume("ckpt"), "item 12"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             call()
