@@ -9,7 +9,7 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, each
 printing one JSON line; any failure raises and exits non-zero:
 
   device          the card's name, capability, power limit.
-  build           the five CUDA kernels compiled from ``kernels/*/csrc/*.cu``
+  build           the seven CUDA kernels compiled from ``kernels/*/csrc/*.cu``
                   (one nvcc each, all started together); build time and the
                   ptxas register / shared-memory report.
   small           the soma-clustering model at the quickstart's smoke size
@@ -38,12 +38,32 @@ printing one JSON line; any failure raises and exits non-zero:
                   the kernel, the plain version and, where one exists, a single
                   PyTorch call that computes the same function; the bound from
                   this run's inputs.
+  lm_small        path 3 at a small size: reduced phi4-mini (f32, 2 layers,
+                  head_dim 16), weights from one CPU generator, the prefill
+                  step with the flash kernel and 8 decode steps on the card
+                  against the CPU: logits atol 1e-4.
+  lm_prefill      path 3: phi4-mini-3.8b at full width and depth (32 layers,
+                  d 3072, vocab 200,064, bf16), ``make_prefill_step`` over 4
+                  prompts of 2,048 tokens: flash_attention 32 and rmsnorm 65
+                  launches a call; median of 3 timed calls after a warm-up.
+  lm_serve        the port's ``launch/serve.py`` main loop at full width:
+                  batch 4, 128 prompt tokens fed through ``decode_step``, 64
+                  greedy tokens (rmsnorm 65 launches a step); then the prompt's
+                  last logits against the prefill step (flash kernel) on the
+                  same prompts: relative L2 <= 0.05, top-1 equal wherever the
+                  prefill's top-1 margin exceeds twice the largest difference.
+  kernels (LM)    flash_attention and rmsnorm on the inputs of the first call
+                  of each in lm_prefill, against their plain versions (one
+                  bf16 ulp), timed beside the plain versions and
+                  ``scaled_dot_product_attention`` / ``rms_norm``; then the
+                  flash kernel's mask variants at small shapes.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; the ``kernels`` line gives each kernel's count from the path
 it belongs to.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+Then a ``wall`` line (seconds of the build and of each path with its
+checks), one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -55,6 +75,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +100,14 @@ SPH_CAPACITY = 131_072
 SPH_STEPS = 20
 SPH_DENSE_STEPS = 4
 SPH_BLOCK = 128
+
+# The LM serving path: phi4-mini-3.8b at its published widths and depth.
+LM_ARCH = "phi4-mini-3.8b"
+LM_BATCH = 4
+LM_PREFILL_LEN = 2048
+LM_SERVE_PROMPT = 128
+LM_SERVE_GEN = 64
+BF16_TENSOR_OPS_PER_S = 989e12   # dense bf16 tensor-core rate
 
 
 def emit(phase: str, **fields) -> None:
@@ -113,11 +142,14 @@ def kernel_counters():
     from repro_torch.kernels.cell_force import kernel as cf_k
     from repro_torch.kernels.cell_rank import kernel as cr_k
     from repro_torch.kernels.diffusion3d import kernel as d3_k
+    from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.pairwise_force import kernel as pf_k
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
 
     return {"cell_rank": (cr_k, "launches"), "cell_list_force": (cf_k, "launches"),
             "cell_window_force": (cf_k, "window_launches"),
-            "pairwise_force": (pf_k, "launches"), "diffusion3d": (d3_k, "launches")}
+            "pairwise_force": (pf_k, "launches"), "diffusion3d": (d3_k, "launches"),
+            "flash_attention": (fa_k, "launches"), "rmsnorm": (rms_k, "launches")}
 
 
 def reset_counts() -> None:
@@ -250,7 +282,7 @@ def phase_slice():
     if tuple(kinds.shape) != (4, 2) or int(kinds[-1].sum()) != alive0:
         raise AssertionError(f"slice: kind counts {kinds.tolist()}")
     want = {"cell_rank": STEPS + 2, "cell_list_force": STEPS, "diffusion3d": 2 * STEPS,
-            "cell_window_force": 0, "pairwise_force": 0}
+            "cell_window_force": 0, "pairwise_force": 0, "flash_attention": 0, "rmsnorm": 0}
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"slice: {name} launched {launches[name]} times, want {n}")
@@ -457,7 +489,7 @@ def phase_spheroid():
                              f"(launches {[per_step[i] for i in fell_back]}); widen the "
                              f"window margin")
     want = {"cell_rank": SPH_STEPS, "cell_window_force": SPH_STEPS, "cell_list_force": 0,
-            "pairwise_force": 0, "diffusion3d": 0}
+            "pairwise_force": 0, "diffusion3d": 0, "flash_attention": 0, "rmsnorm": 0}
     if stats["launches"] != want:
         raise AssertionError(f"spheroid: launches {stats['launches']}, want {want}")
     if not stats["births"] > 0 or not stats["deaths"] > 0:
@@ -471,7 +503,8 @@ def phase_spheroid():
 
     _, _, _, dstats = run_spheroid(dense, state, SPH_DENSE_STEPS, "spheroid_dense")
     want = {"cell_rank": SPH_DENSE_STEPS, "pairwise_force": SPH_DENSE_STEPS,
-            "cell_window_force": 0, "cell_list_force": 0, "diffusion3d": 0}
+            "cell_window_force": 0, "cell_list_force": 0, "diffusion3d": 0,
+            "flash_attention": 0, "rmsnorm": 0}
     if dstats["launches"] != want:
         raise AssertionError(f"spheroid_dense: launches {dstats['launches']}, want {want}")
     emit("spheroid_dense", **dstats)
@@ -743,13 +776,326 @@ def spheroid_kernel_rows(built, final, window, launches, dense_launches):
     return rows
 
 
-def bound(n_bytes: int, n_ops: int) -> dict:
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=n_bytes, ops=n_ops)
 
+
+# ------------------------------------------------------------------------ LM
+
+def lm_model(reduced: bool):
+    """phi4-mini with the flash kernel for prefill attention."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import build_model
+
+    cfg = reduced_config(LM_ARCH) if reduced else get_config(LM_ARCH)
+    return build_model(dataclasses.replace(cfg, attention_impl="cuda"))
+
+
+def lm_tokens(batch, length, vocab, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, length)).astype(np.int32))
+
+
+def phase_lm_small():
+    """Reduced phi4-mini (f32) on the card against the CPU: one set of
+    weights from a CPU generator, the prefill step (flash kernel) on 40-token
+    prompts and 8 decode steps over the prompts' first 8 tokens."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    model = lm_model(reduced=True)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = lm_tokens(2, 40, model.cfg.vocab_size, 0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        if dev == "cuda":
+            reset_counts()
+        pre = make_prefill_step(model)(p, {"tokens": toks.to(dev)})
+        cache = model.init_cache(2, 48, dev)
+        step = make_decode_step(model)
+        dec = []
+        for i in range(8):
+            lg, cache = step(p, cache, toks[:, i:i + 1].to(dev), i)
+            dec.append(lg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts()
+        out[dev] = (pre.cpu(), torch.cat(dec, 1).cpu())
+    n = model.cfg.n_layers
+    want = {"flash_attention": n, "rmsnorm": (2 * n + 1) * 9}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"lm_small: launches {launches}, want {want}")
+    errs = [float((a - b).abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"lm_small: logits differ from the CPU run by {errs}")
+    emit("lm_small", layers=n, d_model=model.cfg.d_model, head_dim=model.cfg.head_dim,
+         prefill_max_logit_err=errs[0], decode_max_logit_err=errs[1],
+         max_logit=float(out["cpu"][0].abs().max()), launches=launches)
+
+
+def capture_first_calls():
+    """Wrap the model's flash-attention and RMSNorm dispatchers so that the
+    inputs of their first calls are kept; returns ``(store, undo)``."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers as layers_mod
+
+    store = {}
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            store.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return call
+
+    old = attn_mod.fa_ops, layers_mod.rms_ops
+    attn_mod.fa_ops = types.SimpleNamespace(
+        flash_attention=spy("flash_attention", old[0].flash_attention))
+    layers_mod.rms_ops = types.SimpleNamespace(rmsnorm=spy("rmsnorm", old[1].rmsnorm))
+
+    def undo():
+        attn_mod.fa_ops, layers_mod.rms_ops = old
+
+    return store, undo
+
+
+def phase_lm_prefill():
+    """Full-width phi4-mini prefill: 4 x 2,048 prompt tokens through
+    ``make_prefill_step`` with the flash kernel; one warm-up and 3 timed calls,
+    counters zeroed just before the warm-up and read after the last call."""
+    from repro_torch.models.params import tree_size
+    from repro_torch.training import make_prefill_step
+
+    t0 = time.perf_counter()
+    model = lm_model(reduced=False)
+    cfg = model.cfg
+    # Weights drawn on the card and held in bf16, the compute dtype: the
+    # reference casts its f32 weights to bf16 at every use, one cast up front
+    # gives the same values.
+    params = model.init(0, device="cuda", dtype=model.compute_dtype)
+    n_params = tree_size(params)
+    toks = lm_tokens(LM_BATCH, LM_PREFILL_LEN, cfg.vocab_size, 1).cuda()
+    step = make_prefill_step(model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    store, undo = capture_first_calls()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    try:
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+    finally:
+        undo()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=4 * n, rmsnorm=4 * (2 * n + 1))
+    if launches != want:
+        raise AssertionError(f"lm_prefill: launches {launches}, want {want}")
+    if tuple(logits.shape) != (LM_BATCH, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_prefill: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    med = statistics.median(times[1:])
+    emit("lm_prefill", arch=cfg.name, layers=n, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         params=n_params, batch=LM_BATCH, prompt_len=LM_PREFILL_LEN, setup_s=setup_s,
+         warmup_ms=1e3 * times[0], call_ms=[1e3 * t for t in times[1:]],
+         median_ms=1e3 * med, prompt_tokens_per_s=LM_BATCH * LM_PREFILL_LEN / med,
+         peak_memory_bytes=peak, launches=launches,
+         launches_per_call={"flash_attention": launches["flash_attention"] // 4,
+                            "rmsnorm": launches["rmsnorm"] // 4})
+    return store, launches
+
+
+def phase_lm_serve():
+    """The port's serve.py main loop at full width, then the decode path's
+    last prompt logits against the prefill step on the same prompts."""
+    from repro_torch.launch import serve
+    from repro_torch.training import make_prefill_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve.main(["--arch", LM_ARCH, "--no-reduced", "--batch", str(LM_BATCH),
+                      "--prompt-len", str(LM_SERVE_PROMPT), "--gen", str(LM_SERVE_GEN),
+                      "--seed", "0"])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = out["config"]
+    steps = LM_SERVE_PROMPT + LM_SERVE_GEN
+    want = {k: 0 for k in launches}
+    want["rmsnorm"] = steps * (2 * cfg.n_layers + 1)
+    if launches != want:
+        raise AssertionError(f"lm_serve: launches {launches}, want {want}")
+    if out["generated"].shape != (LM_BATCH, LM_SERVE_GEN):
+        raise AssertionError(f"lm_serve: generated {out['generated'].shape}")
+
+    # Cross-check: the same prompts through the prefill step (flash kernel).
+    model = lm_model(reduced=False)
+    pre = make_prefill_step(model)(out["params"], {"tokens": out["prompt"]})[:, 0]
+    dec = out["prompt_logits"][:, 0]
+    diff = (dec - pre).abs()
+    rel_l2 = float(torch.linalg.norm(dec - pre) / torch.linalg.norm(pre))
+    top2 = pre.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = (dec.argmax(-1) == pre.argmax(-1)).cpu()
+    decisive = (margin > 2 * diff.max(dim=-1).values).cpu()
+    if not rel_l2 <= 0.05 or bool((decisive & ~agree).any()):
+        raise AssertionError(f"lm_serve: decode vs prefill relative L2 {rel_l2}, top-1 "
+                             f"{agree.tolist()}, decisive rows {decisive.tolist()}")
+    emit("lm_serve", arch=cfg.name, batch=LM_BATCH, prompt_len=LM_SERVE_PROMPT,
+         gen=LM_SERVE_GEN, run_s=total_s, prefill_by_decode_s=out["prefill_s"],
+         prefill_by_decode_ms_per_step=1e3 * out["prefill_s"] / LM_SERVE_PROMPT,
+         decode_s=out["decode_s"], decode_ms_per_step=1e3 * out["decode_s"] / LM_SERVE_GEN,
+         decode_tokens_per_s=out["tokens_per_s"], peak_memory_bytes=peak,
+         launches=launches, rmsnorm_per_step=launches["rmsnorm"] / steps,
+         decode_vs_prefill_rel_l2=rel_l2, decode_vs_prefill_max_abs=float(diff.max()),
+         top1_agree=agree.tolist(), top1_margin=margin.tolist(),
+         top1_decisive=decisive.tolist(),
+         sample=out["generated"][0][:8].tolist())
+
+
+def bf16_ulp_check(name, got, want):
+    """One bf16 ulp of the plain version's value (the f32 results, summed in
+    other orders, round once); returns the largest absolute difference."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if bool((err > 2.0 ** -7 * w.abs() + 1e-6).any()):
+        raise AssertionError(f"{name}: {int((err > 2.0 ** -7 * w.abs() + 1e-6).sum())} "
+                             f"values beyond one bf16 ulp; max error {float(err.max())}")
+    return float(err.max())
+
+
+def lm_kernel_rows(store, launches):
+    """flash_attention and rmsnorm on the inputs of their first calls in
+    lm_prefill (layer 0), against the plain versions."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import visible
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    rows = []
+    (q, k, v), kw = store["flash_attention"]
+    causal, window, prefix = kw["causal"], kw["window"], kw["prefix_len"]
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    flash = lambda: fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                              prefix_len=prefix)
+    plain = lambda: fa_ops.chunked_attention(q, k, v, causal=causal, window=window,
+                                             prefix_len=prefix, block_k=128)
+    got, want = flash(), plain()
+    err = bf16_ulp_check("flash_attention", got, want)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    sdpa_err = float((sdpa().float() - want.float()).abs().max())
+    pairs = int(visible(torch.arange(tq, device=q.device)[:, None],
+                        torch.arange(tk, device=q.device)[None, :],
+                        causal, window, prefix).sum()) * b * hq
+    flash_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flash_ops = 4 * d * pairs                  # Q K^T and P V, 2 FLOP a multiply-add
+    rows.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:150",
+        launches=launches["flash_attention"], max_abs_err=err,
+        launches_per_call=launches["flash_attention"] // 4,
+        ms=cuda_ms(flash, 10), plain_ms=cuda_ms(plain, 2), library_ms=cuda_ms(sdpa, 10),
+        **bound(flash_bytes, flash_ops, BF16_TENSOR_OPS_PER_S),
+        bound_ms_f32=flash_ops / F32_OPS_PER_S * 1e3,
+        shape={"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
+        visible_pairs=pairs, library_max_abs_err=sdpa_err,
+        max_abs_out=float(want.float().abs().max()),
+    ))
+
+    (x, scale, eps), _ = store["rmsnorm"]
+    x2 = x.reshape(-1, x.shape[-1])
+    norm = lambda: rms_k.rmsnorm_cuda(x2, scale, eps)
+    plain = lambda: rmsnorm_ref(x2, scale, eps)
+    err = bf16_ulp_check("rmsnorm", norm(), plain())
+    # The path's scales are the init's ones: a random scale on the same rows
+    # also checks how the kernel indexes it.
+    g = torch.Generator(device=x2.device).manual_seed(0)
+    rand = (1 + 0.2 * torch.randn(scale.shape, generator=g, device=x2.device)).to(scale.dtype)
+    rand_err = bf16_ulp_check("rmsnorm, random scale", rms_k.rmsnorm_cuda(x2, rand, eps),
+                              rmsnorm_ref(x2, rand, eps))
+    lib = lambda: F.rms_norm(x2, (x2.shape[-1],), weight=scale, eps=eps)
+    lib_err = float((lib().float() - plain().float()).abs().max())
+    dec = x2[:LM_BATCH].contiguous()
+    rows.append(dict(
+        name="rmsnorm", route="cuda",
+        source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:41",
+        launches=launches["rmsnorm"], max_abs_err=max(err, rand_err),
+        launches_per_call=launches["rmsnorm"] // 4, random_scale_max_abs_err=rand_err,
+        ms=cuda_ms(norm, 50), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 50),
+        **bound(2 * x2.numel() * x2.element_size() + scale.numel() * scale.element_size(),
+                3 * x2.numel()),
+        shape={"x": list(x2.shape), "dtype": str(x2.dtype), "scale_dtype": str(scale.dtype)},
+        library_max_abs_err=lib_err,
+        decode_rows=LM_BATCH,
+        decode_ms=cuda_ms(lambda: rms_k.rmsnorm_cuda(dec, scale, eps), 200),
+        decode_plain_ms=cuda_ms(lambda: rmsnorm_ref(dec, scale, eps), 200),
+    ))
+    for r in rows:
+        emit("kernel", **r)
+    return rows
+
+
+# ((B, Hq, Hkv, Tq, Tk, D), mask kwargs) of the flash kernel's small checks:
+# groups 1 and 3, D 16 / 128 / 256, Tk not a multiple of the 64-key tile.
+FLASH_VARIANTS = {
+    "window_g3_d128": ((1, 6, 2, 200, 200, 128), dict(causal=True, window=50)),
+    "prefix_g1_d16": ((1, 2, 2, 130, 130, 16), dict(causal=True, prefix_len=40)),
+    "kv_offset_d256": ((1, 3, 1, 40, 170, 256), dict(causal=True, kv_offset=130)),
+    "kv_len_full_d128": ((2, 3, 3, 70, 93, 128), dict(causal=False)),
+    "decode_row_d128": ((4, 24, 8, 1, 333, 128), dict(causal=True, kv_offset=332)),
+    "all_terms_d16": ((1, 4, 2, 90, 101, 16), dict(causal=True, window=9, prefix_len=7,
+                                                    kv_offset=11)),
+}
+
+
+def phase_flash_variants():
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    errs = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, ((b, hq, hkv, tq, tk, d), kw) in FLASH_VARIANTS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
+                       for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+            got = fa_k.flash_attention_cuda(q, k, v, **kw)
+            want = fa_ops.chunked_attention(q, k, v, block_k=64, **kw)
+            oracle = fa_ops.flash_attention(q, k, v, impl="reference", **kw)
+            key = f"{name}_{str(dtype).split('.')[-1]}"
+            if dtype == torch.float32:
+                e = float((got - want).abs().max())
+                e2 = float((got - oracle).abs().max())
+                if not max(e, e2) <= 2e-5:
+                    raise AssertionError(f"flash_attention {key}: max error {e} (oracle {e2})")
+            else:
+                e = bf16_ulp_check(f"flash_attention {key}", got, want)
+                bf16_ulp_check(f"flash_attention {key} (oracle)", got, oracle)
+            errs[key] = e
+    emit("flash_variants", cases={k: list(v[0]) + [v[1]] for k, v in FLASH_VARIANTS.items()},
+         max_abs_err=errs, tolerance="f32 2e-5; bf16 one bf16 ulp")
 
 # ---------------------------------------------------------------------- main
 
@@ -781,13 +1127,31 @@ def main() -> int:
                                 if "registers" in ln or "spill" in ln]}
                   for k, r in built_libs.items()})
 
+    seconds = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     phase_small()
     built, final, launches = phase_slice()
     rows = phase_kernels(built, final, launches)
     del built, final
+    seconds["path 1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_spheroid_small()
     sph = phase_spheroid()
     rows += spheroid_kernel_rows(*sph)
+    del sph
+    torch.cuda.empty_cache()
+    seconds["path 2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    phase_lm_small()
+    store, lm_launches = phase_lm_prefill()
+    rows += lm_kernel_rows(store, lm_launches)
+    del store
+    torch.cuda.empty_cache()
+    phase_flash_variants()
+    phase_lm_serve()
+    seconds["path 3"] = time.perf_counter() - t0
+    emit("wall", seconds=seconds)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

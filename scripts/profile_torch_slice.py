@@ -3,14 +3,19 @@
 
 Run from the root of a checkout:
 
-    python3 scripts/profile_torch_slice.py [--model soma|spheroid|spheroid_dense]
+    python3 scripts/profile_torch_slice.py [--model soma|spheroid|spheroid_dense|
+                                                    lm_prefill|lm_decode]
                                            [--steps 6] [--trace trace.json]
 
 Builds one path of ``chip_smoke.py``: ``soma`` (600,000 agents in 100^3
 boxes, two 200^3 substances, cell_rank + cell_list_force + diffusion3d),
 ``spheroid`` (the 100,000-cell tumor spheroid sorted every step, forces by
-cell_window_force at the covering window W) or ``spheroid_dense`` (the same
-start, forces by pairwise_force).  Runs a few steps to warm up, times
+cell_window_force at the covering window W), ``spheroid_dense`` (the same
+start, forces by pairwise_force), ``lm_prefill`` (phi4-mini-3.8b at full
+width, one step = one prefill call over 4 x 2,048 tokens, flash_attention +
+rmsnorm) or ``lm_decode`` (the same model, one step = one ``decode_step``
+for a batch of 4 at positions from 128 on, rmsnorm).  Runs a few steps to
+warm up, times
 ``--steps`` steps without the profiler (host clock around
 ``torch.cuda.synchronize()``), then the same number of steps under
 ``torch.profiler``.  Prints one JSON line: the card and its power limit, the
@@ -47,10 +52,58 @@ def busy_us(intervals):
     return total
 
 
+def make_runner(cs, model: str, steps: int):
+    """``run(n)``: advance the chosen path by ``n`` steps."""
+    if model.startswith("lm_"):
+        return lm_runner(cs, model, steps)
+    if model == "soma":
+        built = cs.soma_model(cs.N_AGENTS, cs.SPACE, cs.RESOLUTION, 0, "cuda").build()
+        state = [built.state]
+    else:
+        morton, dense, start, _, _ = cs.spheroid_setup()
+        built = (morton if model == "spheroid" else dense).build()
+        state = [start]
+
+    def run(n):
+        state[0], _ = built.run(n, state=state[0])
+
+    return run
+
+
+def lm_runner(cs, model: str, steps: int):
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    lm = cs.lm_model(reduced=False)
+    params = lm.init(0, device="cuda", dtype=lm.compute_dtype)
+    vocab = lm.cfg.vocab_size
+    if model == "lm_prefill":
+        toks = cs.lm_tokens(cs.LM_BATCH, cs.LM_PREFILL_LEN, vocab, 1).cuda()
+        step = make_prefill_step(lm)
+
+        def run(n):
+            for _ in range(n):
+                step(params, {"tokens": toks})
+
+        return run
+    start = cs.LM_SERVE_PROMPT
+    cache = lm.init_cache(cs.LM_BATCH, start + 4 + 2 * steps, "cuda")
+    toks = cs.lm_tokens(cs.LM_BATCH, 4 + 2 * steps, vocab, 2).cuda()
+    step = make_decode_step(lm)
+    done = [0]
+
+    def run(n):
+        for _ in range(n):
+            i = done[0]
+            step(params, cache, toks[:, i:i + 1], start + i)
+            done[0] += 1
+
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("soma", "spheroid", "spheroid_dense"),
-                    default="soma")
+    ap.add_argument("--model", choices=("soma", "spheroid", "spheroid_dense", "lm_prefill",
+                                        "lm_decode"), default="soma")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
     args = ap.parse_args()
@@ -62,22 +115,17 @@ def main() -> int:
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
 
-    if args.model == "soma":
-        built = cs.soma_model(cs.N_AGENTS, cs.SPACE, cs.RESOLUTION, 0, "cuda").build()
-        state = built.state
-    else:
-        morton, dense, state, _, _ = cs.spheroid_setup()
-        built = (morton if args.model == "spheroid" else dense).build()
-    state, _ = built.run(4, state=state)            # warm-up: builds the kernels
+    run = make_runner(cs, args.model, args.steps)
+    run(4)                                          # warm-up: builds the kernels
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, _ = built.run(args.steps, state=state)
+    run(args.steps)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = built.run(args.steps, state=state)
+        run(args.steps)
         torch.cuda.synchronize()
         window_us = 1e6 * (time.perf_counter() - t0)
     if args.trace:

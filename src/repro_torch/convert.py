@@ -1,4 +1,4 @@
-"""Carry a simulation state across, as numpy.
+"""Carry a simulation state, or LM parameters, across as numpy.
 
 The layout is a nested dict of numpy arrays and python numbers — the
 leaves of the reference's ``SimulationState``:
@@ -92,3 +92,24 @@ def state_to_numpy(state: SimulationState) -> Dict[str, Any]:
         "step": int(state.step),
         "health": {f: int(getattr(state.health, f)) for f in HEALTH_FIELDS},
     }
+
+
+# ------------------------------------------------------------ LM parameters
+
+def lm_params_from_numpy(tree: Dict[str, Any], device: torch.device | str,
+                         dtype: torch.dtype | None = None) -> Dict[str, Any]:
+    """The port's LM parameter tree from the reference's value tree
+    (``unzip(model.init(key))[0]``) as nested dicts of numpy arrays: the same
+    keys, each array copied to ``device`` (and cast to ``dtype`` if given)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    return _tensor(np.asarray(tree), device, dtype)
+
+
+def lm_params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's LM parameter tree as nested dicts of numpy arrays (bf16
+    values widened to f32, which numpy has)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -41,6 +41,8 @@ SOURCES = {
     "cell_window_force": _PKG / "cell_force" / "csrc" / "cell_window_force.cu",
     "pairwise_force": _PKG / "pairwise_force" / "csrc" / "pairwise_force.cu",
     "diffusion3d": _PKG / "diffusion3d" / "csrc" / "diffusion3d.cu",
+    "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 

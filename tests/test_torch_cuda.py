@@ -9,7 +9,9 @@ On the card:
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: ranks exact; forces ``atol=1e-5`` (the plain versions sum the
 pairs in another order); diffusion ``rtol=atol=1e-6`` (the kernel keeps the
-plain version's sum order).
+plain version's sum order); RMSNorm and flash attention f32 ``rtol=1e-5,
+atol=2e-6`` and ``atol=2e-5``, bf16 one bf16 ulp (``rtol=2**-7``: the f32
+results, summed in other orders, round once to bf16).
 """
 
 import dataclasses
@@ -32,6 +34,11 @@ from repro_torch.kernels.diffusion3d.ref import diffusion_step_ref
 from repro_torch.kernels.pairwise_force import kernel as pf_kernel
 from repro_torch.kernels.pairwise_force import ops as pf_ops
 from repro_torch.kernels.pairwise_force.ref import pairwise_force_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 CPU = torch.device("cpu")
 
@@ -241,6 +248,120 @@ def test_diffusion_kernel_matches_plain(card, shape):
                                rtol=1e-6, atol=1e-6)
 
 
+# ------------------------------------------------------------------- rmsnorm
+
+RMS_TOL = {torch.float32: dict(rtol=1e-5, atol=2e-6),
+           torch.bfloat16: dict(rtol=2**-7, atol=1e-6)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(4, 3072), (8192, 3072), (7, 50), (300, 128), (1, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(card, rows, d, dtype):
+    g = torch.Generator().manual_seed(rows * d)
+    x = (2 * torch.randn((rows, d), generator=g)).to(dtype)
+    for scale_dtype in (torch.float32, dtype):
+        s = (1 + 0.2 * torch.randn((d,), generator=g)).to(scale_dtype)
+        want = rmsnorm_ref(x, s)
+        before = rms_kernel.launches
+        got = rms_ops.rmsnorm(x.to(card), s.to(card), impl="cuda")
+        torch.cuda.synchronize()
+        assert rms_kernel.launches == before + 1
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                                   **RMS_TOL[dtype])
+    # A row slice that is not 16-byte aligned takes the scalar path.
+    got = rms_ops.rmsnorm(x[1:].to(card), s.to(card), impl="cuda")
+    np.testing.assert_allclose(got.float().cpu().numpy(), rmsnorm_ref(x[1:], s).float().numpy(),
+                               **RMS_TOL[dtype])
+
+
+# ----------------------------------------------------------- flash_attention
+
+FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
+             torch.bfloat16: dict(rtol=2**-7, atol=1e-6)}
+
+# ((B, Hq, Hkv, Tq, Tk, D), mask kwargs): groups 1, 3 and 4, D 16 / 64 /
+# 128 / 256, Tq and Tk not multiples of the 64-row tiles, every mask term.
+FLASH_CASES = {
+    "causal_g3_d128": ((2, 6, 2, 100, 100, 128), dict(causal=True)),
+    "full_g1_d16": ((1, 2, 2, 70, 70, 16), dict(causal=False)),
+    "window_g4_d64": ((1, 8, 2, 150, 150, 64), dict(causal=True, window=40)),
+    "prefix_d128": ((1, 3, 1, 90, 90, 128), dict(causal=True, prefix_len=20)),
+    "kv_offset_d256": ((1, 2, 1, 33, 129, 256), dict(causal=True, kv_offset=96)),
+    "decode_row_d128": ((2, 24, 8, 1, 200, 128), dict(causal=True, kv_offset=199)),
+    "all_terms_d16": ((1, 4, 2, 80, 95, 16), dict(causal=True, window=8, prefix_len=5,
+                                                   kv_offset=3)),
+    "masked_rows_d64": ((1, 2, 1, 16, 40, 64), dict(causal=True, window=4, kv_offset=60)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(card, case, dtype):
+    (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
+    g = torch.Generator().manual_seed(sorted(FLASH_CASES).index(case))
+    q, k, v = (torch.randn(s, generator=g).to(dtype)
+               for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+    want = fa_ops.flash_attention(q, k, v, impl="chunked", block_k=64, **kw)
+    before = fa_kernel.launches
+    got = fa_ops.flash_attention(q.to(card), k.to(card), v.to(card), impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1 and got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                               **FLASH_TOL[dtype])
+    if case != "masked_rows_d64":
+        # The O(T²) oracle's softmax over a row of NEG_INF is uniform; the
+        # Pallas kernel and its port give 0 there (max(l, 1e-30)).
+        oracle = fa_ops.flash_attention(q.to(card), k.to(card), v.to(card), impl="reference",
+                                        **kw)
+        np.testing.assert_allclose(got.float().cpu().numpy(), oracle.float().cpu().numpy(),
+                                   **FLASH_TOL[dtype])
+    else:                                           # every row's keys are hidden
+        assert float(got.float().abs().max()) == 0.0
+    # (B, T, H, D) storage seen as (B, H, T, D): the model's layout, no copy.
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2).to(card) for t in (q, k, v))
+    strided = fa_ops.flash_attention(qs, ks, vs, impl="cuda", **kw)
+    assert strided.stride() == qs.stride()
+    np.testing.assert_array_equal(strided.float().cpu().numpy(), got.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_lm_small_on_card_matches_cpu(card):
+    """Reduced phi4-mini (f32): the prefill step with the flash kernel and 8
+    decode steps over the prompt's first tokens on the card against the CPU;
+    logits atol 1e-4."""
+    import dataclasses
+
+    from repro_torch import training
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_map
+
+    model = build_model(dataclasses.replace(reduced_config("phi4-mini-3.8b"),
+                                            attention_impl="cuda"))
+    params = model.init(0, device=CPU)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 40)).astype(np.int32))
+    out = {}
+    counts = (fa_kernel.launches, rms_kernel.launches)
+    for dev in (card, CPU):
+        p = tree_map(lambda t: t.to(dev), params)
+        pre = training.make_prefill_step(model)(p, {"tokens": toks.to(dev)})
+        cache = model.init_cache(2, 48, dev)
+        logits = []
+        for i in range(8):
+            lg, cache = model.decode_step(p, cache, toks[:, i:i + 1].to(dev), i)
+            logits.append(lg)
+        out[dev.type] = (pre.cpu(), torch.cat(logits, 1).cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (fa_kernel.launches - counts[0], rms_kernel.launches - counts[1]) == (
+                2, 5 + 8 * 5)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
 # --------------------------------------------------------------- the slice
 
 def _soma(device, steps=8):
@@ -367,6 +488,43 @@ def test_kernel_impls_on_cpu_tensors_take_the_plain_versions():
         pf_ops.pairwise_force(pos, rad, cand, mask, impl="cuda").numpy(),
         pairwise_force_ref(pos, rad, cand, mask).numpy())
     assert counts == counters()
+
+
+def test_lm_kernel_wrappers_refuse_cpu_tensors_and_bad_inputs():
+    x = torch.zeros((3, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        rms_kernel.rmsnorm_cuda(x, torch.ones(8))
+    with pytest.raises(ValueError, match=r"\(D,\)"):
+        rms_kernel.rmsnorm_cuda(x, torch.ones(7))
+    for bad in (torch.float64, torch.float16):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            rms_kernel.rmsnorm_cuda(x.to(bad), torch.ones(8))
+    q = torch.zeros((1, 4, 5, 16))
+    kv = torch.zeros((1, 2, 5, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention_cuda(q, kv, kv)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_kernel.flash_attention_cuda(torch.zeros((1, 4, 5, 32)), torch.zeros((1, 2, 5, 32)),
+                                       torch.zeros((1, 2, 5, 32)))
+    with pytest.raises(ValueError, match="divide"):
+        fa_kernel.flash_attention_cuda(q, torch.zeros((1, 3, 5, 16)), torch.zeros((1, 3, 5, 16)))
+    with pytest.raises(ValueError, match="all bfloat16"):
+        fa_kernel.flash_attention_cuda(q, kv.to(torch.bfloat16), kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention_cuda(torch.zeros((1, 4, 16, 5)).transpose(2, 3), kv, kv)
+
+
+def test_lm_kernel_impls_on_cpu_tensors_take_the_plain_versions():
+    counts = (rms_kernel.launches, fa_kernel.launches)
+    g = torch.Generator().manual_seed(0)
+    x, s = torch.randn((5, 3, 64), generator=g), torch.randn((64,), generator=g)
+    np.testing.assert_array_equal(rms_ops.rmsnorm(x, s, impl="cuda").numpy(),
+                                  rmsnorm_ref(x, s).numpy())
+    q, k = torch.randn((1, 4, 9, 16), generator=g), torch.randn((1, 2, 9, 16), generator=g)
+    np.testing.assert_array_equal(
+        fa_ops.flash_attention(q, k, k, impl="cuda", block_k=4).numpy(),
+        fa_ops.chunked_attention(q, k, k, block_k=4).numpy())
+    assert counts == (rms_kernel.launches, fa_kernel.launches)
 
 
 def test_build_recipe():

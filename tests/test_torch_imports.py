@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent fallback."""
 
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -38,6 +39,9 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch import Simulation\n"
         "import repro_torch.kernels.cell_rank, repro_torch.kernels.cell_force\n"
         "import repro_torch.kernels.diffusion3d, repro_torch.kernels.pairwise_force\n"
+        "import repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.configs, repro_torch.models.model, repro_torch.training\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -60,6 +64,23 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
         Simulation(space=10.0)
 
 
+def test_lm_entry_points_take_the_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_leaves
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(reduced_config("phi4-mini-3.8b"))
+    for call in (lambda: model.init(0), lambda: model.init(torch.Generator()),
+                 lambda: model.init_cache(1, 4), lambda: serve.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params = model.init(0, device="cpu")
+    cache = model.init_cache(1, 4, "cpu")
+    assert {t.device.type for t in tree_leaves(params) + tree_leaves(cache)} == {"cpu"}
+
+
 def _unknown_impl_calls():
     from repro_torch.core import EngineConfig, ForceParams, diffuse, make_grid, spec_for_space
     from repro_torch.core.forces import mechanical_forces
@@ -67,8 +88,13 @@ def _unknown_impl_calls():
     from repro_torch.kernels.cell_rank import ops as cr_ops
     from repro_torch.kernels.diffusion3d import ops as d3_ops
     from repro_torch.kernels.pairwise_force import ops as pf_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
 
     spec = spec_for_space(0.0, 10.0, 5.0)
+    q4 = torch.zeros((1, 1, 2, 16))
     u = torch.zeros((2, 2, 2))
     cid = torch.zeros((3,), dtype=torch.int32)
     pos = torch.zeros((1, 3))
@@ -93,6 +119,10 @@ def _unknown_impl_calls():
             pos, torch.ones(1), torch.zeros((1, 2), dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.bool), impl="pallas"),
         "force_impl_pallas": lambda: EngineConfig(spec=spec, force_impl="pallas"),
+        "rmsnorm": lambda: rms_ops.rmsnorm(pos, torch.ones(3), impl="pallas"),
+        "flash_attention": lambda: fa_ops.flash_attention(q4, q4, q4, impl="pallas"),
+        "attention_impl": lambda: build_model(
+            dataclasses.replace(reduced_config("phi4-mini-3.8b"), attention_impl="pallas")),
     }
 
 
