@@ -9,7 +9,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, each
 printing one JSON line; any failure raises and exits non-zero:
 
   device          the card's name, capability, power limit.
-  build           the seven CUDA kernels compiled from ``kernels/*/csrc/*.cu``
+  build           the eight CUDA sources of the seven ported kernels (flash
+                  attention has a tensor-core and a SIMT kernel) compiled from
+                  ``kernels/*/csrc/*.cu``
                   (one nvcc each, all started together); build time and the
                   ptxas register / shared-memory report.
   small           the soma-clustering model at the quickstart's smoke size
@@ -40,12 +42,13 @@ printing one JSON line; any failure raises and exits non-zero:
                   this run's inputs.
   lm_small        path 3 at a small size: reduced phi4-mini (f32, 2 layers,
                   head_dim 16), weights from one CPU generator, the prefill
-                  step with the flash kernel and 8 decode steps on the card
-                  against the CPU: logits atol 1e-4.
+                  step with the flash kernel (f32: the SIMT kernel) and 8
+                  decode steps on the card against the CPU: logits atol 1e-4.
   lm_prefill      path 3: phi4-mini-3.8b at full width and depth (32 layers,
                   d 3072, vocab 200,064, bf16), ``make_prefill_step`` over 4
-                  prompts of 2,048 tokens: flash_attention 32 and rmsnorm 65
-                  launches a call; median of 3 timed calls after a warm-up.
+                  prompts of 2,048 tokens: flash_attention 32 launches a call,
+                  all of the tensor-core kernel (bf16, head_dim 128), and
+                  rmsnorm 65; median of 3 timed calls after a warm-up.
   lm_serve        the port's ``launch/serve.py`` main loop at full width:
                   batch 4, 128 prompt tokens fed through ``decode_step``, 64
                   greedy tokens (rmsnorm 65 launches a step); then the prompt's
@@ -54,9 +57,10 @@ printing one JSON line; any failure raises and exits non-zero:
                   prefill's top-1 margin exceeds twice the largest difference.
   kernels (LM)    flash_attention and rmsnorm on the inputs of the first call
                   of each in lm_prefill, against their plain versions (one
-                  bf16 ulp), timed beside the plain versions and
-                  ``scaled_dot_product_attention`` / ``rms_norm``; then the
-                  flash kernel's mask variants at small shapes.
+                  bf16 ulp), timed beside the plain versions,
+                  ``scaled_dot_product_attention`` / ``rms_norm`` and (flash)
+                  the SIMT kernel on the same inputs; then both flash kernels
+                  on every mask variant at small shapes.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; the ``kernels`` line gives each kernel's count from the path
@@ -137,6 +141,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn()`` per call: ``reps`` calls captured in one CUDA
+    graph and replayed, so the host's launch cost drops out (for kernels of a
+    few microseconds, which ``cuda_ms`` times at the host's launch rate)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def kernel_counters():
     """Each kernel's launch counter: ``name -> (module, attribute)``."""
     from repro_torch.kernels.cell_force import kernel as cf_k
@@ -149,7 +174,8 @@ def kernel_counters():
     return {"cell_rank": (cr_k, "launches"), "cell_list_force": (cf_k, "launches"),
             "cell_window_force": (cf_k, "window_launches"),
             "pairwise_force": (pf_k, "launches"), "diffusion3d": (d3_k, "launches"),
-            "flash_attention": (fa_k, "launches"), "rmsnorm": (rms_k, "launches")}
+            "flash_attention": (fa_k, "launches_tc"),
+            "flash_attention_simt": (fa_k, "launches"), "rmsnorm": (rms_k, "launches")}
 
 
 def reset_counts() -> None:
@@ -282,7 +308,8 @@ def phase_slice():
     if tuple(kinds.shape) != (4, 2) or int(kinds[-1].sum()) != alive0:
         raise AssertionError(f"slice: kind counts {kinds.tolist()}")
     want = {"cell_rank": STEPS + 2, "cell_list_force": STEPS, "diffusion3d": 2 * STEPS,
-            "cell_window_force": 0, "pairwise_force": 0, "flash_attention": 0, "rmsnorm": 0}
+            "cell_window_force": 0, "pairwise_force": 0, "flash_attention": 0,
+            "flash_attention_simt": 0, "rmsnorm": 0}
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"slice: {name} launched {launches[name]} times, want {n}")
@@ -489,7 +516,8 @@ def phase_spheroid():
                              f"(launches {[per_step[i] for i in fell_back]}); widen the "
                              f"window margin")
     want = {"cell_rank": SPH_STEPS, "cell_window_force": SPH_STEPS, "cell_list_force": 0,
-            "pairwise_force": 0, "diffusion3d": 0, "flash_attention": 0, "rmsnorm": 0}
+            "pairwise_force": 0, "diffusion3d": 0, "flash_attention": 0,
+            "flash_attention_simt": 0, "rmsnorm": 0}
     if stats["launches"] != want:
         raise AssertionError(f"spheroid: launches {stats['launches']}, want {want}")
     if not stats["births"] > 0 or not stats["deaths"] > 0:
@@ -504,7 +532,7 @@ def phase_spheroid():
     _, _, _, dstats = run_spheroid(dense, state, SPH_DENSE_STEPS, "spheroid_dense")
     want = {"cell_rank": SPH_DENSE_STEPS, "pairwise_force": SPH_DENSE_STEPS,
             "cell_window_force": 0, "cell_list_force": 0, "diffusion3d": 0,
-            "flash_attention": 0, "rmsnorm": 0}
+            "flash_attention": 0, "flash_attention_simt": 0, "rmsnorm": 0}
     if dstats["launches"] != want:
         raise AssertionError(f"spheroid_dense: launches {dstats['launches']}, want {want}")
     emit("spheroid_dense", **dstats)
@@ -827,7 +855,7 @@ def phase_lm_small():
             launches = read_counts()
         out[dev] = (pre.cpu(), torch.cat(dec, 1).cpu())
     n = model.cfg.n_layers
-    want = {"flash_attention": n, "rmsnorm": (2 * n + 1) * 9}
+    want = {"flash_attention_simt": n, "flash_attention": 0, "rmsnorm": (2 * n + 1) * 9}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"lm_small: launches {launches}, want {want}")
     errs = [float((a - b).abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
@@ -900,6 +928,7 @@ def phase_lm_prefill():
     peak = torch.cuda.max_memory_allocated()
     n = cfg.n_layers
     want = {k: 0 for k in launches}
+    # Every flash launch through the tensor-core kernel, none through SIMT.
     want.update(flash_attention=4 * n, rmsnorm=4 * (2 * n + 1))
     if launches != want:
         raise AssertionError(f"lm_prefill: launches {launches}, want {want}")
@@ -981,6 +1010,42 @@ def bf16_ulp_check(name, got, want):
     return float(err.max())
 
 
+def beyond_ulp(got, exact) -> int:
+    """Outputs more than one bf16 ulp (``2**-7 |x| + 1e-6``) from ``exact``."""
+    err = (got.double() - exact).abs()
+    return int((err > 2.0 ** -7 * exact.abs() + 1e-6).sum())
+
+
+def sharp_softmax_agreement(d, t, group, device):
+    """Causal GQA attention over one KV head at length ``t``, q at unit scale
+    and scaled by 4 and 8 (a sharper softmax): how many bf16 outputs of the
+    tensor-core kernel, the SIMT kernel and the plain version lie beyond one
+    bf16 ulp of a float64 oracle."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator(device=device).manual_seed(1)
+    q1, k, v = (torch.randn(s, generator=g, device=device)
+                for s in ((1, group, t, d), (1, 1, t, d), (1, 1, t, d)))
+    k, v = k.bfloat16(), v.bfloat16()
+    causal = torch.ones((t, t), dtype=torch.bool, device=device).tril()
+    out = {}
+    for qs in (1, 4, 8):
+        q = (q1 * qs).bfloat16()
+        s = torch.einsum("bhqd,bkd->bhqk", q.double(), k[:, 0].double()) * d ** -0.5
+        exact = torch.einsum("bhqk,bkd->bhqd",
+                             torch.softmax(s.masked_fill(~causal, -torch.inf), -1),
+                             v[:, 0].double())
+        out[str(qs)] = {
+            "tensor_cores": beyond_ulp(fa_k.flash_attention_wgmma_cuda(q, k, v), exact),
+            "simt": beyond_ulp(fa_k.flash_attention_simt_cuda(q, k, v), exact),
+            "plain": beyond_ulp(fa_ops.chunked_attention(q, k, v, block_k=128), exact),
+        }
+    if out["1"]["tensor_cores"]:
+        raise AssertionError(f"flash_attention: beyond one bf16 ulp of the exact result: {out}")
+    return out
+
+
 def lm_kernel_rows(store, launches):
     """flash_attention and rmsnorm on the inputs of their first calls in
     lm_prefill (layer 0), against the plain versions."""
@@ -997,12 +1062,15 @@ def lm_kernel_rows(store, launches):
     causal, window, prefix = kw["causal"], kw["window"], kw["prefix_len"]
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    flash = lambda: fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                              prefix_len=prefix)
+    flash = lambda: fa_k.flash_attention_wgmma_cuda(q, k, v, causal=causal, window=window,
+                                                    prefix_len=prefix)
+    simt = lambda: fa_k.flash_attention_simt_cuda(q, k, v, causal=causal, window=window,
+                                                  prefix_len=prefix)
     plain = lambda: fa_ops.chunked_attention(q, k, v, causal=causal, window=window,
                                              prefix_len=prefix, block_k=128)
     got, want = flash(), plain()
     err = bf16_ulp_check("flash_attention", got, want)
+    simt_err = bf16_ulp_check("flash_attention (SIMT)", simt(), want)
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
     sdpa_err = float((sdpa().float() - want.float()).abs().max())
     pairs = int(visible(torch.arange(tq, device=q.device)[:, None],
@@ -1010,18 +1078,26 @@ def lm_kernel_rows(store, launches):
                         causal, window, prefix).sum()) * b * hq
     flash_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     flash_ops = 4 * d * pairs                  # Q K^T and P V, 2 FLOP a multiply-add
+    # The tensor-core design's work: Q K^T and P V in three bf16 terms.
+    design_ops = 2 * d * pairs * 4
     rows.append(dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:150",
         launches=launches["flash_attention"], max_abs_err=err,
         launches_per_call=launches["flash_attention"] // 4,
         ms=cuda_ms(flash, 10), plain_ms=cuda_ms(plain, 2), library_ms=cuda_ms(sdpa, 10),
+        simt_ms=cuda_ms(simt, 3), simt_max_abs_err=simt_err,
+        simt_source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         **bound(flash_bytes, flash_ops, BF16_TENSOR_OPS_PER_S),
+        bound_ms_4_products=max(design_ops / BF16_TENSOR_OPS_PER_S,
+                                flash_bytes / HBM_BYTES_PER_S) * 1e3,
         bound_ms_f32=flash_ops / F32_OPS_PER_S * 1e3,
         shape={"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
         visible_pairs=pairs, library_max_abs_err=sdpa_err,
         max_abs_out=float(want.float().abs().max()),
+        sharp_softmax_beyond_ulp_of_exact=sharp_softmax_agreement(d, tq, hq // hkv, q.device),
+        sharp_softmax_outputs=(hq // hkv) * tq * d,
     ))
 
     (x, scale, eps), _ = store["rmsnorm"]
@@ -1052,13 +1128,18 @@ def lm_kernel_rows(store, launches):
         decode_rows=LM_BATCH,
         decode_ms=cuda_ms(lambda: rms_k.rmsnorm_cuda(dec, scale, eps), 200),
         decode_plain_ms=cuda_ms(lambda: rmsnorm_ref(dec, scale, eps), 200),
+        decode_library_ms=cuda_ms(
+            lambda: F.rms_norm(dec, (dec.shape[-1],), weight=scale, eps=eps), 200),
+        decode_device_ms=graph_ms(lambda: rms_k.rmsnorm_cuda(dec, scale, eps), 200),
+        decode_library_device_ms=graph_ms(
+            lambda: F.rms_norm(dec, (dec.shape[-1],), weight=scale, eps=eps), 200),
     ))
     for r in rows:
         emit("kernel", **r)
     return rows
 
 
-# ((B, Hq, Hkv, Tq, Tk, D), mask kwargs) of the flash kernel's small checks:
+# ((B, Hq, Hkv, Tq, Tk, D), mask kwargs) of the flash kernels' small checks:
 # groups 1 and 3, D 16 / 128 / 256, Tk not a multiple of the 64-key tile.
 FLASH_VARIANTS = {
     "window_g3_d128": ((1, 6, 2, 200, 200, 128), dict(causal=True, window=50)),
@@ -1072,28 +1153,38 @@ FLASH_VARIANTS = {
 
 
 def phase_flash_variants():
+    """Every mask variant through both flash kernels: the SIMT kernel in f32
+    and bf16 at the variant's head dim, the tensor-core kernel in bf16 at
+    that head dim where it takes it (64, 128), else at 64 (D 16) or 128
+    (D 256)."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     errs = {}
     g = torch.Generator(device="cuda").manual_seed(0)
-    for name, ((b, hq, hkv, tq, tk, d), kw) in FLASH_VARIANTS.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
-                       for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
-            got = fa_k.flash_attention_cuda(q, k, v, **kw)
-            want = fa_ops.chunked_attention(q, k, v, block_k=64, **kw)
-            oracle = fa_ops.flash_attention(q, k, v, impl="reference", **kw)
-            key = f"{name}_{str(dtype).split('.')[-1]}"
-            if dtype == torch.float32:
-                e = float((got - want).abs().max())
-                e2 = float((got - oracle).abs().max())
-                if not max(e, e2) <= 2e-5:
-                    raise AssertionError(f"flash_attention {key}: max error {e} (oracle {e2})")
-            else:
-                e = bf16_ulp_check(f"flash_attention {key}", got, want)
-                bf16_ulp_check(f"flash_attention {key} (oracle)", got, oracle)
-            errs[key] = e
+    runs = [(name, shape, kw, dtype, fa_k.flash_attention_simt_cuda, "simt")
+            for name, (shape, kw) in FLASH_VARIANTS.items()
+            for dtype in (torch.float32, torch.bfloat16)]
+    for name, (shape, kw) in FLASH_VARIANTS.items():
+        d = shape[-1] if shape[-1] in fa_k.TC_HEAD_DIMS else min(max(shape[-1], 64), 128)
+        runs.append((name, shape[:-1] + (d,), kw, torch.bfloat16,
+                     fa_k.flash_attention_wgmma_cuda, "tc"))
+    for name, (b, hq, hkv, tq, tk, d), kw, dtype, kernel, which in runs:
+        q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
+                   for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+        got = kernel(q, k, v, **kw)
+        want = fa_ops.chunked_attention(q, k, v, block_k=64, **kw)
+        oracle = fa_ops.flash_attention(q, k, v, impl="reference", **kw)
+        key = f"{name}_{str(dtype).split('.')[-1]}_{which}_d{d}"
+        if dtype == torch.float32:
+            e = float((got - want).abs().max())
+            e2 = float((got - oracle).abs().max())
+            if not max(e, e2) <= 2e-5:
+                raise AssertionError(f"flash_attention {key}: max error {e} (oracle {e2})")
+        else:
+            e = bf16_ulp_check(f"flash_attention {key}", got, want)
+            bf16_ulp_check(f"flash_attention {key} (oracle)", got, oracle)
+        errs[key] = e
     emit("flash_variants", cases={k: list(v[0]) + [v[1]] for k, v in FLASH_VARIANTS.items()},
          max_abs_err=errs, tolerance="f32 2e-5; bf16 one bf16 ulp")
 

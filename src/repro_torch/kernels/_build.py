@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
 
-Every kernel lives in ``kernels/<name>/csrc/<name>.cu`` behind a plain
+Every kernel lives in a ``kernels/<module>/csrc/*.cu`` behind a plain
 ``extern "C"`` launcher that enqueues on the caller's stream and returns
 ``cudaGetLastError()``.  At first use the source is compiled for Hopper
 into ``build/repro_torch/`` at the root of the checkout:
@@ -43,6 +43,7 @@ SOURCES = {
     "diffusion3d": _PKG / "diffusion3d" / "csrc" / "diffusion3d.cu",
     "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_wgmma": _PKG / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
 }
 
 

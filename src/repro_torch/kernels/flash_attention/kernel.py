@@ -1,10 +1,19 @@
-"""ctypes wrapper of ``csrc/flash_attention.cu`` (replaces the Pallas
-``flash_attention_flat``; the design note is in the source).
+"""ctypes wrappers of the two flash-attention kernels (both replace the
+Pallas ``flash_attention_flat``; the design notes are in the sources).
 
-Takes the reference's ``(B, H, T, D)`` layout as strided views: the feature
-axis must be contiguous, the other three axes may have any strides, so the
-``(B, T, H, D)`` projections of the model go in without a copy.  The output
-is allocated with ``q``'s strides.  ``launches`` counts the kernel launches.
+Which kernel runs is a fixed rule on dtype and head dim, not a fallback:
+
+  bf16, D 64 or 128     ``csrc/flash_attention_wgmma.cu``: wgmma products fed
+                        by TMA (``launches_tc`` counts its launches);
+  f32, or D 16 or 256   ``csrc/flash_attention.cu``: f32 FMAs on the SIMT
+                        cores (``launches``).
+
+Both take the reference's ``(B, H, T, D)`` layout as strided views: the
+feature axis must be contiguous, the other three axes may have any strides,
+so the ``(B, T, H, D)`` projections of the model go in without a copy (the
+tensor-core kernel's TMA copies also need 16-byte aligned pointers and
+strides that are multiples of 8 values).  The output is allocated with
+``q``'s strides.  A launch that fails raises.
 """
 
 from __future__ import annotations
@@ -16,13 +25,20 @@ import torch
 
 from .. import _build
 
-launches = 0
+launches = 0          # csrc/flash_attention.cu (SIMT)
+launches_tc = 0       # csrc/flash_attention_wgmma.cu (tensor cores)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # dtype codes shared with the launcher in csrc/flash_attention.cu
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128)
+
+
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """The dispatch rule: bf16 at D 64 or 128 runs the wgmma kernel."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
 def _lib():
@@ -36,20 +52,35 @@ def _lib():
     return lib
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,              # (B, Hq, Tq, D)
-    k: torch.Tensor,              # (B, Hkv, Tk, D)
-    v: torch.Tensor,              # (B, Hkv, Tk, D)
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    prefix_len: int = 0,
-    kv_offset: int = 0,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Attention output ``(B, Hq, Tq, D)`` in ``q.dtype`` (f32 or bf16), f32
-    arithmetic inside."""
-    global launches
+def _lib_tc():
+    lib = _build.load("flash_attention_wgmma")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_wgmma_launch.argtypes = [
+            _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _P,
+        ]
+        lib.flash_attention_wgmma_launch.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _tma_strides(name: str, t: torch.Tensor) -> list:
+    """(batch, head, time) element strides of ``t`` for a TMA tensor map:
+    16-byte multiples (8 bf16 values); an axis of length 1 is never stepped,
+    so its stride is replaced by one that is."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} must start on a 16-byte boundary")
+    out = []
+    for i in range(3):
+        s = t.stride(i) if t.shape[i] > 1 else t.shape[3]
+        if s % 8:
+            raise ValueError(f"flash_attention: the stride of axis {i} of {name} ({s}) "
+                             f"must be a multiple of 8 values for the tensor-core kernel")
+        out.append(s)
+    return out
+
+
+def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Shapes ``(b, hq, hkv, tq, tk, d)`` after the checks both kernels share."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} must be (B, Hq, Tq, D) and (B, Hkv, Tk, D)")
@@ -73,16 +104,23 @@ def flash_attention_cuda(
             raise ValueError(f"flash_attention: tensors on {q.device} and {t.device}")
     if b * hq > 65535:
         raise ValueError(f"flash_attention: B * Hq = {b * hq} exceeds the grid's y limit")
+    return b, hq, hkv, tq, tk, d
+
+
+def flash_attention_simt_cuda(q, k, v, *, causal=True, window=None, prefix_len=0,
+                              kv_offset=0, scale=None) -> torch.Tensor:
+    """``csrc/flash_attention.cu`` on any supported dtype and head dim."""
+    global launches
+    b, hq, hkv, tq, tk, d = _checked(q, k, v)
     out = torch.empty_like(q)       # q's strides when q is dense, else contiguous
     if q.numel() == 0:
         return out
     if tk == 0:
         return out.zero_()
-    strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out) for i in range(3)])
     scale_v = (d ** -0.5) if scale is None else scale
-    lib = _lib()
+    strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out) for i in range(3)])
     _build.check(
-        lib.flash_attention_launch(
+        _lib().flash_attention_launch(
             q.device.index, DTYPES[q.dtype], d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
             _build.ptr(out), b, hq, hkv, tq, tk, ctypes.cast(strides, _P), int(causal),
             int(window is not None), int(window or 0), int(prefix_len), int(kv_offset),
@@ -91,3 +129,50 @@ def flash_attention_cuda(
     )
     launches += 1
     return out
+
+
+def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, prefix_len=0,
+                               kv_offset=0, scale=None) -> torch.Tensor:
+    """``csrc/flash_attention_wgmma.cu``: bf16 at head dim 64 or 128 only."""
+    global launches_tc
+    b, hq, hkv, tq, tk, d = _checked(q, k, v)
+    if not uses_tensor_cores(q.dtype, d):
+        raise ValueError(f"flash_attention: the tensor-core kernel takes bf16 at head_dim "
+                         f"{TC_HEAD_DIMS}, got {q.dtype} at {d}")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    if tk == 0:
+        return out.zero_()
+    scale_v = (d ** -0.5) if scale is None else scale
+    st = [s for name, t in (("q", q), ("k", k), ("v", v)) for s in _tma_strides(name, t)]
+    strides = (ctypes.c_longlong * 12)(*st, *[out.stride(i) for i in range(3)])
+    _build.check(
+        _lib_tc().flash_attention_wgmma_launch(
+            q.device.index, d, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            b, hq, hkv, tq, tk, ctypes.cast(strides, _P), int(causal),
+            int(window is not None), int(window or 0), int(prefix_len), int(kv_offset),
+            float(scale_v), _build.stream_of(q)),
+        "flash_attention (tensor cores)",
+    )
+    launches_tc += 1
+    return out
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,              # (B, Hq, Tq, D)
+    k: torch.Tensor,              # (B, Hkv, Tk, D)
+    v: torch.Tensor,              # (B, Hkv, Tk, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+    kv_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention output ``(B, Hq, Tq, D)`` in ``q.dtype`` (f32 or bf16), f32
+    arithmetic inside; the kernel is chosen by ``uses_tensor_cores``."""
+    tc = q.ndim == 4 and uses_tensor_cores(q.dtype, q.shape[3])
+    kernel = flash_attention_wgmma_cuda if tc else flash_attention_simt_cuda
+    return kernel(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
+                  kv_offset=kv_offset, scale=scale)

@@ -11,7 +11,8 @@ Tolerances: ranks exact; forces ``atol=1e-5`` (the plain versions sum the
 pairs in another order); diffusion ``rtol=atol=1e-6`` (the kernel keeps the
 plain version's sum order); RMSNorm and flash attention f32 ``rtol=1e-5,
 atol=2e-6`` and ``atol=2e-5``, bf16 one bf16 ulp (``rtol=2**-7``: the f32
-results, summed in other orders, round once to bf16).
+results, summed in other orders, round once to bf16); the tensor-core flash
+kernel's sharp-softmax cases one bf16 ulp of a float64 oracle.
 """
 
 import dataclasses
@@ -255,7 +256,8 @@ RMS_TOL = {torch.float32: dict(rtol=1e-5, atol=2e-6),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(4, 3072), (8192, 3072), (7, 50), (300, 128), (1, 24)])
+@pytest.mark.parametrize("rows,d", [(4, 3072), (8192, 3072), (7, 50), (300, 128), (1, 24),
+                                    (4, 5120), (1000, 5120), (4, 8192), (513, 8192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(card, rows, d, dtype):
     g = torch.Generator().manual_seed(rows * d)
@@ -305,10 +307,13 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
     q, k, v = (torch.randn(s, generator=g).to(dtype)
                for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
     want = fa_ops.flash_attention(q, k, v, impl="chunked", block_k=64, **kw)
-    before = fa_kernel.launches
+    before = (fa_kernel.launches, fa_kernel.launches_tc)
     got = fa_ops.flash_attention(q.to(card), k.to(card), v.to(card), impl="cuda", **kw)
     torch.cuda.synchronize()
-    assert fa_kernel.launches == before + 1 and got.dtype == dtype
+    # bf16 at D 64 / 128 runs the tensor-core kernel, the rest the SIMT one.
+    tc = dtype == torch.bfloat16 and d in (64, 128)
+    assert (fa_kernel.launches, fa_kernel.launches_tc) == (before[0] + (not tc), before[1] + tc)
+    assert got.dtype == dtype
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
                                **FLASH_TOL[dtype])
     if case != "masked_rows_d64":
@@ -325,6 +330,60 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
     strided = fa_ops.flash_attention(qs, ks, vs, impl="cuda", **kw)
     assert strided.stride() == qs.stride()
     np.testing.assert_array_equal(strided.float().cpu().numpy(), got.float().cpu().numpy())
+
+
+# bf16 D 64 / 128 cases of the tensor-core kernel with Tq and Tk not
+# multiples of its 128-query and 64-key tiles, and q scaled by 8 (a sharp
+# softmax, where P in fewer than three bf16 terms loses the one-ulp bound).
+FLASH_TC_CASES = {
+    "ragged_causal_d128": ((2, 6, 2, 200, 200, 128), dict(causal=True)),
+    "ragged_kv_offset_d128": ((1, 6, 2, 77, 205, 128), dict(causal=True, kv_offset=128)),
+    "ragged_full_d128": ((1, 3, 1, 131, 93, 128), dict(causal=False)),
+    "ragged_window_prefix_d64": ((1, 8, 2, 150, 190, 64), dict(causal=True, window=70,
+                                                                prefix_len=9, kv_offset=40)),
+}
+
+
+def _exact_attention(q, k, v, causal=True, window=None, prefix_len=0, kv_offset=0):
+    """Masked softmax attention in float64 on the CPU (every row here sees
+    at least one key)."""
+    from repro_torch.kernels.flash_attention.ref import visible
+
+    b, hq, tq, d = q.shape
+    group = hq // k.shape[1]
+    kr, vr = (t.double().repeat_interleave(group, 1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), kr) * d ** -0.5
+    mask = visible(torch.arange(tq)[:, None] + kv_offset, torch.arange(k.shape[2])[None, :],
+                   causal, window, prefix_len)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s.masked_fill(~mask, -torch.inf), -1),
+                        vr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+@pytest.mark.parametrize("case", sorted(FLASH_TC_CASES))
+def test_flash_attention_tensor_cores_ragged_and_sharp(card, case, q_scale):
+    """One bf16 ulp of the exact (f64) result, and at unit scale of the plain
+    version too.  With q x8 the f32 plain version is itself more than one ulp
+    from the exact result at rare outputs (12 of 786,432 at T 2,048 on the
+    card), so the sharp case is held to the exact result."""
+    (b, hq, hkv, tq, tk, d), kw = FLASH_TC_CASES[case]
+    g = torch.Generator().manual_seed(100 + sorted(FLASH_TC_CASES).index(case))
+    q, k, v = (torch.randn(s, generator=g)
+               for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+    q, k, v = (q * q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
+    before = (fa_kernel.launches, fa_kernel.launches_tc)
+    # The model's layout: (B, T, H, D) storage seen as (B, H, T, D).
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2).to(card) for t in (q, k, v))
+    got = fa_ops.flash_attention(qs, ks, vs, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert (fa_kernel.launches, fa_kernel.launches_tc) == (before[0], before[1] + 1)
+    got = got.float().cpu().numpy()
+    np.testing.assert_allclose(got, _exact_attention(q, k, v, **kw).numpy(),
+                               **FLASH_TOL[torch.bfloat16])
+    if q_scale == 1.0:
+        want = fa_ops.flash_attention(q, k, v, impl="chunked", block_k=64, **kw)
+        np.testing.assert_allclose(got, want.float().numpy(), **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -525,6 +584,17 @@ def test_lm_kernel_impls_on_cpu_tensors_take_the_plain_versions():
         fa_ops.flash_attention(q, k, k, impl="cuda", block_k=4).numpy(),
         fa_ops.chunked_attention(q, k, k, block_k=4).numpy())
     assert counts == (rms_kernel.launches, fa_kernel.launches)
+
+
+@pytest.mark.parametrize("dtype,d,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True), (torch.bfloat16, 16, False),
+    (torch.bfloat16, 256, False), (torch.float32, 64, False), (torch.float32, 128, False),
+])
+def test_flash_dispatch_rule(dtype, d, tc):
+    """bf16 at D 64 / 128 goes to the tensor-core kernel, the rest to the
+    SIMT one; both are built from their own sources."""
+    assert fa_kernel.uses_tensor_cores(dtype, d) == tc
+    assert {"flash_attention", "flash_attention_wgmma"} <= set(_build.SOURCES)
 
 
 def test_build_recipe():
