@@ -39,7 +39,11 @@ printing one JSON line; any failure raises and exits non-zero:
                   dense ones also against cell_list_force.  CUDA-event times of
                   the kernel, the plain version and, where one exists, a single
                   PyTorch call that computes the same function; the bound from
-                  this run's inputs.
+                  this run's inputs, and for the two cell-force kernels the
+                  bytes their design moves (``design_bound_ms``): the rows
+                  the window kernel's walk visits, and cell_list_force's
+                  crowded tiles (halos past the staging budget, in the
+                  path's run and in one call).
   lm_small        path 3 at a small size: reduced phi4-mini (f32, 2 layers,
                   head_dim 16), weights from one CPU generator, the prefill
                   step with the flash kernel (f32: the SIMT kernel) and 8
@@ -69,6 +73,10 @@ it belongs to.
 Then a ``wall`` line (seconds of the build and of each path with its
 checks), one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
+
+``--save-force-inputs FILE`` also saves the inputs of the kernels phases'
+cell_list_force and cell_window_force calls (``torch.save``), for
+``scripts/force_kernel_bits.py`` to run another checkout's kernels on.
 """
 
 from __future__ import annotations
@@ -275,7 +283,10 @@ def phase_slice():
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
+    from repro_torch.kernels.cell_force import kernel as cf_k
+
     torch.cuda.reset_peak_memory_stats()
+    cf_k.crowded_tiles(built.state.pool.device, reset=True)
     reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -284,6 +295,7 @@ def phase_slice():
     total_s = time.perf_counter() - start
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    crowded = cf_k.crowded_tiles(built.state.pool.device, reset=True)
 
     step_s = [b - a for a, b in zip([start] + step_ends[:-1], step_ends)]
     pool, health = final.pool, final.health
@@ -319,8 +331,8 @@ def phase_slice():
          min_step_ms=1e3 * min(step_s), max_step_ms=1e3 * max(step_s),
          step_ms=[1e3 * t for t in step_s],
          peak_memory_bytes=peak, launches=launches,
-         exposure_mean=float(exposure.mean()))
-    return built, final, launches
+         cell_list_force_crowded_tiles=crowded, exposure_mean=float(exposure.mean()))
+    return built, final, launches, crowded
 
 
 # ------------------------------------------------------------------ spheroid
@@ -568,7 +580,22 @@ def check_cell_rank(cid: torch.Tensor, n_cells: int):
     return 0.0
 
 
-def phase_kernels(built, final, launches):
+def halo_multiplicity(dims, tile) -> torch.Tensor:
+    """Per box of the grid: how many of cell_list_force's tiles hold it in
+    their tile or one-box halo (the times the kernel reads its row)."""
+    axes = []
+    for n, t in zip(dims, tile):
+        mult = torch.zeros(n, dtype=torch.long)
+        for j in range(-(-n // t)):
+            mult[max(j * t - 1, 0):min(j * t + t + 1, n)] += 1
+        axes.append(mult)
+    mx, my, mz = axes
+    return (mx[:, None, None] * my[None, :, None] * mz[None, None, :]).reshape(-1)
+
+
+def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
+    """Path 1's kernels at the final state; ``force_inputs``, a dict, also
+    receives cell_list_force's inputs."""
     from repro_torch.core.grid import _live_cell_ids, build_index
     from repro_torch.kernels.cell_force import kernel as cf_k
     from repro_torch.kernels.cell_force.ref import cell_list_force_ref
@@ -608,7 +635,12 @@ def phase_kernels(built, final, launches):
         raise AssertionError("kernels: the final state overflowed a box")
     radius = pool.radius()
     args = (pool.position, radius, index.cell_list, spec.dims)
-    got = cf_k.cell_list_force_cuda(*args, num_out=pool.capacity)
+    list_force = lambda: cf_k.cell_list_force_cuda(*args, num_out=pool.capacity)
+    cf_k.crowded_tiles(pool.device, reset=True)
+    got = list_force()
+    crowded_call = cf_k.crowded_tiles(pool.device, reset=True)
+    if force_inputs is not None:
+        force_inputs["cell_list_force"] = dict(args=args, num_out=pool.capacity)
     m = spec.max_per_cell
     cnt = index.cell_count.long()
     # The plain version builds (boxes, k, 27k) pair tensors, k the fullest
@@ -627,23 +659,26 @@ def phase_kernels(built, final, launches):
     # sentinel in 32-byte sectors, position + radius of each listed agent,
     # and the (C, 3) output.  Operations: ~12 f32 ops per pair evaluation.
     ints = torch.clamp(cnt + 1, max=m)
-    sectors = int(((ints * 4 + 31) // 32).sum())
-    listed = int(torch.clamp(cnt, max=m).sum())
-    force_bytes = sectors * 32 + listed * 16 + pool.capacity * 12
-    nx, ny, nz = spec.dims
-    padded = torch.nn.functional.pad(cnt.reshape(nx, ny, nz), (1, 1, 1, 1, 1, 1))
-    box27 = sum(padded[a:a + nx, b:b + ny, c:c + nz]
-                for a in range(3) for b in range(3) for c in range(3))
-    pairs = int((cnt * (box27.reshape(-1) - 1)).sum())
+    row_bytes = (ints * 4 + 31) // 32 * 32
+    listed = torch.clamp(cnt, max=m)
+    force_bytes = int(row_bytes.sum()) + int(listed.sum()) * 16 + pool.capacity * 12
+    # This design: each row and listed agent read once per tile that holds
+    # it in its halo, the output zero-filled and then stored.
+    mult = halo_multiplicity(spec.dims, cf_k.TILE).to(cnt.device)
+    design_bytes = int((mult * (row_bytes + 16 * listed)).sum()) + 2 * pool.capacity * 12
+    pairs = box_pairs(cnt, spec.dims)
     rows.append(dict(
         name="cell_list_force", route="cuda",
         source="src/repro_torch/kernels/cell_force/csrc/cell_list_force.cu",
         replaces="src/repro/kernels/cell_force/kernel.py:186",
         launches=launches["cell_list_force"], max_abs_err=err,
-        ms=cuda_ms(lambda: cf_k.cell_list_force_cuda(*args, num_out=pool.capacity), 20),
+        ms=cuda_ms(list_force, 20),
         plain_ms=cuda_ms(plain_f, 1),
         library_ms=None,
         **bound(force_bytes, 12 * pairs),
+        design_bound_ms=bound(design_bytes, 12 * pairs)["bound_ms"], design_bytes=design_bytes,
+        tile=list(cf_k.TILE), stage_budget=cf_k.STAGE_BUDGET,
+        crowded_tiles=crowded_in_path, crowded_tiles_a_call=crowded_call,
         pair_evaluations=pairs, max_force=scale, fullest_box=k_max,
     ))
 
@@ -691,40 +726,23 @@ def box_pairs(counts: torch.Tensor, dims) -> int:
     return int((cnt * (box27.reshape(-1) - 1)).sum())
 
 
-def window_sweep(cid, dims, block, window):
-    """Pair tests of the reference's window sweep (in-range window blocks x
-    block^2) and of the blocks left after the kernel's bounding-box skip, and
-    the most window blocks any one query tile keeps."""
-    nx, ny, nz = dims
-    n_cells = nx * ny * nz
-    c = cid.shape[0]
+def window_sweep_pair_tests(c, block, window) -> int:
+    """Pair tests of the reference's window sweep: in-range window blocks x
+    block^2."""
     nbw = -(-c // block)
-    live = cid < n_cells
-    xyz = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], -1).long()
-    xyz_pad = torch.zeros((nbw * block, 3), dtype=torch.long, device=cid.device)
-    live_pad = torch.zeros((nbw * block,), dtype=torch.bool, device=cid.device)
-    xyz_pad[:c], live_pad[:c] = xyz, live
-    big = 1 << 40
-    lo = torch.where(live_pad[:, None], xyz_pad, big).reshape(nbw, block, 3).amin(1)
-    hi = torch.where(live_pad[:, None], xyz_pad, -big).reshape(nbw, block, 3).amax(1)
-    tiles = torch.arange(nbw, device=cid.device)
-    w = tiles[:, None] + torch.arange(-window, window + 1, device=cid.device)[None]
-    in_range = (w >= 0) & (w < nbw)
-    wc = w.clamp(0, nbw - 1)
-    empty = (lo[:, 0] > hi[:, 0])
-    touch = ((lo[wc] <= hi[:, None] + 1) & (hi[wc] >= lo[:, None] - 1)).all(-1)
-    touch &= ~empty[:, None] & ~empty[wc] & in_range
-    return (int(in_range.sum()) * block * block, int(touch.sum()) * block * block,
-            int(touch.sum(1).max()))
+    tiles = torch.arange(nbw)
+    w = tiles[:, None] + torch.arange(-window, window + 1)[None]
+    return int(((w >= 0) & (w < nbw)).sum()) * block * block
 
 
-def spheroid_kernel_rows(built, final, window, launches, dense_launches):
+def spheroid_kernel_rows(built, final, window, launches, dense_launches, force_inputs=None):
     """cell_window_force and pairwise_force at the spheroid's final state,
-    sorted as the next step would sort it."""
+    sorted as the next step would sort it; ``force_inputs``, a dict, also
+    receives the two cell-force kernels' inputs."""
     from repro_torch.core.forces import _morton_window_ok
     from repro_torch.core.grid import build_index, candidate_neighbors_arrays, sort_agents
     from repro_torch.kernels.cell_force import kernel as cf_k
-    from repro_torch.kernels.cell_force.ref import cell_window_force_ref
+    from repro_torch.kernels.cell_force.ref import cell_window_force_ref, window_walk
     from repro_torch.kernels.pairwise_force import kernel as pf_k
     from repro_torch.kernels.pairwise_force.ref import pairwise_force_ref
 
@@ -753,7 +771,18 @@ def spheroid_kernel_rows(built, final, window, launches, dense_launches):
     if not scale > 0 or not err <= 1e-5 * scale or not witness <= 1e-5 * scale:
         raise AssertionError(f"cell_window_force: max error {err} (vs cell_list_force "
                              f"{witness}) vs max|F| {scale}")
-    sweep, kept, kept_max = window_sweep(cid, spec.dims, SPH_BLOCK, window)
+    if force_inputs is not None:
+        force_inputs["cell_window_force"] = dict(
+            args=(pos, rad, cid, spec.dims), block=SPH_BLOCK, half_window=window)
+        force_inputs["cell_list_force_spheroid"] = dict(
+            args=(pos, rad, index.cell_list, spec.dims), num_out=c)
+    # The rows the kernel's walk visits (each neighbour cell's rows clipped
+    # to the window, merged).
+    start, end = window_walk(cid, spec.dims, SPH_BLOCK, window)
+    visited = (end - start).sum(1)
+    # This design: the (first, last) table filled, set by the live cells'
+    # atomics and read back, the cell ids read twice.
+    design_bytes = 16 * spec.n_cells + 8 * int((index.cell_count > 0).sum()) + 36 * c
     rows.append(dict(
         name="cell_window_force", route="cuda",
         source="src/repro_torch/kernels/cell_force/csrc/cell_window_force.cu",
@@ -763,9 +792,11 @@ def spheroid_kernel_rows(built, final, window, launches, dense_launches):
         # Bytes: position, radius and cell id read once, the output written
         # once.  Operations: ~12 f32 ops per true 27-box pair.
         **bound(32 * c, 12 * pairs),
+        design_bound_ms=bound(design_bytes, 12 * pairs)["bound_ms"], design_bytes=design_bytes,
         half_window=window, block=SPH_BLOCK, pair_evaluations=pairs,
-        reference_sweep_pair_tests=sweep, pair_tests_after_bbox_skip=kept,
-        most_window_blocks_kept_by_a_tile=kept_max,
+        reference_sweep_pair_tests=window_sweep_pair_tests(c, SPH_BLOCK, window),
+        candidate_rows_visited=int(visited.sum()),
+        most_rows_visited_by_a_query=int(visited.max()),
         max_force=scale, max_err_vs_cell_list_force=witness,
     ))
 
@@ -1191,6 +1222,12 @@ def phase_flash_variants():
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
+    args = sys.argv[1:]
+    save_to = args[1] if args[:1] == ["--save-force-inputs"] and len(args) == 2 else None
+    force_inputs = {} if save_to else None
+    if args and not save_to:
+        print("usage: python3 chip_smoke.py [--save-force-inputs FILE]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1221,15 +1258,18 @@ def main() -> int:
     seconds = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
     phase_small()
-    built, final, launches = phase_slice()
-    rows = phase_kernels(built, final, launches)
+    built, final, launches, crowded = phase_slice()
+    rows = phase_kernels(built, final, launches, crowded, force_inputs)
     del built, final
     seconds["path 1"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_spheroid_small()
     sph = phase_spheroid()
-    rows += spheroid_kernel_rows(*sph)
+    rows += spheroid_kernel_rows(*sph, force_inputs=force_inputs)
     del sph
+    if save_to:
+        torch.save(force_inputs, save_to)
+        force_inputs.clear()
     torch.cuda.empty_cache()
     seconds["path 2"] = time.perf_counter() - t0
     t0 = time.perf_counter()

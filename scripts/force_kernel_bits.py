@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Hold two checkouts' cell-force kernels to each other, bit for bit, on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py --save-force-inputs inputs.pt
+    python3 scripts/force_kernel_bits.py run --inputs inputs.pt --tree DIR --out a.pt
+    python3 scripts/force_kernel_bits.py compare a.pt b.pt
+
+``run`` imports ``repro_torch`` from the checkout at ``--tree`` (its kernels
+are built there, from its own sources), calls its ``cell_list_force_cuda``
+and ``cell_window_force_cuda`` on the saved inputs of ``chip_smoke.py``'s
+kernels phases (the soma path's cell list, the spheroid's sorted pool at its
+window, and cell_list_force on the spheroid's cell list) and saves the
+outputs.  ``compare`` prints one JSON line: for each kernel, whether the two
+outputs are equal bit for bit, how many values differ and by how much.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+
+def run(inputs: str, tree: str, out: str) -> None:
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    from repro_torch.kernels.cell_force import kernel as cf_k
+
+    saved = torch.load(inputs, map_location="cuda:0")
+    got = {}
+    for name, call in saved.items():
+        *tensors, dims = call["args"]
+        if name.startswith("cell_list_force"):
+            got[name] = cf_k.cell_list_force_cuda(*tensors, dims, num_out=call["num_out"])
+        else:
+            got[name] = cf_k.cell_window_force_cuda(*tensors, dims, block=call["block"],
+                                                    half_window=call["half_window"])
+    torch.cuda.synchronize()
+    torch.save({k: v.cpu() for k, v in got.items()}, out)
+    print(json.dumps({"tree": tree, "saved": out, "kernels": sorted(got),
+                      "module": cf_k.__file__}))
+
+
+def compare(a: str, b: str) -> None:
+    x, y = torch.load(a), torch.load(b)
+    result = {}
+    for name in sorted(x):
+        diff = (x[name] != y[name])
+        result[name] = dict(bit_identical=bool(torch.equal(x[name], y[name])),
+                            values=x[name].numel(), differing=int(diff.sum()),
+                            max_abs_diff=float((x[name] - y[name]).abs().max()))
+    print(json.dumps(result))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    r = sub.add_parser("run")
+    r.add_argument("--inputs", required=True)
+    r.add_argument("--tree", required=True, help="root of the checkout whose kernels run")
+    r.add_argument("--out", required=True)
+    c = sub.add_parser("compare")
+    c.add_argument("a")
+    c.add_argument("b")
+    args = ap.parse_args()
+    if args.cmd == "run":
+        if not torch.cuda.is_available():
+            print("force_kernel_bits: no CUDA device is available", file=sys.stderr)
+            return 1
+        run(args.inputs, args.tree, args.out)
+    else:
+        compare(args.a, args.b)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,6 +6,13 @@ notes are in the sources).
 Agent order in, agent order out: no planar layout is built.  ``launches``
 counts ``cell_list_force_cuda``'s kernel launches and ``window_launches``
 ``cell_window_force_cuda``'s (one per call each).
+
+``cell_list_force_cuda`` runs one block per ``TILE`` of boxes and stages a
+tile's halo in shared memory when it holds at most ``STAGE_BUDGET`` agents;
+a crowded tile walks global memory instead and adds one to a counter on the
+card, which ``crowded_tiles`` reads (it synchronises: tests and measurement
+only).  ``cell_window_force_cuda`` keeps a per-cell (first, last) row table
+as scratch.
 """
 
 from __future__ import annotations
@@ -19,6 +26,14 @@ from .. import _build
 launches = 0
 window_launches = 0
 
+# Boxes of a cell_list_force tile (x, y, z; z fastest, as in the cell id)
+# and the most halo agents a tile stages in shared memory.
+TILE = (4, 4, 16)
+STAGE_BUDGET = 1024
+
+# Crowded-tile counters on the card, one int32 per device index.
+_crowded: dict = {}
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -26,7 +41,7 @@ def _lib():
     lib = _build.load("cell_list_force")
     if not getattr(lib, "_typed", False):
         lib.cell_list_force_launch.argtypes = [
-            _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P,
+            _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P,
         ]
         lib.cell_list_force_launch.restype = _I
         lib._typed = True
@@ -42,6 +57,23 @@ def _window_lib():
         lib.cell_window_force_launch.restype = _I
         lib._typed = True
     return lib
+
+
+def _crowded_counter(device: torch.device) -> torch.Tensor:
+    counter = _crowded.get(device.index)
+    if counter is None:
+        counter = _crowded[device.index] = torch.zeros(1, dtype=torch.int32, device=device)
+    return counter
+
+
+def crowded_tiles(device: torch.device, reset: bool = False) -> int:
+    """Tiles that took ``cell_list_force``'s global-memory path on ``device``
+    (the tensors' device) since the last reset; synchronises."""
+    counter = _crowded_counter(torch.device(device))
+    n = int(counter.item())
+    if reset:
+        counter.zero_()
+    return n
 
 
 def cell_list_force_cuda(
@@ -76,12 +108,15 @@ def cell_list_force_cuda(
     out = torch.zeros((out_n, 3), dtype=torch.float32, device=position.device)
     if n_cells == 0 or out_n == 0:
         return out
+    tx, ty, tz = TILE
     lib = _lib()
     _build.check(
         lib.cell_list_force_launch(
             position.device.index, _build.ptr(position), _build.ptr(radius),
             _build.ptr(cell_list), nx, ny, nz, m, s, out_n, float(k),
-            float(gamma), _build.ptr(out), _build.stream_of(position),
+            float(gamma), tx, ty, tz, STAGE_BUDGET,
+            _build.ptr(_crowded_counter(position.device)), _build.ptr(out),
+            _build.stream_of(position),
         ),
         "cell_list_force",
     )
@@ -99,8 +134,8 @@ def cell_window_force_cuda(
     block: int = 128,
     half_window: int = 8,
 ) -> torch.Tensor:
-    """Net Eq-4.1 force per agent, ``(C, 3)`` f32: each query tile of
-    ``block`` rows against the rows of window blocks ``tile ± half_window``
+    """Net Eq-4.1 force per agent, ``(C, 3)`` f32: each query row of tile
+    ``row // block`` against the rows of window blocks ``tile ± half_window``
     (those that exist), pairs masked by 27-box adjacency, liveness and row
     identity.  Dead rows are zero."""
     global window_launches
@@ -117,19 +152,20 @@ def cell_window_force_cuda(
     if not (0 < block <= 1024 and block & (block - 1) == 0) or half_window < 0:
         raise ValueError(f"cell_window_force: block {block} must be a power of two "
                          f"in [1, 1024] and half_window {half_window} >= 0")
+    if c >= 0x7F7F7F7F:
+        raise ValueError(f"cell_window_force: {c} rows; the row table holds < 0x7F7F7F7F")
     _build.require_cuda("cell_window_force", position, radius, cell_of_agent)
-    out = torch.zeros((c, 3), dtype=torch.float32, device=position.device)
+    out = torch.empty((c, 3), dtype=torch.float32, device=position.device)
     if c == 0:
         return out
-    nbw = -(-c // block)
-    # Per-block bounding boxes of the live cell coordinates (scratch).
-    bbox = torch.empty((nbw, 6), dtype=torch.int32, device=position.device)
+    # Each cell's (first, ~last) row (scratch, filled by the launch).
+    span = torch.empty((nx * ny * nz, 2), dtype=torch.int32, device=position.device)
     lib = _window_lib()
     _build.check(
         lib.cell_window_force_launch(
             position.device.index, _build.ptr(position), _build.ptr(radius),
             _build.ptr(cell_of_agent), nx, ny, nz, c, block, half_window, float(k),
-            float(gamma), _build.ptr(bbox), _build.ptr(out), _build.stream_of(position),
+            float(gamma), _build.ptr(span), _build.ptr(out), _build.stream_of(position),
         ),
         "cell_window_force",
     )

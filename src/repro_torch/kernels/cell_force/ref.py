@@ -8,7 +8,10 @@ summing pair forces.  ``cells=(lo, hi)`` evaluates only query cells
 ``lo..hi-1`` (agents listed elsewhere get zero), so the dense
 ``(cells, M, 27·M)`` pair tensors can be built in pieces at full size.
 ``cell_window_force_ref`` is the Morton-window sweep of the Pallas
-``_window_force_kernel``, one query tile at a time.
+``_window_force_kernel``, one query tile at a time (``window_sweep_mask``
+gives a tile's pair mask).  ``window_walk`` lists the rows that
+``csrc/cell_window_force.cu`` walks instead, and ``window_walk_pairs`` the
+pairs it keeps: the same pairs as the sweep's, for any row order.
 """
 
 from __future__ import annotations
@@ -97,6 +100,37 @@ def cell_list_force_ref(
     return out[:out_n]
 
 
+def _cell_coords(cid: torch.Tensor, dims: tuple) -> torch.Tensor:
+    _, ny, nz = dims
+    return torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], dim=-1)
+
+
+def window_sweep_mask(
+    cell_of_agent: torch.Tensor,  # (C,) int32 linear cell id (≥ n_cells: dead)
+    dims: tuple,
+    block: int,
+    half_window: int,
+    tile: int,
+) -> tuple[slice, slice, torch.Tensor]:
+    """Query tile ``tile`` of the sweep: its rows, its window's rows (window
+    blocks ``tile ± half_window`` that exist) and the ``(|q|, |w|)`` pair
+    mask: 27-box adjacency decoded from the cell ids, both live, no
+    self-pair."""
+    n_cells = dims[0] * dims[1] * dims[2]
+    c = cell_of_agent.shape[0]
+    q = slice(tile * block, min((tile + 1) * block, c))
+    w = slice(max(tile - half_window, 0) * block, min((tile + half_window + 1) * block, c))
+    cid = cell_of_agent.to(torch.int32)
+    rows = torch.arange(c, device=cell_of_agent.device)
+    pair = (
+        ((_cell_coords(cid[q], dims)[:, None, :]
+          - _cell_coords(cid[w], dims)[None, :, :]).abs() <= 1).all(dim=-1)
+        & (cid[q] < n_cells)[:, None] & (cid[w] < n_cells)[None, :]
+        & (rows[q, None] != rows[None, w])
+    )
+    return q, w, pair
+
+
 def cell_window_force_ref(
     position: torch.Tensor,       # (C, 3) f32
     radius: torch.Tensor,         # (C,) f32
@@ -113,24 +147,12 @@ def cell_window_force_ref(
     ``i − half_window .. i + half_window`` that exist, pairs masked by decoded
     27-box adjacency, liveness and row identity.  ``tiles=(lo, hi)``
     evaluates only query tiles ``lo..hi-1`` (other rows get zero)."""
-    nx, ny, nz = dims
-    n_cells = nx * ny * nz
     c = position.shape[0]
     nbw = -(-c // block)
     lo_t, hi_t = (0, nbw) if tiles is None else (int(tiles[0]), int(tiles[1]))
-    cid = cell_of_agent.to(torch.int32)
-    live = cid < n_cells
-    coords = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], dim=-1)
-    rows = torch.arange(c, device=position.device)
     out = torch.zeros((c, 3), dtype=torch.float32, device=position.device)
     for i in range(lo_t, hi_t):
-        q = slice(i * block, min((i + 1) * block, c))
-        w = slice(max(i - half_window, 0) * block, min((i + half_window + 1) * block, c))
-        pair = (
-            ((coords[q, None, :] - coords[None, w, :]).abs() <= 1).all(dim=-1)
-            & live[q, None] & live[None, w]
-            & (rows[q, None] != rows[None, w])
-        )
+        q, w, pair = window_sweep_mask(cell_of_agent, dims, block, half_window, i)
         dxc = position[q, None, 0] - position[None, w, 0]
         dyc = position[q, None, 1] - position[None, w, 1]
         dzc = position[q, None, 2] - position[None, w, 2]
@@ -145,3 +167,60 @@ def cell_window_force_ref(
         out[q] = torch.stack([(scale * dxc).sum(1), (scale * dyc).sum(1),
                               (scale * dzc).sum(1)], dim=-1)
     return out
+
+
+def window_walk(
+    cell_of_agent: torch.Tensor,  # (C,) int32 linear cell id (outside [0, n_cells): dead)
+    dims: tuple,
+    block: int = 128,
+    half_window: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows the window kernel's walk visits, the plain way: each cell's
+    first and last row (``scatter_reduce``), the 27 neighbour cells'
+    ``[first, last]`` of each live query row clipped to its window's rows,
+    sorted by start and cut where they overlap.  Returns ``(start, end)``,
+    each ``(C, 27)`` int64: disjoint ascending intervals ``[start, end)``
+    inside the window (empty where ``end == start``; a dead row visits
+    none)."""
+    nx, ny, nz = dims
+    n_cells = nx * ny * nz
+    c = cell_of_agent.shape[0]
+    dev = cell_of_agent.device
+    cid = cell_of_agent.long()
+    live = (cid >= 0) & (cid < n_cells)
+    rows = torch.arange(c, device=dev)
+    first = torch.full((n_cells,), c, dtype=torch.long, device=dev).scatter_reduce(
+        0, cid[live], rows[live], "amin")
+    last = torch.full((n_cells,), -1, dtype=torch.long, device=dev).scatter_reduce(
+        0, cid[live], rows[live], "amax")
+    tile = rows // block
+    wlo = ((tile - half_window).clamp(min=0) * block)[:, None]
+    whi = ((tile + half_window + 1) * block).clamp(max=c)[:, None]
+    nb = (_cell_coords(torch.where(live, cid, 0), dims)[:, None, :]
+          + torch.tensor(_OFFSETS, device=dev)[None])                  # (C, 27, 3)
+    ok = ((nb >= 0) & (nb < torch.tensor(dims, device=dev))).all(-1) & live[:, None]
+    nid = torch.where(ok, (nb[..., 0] * ny + nb[..., 1]) * nz + nb[..., 2], 0)
+    lo = torch.where(ok, torch.maximum(first[nid], wlo), wlo)
+    hi = torch.where(ok, torch.minimum(last[nid] + 1, whi), wlo)
+    lo, order = lo.sort(dim=1, stable=True)
+    hi = hi.gather(1, order)
+    walked = torch.cat([wlo, torch.cummax(hi, dim=1).values[:, :-1]], dim=1)
+    start = torch.minimum(torch.maximum(lo, torch.maximum(walked, wlo)), whi)
+    return start, torch.maximum(hi, start)
+
+
+def window_walk_pairs(
+    cell_of_agent: torch.Tensor, dims: tuple, block: int = 128, half_window: int = 8,
+) -> torch.Tensor:
+    """``(C, C)`` bool: the pairs (query row, row) that the walk keeps — rows
+    it visits that are live, 27-box adjacent by their decoded cells and not
+    the query row itself.  For small pools (tests)."""
+    n_cells = dims[0] * dims[1] * dims[2]
+    start, end = window_walk(cell_of_agent, dims, block, half_window)
+    cid = cell_of_agent.long()
+    rows = torch.arange(cid.shape[0], device=cid.device)
+    visited = ((start[:, :, None] <= rows) & (rows < end[:, :, None])).any(dim=1)
+    live = (cid >= 0) & (cid < n_cells)
+    coords = _cell_coords(cid, dims)
+    adjacent = ((coords[:, None, :] - coords[None, :, :]).abs() <= 1).all(dim=-1)
+    return visited & adjacent & live[:, None] & live[None, :] & (rows[:, None] != rows[None, :])

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import agents, grid
+from repro_torch.core import grid
 from repro_torch.kernels import _build
 from repro_torch.kernels.cell_force import kernel as cf_kernel
 from repro_torch.kernels.cell_force import ops as cf_ops
@@ -40,6 +40,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from torch_force_cases import FORCE_CASES, WINDOW_CASES, runs_cut_by_a_window_edge
+from torch_force_cases import force_inputs as _force_inputs
+from torch_force_cases import window_inputs as _window_inputs
 
 CPU = torch.device("cpu")
 
@@ -101,35 +104,13 @@ def test_cell_rank_kernel_matches_plain(card, case):
 
 # ------------------------------------------------------------ cell_list_force
 
-FORCE_CASES = {
-    "generic": dict(n=600, extent=(40.0, 40.0, 40.0), box=5.0, m=16),
-    "boundary_2x2x2": dict(n=40, extent=(12.0, 12.0, 12.0), box=6.0, m=32),
-    "noncubic_8x1x4": dict(n=80, extent=(16.0, 2.0, 8.0), box=2.0, m=16),
-    "near_empty": dict(n=3, extent=(10.0, 10.0, 10.0), box=5.0, m=4),
-    "overflowed": dict(n=200, extent=(20.0, 20.0, 20.0), box=5.0, m=4, clump=20),
-    "full_row": dict(n=40, extent=(5.0, 5.0, 5.0), box=5.0, m=32),    # 32 alive, M = 32
-}
-
-
-def _force_inputs(case):
-    """(position, radius, index, spec, capacity) on the CPU."""
-    p = FORCE_CASES[case]
-    rng = np.random.default_rng(sorted(FORCE_CASES).index(case))
-    n, extent, box = p["n"], np.asarray(p["extent"], np.float32), p["box"]
-    pos = (rng.uniform(0, 1, (n, 3)) * extent).astype(np.float32)
-    if p.get("clump"):
-        c = p["clump"]
-        pos[:c] = (box * 0.1 + rng.uniform(0, box * 0.8, (c, 3))).astype(np.float32)
-    diam = rng.uniform(1.0, 6.0, n).astype(np.float32)
-    cap = n + 7
-    alive = np.ones(cap, bool)
-    alive[n:] = False
-    alive[rng.choice(n, n // 5, replace=False)] = False
-    spec = grid.GridSpec(origin=(0.0, 0.0, 0.0), box_size=box,
-                         dims=tuple(int(e // box) for e in extent), max_per_cell=p["m"])
-    pool = agents.make_pool(cap, pos, diameter=diam, device=CPU)
-    pool = pool.replace(alive=torch.from_numpy(alive))
-    return pool.position, pool.radius(), grid.build_index(spec, pool), spec, cap
+def _cell_list_plain(pos, rad, cell_list, dims):
+    """``cell_list_force_ref`` over chunks of query boxes of about 1e7 pairs
+    each (its pair tensors are (boxes, M, 27·M))."""
+    n_cells, m = cell_list.shape
+    chunk = max(1, int(1e7 // (27 * m * m)))
+    return sum(cell_list_force_ref(pos, rad, cell_list, dims, cells=(lo, min(lo + chunk, n_cells)))
+               for lo in range(0, n_cells, chunk))
 
 
 @pytest.mark.cuda
@@ -137,47 +118,28 @@ def _force_inputs(case):
 def test_cell_list_force_kernel_matches_plain(card, case):
     pos, rad, index, spec, cap = _force_inputs(case)
     assert bool(index.overflowed) == (case == "overflowed")
-    want = cell_list_force_ref(pos, rad, index.cell_list, spec.dims)
+    want = _cell_list_plain(pos, rad, index.cell_list, spec.dims)
     args = [t.to(card) for t in (pos, rad, index.cell_list)]
     before = cf_kernel.launches
+    crowded = cf_kernel.crowded_tiles(card)
     got = cf_ops.cell_list_force(*args, spec.dims, impl="cuda")
     torch.cuda.synchronize()
     assert cf_kernel.launches == before + 1
+    # Only the crowded box's tile walks global memory.
+    assert (cf_kernel.crowded_tiles(card) > crowded) == (case == "crowded_box")
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
-    on_card = cf_ops.cell_list_force(*args, spec.dims, impl="reference")
+    on_card = _cell_list_plain(*args, spec.dims)
     np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(), atol=1e-5)
     if case != "near_empty":
         assert float(want.abs().max()) > 0.1
+    if case == "ragged_tiles":
+        assert all(d % t for d, t in zip(spec.dims, cf_kernel.TILE))
     # Rows past num_out drop; the rows kept are unchanged.
     part = cf_ops.cell_list_force(*args, spec.dims, impl="cuda", num_out=cap // 2)
     np.testing.assert_array_equal(part.cpu().numpy(), got.cpu().numpy()[: cap // 2])
 
 
 # ---------------------------------------------------------- cell_window_force
-
-# (force case, layout-sorted, block, half_window): C = n + 7 is never a
-# multiple of the block, every case has dead rows; windows clipped at both
-# ends of the pool, narrow, and all-pairs.
-WINDOW_CASES = {
-    "allpairs_unsorted": ("generic", False, 64, 20),
-    "sorted_narrow": ("generic", True, 32, 2),
-    "sorted_clipped_both_ends": ("noncubic_8x1x4", True, 32, 1),
-    "sorted_block_128": ("overflowed", True, 128, 1),
-    "tiny_block": ("near_empty", False, 4, 1),
-}
-
-
-def _window_inputs(name):
-    case, is_sorted, block, window = WINDOW_CASES[name]
-    pos, rad, index, spec, cap = _force_inputs(case)
-    if is_sorted:
-        pool = agents.make_pool(cap, pos, diameter=2.0 * rad, device=CPU)
-        pool = pool.replace(alive=index.cell_of_agent < spec.n_cells)
-        pool = grid.sort_agents(spec, pool)
-        index = grid.build_index(spec, pool, assume_sorted=True)
-        pos, rad = pool.position, pool.radius()
-    return pos, rad, index, spec, block, window
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(WINDOW_CASES))
@@ -200,6 +162,8 @@ def test_cell_window_force_kernel_matches_plain(card, name):
         np.testing.assert_allclose(got.cpu().numpy(), linear.numpy(), atol=1e-5)
     if name != "tiny_block":
         assert float(want.abs().max()) > 0.1
+    if name == "sorted_straddling_runs":
+        assert runs_cut_by_a_window_edge(cid.numpy(), spec.n_cells, block, window) > 0
 
 
 # ------------------------------------------------------------- pairwise_force

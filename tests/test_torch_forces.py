@@ -9,6 +9,7 @@ bit for bit.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +24,10 @@ from repro_torch.core import agents as t_agents
 from repro_torch.core import forces as t_forces
 from repro_torch.core import grid as t_grid
 from repro_torch.kernels.cell_force import ops as t_cf
+from repro_torch.kernels.cell_force.ref import window_sweep_mask, window_walk, window_walk_pairs
 from repro_torch.kernels.pairwise_force import ops as t_pf
+from torch_force_cases import WINDOW_CASES as CARD_WINDOW_CASES
+from torch_force_cases import window_inputs as card_window_inputs
 from torch_parity import CPU, to_np
 
 ATOL = 1e-5
@@ -240,12 +244,13 @@ def _sorted_setup(case):
 
 
 # (case, sorted, block, window): an all-pairs window over an unsorted pool
-# (exact for any layout), and narrow windows over the sorted pool, one of
-# them clipped at both ends of the pool.
+# (exact for any layout), narrow windows over the sorted pool, one of them
+# clipped at both ends of the pool, and a narrow one over the unsorted pool.
 WINDOW_CASES = {
     "allpairs_unsorted": ("generic", False, 16, 5),
     "sorted_narrow": ("generic", True, 16, 2),
     "sorted_clipped_both_ends": ("noncubic_8x1x4", True, 32, 1),
+    "unsorted_narrow": ("generic", False, 16, 1),
 }
 
 
@@ -272,6 +277,86 @@ def test_cell_window_force_matches_jax_kernel(name, impl):
         linear = t_cf.cell_list_force(tpool.position, tpool.radius(), tidx.cell_list,
                                       tspec.dims, impl="reference")
         np.testing.assert_allclose(to_np(got), to_np(linear), atol=ATOL)
+
+
+# ------------------------------------ the window kernel's walk (on the CPU)
+
+def _jax_window_pairs(cid, dims, block, window):
+    """``(C, C)`` bool: the pair mask of the JAX package's
+    ``_window_force_kernel`` (through ``cell_window_force``, Pallas in
+    interpret mode), read off its output.
+
+    With k = 1, gamma = 0 and every radius 2^15, a pair at distance d adds
+    2^16 - d along the line between the two.  Every row sits at the origin
+    except up to 48 probe rows, 16 on each axis at 2^16 - 2^b (b = 0..15):
+    the force on any other row is then, on each axis, minus the sum of 2^b
+    over the probes it pairs with, within 0.2 of an integer whose bits name
+    them.  The probes run through the halves of the rows by each bit of the
+    row index, 48 at a time, so every ordered pair (q, r) is read in a run
+    where r is a probe and q is not."""
+    c = cid.shape[0]
+    rad = jnp.full((c,), 2.0**15, jnp.float32)
+    force = jax.jit(lambda pos: j_cf.cell_window_force(
+        pos, rad, jnp.asarray(cid), dims, k=1.0, gamma=0.0, block=block, window=window))
+    rows = np.arange(c)
+    pairs = np.zeros((c, c), bool)
+    for bit in range(max(1, (c - 1).bit_length())):
+        for half in (0, 1):
+            side = rows[(rows >> bit) & 1 == half]
+            for at in range(0, len(side), 48):
+                probes = side[at:at + 48]
+                pos = np.zeros((c, 3), np.float32)
+                slot = np.arange(len(probes))
+                pos[probes, slot // 16] = 2.0**16 - 2.0 ** (slot % 16)
+                readers = np.setdiff1d(rows, probes)
+                got = -np.asarray(force(jnp.asarray(pos)), np.float64)[readers]
+                code = np.rint(got)
+                assert np.abs(got - code).max() < 0.25
+                code = code.astype(np.int64)
+                for s, r in enumerate(probes):
+                    pairs[readers, r] = (code[:, s // 16] >> (s % 16)) & 1 == 1
+    return pairs
+
+
+def _walk_case(name):
+    """(cell ids, dims, block, half_window) of a window case of this file
+    (``jax:``) or of the card tests (``card:``), at the window geometry the
+    ops functions use."""
+    where, case = name.split(":")
+    if where == "jax":
+        base, is_sorted, block, window = WINDOW_CASES[case]
+        *_, tspec, _, tidx = (_sorted_setup if is_sorted else _setup)(base)
+        cid, dims = tidx.cell_of_agent, tspec.dims
+    else:
+        _, _, index, spec, block, window = card_window_inputs(case)
+        cid, dims = index.cell_of_agent, spec.dims
+    block, window = t_cf.window_defaults(cid.shape[0], block, window)
+    return cid.to(torch.int32), dims, block, window
+
+
+@pytest.mark.parametrize("name", [f"jax:{n}" for n in sorted(WINDOW_CASES)]
+                         + [f"card:{n}" for n in sorted(CARD_WINDOW_CASES)])
+def test_window_walk_pairs_match_the_sweep_and_jax(name):
+    """The rows ``cell_window_force.cu`` walks (each neighbour cell's first
+    to last row, clipped to the window, merged) hold exactly the pairs of the
+    window sweep: ``cell_window_force_ref``'s masks and the Pallas kernel's,
+    for sorted and unsorted pools and narrow windows."""
+    cid, dims, block, window = _walk_case(name)
+    c = cid.shape[0]
+    walk = to_np(window_walk_pairs(cid, dims, block, window))
+    sweep = np.zeros((c, c), bool)
+    for tile in range(-(-c // block)):
+        q, w, pair = window_sweep_mask(cid, dims, block, window, tile)
+        sweep[q, w] = to_np(pair)
+    np.testing.assert_array_equal(walk, sweep)
+    np.testing.assert_array_equal(walk, _jax_window_pairs(to_np(cid), dims, block, window))
+    assert walk.any()
+    # The walk's intervals are disjoint, ascending and inside the window.
+    start, end = window_walk(cid, dims, block, window)
+    assert bool((end >= start).all()) and bool((start[:, 1:] >= end[:, :-1]).all())
+    tile = torch.arange(c) // block
+    assert bool((start >= ((tile - window).clamp(min=0) * block)[:, None]).all())
+    assert bool((end <= ((tile + window + 1) * block).clamp(max=c)[:, None]).all())
 
 
 def test_window_defaults_match_jax():

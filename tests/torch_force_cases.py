@@ -1,0 +1,105 @@
+"""Named inputs of the port's force-kernel tests, shared by
+``tests/test_torch_cuda.py`` (kernels against their plain versions, no JAX)
+and ``tests/test_torch_forces.py`` (the window walk against the sweep and
+the JAX kernel).  Everything is made with numpy from a fixed seed per case
+and built on the CPU.
+"""
+
+import numpy as np
+import torch
+
+from repro_torch.core import agents, grid
+
+CPU = torch.device("cpu")
+
+# n agents (a fifth of them dead, plus 7 dead spare rows) uniform over
+# `extent`, diameters 1..6.  `clump` agents go into box (0, 0, 0); `crowd`
+# puts exactly that many live agents there and every other agent out of it,
+# all with diameters 0.2..0.6 (so that the sums stay of the other cases' size).
+FORCE_CASES = {
+    "generic": dict(n=600, extent=(40.0, 40.0, 40.0), box=5.0, m=16, seed=2),
+    "boundary_2x2x2": dict(n=40, extent=(12.0, 12.0, 12.0), box=6.0, m=32, seed=0),
+    "noncubic_8x1x4": dict(n=80, extent=(16.0, 2.0, 8.0), box=2.0, m=16, seed=4),
+    "near_empty": dict(n=3, extent=(10.0, 10.0, 10.0), box=5.0, m=4, seed=3),
+    "overflowed": dict(n=200, extent=(20.0, 20.0, 20.0), box=5.0, m=4, clump=20, seed=5),
+    "full_row": dict(n=40, extent=(5.0, 5.0, 5.0), box=5.0, m=32, seed=1),  # 32 alive, M = 32
+    # Dims (6, 5, 19): no axis a multiple of cell_list_force's tile.
+    "ragged_tiles": dict(n=700, extent=(30.0, 25.0, 95.0), box=5.0, m=16, seed=6),
+    # One box holding M = 1,100 agents: more than a tile stages in shared
+    # memory (kernel.STAGE_BUDGET), so its tile walks global memory.
+    "crowded_box": dict(n=1400, extent=(10.0, 5.0, 5.0), box=5.0, m=1100, crowd=1100,
+                        seed=7),
+}
+
+
+def force_inputs(case):
+    """(position, radius, index, spec, capacity) on the CPU."""
+    p = FORCE_CASES[case]
+    rng = np.random.default_rng(p["seed"])
+    n, extent, box = p["n"], np.asarray(p["extent"], np.float32), p["box"]
+    pos = (rng.uniform(0, 1, (n, 3)) * extent).astype(np.float32)
+    if p.get("clump"):
+        c = p["clump"]
+        pos[:c] = (box * 0.1 + rng.uniform(0, box * 0.8, (c, 3))).astype(np.float32)
+    diam = rng.uniform(1.0, 6.0, n).astype(np.float32)
+    cap = n + 7
+    alive = np.ones(cap, bool)
+    alive[n:] = False
+    alive[rng.choice(n, n // 5, replace=False)] = False
+    if p.get("crowd"):
+        pos[:, 0] = box + pos[:, 0] * (extent[0] - box) / extent[0]
+        inside = np.flatnonzero(alive[:n])[: p["crowd"]]
+        pos[inside] = (box * 0.1 + rng.uniform(0, box * 0.8, (len(inside), 3))).astype(
+            np.float32)
+        diam = rng.uniform(0.2, 0.6, n).astype(np.float32)
+    spec = grid.GridSpec(origin=(0.0, 0.0, 0.0), box_size=box,
+                         dims=tuple(int(e // box) for e in extent), max_per_cell=p["m"])
+    pool = agents.make_pool(cap, pos, diameter=diam, device=CPU)
+    pool = pool.replace(alive=torch.from_numpy(alive))
+    return pool.position, pool.radius(), grid.build_index(spec, pool), spec, cap
+
+
+# (force case, layout-sorted, block, half_window): C = n + 7 is never a
+# multiple of the block, every case has dead rows; windows clipped at both
+# ends of the pool, narrow over unsorted rows, cutting cells' row runs, and
+# all-pairs.
+WINDOW_CASES = {
+    "allpairs_unsorted": ("generic", False, 64, 20),
+    "sorted_narrow": ("generic", True, 32, 2),
+    "sorted_clipped_both_ends": ("noncubic_8x1x4", True, 32, 1),
+    "sorted_block_128": ("overflowed", True, 128, 1),
+    "tiny_block": ("near_empty", False, 4, 1),
+    # Cells' rows scattered over the pool and cut by a narrow window.
+    "unsorted_narrow": ("generic", False, 32, 2),
+    # The clump's run of 20 sorted rows spans window edges of 8-row blocks.
+    "sorted_straddling_runs": ("overflowed", True, 8, 1),
+}
+
+
+def window_inputs(name):
+    """(position, radius, index, spec, block, half_window) on the CPU."""
+    case, is_sorted, block, window = WINDOW_CASES[name]
+    pos, rad, index, spec, cap = force_inputs(case)
+    if is_sorted:
+        pool = agents.make_pool(cap, pos, diameter=2.0 * rad, device=CPU)
+        pool = pool.replace(alive=index.cell_of_agent < spec.n_cells)
+        pool = grid.sort_agents(spec, pool)
+        index = grid.build_index(spec, pool, assume_sorted=True)
+        pos, rad = pool.position, pool.radius()
+    return pos, rad, index, spec, block, window
+
+
+def runs_cut_by_a_window_edge(cid: np.ndarray, n_cells: int, block: int, window: int) -> int:
+    """Live cells whose rows [first, last] hold a window edge strictly
+    inside (some query's window takes part of the cell's rows)."""
+    c = cid.shape[0]
+    nbw = -(-c // block)
+    edges = {max(t - window, 0) * block for t in range(nbw)}
+    edges |= {min((t + window + 1) * block, c) for t in range(nbw)}
+    rows = np.arange(c)
+    live = cid < n_cells
+    cut = 0
+    for cell in np.unique(cid[live]):
+        at = rows[cid == cell]
+        cut += any(at[0] < e <= at[-1] for e in edges)
+    return cut
