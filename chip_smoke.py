@@ -34,13 +34,17 @@ printing one JSON line; any failure raises and exits non-zero:
   kernels         each kernel at its path's shapes (taken from the final state
                   of that path's run) against its plain PyTorch version on the
                   same card: cell_rank exact (plus a stable-sort oracle, one
-                  crowded box and an all-dead pool), diffusion rtol=atol=1e-6,
+                  crowded box and an all-dead pool, also at the spheroid's
+                  shape), diffusion bit for bit,
                   the three force kernels atol 1e-5 * max|F|, the window and
                   dense ones also against cell_list_force.  CUDA-event times of
                   the kernel, the plain version and, where one exists, a single
-                  PyTorch call that computes the same function; the bound from
-                  this run's inputs, and for the two cell-force kernels the
-                  bytes their design moves (``design_bound_ms``): the rows
+                  PyTorch call that computes the same function; for cell_rank
+                  and diffusion3d also ``device_ms``, calls replayed from a
+                  CUDA graph (the device's work without the host's dispatch);
+                  the bound from this run's inputs, and for cell_rank,
+                  diffusion3d and the two cell-force kernels the bytes their
+                  design moves (``design_bytes``, ``design_bound_ms``): the rows
                   the window kernel's walk visits, and cell_list_force's
                   crowded tiles (halos past the staging budget, in the
                   path's run and in one call).
@@ -83,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -580,6 +585,45 @@ def check_cell_rank(cid: torch.Tensor, n_cells: int):
     return 0.0
 
 
+def cell_rank_design_bytes(cid: torch.Tensor, n_cells: int) -> int:
+    """Bytes the kernel's passes move for these ids, each array once a pass:
+    the memset (counts, counters, chunk flags); the count pass (ids, the
+    counts read and written, the live agents' slots and table entries);
+    bucket placement (counts) and the fill (ids, slots); the rank pass (ids,
+    a count a live agent, a 16-byte table row for each agent that shares
+    its cell, the ranks).  Cells of more than ``ROW`` agents add their bucket
+    (offsets, entries written and read)."""
+    from repro_torch.kernels.cell_rank import kernel as cr_k
+
+    n = cid.numel()
+    live_ids = cid[(cid >= 0) & (cid < n_cells)].long()
+    live = live_ids.numel()
+    per_agent = torch.bincount(live_ids, minlength=n_cells)[live_ids]
+    shared = int((per_agent > 1).sum())
+    bucketed = int((per_agent > cr_k.ROW).sum())
+    zeroed = 4 * (n_cells + cr_k._COUNTERS + cr_k.max_chunks(n))
+    return (zeroed + (4 * n + 8 * n_cells + 8 * live)
+            + (4 * n_cells + 4 * n + 4 * live)
+            + (8 * n + 4 * live + 16 * shared) + 16 * bucketed)
+
+
+def cell_rank_times(cid: torch.Tensor, n_cells: int) -> dict:
+    """cell_rank at one input: event time (the host's dispatch included),
+    device time (calls replayed from a CUDA graph), the function's bound
+    (ids read once, ranks written once; a compare per pair of a cell) and
+    this design's."""
+    from repro_torch.kernels.cell_rank import kernel as cr_k
+
+    call = lambda: cr_k.cell_rank_cuda(cid, n_cells)
+    counts = torch.bincount(cid.long(), minlength=n_cells + 1)[:n_cells]
+    ops = int((counts * counts).sum()) + 4 * cid.numel()
+    design_bytes = cell_rank_design_bytes(cid, n_cells)
+    return dict(ms=cuda_ms(call, 50), device_ms=graph_ms(call, 50),
+                **bound(2 * cid.numel() * 4, ops),
+                design_bytes=design_bytes, design_bound_ms=bound(design_bytes, ops)["bound_ms"],
+                agents=cid.numel(), n_cells=n_cells, fullest_cell=int(counts.max()))
+
+
 def halo_multiplicity(dims, tile) -> torch.Tensor:
     """Per box of the grid: how many of cell_list_force's tiles hold it in
     their tile or one-box halo (the times the kernel reads its row)."""
@@ -614,19 +658,16 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
     crowded = torch.full((65_536,), 4242, dtype=torch.int32, device=cid.device)
     check_cell_rank(crowded, n_cells)           # every agent in one box
     check_cell_rank(torch.full_like(cid, n_cells), n_cells)
-    counts = torch.bincount(cid.long(), minlength=n_cells + 1)[:n_cells]
-    rank_bytes = 2 * cid.numel() * 4
-    rank_ops = int((counts * counts).sum()) + 4 * cid.numel()
     rows.append(dict(
         name="cell_rank", route="cuda",
         source="src/repro_torch/kernels/cell_rank/csrc/cell_rank.cu",
         replaces="src/repro/kernels/cell_rank/kernel.py:88",
         launches=launches["cell_rank"], max_abs_err=0.0,
-        ms=cuda_ms(lambda: cr_k.cell_rank_cuda(cid, n_cells), 50),
         plain_ms=cuda_ms(lambda: cr_ops.cell_rank_tiled(cid, n_cells), 5),
         library_ms=None,
-        **bound(rank_bytes, rank_ops),
+        **cell_rank_times(cid, n_cells),
         crowded_box_ms=cuda_ms(lambda: cr_k.cell_rank_cuda(crowded, n_cells), 3),
+        crowded_box_device_ms=graph_ms(lambda: cr_k.cell_rank_cuda(crowded, n_cells), 3),
     ))
 
     # ---- cell_list_force: the final state's cell list, every box.
@@ -689,7 +730,9 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
     decay = g.decay_constant * built.config.dt
     got = d3_k.diffusion_step_cuda(u, nu, decay)
     want = diffusion_step_ref(u, nu, decay)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if not torch.equal(got, want):
+        raise AssertionError(f"diffusion3d: {int((got != want).sum())} values differ from "
+                             f"the plain version (max {float((got - want).abs().max())})")
     err = float((got - want).abs().max())
     # One PyTorch call for the same function: a 3x3x3 convolution (full f32).
     torch.backends.cudnn.allow_tf32 = False
@@ -705,14 +748,39 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
         replaces="src/repro/kernels/diffusion3d/kernel.py:61",
         launches=launches["diffusion3d"], max_abs_err=err,
         ms=cuda_ms(lambda: d3_k.diffusion_step_cuda(u, nu, decay), 50),
+        device_ms=graph_ms(lambda: d3_k.diffusion_step_cuda(u, nu, decay), 20),
         plain_ms=cuda_ms(lambda: diffusion_step_ref(u, nu, decay), 20),
         library_ms=cuda_ms(conv, 20),
         **bound(2 * u.numel() * 4, 8 * u.numel()),
+        # This design: each block's planes with their one-voxel halo (x, y
+        # and z, whole 16-byte chunks in z) read once, the output once.
+        design_bytes=diffusion_design_bytes(u.shape),
+        design_bound_ms=bound(diffusion_design_bytes(u.shape), 8 * u.numel())["bound_ms"],
         library_max_abs_err=conv_err,
     ))
     for r in rows:
         emit("kernel", **r)
     return rows
+
+
+def diffusion_design_bytes(shape) -> int:
+    """Bytes the diffusion kernel reads and writes at ``shape``: each block
+    stages its x run plus two halo planes, each plane its tile's rows plus
+    two halo rows of whole 16-byte chunks from z0 - 4 to z0 + kTz + 4
+    (clipped to the grid), as the launcher cuts the grid for this card."""
+    nx, ny, nz = shape
+    src = (ROOT / "src/repro_torch/kernels/diffusion3d/csrc/diffusion3d.cu").read_text()
+    ty, tz, per_sm = (int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                      for k in ("kTy", "kTz", "kBlocksPerSm"))
+    tiles_y, tiles_z = -(-ny // ty), -(-nz // tz)
+    want = torch.cuda.get_device_properties(0).multi_processor_count * per_sm
+    runs = min(nx, max(1, -(-want // (tiles_y * tiles_z))))
+    run = -(-nx // runs)
+    planes = sum(min(x0 + run, nx) - x0 + min(x0, 1) + (x0 + run < nx)
+                 for x0 in range(0, nx, run))
+    rows = sum(min(y0 + ty + 1, ny) - max(y0 - 1, 0) for y0 in range(0, ny, ty))
+    cols = sum(min(z0 + tz + 4, nz) - max(z0 - 4, 0) for z0 in range(0, nz, tz))
+    return 4 * planes * rows * cols + 4 * nx * ny * nz
 
 
 def box_pairs(counts: torch.Tensor, dims) -> int:
@@ -740,13 +808,21 @@ def spheroid_kernel_rows(built, final, window, launches, dense_launches, force_i
     sorted as the next step would sort it; ``force_inputs``, a dict, also
     receives the two cell-force kernels' inputs."""
     from repro_torch.core.forces import _morton_window_ok
-    from repro_torch.core.grid import build_index, candidate_neighbors_arrays, sort_agents
+    from repro_torch.core.grid import (_live_cell_ids, build_index,
+                                       candidate_neighbors_arrays, layout_rank_table,
+                                       sort_agents)
     from repro_torch.kernels.cell_force import kernel as cf_k
     from repro_torch.kernels.cell_force.ref import cell_window_force_ref, window_walk
     from repro_torch.kernels.pairwise_force import kernel as pf_k
     from repro_torch.kernels.pairwise_force.ref import pairwise_force_ref
 
     spec = built.config.spec
+    # ---- cell_rank at the spheroid's shape: the Morton keys the next step's
+    # sort ranks.
+    zid = layout_rank_table(spec, final.pool.device)[
+        _live_cell_ids(spec, final.pool.position, final.pool.alive).long()]
+    check_cell_rank(zid, spec.n_cells)
+    emit("kernel_at_spheroid_shape", name="cell_rank", **cell_rank_times(zid, spec.n_cells))
     pool = sort_agents(spec, final.pool)
     index = build_index(spec, pool, assume_sorted=True)
     if not bool(_morton_window_ok(spec, index, SPH_BLOCK, window) & ~index.overflowed):

@@ -21,8 +21,10 @@ warm up, times
 ``torch.profiler``.  Prints one JSON line: the card and its power limit, the
 step time, the device's busy time per step (the union of kernel and copy
 intervals) and idle share, the kernels and copies per step, and the top
-device consumers by name.  The profiler's own overhead lengthens the
-profiled window, so the idle share is an upper bound.
+device consumers by name; for the agent paths also the device activities of
+one ``cell_rank`` call on the path's cell ids, from a trace of ten calls.
+The profiler's own overhead lengthens the profiled window, so the idle
+share is an upper bound.
 """
 
 from __future__ import annotations
@@ -67,7 +69,38 @@ def make_runner(cs, model: str, steps: int):
     def run(n):
         state[0], _ = built.run(n, state=state[0])
 
+    def rank_input():
+        from repro_torch.core.grid import _live_cell_ids
+
+        spec, pool = built.config.spec, state[0].pool
+        return _live_cell_ids(spec, pool.position, pool.alive), spec.n_cells
+
+    run.rank_input = rank_input
     return run
+
+
+def cell_rank_activities(cid, n_cells, calls: int = 10):
+    """Device activities (kernels, memsets, copies) per ``cell_rank_cuda``
+    call, from a trace of ``calls`` calls alone, and their names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.cell_rank import kernel as cr_k
+
+    cr_k.cell_rank_cuda(cid, n_cells)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            cr_k.cell_rank_cuda(cid, n_cells)
+        torch.cuda.synchronize()
+    names = collections.Counter()
+    us = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name[:60]] += 1
+            us[e.name[:60]] += e.time_range.end - e.time_range.start
+    return {"per_call": sum(names.values()) / calls,
+            "names": {k: v / calls for k, v in sorted(names.items())},
+            "us_per_call": {k: us[k] / calls for k in sorted(names)}}
 
 
 def lm_runner(cs, model: str, steps: int):
@@ -144,6 +177,9 @@ def main() -> int:
     dtoh = sum(n for name, (n, _) in by_name.items()
                if "memcpy" in name.lower() and "dtoh" in name.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    extra = {}
+    if hasattr(run, "rank_input"):
+        extra["cell_rank_activities"] = cell_rank_activities(*run.rank_input())
     print(json.dumps({
         "model": args.model,
         "device": torch.cuda.get_device_name(0),
@@ -158,6 +194,7 @@ def main() -> int:
         "device_to_host_copies_per_step": dtoh / args.steps,
         "top": [{"name": name[:90], "per_step": n / args.steps,
                  "ms_per_step": us / 1e3 / args.steps} for name, (n, us) in top],
+        **extra,
     }), flush=True)
     return 0
 

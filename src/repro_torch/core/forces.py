@@ -51,7 +51,7 @@ def _window_need(spec: GridSpec, index: GridIndex, block: int) -> torch.Tensor:
     n_cells = spec.n_cells
     nx, ny, nz = spec.dims
     rows = torch.arange(c, dtype=torch.int32, device=dev)
-    ci = cid.long()
+    ci = cid.long().clamp_(min=0)   # a negative id is refused by the caller
     rmin = torch.full((n_cells + 1,), c, dtype=torch.int32, device=dev)
     rmin = rmin.scatter_reduce(0, ci, rows, "amin")
     rmax = torch.full((n_cells + 1,), -1, dtype=torch.int32, device=dev)
@@ -235,13 +235,18 @@ def mechanical_forces(
         if tile_order == "morton":
             ok = True
             if morton_fallback:
-                ok = bool(_morton_window_ok(spec, index, morton_block, morton_window)
-                          & ~index.overflowed)
+                # One device-to-host read for the gate and the kernel's id check.
+                gate = (_morton_window_ok(spec, index, morton_block, morton_window)
+                        & ~index.overflowed)
+                ok, negative = torch.stack(
+                    [gate, cf_ops.negative_ids(index.cell_of_agent)]).tolist()
+                cf_ops.reject_negative_ids(negative)
             if ok:
                 return cf_ops.cell_window_force(
                     pool.position, radius, index.cell_of_agent, spec.dims,
                     k=params.repulsion_k, gamma=params.attraction_gamma,
                     block=morton_block, window=morton_window, impl="cuda",
+                    ids_checked=morton_fallback,
                 )
         return cf_ops.cell_list_force(
             src_pos, src_rad, index.cell_list, spec.dims,

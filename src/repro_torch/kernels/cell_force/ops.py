@@ -68,6 +68,18 @@ def window_defaults(c: int, block: int | None, window: int | None
     return b, h
 
 
+def negative_ids(cell_of_agent: torch.Tensor) -> torch.Tensor:
+    """() bool, on the ids' device: is any cell id below 0?"""
+    return (cell_of_agent < 0).any()
+
+
+def reject_negative_ids(negative: bool) -> None:
+    """Raise ``ValueError`` when :func:`negative_ids` said so."""
+    if negative:
+        raise ValueError("cell_window_force: cell ids must be >= 0 (n_cells and above "
+                         "mark dead agents); got a negative id")
+
+
 def cell_window_force(
     position: torch.Tensor,       # (C, 3) f32 layout-sorted pool positions
     radius: torch.Tensor,         # (C,) f32
@@ -78,15 +90,25 @@ def cell_window_force(
     block: int | None = None,
     window: int | None = None,
     impl: str = "cuda",
+    ids_checked: bool = False,
 ) -> torch.Tensor:
     """Net Eq-4.1 force per agent, ``(C, 3)``, via the Morton window: each
     query tile of ``block`` rows against the rows of ``± half_window``
     contiguous blocks, pairs masked by 27-box adjacency of their cell ids.
     Exact iff every agent's neighbourhood lies in its window (the dispatcher
     checks that per step; ``window ≥ ⌈C/block⌉`` is all-pairs).  Dead rows
-    get zero.  Agent order in and out: no planar copy."""
+    get zero.  Agent order in and out: no planar copy.
+
+    A negative cell id raises ``ValueError`` on both paths: the reference
+    decodes one by floor division into cells beside x = 0, and the kernel
+    has no rows for cells that do not exist.  The check reads one flag
+    from the card; ``ids_checked=True`` skips it for a caller that has
+    already rejected negative ids (``core.forces`` does, in the read its
+    coverage gate makes)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown cell_window_force impl {impl!r}; expected {IMPLS}")
+    if not ids_checked:
+        reject_negative_ids(bool(negative_ids(cell_of_agent)))
     bw, h = window_defaults(position.shape[0], block, window)
     if impl == "cuda" and position.device.type != "cpu":
         return _kernel.cell_window_force_cuda(

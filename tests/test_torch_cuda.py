@@ -8,8 +8,9 @@ On the card:
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: ranks exact; forces ``atol=1e-5`` (the plain versions sum the
-pairs in another order); diffusion ``rtol=atol=1e-6`` (the kernel keeps the
-plain version's sum order); RMSNorm and flash attention f32 ``rtol=1e-5,
+pairs in another order); diffusion bit for bit against the plain version on
+the card (the kernel keeps its sum order and rounding) and ``rtol=atol=1e-6``
+against it on the CPU; RMSNorm and flash attention f32 ``rtol=1e-5,
 atol=2e-6`` and ``atol=2e-5``, bf16 one bf16 ulp (``rtol=2**-7``: the f32
 results, summed in other orders, round once to bf16); the tensor-core flash
 kernel's sharp-softmax cases one bf16 ulp of a float64 oracle.
@@ -79,27 +80,105 @@ def _cid_case(name):
         n_cells, cid = 64, np.zeros(0, np.int64)
     elif name == "noncubic_8x1x4":
         n_cells, cid = 32, rng.integers(0, 33, 257)
+    elif name == "soma_density":                         # the soma path's shape
+        n_cells = 100**3
+        cid = rng.integers(0, n_cells, 600_000)
+        cid[rng.random(600_000) < 0.05] = n_cells
+    elif name in ("just_above_threshold", "far_above_threshold"):
+        # One cell just above / far above the block-ranking threshold, one at
+        # it, the rest sparse; shuffled.
+        big = cr_kernel.SMALL_CELL + 1 if name == "just_above_threshold" else \
+            3 * cr_kernel.CHUNK + 17
+        n_cells = 4096
+        rest = rng.integers(0, n_cells + 1, 5000)
+        rest[(rest == 123) | (rest == 3000)] = n_cells
+        cid = np.concatenate([np.full(big, 123), np.full(cr_kernel.SMALL_CELL, 3000), rest])
+        cid = cid[rng.permutation(cid.shape[0])]
+    elif name == "ragged_pool":                          # C not a multiple of a tile
+        n_cells, cid = 1000, rng.integers(0, 1001, 3 * cr_kernel.AGENT_TILE + 7)
+    elif name == "mostly_dead":
+        n_cells = 5000
+        cid = np.where(rng.random(20_000) < 0.95, n_cells, rng.integers(0, n_cells, 20_000))
     else:
         raise KeyError(name)
     return torch.from_numpy(cid.astype(np.int32)), n_cells
 
 
-RANK_CASES = ["random", "crowded_box", "all_dead", "single", "empty", "noncubic_8x1x4"]
+RANK_CASES = ["random", "crowded_box", "all_dead", "single", "empty", "noncubic_8x1x4",
+              "soma_density", "just_above_threshold", "far_above_threshold", "ragged_pool",
+              "mostly_dead"]
+
+
+def _rank_by_stable_sort(cid: torch.Tensor, n_cells: int) -> np.ndarray:
+    """The ranks from a stable sort by cell id: exact at any size."""
+    c = cid.numpy().astype(np.int64)
+    order = np.argsort(c, kind="stable")
+    counts = np.bincount(c, minlength=n_cells + 1)
+    rank = np.empty_like(c)
+    rank[order] = np.arange(c.shape[0]) - (np.cumsum(counts) - counts)[c[order]]
+    return rank
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", RANK_CASES)
 def test_cell_rank_kernel_matches_plain(card, case):
     cid, n_cells = _cid_case(case)
-    want = cell_rank_ref(cid)
+    # The O(C^2) oracle where it fits; else a stable sort (held to the oracle
+    # on every smaller case).
+    want = cell_rank_ref(cid).numpy() if cid.numel() <= 20_000 else \
+        _rank_by_stable_sort(cid, n_cells)
+    if cid.numel():
+        np.testing.assert_array_equal(_rank_by_stable_sort(cid, n_cells)[:20_000],
+                                      want[:20_000])
     before = cr_kernel.launches
     got = cr_ops.cell_rank(cid.to(card), n_cells, impl="cuda")
     torch.cuda.synchronize()
     assert got.device == card and got.dtype == torch.int32
-    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
     np.testing.assert_array_equal(
-        cr_ops.cell_rank_tiled(cid.to(card), n_cells).cpu().numpy(), want.numpy())
+        cr_ops.cell_rank_tiled(cid.to(card), n_cells).cpu().numpy(), want)
     assert cr_kernel.launches == before + (1 if cid.numel() else 0)
+    counts = np.bincount(cid.numpy(), minlength=n_cells + 1)[:n_cells]
+    if case.endswith("_threshold"):
+        assert (counts > cr_kernel.SMALL_CELL).sum() == 1
+        assert (counts == cr_kernel.SMALL_CELL).sum() >= 1
+    if case == "far_above_threshold":
+        assert counts.max() > 3 * cr_kernel.CHUNK        # ranked across four chunks
+
+
+@pytest.mark.cuda
+def test_cell_rank_workspace_size_matches_the_source(card):
+    lib = cr_kernel._lib()
+    for n, n_cells in ((1, 0), (1000, 64), (600_000, 100**3), (131_072, 56**3), (70_001, 3)):
+        assert lib.cell_rank_workspace_bytes(n, n_cells) == cr_kernel.workspace_bytes(n, n_cells)
+
+
+@pytest.mark.cuda
+def test_cell_rank_graph_replay_matches_eager(card):
+    """One call captured in a CUDA graph (memset and kernels, workspace from
+    the graph's pool) replays to the eager ranks, again after the input
+    changes in place."""
+    inputs = [_cid_case(name) for name in ("crowded_box", "random")]
+    n = max(c.numel() for c, _ in inputs)
+    n_cells = max(nc for _, nc in inputs)
+    pad = lambda c: torch.cat([c, torch.full((n - c.numel(),), n_cells, dtype=torch.int32)])
+    first, second = (pad(c).to(card) for c, _ in inputs)
+    cid = first.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cr_kernel.cell_rank_cuda(cid, n_cells)                 # warm-up: build, load
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cr_kernel.cell_rank_cuda(cid, n_cells)
+    for src in (first, second, first):
+        cid.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, cr_kernel.cell_rank_cuda(src, n_cells))
+        np.testing.assert_array_equal(out.cpu().numpy(),
+                                      _rank_by_stable_sort(src.cpu(), n_cells))
 
 
 # ------------------------------------------------------------ cell_list_force
@@ -198,19 +277,28 @@ def test_pairwise_force_kernel_matches_plain(card, case):
 # ----------------------------------------------------------------- diffusion
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1, 1), (8, 1, 4), (17, 9, 5), (64, 64, 64)])
-def test_diffusion_kernel_matches_plain(card, shape):
+@pytest.mark.parametrize("shape", [(1, 1, 1), (8, 1, 4), (17, 9, 5), (64, 64, 64),
+                                   (23, 19, 30), (6, 37, 12), (200, 200, 200)],
+                         ids=["1", "nz_lt_tile", "nz_odd", "64", "nz_mod4_lt_tile",
+                              "ny_ragged", "200"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_diffusion_kernel_matches_plain(card, shape, aligned):
+    """Bit for bit against the plain version on the card (the kernel keeps
+    its sum order and rounding); a field that starts one float into its
+    buffer takes the kernel's 4-byte path."""
     rng = np.random.default_rng(sum(shape))
     u = torch.from_numpy(rng.uniform(0, 10, shape).astype(np.float32))
     want = diffusion_step_ref(u, 0.16, 0.002)
+    size = u.numel()
+    buf = torch.zeros(size + 1, dtype=torch.float32, device=card)
+    on = buf[(0 if aligned else 1):][:size].view(shape)
+    on.copy_(u)
     before = d3_kernel.launches
-    got = d3_ops.diffusion_step(u.to(card), 0.16, 0.002, impl="cuda")
+    got = d3_ops.diffusion_step(on, 0.16, 0.002, impl="cuda")
     torch.cuda.synchronize()
     assert d3_kernel.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
-    on_card = diffusion_step_ref(u.to(card), 0.16, 0.002)
-    np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(),
-                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, diffusion_step_ref(on, 0.16, 0.002))
 
 
 # ------------------------------------------------------------------- rmsnorm

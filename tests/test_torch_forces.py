@@ -7,6 +7,7 @@ coverage gate are exact, and a failed gate gives the linear fused result
 bit for bit.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -277,6 +278,44 @@ def test_cell_window_force_matches_jax_kernel(name, impl):
         linear = t_cf.cell_list_force(tpool.position, tpool.radius(), tidx.cell_list,
                                       tspec.dims, impl="reference")
         np.testing.assert_allclose(to_np(got), to_np(linear), atol=ATOL)
+
+
+@pytest.mark.parametrize("impl", ["reference", "cuda"])
+def test_cell_window_force_rejects_negative_cell_ids(impl):
+    """A negative cell id raises ``ValueError`` on either path (the card
+    kernel would take the agent as dead, the reference decodes the id into
+    cells beside x = 0).  In-domain ids give the same forces as before, with
+    the check made here or left to a caller (``ids_checked``)."""
+    *_, tspec, tpool, tidx = _sorted_setup("generic")
+    args = (tpool.position, tpool.radius())
+    kw = dict(block=16, window=2, impl=impl)
+    cid = tidx.cell_of_agent
+    got = t_cf.cell_window_force(*args, cid, tspec.dims, **kw)
+    np.testing.assert_allclose(to_np(got), _jax_window_force("sorted_narrow"), atol=ATOL)
+    np.testing.assert_array_equal(
+        to_np(t_cf.cell_window_force(*args, cid, tspec.dims, ids_checked=True, **kw)),
+        to_np(got))
+    dead = int(torch.nonzero(cid >= tspec.n_cells)[0])
+    for row, value in ((0, -1), (dead, -1), (cid.shape[0] - 1, -(2**31))):
+        bad = cid.clone()
+        bad[row] = value
+        with pytest.raises(ValueError, match="negative"):
+            t_cf.cell_window_force(*args, bad, tspec.dims, **kw)
+
+
+def test_morton_dispatch_rejects_negative_cell_ids():
+    """The engine's Morton path checks the ids in the read its coverage gate
+    makes, and raises as ``cell_window_force`` does, covering window or not."""
+    *_, tspec, tpool, tidx = _sorted_setup("generic")
+    cover = t_forces.covering_half_window(tspec, tidx, 16)
+    cid = tidx.cell_of_agent.clone()
+    cid[3] = -1
+    bad = dataclasses.replace(tidx, cell_of_agent=cid)
+    for window in (cover, 0):
+        with pytest.raises(ValueError, match="negative"):
+            t_forces.mechanical_forces(tspec, bad, tpool, t_forces.ForceParams(),
+                                       impl="fused", tile_order="morton",
+                                       morton_block=16, morton_window=window)
 
 
 # ------------------------------------ the window kernel's walk (on the CPU)
