@@ -43,11 +43,13 @@ printing one JSON line; any failure raises and exits non-zero:
                   and diffusion3d also ``device_ms``, calls replayed from a
                   CUDA graph (the device's work without the host's dispatch);
                   the bound from this run's inputs, and for cell_rank,
-                  diffusion3d and the two cell-force kernels the bytes their
-                  design moves (``design_bytes``, ``design_bound_ms``): the rows
-                  the window kernel's walk visits, and cell_list_force's
-                  crowded tiles (halos past the staging budget, in the
-                  path's run and in one call).
+                  diffusion3d, pairwise_force and the two cell-force kernels
+                  the bytes their design moves (``design_bytes``,
+                  ``design_bound_ms``): the rows the window kernel's walk
+                  visits, the mask and the id sectors holding a set slot of
+                  pairwise_force (which also has ``device_ms``), and
+                  cell_list_force's crowded tiles (halos past the staging
+                  budget, in the path's run and in one call).
   lm_small        path 3 at a small size: reduced phi4-mini (f32, 2 layers,
                   head_dim 16), weights from one CPU generator, the prefill
                   step with the flash kernel (f32: the SIMT kernel) and 8
@@ -79,7 +81,8 @@ checks), one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``--save-force-inputs FILE`` also saves the inputs of the kernels phases'
-cell_list_force and cell_window_force calls (``torch.save``), for
+cell_list_force and cell_window_force calls and of the pairwise_force call
+(every 8th query row of it, with all sources; ``torch.save``), for
 ``scripts/force_kernel_bits.py`` to run another checkout's kernels on.
 """
 
@@ -806,7 +809,7 @@ def window_sweep_pair_tests(c, block, window) -> int:
 def spheroid_kernel_rows(built, final, window, launches, dense_launches, force_inputs=None):
     """cell_window_force and pairwise_force at the spheroid's final state,
     sorted as the next step would sort it; ``force_inputs``, a dict, also
-    receives the two cell-force kernels' inputs."""
+    receives the three force kernels' inputs."""
     from repro_torch.core.forces import _morton_window_ok
     from repro_torch.core.grid import (_live_cell_ids, build_index,
                                        candidate_neighbors_arrays, layout_rank_table,
@@ -892,16 +895,25 @@ def spheroid_kernel_rows(built, final, window, launches, dense_launches, force_i
     if not scale > 0 or not err <= 1e-5 * scale or not witness <= 1e-5 * scale:
         raise AssertionError(f"pairwise_force: max error {err} (vs cell_list_force "
                              f"{witness}) vs max|F| {scale}")
+    if force_inputs is not None:
+        # Every 8th query row (the full candidates are 1.7 GB), all sources.
+        force_inputs["pairwise_force"] = dict(
+            args=(pos[::8].contiguous(), rad[::8].contiguous(), cand[::8].contiguous(),
+                  mask[::8].contiguous()), all_position=pos, all_radius=rad)
     slots = int(mask.sum())
+    design_bytes = pf_k.design_bytes(mask)
     rows.append(dict(
         name="pairwise_force", route="cuda",
         source="src/repro_torch/kernels/pairwise_force/csrc/pairwise_force.cu",
         replaces="src/repro/kernels/pairwise_force/kernel.py:107",
         launches=dense_launches["pairwise_force"], max_abs_err=err,
-        ms=cuda_ms(dense, 20), plain_ms=cuda_ms(plain, 1), library_ms=None,
+        ms=cuda_ms(dense, 20), device_ms=graph_ms(dense, 20), plain_ms=cuda_ms(plain, 1),
+        library_ms=None,
         # Bytes these inputs need: every mask byte, the ids of the masked-in
         # slots, position + radius once (sources are the queries), the output.
         **bound(c * kdim + 4 * slots + c * 16 + c * 12, 12 * slots),
+        # This design: the mask, each 32-byte id sector holding a set slot.
+        design_bytes=design_bytes, design_bound_ms=bound(design_bytes, 12 * slots)["bound_ms"],
         candidate_slots=c * kdim, masked_in_slots=slots, pair_evaluations=pairs,
         max_force=scale, max_err_vs_cell_list_force=witness,
     ))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Hold two checkouts' cell-force kernels to each other, bit for bit, on one
+"""Hold two checkouts' force kernels to each other, bit for bit, on one
 NVIDIA GPU.
 
     python3 chip_smoke.py --save-force-inputs inputs.pt
@@ -7,12 +7,14 @@ NVIDIA GPU.
     python3 scripts/force_kernel_bits.py compare a.pt b.pt
 
 ``run`` imports ``repro_torch`` from the checkout at ``--tree`` (its kernels
-are built there, from its own sources), calls its ``cell_list_force_cuda``
-and ``cell_window_force_cuda`` on the saved inputs of ``chip_smoke.py``'s
-kernels phases (the soma path's cell list, the spheroid's sorted pool at its
-window, and cell_list_force on the spheroid's cell list) and saves the
+are built there, from its own sources), calls its ``cell_list_force_cuda``,
+``cell_window_force_cuda`` and ``pairwise_force_cuda`` on the saved inputs
+of ``chip_smoke.py``'s kernels phases (the soma path's cell list, the
+spheroid's sorted pool at its window, cell_list_force on the spheroid's cell
+list, and every 8th row of the spheroid's dense candidates) and saves the
 outputs.  ``compare`` prints one JSON line: for each kernel, whether the two
-outputs are equal bit for bit, how many values differ and by how much.
+outputs are equal bit for bit, how many values differ, by how much at most,
+and the largest magnitude of the first output.
 """
 
 from __future__ import annotations
@@ -28,10 +30,16 @@ import torch
 def run(inputs: str, tree: str, out: str) -> None:
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.pairwise_force import kernel as pf_k
 
     saved = torch.load(inputs, map_location="cuda:0")
     got = {}
     for name, call in saved.items():
+        if name == "pairwise_force":
+            got[name] = pf_k.pairwise_force_cuda(*call["args"],
+                                                 all_position=call["all_position"],
+                                                 all_radius=call["all_radius"])
+            continue
         *tensors, dims = call["args"]
         if name.startswith("cell_list_force"):
             got[name] = cf_k.cell_list_force_cuda(*tensors, dims, num_out=call["num_out"])
@@ -51,7 +59,8 @@ def compare(a: str, b: str) -> None:
         diff = (x[name] != y[name])
         result[name] = dict(bit_identical=bool(torch.equal(x[name], y[name])),
                             values=x[name].numel(), differing=int(diff.sum()),
-                            max_abs_diff=float((x[name] - y[name]).abs().max()))
+                            max_abs_diff=float((x[name] - y[name]).abs().max()),
+                            max_abs=float(x[name].abs().max()))
     print(json.dumps(result))
 
 

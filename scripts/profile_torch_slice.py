@@ -6,6 +6,7 @@ Run from the root of a checkout:
     python3 scripts/profile_torch_slice.py [--model soma|spheroid|spheroid_dense|
                                                     lm_prefill|lm_decode]
                                            [--steps 6] [--trace trace.json]
+                                           [--tree DIR]
 
 Builds one path of ``chip_smoke.py``: ``soma`` (600,000 agents in 100^3
 boxes, two 200^3 substances, cell_rank + cell_list_force + diffusion3d),
@@ -14,17 +15,26 @@ cell_window_force at the covering window W), ``spheroid_dense`` (the same
 start, forces by pairwise_force), ``lm_prefill`` (phi4-mini-3.8b at full
 width, one step = one prefill call over 4 x 2,048 tokens, flash_attention +
 rmsnorm) or ``lm_decode`` (the same model, one step = one ``decode_step``
-for a batch of 4 at positions from 128 on, rmsnorm).  Runs a few steps to
-warm up, times
-``--steps`` steps without the profiler (host clock around
-``torch.cuda.synchronize()``), then the same number of steps under
-``torch.profiler``.  Prints one JSON line: the card and its power limit, the
-step time, the device's busy time per step (the union of kernel and copy
-intervals) and idle share, the kernels and copies per step, and the top
-device consumers by name; for the agent paths also the device activities of
-one ``cell_rank`` call on the path's cell ids, from a trace of ten calls.
-The profiler's own overhead lengthens the profiled window, so the idle
-share is an upper bound.
+for a batch of 4 at positions from 128 on, rmsnorm).  ``--tree DIR`` runs
+another checkout's ``repro_torch`` (its kernels built there) under this
+script's measurement, so that two checkouts can be compared in one call.
+Runs a few steps to warm up, times ``--steps`` steps without the profiler
+(host clock around ``torch.cuda.synchronize()``: the window's mean, and each
+step with a synchronize after it, and their median), then the same number
+of steps under ``torch.profiler``.  Prints one JSON line: the card and its
+power limit, the step times, the device's busy time per step (the union of
+kernel and copy intervals) and idle share, the kernels and copies per step,
+the top device consumers by name, and the host's time per step split from
+the profiler's CPU-side CUDA runtime events: in launch calls
+(``cudaLaunchKernel``, ``cudaMemsetAsync``), blocked in syncs and
+device-to-host copies (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
+``cudaMemcpyAsync``), and the remainder, Python and the framework's own
+host code, with every runtime call's count and time by name.  For the agent paths also the device activities of one
+``cell_rank`` call on the path's cell ids, from a trace of ten calls; for
+``spheroid_dense`` the device time of one dense candidate build on the
+path's state by op, and its share of a step's busy time (the step builds the
+candidates once).  The profiler's own overhead lengthens the profiled
+window, so the idle share and the remainder are upper bounds.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -75,22 +86,33 @@ def make_runner(cs, model: str, steps: int):
         spec, pool = built.config.spec, state[0].pool
         return _live_cell_ids(spec, pool.position, pool.alive), spec.n_cells
 
+    def candidate_build():
+        """A call that builds the dense candidates of the path's state, as
+        the step does after its sort."""
+        from repro_torch.core.grid import build_index, candidate_neighbors_arrays, sort_agents
+
+        spec = built.config.spec
+        pool = sort_agents(spec, state[0].pool)
+        index = build_index(spec, pool, assume_sorted=True)
+        return lambda: candidate_neighbors_arrays(spec, index, pool.position, pool.alive)
+
     run.rank_input = rank_input
+    if model == "spheroid_dense":
+        run.candidate_build = candidate_build
     return run
 
 
-def cell_rank_activities(cid, n_cells, calls: int = 10):
-    """Device activities (kernels, memsets, copies) per ``cell_rank_cuda``
-    call, from a trace of ``calls`` calls alone, and their names."""
+def activities(fn, calls: int = 10):
+    """Device activities (kernels, memsets, copies) per call of ``fn()``,
+    from a trace of ``calls`` calls alone: their count, their names and
+    their device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.cell_rank import kernel as cr_k
-
-    cr_k.cell_rank_cuda(cid, n_cells)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            cr_k.cell_rank_cuda(cid, n_cells)
+            fn()
         torch.cuda.synchronize()
     names = collections.Counter()
     us = collections.Counter()
@@ -99,8 +121,44 @@ def cell_rank_activities(cid, n_cells, calls: int = 10):
             names[e.name[:60]] += 1
             us[e.name[:60]] += e.time_range.end - e.time_range.start
     return {"per_call": sum(names.values()) / calls,
+            "device_ms_per_call": sum(us.values()) / 1e3 / calls,
             "names": {k: v / calls for k, v in sorted(names.items())},
             "us_per_call": {k: us[k] / calls for k in sorted(names)}}
+
+
+# CPU-side CUDA runtime calls, by what they cost the host.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaMemsetAsync")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync")
+
+
+def host_split(prof, window_us: float, steps: int) -> dict:
+    """The host's time per step in launch calls, blocked in syncs and
+    device-to-host copies, and the rest (Python and the framework), from the
+    CUDA runtime events of a profiled window; each class as the union of its
+    intervals."""
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    launch, sync = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        name = e.name
+        if not name.startswith("cuda"):
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        by_name[name][0] += 1
+        by_name[name][1] += span[1] - span[0]
+        if name in LAUNCH_CALLS:
+            launch.append(span)
+        elif name in SYNC_CALLS:
+            sync.append(span)
+    launch_us, sync_us = busy_us(launch), busy_us(sync)
+    return {
+        "launch_ms_per_step": launch_us / 1e3 / steps,
+        "sync_and_copy_ms_per_step": sync_us / 1e3 / steps,
+        "python_and_framework_ms_per_step": (window_us - busy_us(launch + sync)) / 1e3 / steps,
+        "runtime_calls": {name: {"per_step": n / steps, "ms_per_step": us / 1e3 / steps}
+                          for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])},
+    }
 
 
 def lm_runner(cs, model: str, steps: int):
@@ -119,8 +177,8 @@ def lm_runner(cs, model: str, steps: int):
 
         return run
     start = cs.LM_SERVE_PROMPT
-    cache = lm.init_cache(cs.LM_BATCH, start + 4 + 2 * steps, "cuda")
-    toks = cs.lm_tokens(cs.LM_BATCH, 4 + 2 * steps, vocab, 2).cuda()
+    cache = lm.init_cache(cs.LM_BATCH, start + 4 + 3 * steps, "cuda")
+    toks = cs.lm_tokens(cs.LM_BATCH, 4 + 3 * steps, vocab, 2).cuda()
     step = make_decode_step(lm)
     done = [0]
 
@@ -139,14 +197,18 @@ def main() -> int:
                                         "lm_decode"), default="soma")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="root of the checkout whose repro_torch runs (default: this one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
 
     run = make_runner(cs, args.model, args.steps)
     run(4)                                          # warm-up: builds the kernels
@@ -155,6 +217,12 @@ def main() -> int:
     run(args.steps)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    each_ms = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        run(1)
+        torch.cuda.synchronize()
+        each_ms.append(1e3 * (time.perf_counter() - t0))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -179,14 +247,26 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     extra = {}
     if hasattr(run, "rank_input"):
-        extra["cell_rank_activities"] = cell_rank_activities(*run.rank_input())
+        from repro_torch.kernels.cell_rank import kernel as cr_k
+
+        cid, n_cells = run.rank_input()
+        extra["cell_rank_activities"] = activities(lambda: cr_k.cell_rank_cuda(cid, n_cells))
+    if hasattr(run, "candidate_build"):
+        build = activities(run.candidate_build())
+        build["share_of_step_busy"] = build["device_ms_per_call"] / (busy / 1e3 / args.steps)
+        extra["candidate_build"] = build
     print(json.dumps({
         "model": args.model,
+        "tree": args.tree,
+        "module": repro_torch.__file__,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": cs.nvidia_smi_line(),
         "steps": args.steps,
         "step_ms": step_ms,
+        "median_step_ms": statistics.median(each_ms),
+        "each_step_ms": each_ms,
         "profiled_step_ms": window_us / 1e3 / args.steps,
+        "host": host_split(prof, window_us, args.steps),
         "device_busy_ms_per_step": busy / 1e3 / args.steps,
         "device_idle_share": 1.0 - busy / window_us,
         "device_activities_per_step": len(device) / args.steps,

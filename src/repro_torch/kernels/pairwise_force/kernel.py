@@ -3,7 +3,8 @@
 
 Natural layouts in and out: ``(N, 3)`` positions, ``(N, K)`` candidate ids
 and mask; the kernel gathers the candidates' positions and radii itself.
-``launches`` counts the wrapper's kernel launches.
+``launches`` counts the wrapper's kernel launches; ``design_bytes`` counts
+what the kernel's design moves on given candidates.
 """
 
 from __future__ import annotations
@@ -64,10 +65,10 @@ def pairwise_force_cuda(
         raise ValueError("pairwise_force: cand must be int32 and cand_mask bool")
     _build.require_cuda("pairwise_force", position, radius, cand, cand_mask,
                         src_pos, src_rad)
-    out = torch.zeros((n, 3), dtype=torch.float32, device=position.device)
     kdim = cand.shape[1]
     if n == 0 or kdim == 0:
-        return out
+        return torch.zeros((n, 3), dtype=torch.float32, device=position.device)
+    out = torch.empty((n, 3), dtype=torch.float32, device=position.device)  # every row written
     lib = _lib()
     _build.check(
         lib.pairwise_force_launch(
@@ -80,3 +81,16 @@ def pairwise_force_cuda(
     )
     launches += 1
     return out
+
+
+def design_bytes(cand_mask: torch.Tensor) -> int:
+    """Bytes the kernel's design moves on ``(N, K)`` candidates whose ids lie
+    in a 32-byte aligned ``(N, K)`` int32 tensor and whose sources are the
+    queries: every mask byte, each 32-byte sector of ids that holds a
+    masked-in slot, the queries' positions and radii (16 B a row) and the
+    output (12 B a row)."""
+    n, kdim = cand_mask.shape
+    flat = cand_mask.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])  # 8 ids a sector
+    sectors = int(flat.view(-1, 8).any(1).sum())
+    return n * kdim + 32 * sectors + 16 * n + 12 * n

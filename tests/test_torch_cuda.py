@@ -41,7 +41,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-from torch_force_cases import FORCE_CASES, WINDOW_CASES, runs_cut_by_a_window_edge
+from torch_force_cases import DENSE_CASES, FORCE_CASES, WINDOW_CASES, runs_cut_by_a_window_edge
+from torch_force_cases import dense_inputs as _dense_inputs
 from torch_force_cases import force_inputs as _force_inputs
 from torch_force_cases import window_inputs as _window_inputs
 
@@ -247,22 +248,37 @@ def test_cell_window_force_kernel_matches_plain(card, name):
 
 # ------------------------------------------------------------- pairwise_force
 
+def _pairwise_on(card, pos, rad, cand, mask, src_pos, src_rad):
+    return pf_ops.pairwise_force(pos.to(card), rad.to(card), cand.to(card), mask.to(card),
+                                 impl="cuda", all_position=src_pos.to(card),
+                                 all_radius=src_rad.to(card))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["generic", "overflowed", "near_empty"])
+@pytest.mark.parametrize("case", ["generic", "overflowed", "near_empty", *DENSE_CASES])
 def test_pairwise_force_kernel_matches_plain(card, case):
-    pos, rad, index, spec, cap = _force_inputs(case)
-    alive = index.cell_of_agent < spec.n_cells
-    cand, mask = grid.candidate_neighbors_arrays(spec, index, pos, alive)
-    # K not a multiple of 32, and some rows with every slot masked out.
-    cand, mask = cand[:, :45].contiguous(), mask[:, :45].clone()
-    mask[::3] = False
-    want = pairwise_force_ref(pos, rad, cand, mask)
+    if case in DENSE_CASES:
+        pos, rad, cand, mask, src_pos, src_rad = _dense_inputs(case)
+    else:
+        pos, rad, index, spec, cap = _force_inputs(case)
+        alive = index.cell_of_agent < spec.n_cells
+        cand, mask = grid.candidate_neighbors_arrays(spec, index, pos, alive)
+        # K not a multiple of 32, and some rows with every slot masked out.
+        cand, mask = cand[:, :45].contiguous(), mask[:, :45].clone()
+        mask[::3] = False
+        src_pos, src_rad = pos, rad
+    want = pairwise_force_ref(pos, rad, cand, mask, all_position=src_pos, all_radius=src_rad)
     before = pf_kernel.launches
-    got = pf_ops.pairwise_force(pos.to(card), rad.to(card), cand.to(card), mask.to(card),
-                                impl="cuda")
+    got = _pairwise_on(card, pos, rad, cand, mask, src_pos, src_rad)
     torch.cuda.synchronize()
     assert pf_kernel.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    if case in DENSE_CASES:
+        # Row bases off the 16-byte grid exactly where K % 16 != 0.
+        assert (cand.shape[1] % 16 != 0) == (case in ("unaligned_135", "unaligned_2593",
+                                                      "first_or_last_slot_2593"))
+        assert float(want.abs().max()) > 0.1
+        return
     assert not got.cpu().numpy()[::3].any()
     # Sources longer than the queries.
     q = cap // 2
@@ -272,6 +288,42 @@ def test_pairwise_force_kernel_matches_plain(card, case):
                                 mask[:q].to(card), impl="cuda",
                                 all_position=pos.to(card), all_radius=rad.to(card))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["layout_27x96", "every_slot_set", "unaligned_2593"])
+def test_pairwise_force_two_calls_are_bit_identical(card, case):
+    args = _dense_inputs(case)
+    first = _pairwise_on(card, *args)
+    second = _pairwise_on(card, *args)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_pairwise_force_graph_replay_matches_eager(card):
+    """One call captured in a CUDA graph replays to the eager result, again
+    after its inputs change in place (two cases of the same shapes)."""
+    cases = [[t.to(card) for t in _dense_inputs(name)]
+             for name in ("layout_27x96", "every_slot_set")]
+    assert [t.shape for t in cases[0]] == [t.shape for t in cases[1]]
+    live = [t.clone() for t in cases[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pf_kernel.pairwise_force_cuda(*live[:4], all_position=live[4], all_radius=live[5])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pf_kernel.pairwise_force_cuda(*live[:4], all_position=live[4],
+                                            all_radius=live[5])
+    for src in (cases[1], cases[0], cases[1]):
+        for t, s in zip(live, src):
+            t.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = pf_kernel.pairwise_force_cuda(*src[:4], all_position=src[4],
+                                              all_radius=src[5])
+        assert torch.equal(out, eager)
 
 
 # ----------------------------------------------------------------- diffusion

@@ -26,8 +26,10 @@ from repro_torch.core import forces as t_forces
 from repro_torch.core import grid as t_grid
 from repro_torch.kernels.cell_force import ops as t_cf
 from repro_torch.kernels.cell_force.ref import window_sweep_mask, window_walk, window_walk_pairs
+from repro_torch.kernels.pairwise_force import kernel as t_pf_kernel
 from repro_torch.kernels.pairwise_force import ops as t_pf
 from torch_force_cases import WINDOW_CASES as CARD_WINDOW_CASES
+from torch_force_cases import dense_inputs
 from torch_force_cases import window_inputs as card_window_inputs
 from torch_parity import CPU, to_np
 
@@ -468,6 +470,41 @@ def test_pairwise_force_matches_jax_kernel(case, impl):
                               tm[:30], impl=impl, all_position=tpool.position,
                               all_radius=tpool.radius())
     np.testing.assert_allclose(to_np(got), want, atol=ATOL)
+
+
+# Hand-counted masks: (rows, 32-byte id sectors that hold a set slot); the
+# int32 ids lie 8 to a sector in row-major order.
+DESIGN_BYTE_CASES = {
+    # Flat slots 0, 1, 7 (sector 0), 12 (sector 1) and 23 (sector 2).
+    "three_sectors": ([[1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0],
+                       [1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1]], 3),
+    "empty": ([[0] * 12, [0] * 12], 0),
+    # Every slot of one 20-slot row: sectors 0, 1 and the partial 2.
+    "all_set_ragged": ([[1] * 20], 3),
+    # Flat slots 4 (sector 0), 8 and 14 (sector 1): a sector across rows.
+    "sector_across_rows": ([[0, 0, 0, 0, 1], [0, 0, 0, 1, 0], [0, 0, 0, 0, 1]], 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DESIGN_BYTE_CASES))
+def test_pairwise_force_design_bytes_hand_counted(case):
+    rows, sectors = DESIGN_BYTE_CASES[case]
+    mask = torch.tensor(rows, dtype=torch.bool)
+    n, kdim = mask.shape
+    # Mask bytes, id sectors, queries (16 B a row), output (12 B a row).
+    assert t_pf_kernel.design_bytes(mask) == n * kdim + 32 * sectors + 28 * n
+
+
+def test_pairwise_force_design_bytes_at_the_engine_layout():
+    """At K = 27 x 96 each cell's slots fill from its first: about one id
+    sector per (row, neighbour cell) that holds a candidate."""
+    mask = dense_inputs("layout_27x96")[3]
+    n, kdim = mask.shape
+    flat = np.flatnonzero(mask.numpy().reshape(-1))
+    sectors = np.unique(flat // 8).size
+    assert t_pf_kernel.design_bytes(mask) == n * kdim + 32 * sectors + 28 * n
+    cells = mask.reshape(n, 27, 96).any(-1).sum()
+    assert cells <= sectors <= 2 * cells
 
 
 @pytest.mark.parametrize("case", ["plain", "overflowed"])

@@ -5,6 +5,8 @@ the JAX kernel).  Everything is made with numpy from a fixed seed per case
 and built on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -103,3 +105,59 @@ def runs_cut_by_a_window_edge(cid: np.ndarray, n_cells: int, block: int, window:
         at = rows[cid == cell]
         cut += any(at[0] < e <= at[-1] for e in edges)
     return cut
+
+
+# Dense candidate sets for the pairwise_force kernel, each
+# (position, radius, cand, mask, source position, source radius) on the CPU.
+# "layout_27x96" is the engine's own layout at the dense path's K = 27 * 96
+# (each neighbour cell's slots filled from its first) over the "overflowed"
+# agents, N = 207 rows (not a multiple of a block's 8); the others vary it:
+# rows whose bases are not 16-byte aligned (K = 135, 2,593), every slot set
+# (a warp's segment of 16-byte words holds 512 set slots), a single set slot
+# at a row's first or last slot, one row and 13 rows of a longer source array.
+DENSE_CASES = ("layout_27x96", "unaligned_135", "unaligned_2593", "every_slot_set",
+               "first_or_last_slot_2592", "first_or_last_slot_2593", "single_row",
+               "ragged_rows")
+
+
+def _layout(case, m):
+    pos, rad, index, spec, cap = force_inputs(case)
+    alive = index.cell_of_agent < spec.n_cells
+    if m != spec.max_per_cell:
+        spec = dataclasses.replace(spec, max_per_cell=m)
+        pool = agents.make_pool(cap, pos, diameter=2.0 * rad, device=CPU)
+        index = grid.build_index(spec, pool.replace(alive=alive))
+    cand, mask = grid.candidate_neighbors_arrays(spec, index, pos, alive)
+    return pos, rad, cand, mask
+
+
+def dense_inputs(name):
+    rng = np.random.default_rng(DENSE_CASES.index(name))
+    pos, rad, cand, mask = _layout("overflowed", 96)
+    n = pos.shape[0]
+    if name == "unaligned_135":
+        pos, rad, cand, mask = _layout("generic", 16)
+        cand, mask = cand[:, :135].contiguous(), mask[:, :135].contiguous()
+    elif name == "unaligned_2593":
+        extra = torch.from_numpy(rng.integers(0, n, (n, 1), dtype=np.int32))
+        cand = torch.cat([cand, extra], 1)
+        mask = torch.cat([mask, torch.from_numpy(rng.uniform(size=(n, 1)) < 0.5)], 1)
+    elif name == "every_slot_set":
+        cand = torch.from_numpy(rng.integers(0, n, cand.shape, dtype=np.int32))
+        mask = torch.ones_like(mask)
+        # Radii / 4 keep the 2,592-pair sums of the other cases' size (max|F|
+        # ~10, not ~340), as "crowded_box" does, for the absolute tolerance.
+        rad = rad * 0.25
+    elif name.startswith("first_or_last_slot"):
+        kdim = int(name.rsplit("_", 1)[1])
+        # Each row's one candidate is its nearest other agent.
+        d = torch.cdist(pos, pos).fill_diagonal_(float("inf"))
+        cand = d.argmin(1).int()[:, None].repeat(1, kdim)
+        mask = torch.zeros((n, kdim), dtype=torch.bool)
+        mask[0::2, 0] = True
+        mask[1::2, -1] = True
+    elif name in ("single_row", "ragged_rows"):
+        rows = slice(5, 6) if name == "single_row" else slice(0, 13)
+        return (pos[rows], rad[rows], cand[rows].contiguous(), mask[rows].contiguous(),
+                pos, rad)
+    return pos, rad, cand, mask, pos, rad
