@@ -50,6 +50,21 @@ printing one JSON line; any failure raises and exits non-zero:
                   pairwise_force (which also has ``device_ms``), and
                   cell_list_force's crowded tiles (halos past the staging
                   budget, in the path's run and in one call).
+  checkpoint      path 1's model at full size (600,000 agents, two 200^3
+                  fields) 8 steps straight, twice, bit-identical; then the same
+                  8 steps checkpointed every 4, killed by an exception from
+                  ``on_chunk`` after the first interval and finished by
+                  ``Simulation.resume``: every state leaf and both series
+                  bit-identical to the straight run, cell_rank,
+                  cell_list_force and diffusion3d launched in the resumed
+                  half; the checkpoint's bytes, each save's and restore's
+                  seconds, and a restore into a CPU state, leaf for leaf.
+  elastic         path 2's start (100,000 cells) in a pool of the cells plus
+                  half a step's expected births, ``launch.elastic.run_elastic``
+                  for 6 steps in 2-step chunks: at least one regrow, each to
+                  ceil(2 x capacity), no agent dropped, the last ``pop`` row
+                  equal to the alive count; the force kernel and capacity of
+                  each chunk as run; a second run bit-identical.
   lm_small        path 3 at a small size: reduced phi4-mini (f32, 2 layers,
                   head_dim 16), weights from one CPU generator, the prefill
                   step with the flash kernel (f32: the SIMT kernel) and 8
@@ -120,6 +135,15 @@ SPH_CAPACITY = 131_072
 SPH_STEPS = 20
 SPH_DENSE_STEPS = 4
 SPH_BLOCK = 128
+SPH_DIVISION = 0.02            # Table 4.2: division probability a step ...
+SPH_TRIGGER = 17.0             # ... of a cell at least this wide (um)
+
+# Checkpointed runs: path 1's model, killed after the first interval and
+# resumed; path 2's start in a pool that its first chunk's births overflow.
+CKPT_STEPS = 8
+CKPT_EVERY = 4
+ELASTIC_STEPS = 6
+ELASTIC_EVERY = 2
 
 # The LM serving path: phi4-mini-3.8b at its published widths and depth.
 LM_ARCH = "phi4-mini-3.8b"
@@ -370,7 +394,8 @@ def spheroid_model(position, diameter, space, capacity, device, **mechanics):
                    rank_impl="cuda", device=device)
         .add_agents(len(position), position=position, diameter=diameter, radial=0.0)
         .use(brownian_motion(0.15), growth(60.0, 18.0),
-             cell_division(0.02, trigger_diameter=17.0), apoptosis(0.002, min_age=87.0))
+             cell_division(SPH_DIVISION, trigger_diameter=SPH_TRIGGER),
+             apoptosis(0.002, min_age=87.0))
         .mechanics(ForceParams(), **mechanics)
         .op(Operation("radial_census", census, phase="post", frequency=8, gate="mask"))
     )
@@ -557,6 +582,225 @@ def phase_spheroid():
         raise AssertionError(f"spheroid_dense: launches {dstats['launches']}, want {want}")
     emit("spheroid_dense", **dstats)
     return built, final, window, stats["launches"], dstats["launches"]
+
+
+# --------------------------------------------------------------- checkpoints
+
+def state_leaves(tree) -> dict:
+    """``{checkpoint key: leaf}`` of a state, in the checkpoint's order."""
+    from repro_torch.checkpoint.checkpoint import _leaves_with_paths
+
+    return dict(_leaves_with_paths(tree))
+
+
+def differing_leaves(a, b) -> list:
+    """Keys of the leaves of ``a`` and ``b`` that are not bit-identical
+    (dtype, shape and every value); compared on the host."""
+    la, lb = state_leaves(a), state_leaves(b)
+    if list(la) != list(lb):
+        return sorted(set(la) ^ set(lb))
+    return [k for k in la if la[k].dtype != lb[k].dtype
+            or not torch.equal(la[k].cpu(), lb[k].cpu())]
+
+
+class Timed:
+    """Wrap ``module.name`` so that each call's host seconds land in
+    ``seconds`` (the checkpoint store's save and restore, as the facade
+    calls them); restored on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        self.original = fn = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.original)
+
+
+class Killed(Exception):
+    """Raised from ``on_chunk`` to stand in for the death of the process:
+    the interval's checkpoint is on disk when it fires."""
+
+
+def checkpoint_model(device="cuda"):
+    """Path 1's soma model at full size with two series to persist: kind
+    counts every 2 steps and the summed exposure every step."""
+    return (soma_model(N_AGENTS, SPACE, RESOLUTION, 0, device)
+            .observe_kinds(frequency=2)
+            .observe("exposure_sum", lambda s: s.pool.get("exposure").sum()))
+
+
+def phase_checkpoint():
+    """8 steps straight, twice (the step itself must be deterministic on the
+    card); then the same 8 steps checkpointed every 4, killed after the first
+    interval and finished by ``Simulation.resume`` from the description
+    alone: every state leaf and every series bit-identical.  The card-written
+    checkpoint also restores into a CPU ``like`` state, leaf for leaf."""
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    straight, straight_obs = checkpoint_model().run(CKPT_STEPS)
+    again, again_obs = checkpoint_model().run(CKPT_STEPS)
+    bad = differing_leaves({"state": straight, "obs": straight_obs},
+                           {"state": again, "obs": again_obs})
+    if bad:
+        raise AssertionError(f"checkpoint: two straight runs differ in {bad}: the step "
+                             f"is not deterministic on the card")
+    del again, again_obs
+
+    def kill(state):
+        if int(state.step) >= CKPT_EVERY:
+            raise Killed
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_ckpt_") as d:
+        with Timed(ckpt, "save") as saves, Timed(ckpt, "restore") as restores:
+            try:
+                checkpoint_model().run(CKPT_STEPS, checkpoint_dir=d,
+                                       checkpoint_every=CKPT_EVERY, on_chunk=kill)
+            except Killed:
+                killed_at = ckpt.latest_step(d)
+            else:
+                raise AssertionError("checkpoint: the interrupted run was not killed")
+            if killed_at != CKPT_EVERY:
+                raise AssertionError(f"checkpoint: latest step {killed_at} after the kill")
+            sim = checkpoint_model()
+            torch.cuda.synchronize()
+            reset_counts()
+            final, obs = sim.resume(d)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            _, back = ckpt.restore(d, {"state": final})
+            torch.cuda.synchronize()
+        bad = differing_leaves({"state": straight, "obs": straight_obs},
+                               {"state": final, "obs": obs})
+        if bad:
+            raise AssertionError(f"checkpoint: the resumed run differs from the straight "
+                                 f"run in {bad}")
+        if differing_leaves({"state": final}, back):
+            raise AssertionError("checkpoint: a restore of the last checkpoint differs")
+        want = ("cell_rank", "cell_list_force", "diffusion3d")
+        if not all(launches[k] > 0 for k in want):
+            raise AssertionError(f"checkpoint: launches in the resumed half {launches}")
+        like_cpu = checkpoint_model("cpu").build().state
+        t0 = time.perf_counter()
+        _, on_cpu = ckpt.restore(d, {"state": like_cpu})
+        restore_cpu_s = time.perf_counter() - t0
+        if {leaf.device.type for leaf in state_leaves(on_cpu).values()} != {"cpu"}:
+            raise AssertionError("checkpoint: the CPU restore left leaves off the CPU")
+        bad = differing_leaves({"state": final}, on_cpu)
+        if bad:
+            raise AssertionError(f"checkpoint: the CPU restore differs in {bad}")
+        step_dir = Path(d) / f"step_{CKPT_STEPS:010d}"
+        n_bytes = (step_dir / ckpt.ARRAYS).stat().st_size
+        n_arrays = ckpt.read_manifest(d)[1]["n_arrays"]
+    emit("checkpoint", agents=N_AGENTS, voxels_per_substance=RESOLUTION**3,
+         steps=CKPT_STEPS, checkpoint_every=CKPT_EVERY, killed_at=killed_at,
+         checkpoint_bytes=n_bytes, arrays=n_arrays,
+         save_s=statistics.median(saves.seconds), save_s_each=saves.seconds,
+         restore_s=statistics.median(restores.seconds), restore_s_each=restores.seconds,
+         restore_cpu_s=restore_cpu_s,
+         resumed_launches={k: launches[k] for k in want},
+         bit_identical=True, straight_runs_bit_identical=True,
+         series={k: list(v.shape) for k, v in obs.items()})
+
+
+def phase_elastic():
+    """Path 2's spheroid start in a pool just above its population, run by
+    ``run_elastic`` in 2-step chunks: the first chunk's births overflow the
+    pool, the chunk is rolled back to its checkpoint and replayed in a pool
+    ⌈2×⌉ larger.  Twice, bit for bit."""
+    import math
+    import tempfile
+
+    from repro_torch.launch.elastic import run_elastic
+
+    pos, diam, _ = spheroid_start(SPH_CELLS, SPH_SPACE, lattice=12.0)
+    # Expected births a step at the start: the cells already wide enough to
+    # divide, at the division probability.  Half a step's births of headroom
+    # cannot hold the first chunk's two steps.
+    births_a_step = SPH_DIVISION * int((diam >= SPH_TRIGGER).sum())
+    capacity = SPH_CELLS + int(births_a_step // 2)
+    probe = spheroid_model(pos, diam, SPH_SPACE, capacity, "cuda", impl="cuda").build()
+    cover = covering_window(probe, probe.state)
+    window = min(cover + -(-cover // 4), -(-capacity // SPH_BLOCK))
+    del probe
+
+    def elastic_run(d):
+        log = []
+
+        def chunk_log(s):
+            log.append((s.pool.capacity, read_counts()))
+            return torch.zeros((), dtype=torch.int32, device=s.pool.device)
+
+        sim = (spheroid_model(pos, diam, SPH_SPACE, capacity, "cuda", impl="fused",
+                              tile_order="morton", morton_block=SPH_BLOCK,
+                              morton_window=window)
+               .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32))
+               .observe("chunk_log", chunk_log))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        final, obs, grows = run_elastic(sim, ELASTIC_STEPS, d, checkpoint_every=ELASTIC_EVERY)
+        torch.cuda.synchronize()
+        return final, obs, grows, log, time.perf_counter() - t0
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    runs = []
+    for _ in range(2):
+        with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_elastic_") as d:
+            runs.append(elastic_run(d))
+    (final, obs, grows, log, run_s), (final2, obs2, grows2, _, run2_s) = runs
+
+    # The chunks as run, rolled-back ones included: each ELASTIC_EVERY steps.
+    force = ("cell_window_force", "cell_list_force")
+    chunks, prev = [], {k: 0 for k in log[0][1]}
+    for i in range(0, len(log), ELASTIC_EVERY):
+        cap, counts = log[i + ELASTIC_EVERY - 1]
+        used = {k: counts[k] - prev[k] for k in ("cell_rank",) + force}
+        chunks.append(dict(capacity=cap, **used,
+                           force_kernel=[k for k in force if used[k]]))
+        prev = counts
+    caps = [capacity]
+    for _ in range(grows):
+        caps.append(math.ceil(2.0 * caps[-1]))
+    pool, health = final.pool, final.health
+    pop = obs["pop"]
+    if grows < 1:
+        raise AssertionError(f"elastic: no regrow at capacity {capacity}")
+    if pool.capacity != caps[-1] or sorted({c["capacity"] for c in chunks}) != caps:
+        raise AssertionError(f"elastic: capacities {[c['capacity'] for c in chunks]}, "
+                             f"want each regrow to double: {caps}")
+    if int(pool.overflow) != 0 or int(health.pool_overflow) != 0:
+        raise AssertionError(f"elastic: overflow {int(pool.overflow)}, health "
+                             f"{int(health.pool_overflow)}")
+    if tuple(pop.shape) != (ELASTIC_STEPS,) or int(pop[-1]) != int(pool.alive.sum()):
+        raise AssertionError(f"elastic: pop {pop.tolist()} vs alive {int(pool.alive.sum())}")
+    regrown = [c for c in chunks if c["capacity"] > capacity]
+    if not all(c["cell_rank"] > 0 and c["force_kernel"] for c in regrown):
+        raise AssertionError(f"elastic: kernels at the regrown capacity {regrown}")
+    if grows2 != grows or not torch.equal(obs2["pop"], pop):
+        raise AssertionError(f"elastic: a second run regrew {grows2} times (first {grows}), "
+                             f"pop {obs2['pop'].tolist()} vs {pop.tolist()}")
+    bad = differing_leaves(final, final2)
+    if bad:
+        raise AssertionError(f"elastic: the second run's final state differs in {bad}")
+    emit("elastic", cells_start=SPH_CELLS, births_a_step_expected=births_a_step,
+         capacity=capacity, capacity_end=pool.capacity, regrows=grows,
+         steps=ELASTIC_STEPS, checkpoint_every=ELASTIC_EVERY, half_window=window,
+         covering_half_window=cover, pop=pop.tolist(), chunks=chunks,
+         run_s=[run_s, run2_s], second_run_bit_identical=True)
 
 
 # ------------------------------------------------------------------- kernels
@@ -1360,6 +1604,14 @@ def main() -> int:
         force_inputs.clear()
     torch.cuda.empty_cache()
     seconds["path 2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_checkpoint()
+    torch.cuda.empty_cache()
+    seconds["checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_elastic()
+    torch.cuda.empty_cache()
+    seconds["elastic"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     phase_lm_small()

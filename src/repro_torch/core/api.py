@@ -14,8 +14,14 @@ Port of the single-node surface of ``repro.core.api``:
 triple through the same primitives a hand-wired pipeline uses.  The port
 adds two arguments: ``device`` (the card unless ``"cpu"`` is asked for) and
 ``rank_impl``, which reaches ``spec_for_space`` (the reference's facade
-cannot select it).  Batched runs, checkpoints and the distributed engine
-are later slices and raise ``NotImplementedError``.
+cannot select it).
+
+Checkpointed runs are the reference's: ``run(n, checkpoint_dir=d,
+checkpoint_every=k)`` persists the full run (state and observable rows) every
+``k`` steps in the reference's on-disk format, and ``Simulation.resume(d)``
+finishes a killed run bit for bit; a checkpoint written by either package
+resumes in the other.  Batched runs and the distributed engine are later
+slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..checkpoint import checkpoint as _ckpt
 from ..device import resolve_device
 from . import diffusion as dgrid
 from . import engine as _engine
@@ -378,7 +385,8 @@ class Simulation:
     # -------------------------------------------------------- execution
 
     def run(self, n_steps: int, seed: Optional[int] = None, **run_kwargs):
-        """Build and run from a fresh initial state."""
+        """Build and run from a fresh initial state.  ``checkpoint_dir=`` /
+        ``checkpoint_every=`` pass through to :meth:`BuiltSimulation.run`."""
         return self.build(seed=seed).run(n_steps, **run_kwargs)
 
     def run_jit(self, n_steps: int, seed: Optional[int] = None, **run_kwargs):
@@ -388,8 +396,13 @@ class Simulation:
     def run_batch(self, *args, **kwargs):
         _not_ported("Simulation.run_batch (batched serving)", 13)
 
-    def resume(self, *args, **kwargs):
-        _not_ported("Simulation.resume (checkpointing)", 12)
+    def resume(self, checkpoint_dir: str, seed: Optional[int] = None, **resume_kwargs):
+        """Rebuild this model and finish an interrupted checkpointed run:
+        ``Simulation.resume(dir)`` alone recovers a killed ``run(...,
+        checkpoint_dir=dir)`` bit for bit (the manifest records the target
+        step and interval).  The description must match the one that wrote
+        the checkpoint; restore's shape and dtype checks enforce that."""
+        return self.build(seed=seed).resume(checkpoint_dir, **resume_kwargs)
 
     def distribute(self, *args, **kwargs):
         _not_ported("Simulation.distribute (the distributed engine)", 14)
@@ -412,6 +425,133 @@ def _slice_observed(observables, ys: Dict[str, torch.Tensor], start: int,
     return out
 
 
+# --------------------------------------------------------------- checkpoints
+
+#: Manifest meta format tag of a run checkpoint, the reference's: ``resume``
+#: rejects checkpoints from an incompatible writer instead of mis-restoring.
+CKPT_FORMAT = "abm-run/1"
+
+
+def _step_of(state) -> int:
+    """The absolute step counter, in one device read."""
+    return int(state.step.reshape(-1)[0])
+
+
+def _concat_obs(acc: Dict[str, np.ndarray], new) -> Dict[str, np.ndarray]:
+    out = dict(acc)
+    for name, rows in new.items():
+        rows = rows.detach().cpu().numpy()
+        prev = out.get(name)
+        out[name] = rows if prev is None else np.concatenate([prev, rows], 0)
+    return out
+
+
+def _obs_tensors(acc: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in acc.items()}
+
+
+def _checkpointed_loop(
+    run_chunk: Callable[[int, Any], Tuple[Any, Dict[str, torch.Tensor]]],
+    state,
+    n_steps: int,
+    *,
+    engine: str,
+    checkpoint_dir: str,
+    checkpoint_every: Optional[int],
+    keep: int,
+    on_chunk: Optional[Callable[[Any], None]],
+    obs_acc: Optional[Dict[str, np.ndarray]] = None,
+    target_step: Optional[int] = None,
+):
+    """Drive ``run_chunk`` in checkpoint-interval chunks up to the target.
+
+    The persisted tree is the full run — simulation state (pool, grids, RNG
+    key, step counter, health) plus every observable row recorded so far —
+    so a resume returns the final state AND the complete series of an
+    uninterrupted run.  Chunking is invisible to the dynamics: the per-step
+    RNG folds the absolute step counter.  An anchor checkpoint is written
+    before the first chunk; ``on_chunk(state)`` fires after each save.  The
+    step counter is read from the device once a chunk.
+    """
+    every = int(checkpoint_every) if checkpoint_every else int(n_steps)
+    if every <= 0:
+        raise ValueError(f"checkpoint_every must be positive, got {every}")
+    step = _step_of(state)
+    target = step + int(n_steps) if target_step is None else int(target_step)
+    acc = {k: np.asarray(v) for k, v in (obs_acc or {}).items()}
+
+    def save(st, at):
+        _ckpt.save(
+            checkpoint_dir,
+            at,
+            {"state": st, "obs": acc},
+            keep=keep,
+            meta={
+                "format": CKPT_FORMAT,
+                "engine": engine,
+                "target_step": target,
+                "checkpoint_every": every,
+                "obs_rows": {k: int(v.shape[0]) for k, v in acc.items()},
+            },
+        )
+
+    save(state, step)
+    while step < target:
+        state, obs = run_chunk(min(every, target - step), state)
+        acc = _concat_obs(acc, obs)
+        step = _step_of(state)
+        save(state, step)
+        if on_chunk is not None:
+            on_chunk(state)
+    return state, _obs_tensors(acc, state.pool.device)
+
+
+def _resume_payload(checkpoint_dir: str, engine: str, proto_state, observables):
+    """Validate and restore the latest run checkpoint against this model.
+
+    The ``like`` tree is the built initial state (every pool, grid, rng and
+    health leaf is shape- and dtype-checked by ``checkpoint.restore``) plus a
+    row buffer per observable, sized from the manifest's ``obs_rows``.  The
+    reference types the buffers with ``jax.eval_shape``; the port evaluates
+    each live observable once on the built state instead.
+    """
+    step, manifest = _ckpt.read_manifest(checkpoint_dir)
+    meta = manifest.get("meta") or {}
+    if meta.get("format") != CKPT_FORMAT:
+        raise ValueError(
+            f"{checkpoint_dir} step {step} is not an ABM run checkpoint "
+            f"(manifest meta format {meta.get('format')!r}, want "
+            f"{CKPT_FORMAT!r}) — was it written by checkpoint.save directly?"
+        )
+    if meta.get("engine") != engine:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir} was written by the "
+            f"{meta.get('engine')!r} engine and cannot resume on {engine!r}"
+        )
+    protos = {o.name: o.fn(proto_state) for o in observables if o.frequency > 0}
+    rows = meta.get("obs_rows") or {}
+    like_obs = {
+        name: torch.empty((int(rows.get(name, 0)),) + tuple(p.shape), dtype=p.dtype)
+        for name, p in protos.items()
+    }
+    # checkpoint.restore tolerates extra arrays; a resume is stricter — the
+    # model must account for every persisted array, or it is not the model
+    # that wrote the run.
+    like = {"state": proto_state, "obs": like_obs}
+    n_like = _ckpt.n_leaves(like)
+    n_saved = manifest.get("n_arrays")
+    if n_saved is not None and n_saved != n_like:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir} holds {n_saved} arrays but "
+            f"this model expects {n_like} — stale or foreign checkpoint"
+        )
+    _, payload = _ckpt.restore(checkpoint_dir, like, step=step)
+    acc = {k: v.numpy() for k, v in payload["obs"].items()}
+    return step, payload["state"], acc, int(meta["target_step"]), int(
+        meta.get("checkpoint_every") or 1
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class BuiltSimulation:
     """The built model: the explicit engine triple + observables.  ``run``
@@ -422,11 +562,7 @@ class BuiltSimulation:
     state: SimulationState
     observables: Tuple[Observable, ...] = ()
 
-    def run(self, n_steps: int, state: Optional[SimulationState] = None, *,
-            checkpoint_dir: Optional[str] = None, **checkpoint_kwargs):
-        """Run ``n_steps`` → ``(final_state, {name: rows})``."""
-        if checkpoint_dir is not None or checkpoint_kwargs:
-            _not_ported("checkpointed runs (checkpoint_dir=, checkpoint_every=)", 12)
+    def _execute(self, n_steps: int, state: Optional[SimulationState]):
         state = self.state if state is None else state
         start = int(state.step)
         triples = tuple((o.name, o.fn, o.frequency) for o in self.observables
@@ -436,10 +572,51 @@ class BuiltSimulation:
         obs = _slice_observed(self.observables, ys, start, n_steps) if triples else {}
         return final, obs
 
+    def run(self, n_steps: int, state: Optional[SimulationState] = None, *,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every: Optional[int] = None, keep: int = 3,
+            on_chunk: Optional[Callable[[Any], None]] = None):
+        """Run ``n_steps`` → ``(final_state, {name: rows})``.
+
+        With ``checkpoint_dir=`` the run goes in ``checkpoint_every``-step
+        chunks, persisting the full run (state + observable rows so far)
+        after each; kill the process at any point and :meth:`resume`
+        finishes the run bit for bit.
+        """
+        if checkpoint_dir is None:
+            return self._execute(n_steps, state)
+        return self._run_checkpointed(n_steps, state, checkpoint_dir, checkpoint_every,
+                                      keep, on_chunk)
+
     run_jit = run
+
+    def _run_checkpointed(self, n_steps, state, checkpoint_dir, checkpoint_every, keep,
+                          on_chunk, obs_acc=None, target_step=None):
+        state = self.state if state is None else state
+        return _checkpointed_loop(
+            self._execute, state, n_steps, engine="single",
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            keep=keep, on_chunk=on_chunk, obs_acc=obs_acc, target_step=target_step,
+        )
+
+    def resume(self, checkpoint_dir: str, *, jit: bool = True, keep: int = 3,
+               on_chunk: Optional[Callable[[Any], None]] = None):
+        """Finish an interrupted checkpointed run → the ``(final_state,
+        {name: rows})`` the uninterrupted run returns.
+
+        Restores the latest valid checkpoint (validated against this model's
+        built state, :func:`_resume_payload`) onto the built state's device,
+        then runs the remaining ``target_step − restored_step`` steps under
+        the recorded interval.  ``jit`` is accepted for the reference's
+        signature; the port runs eagerly either way.
+        """
+        step, state, acc, target, every = _resume_payload(
+            checkpoint_dir, "single", self.state, self.observables
+        )
+        if target - step <= 0:
+            return state, _obs_tensors(acc, state.pool.device)
+        return self._run_checkpointed(target - step, state, checkpoint_dir, every, keep,
+                                      on_chunk, obs_acc=acc, target_step=target)
 
     def run_batch(self, *args, **kwargs):
         _not_ported("BuiltSimulation.run_batch (batched serving)", 13)
-
-    def resume(self, *args, **kwargs):
-        _not_ported("BuiltSimulation.resume (checkpointing)", 12)

@@ -26,14 +26,16 @@ class DiffusionGrid:
     """One extracellular substance on a regular grid over the sim space.
 
     ``n_valid`` / ``frame_shift`` are the reference's ghost-voxel padding
-    fields of uneven distributed splits; ``None`` single-node.
+    fields of uneven distributed splits; ``None`` single-node.  The fields
+    marked ``static`` are the reference's static pytree metadata: a
+    checkpoint holds no array for them.
     """
 
     concentration: torch.Tensor  # (nx, ny, nz) float32
-    origin: Tuple[float, float, float]
-    spacing: float
-    diffusion_coefficient: float
-    decay_constant: float
+    origin: Tuple[float, float, float] = dataclasses.field(metadata=dict(static=True))
+    spacing: float = dataclasses.field(metadata=dict(static=True))
+    diffusion_coefficient: float = dataclasses.field(metadata=dict(static=True))
+    decay_constant: float = dataclasses.field(metadata=dict(static=True))
     n_valid: torch.Tensor | None = None       # (3,) i32 valid voxels per dim
     frame_shift: torch.Tensor | None = None   # (3,) f32 lattice offset of voxel 0
 

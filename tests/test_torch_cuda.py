@@ -527,7 +527,7 @@ def test_lm_small_on_card_matches_cpu(card):
 
 # --------------------------------------------------------------- the slice
 
-def _soma(device, steps=8):
+def _soma_sim(device):
     from repro_torch import Simulation
     from repro_torch.core import ForceParams, chemotaxis, secretion
 
@@ -544,8 +544,13 @@ def _soma(device, steps=8):
                           concentration=2.0 + 0.1 * i + 0.3 * j + 0.2 * k)
            .use(secretion("s0", 1.0, kind=0), secretion("s1", 1.0, kind=1),
                 chemotaxis("s0", 0.75, kind=0), chemotaxis("s1", 0.75, kind=1))
-           .mechanics(ForceParams(), impl="fused", diffusion_impl="cuda"))
-    return sim.run(steps)[0]
+           .mechanics(ForceParams(), impl="fused", diffusion_impl="cuda")
+           .observe_kinds("counts", n_kinds=2, frequency=3))
+    return sim
+
+
+def _soma(device, steps=8):
+    return _soma_sim(device).run(steps)[0]
 
 
 @pytest.mark.cuda
@@ -590,6 +595,76 @@ def test_spheroid_on_card_matches_cpu(card, variant):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
     np.testing.assert_allclose(gpu.position.cpu().numpy(), cpu.position.numpy(), atol=1e-4)
     assert int(cpu.alive.sum()) != 300
+
+
+# ------------------------------------------------------------ checkpoints
+
+def _leaves(tree):
+    from repro_torch.checkpoint.checkpoint import _leaves_with_paths
+
+    return dict(_leaves_with_paths(tree))
+
+
+def _assert_same_leaves(a, b, device=None):
+    la, lb = _leaves(a), _leaves(b)
+    assert list(la) == list(lb)
+    for k in la:
+        assert la[k].dtype == lb[k].dtype, k
+        if device is not None:
+            assert lb[k].device == device, k
+        assert torch.equal(la[k].cpu(), lb[k].cpu()), k
+
+
+@pytest.mark.cuda
+def test_card_state_checkpoint_roundtrip(card, tmp_path):
+    """A card state saved and restored into itself: every leaf equal, of the
+    same dtype (the uint32 key too), back on the card."""
+    from repro_torch import checkpoint
+
+    state, _ = _soma_sim("cuda").build().run(3)
+    checkpoint.save(str(tmp_path), 3, {"state": state})
+    _, back = checkpoint.restore(str(tmp_path), {"state": state})
+    assert back["state"].rng.dtype == torch.uint32
+    _assert_same_leaves({"state": state}, back, device=card)
+
+
+@pytest.mark.cuda
+def test_resume_on_card_is_bit_exact(card, tmp_path):
+    """8 steps straight == 4 steps + kill + resume + 4 on the card, bit for
+    bit in state and series, with the three soma kernels in the resumed
+    half."""
+
+    class Die(Exception):
+        pass
+
+    def kill(state):
+        if int(state.step) >= 4:
+            raise Die
+
+    straight, straight_obs = _soma_sim("cuda").run(8)
+    d = str(tmp_path / "ckpt")
+    with pytest.raises(Die):
+        _soma_sim("cuda").run(8, checkpoint_dir=d, checkpoint_every=4, on_chunk=kill)
+    counts = [m.launches for m in (cr_kernel, cf_kernel, d3_kernel)]
+    final, obs = _soma_sim("cuda").resume(d)
+    torch.cuda.synchronize()
+    assert all(m.launches > c for m, c in zip((cr_kernel, cf_kernel, d3_kernel), counts))
+    _assert_same_leaves(straight, final, device=card)
+    assert torch.equal(straight_obs["counts"], obs["counts"])
+
+
+@pytest.mark.cuda
+def test_card_checkpoint_restores_on_the_cpu(card, tmp_path):
+    """A checkpoint the card wrote restores into a CPU ``like`` state, leaf
+    for leaf equal and on the CPU."""
+    d = str(tmp_path / "ckpt")
+    final, _ = _soma_sim("cuda").run(4, checkpoint_dir=d, checkpoint_every=2)
+    from repro_torch import checkpoint
+
+    like = _soma_sim("cpu").build().state
+    step, back = checkpoint.restore(d, {"state": like})
+    assert step == 4
+    _assert_same_leaves({"state": final}, back, device=CPU)
 
 
 # ------------------------------------------- wrappers (run without a card)

@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.diffusion3d, repro_torch.kernels.pairwise_force\n"
         "import repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention\n"
         "import repro_torch.configs, repro_torch.models.model, repro_torch.training\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.elastic\n"
+        "import repro_torch.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -164,13 +165,14 @@ def test_unported_facade_entry_points_raise():
     sim = Simulation(space=10.0, device="cpu").add_agents(
         position=np.full((2, 3), 5.0, np.float32))
     built = sim.build()
+    from repro_torch.launch import elastic
+
     for call, item in [
         (lambda: sim.run_batch(2), "item 13"),
-        (lambda: sim.resume("ckpt"), "item 12"),
         (lambda: sim.distribute(None, None), "item 14"),
-        (lambda: built.run(2, checkpoint_dir="ckpt"), "item 12"),
         (lambda: built.run_batch(2), "item 13"),
-        (lambda: built.resume("ckpt"), "item 12"),
+        (lambda: elastic.grow_dist_state(built.state, 4, None), "item 14"),
+        (lambda: elastic.run_elastic_distributed(sim, None, None, 2, "ckpt"), "item 14"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             call()
