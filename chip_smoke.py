@@ -65,6 +65,37 @@ printing one JSON line; any failure raises and exits non-zero:
                   ceil(2 x capacity), no agent dropped, the last ``pop`` row
                   equal to the alive count; the force kernel and capacity of
                   each chunk as run; a second run bit-identical.
+  batch_small     3 slots of the soma model at 2,000 agents each (three
+                  starts), 8 steps in one batch on the card: each slot
+                  bit-identical to its solo card run. At 26^3 boxes (the
+                  ``small`` phase's density) the same batch on the CPU (plain
+                  versions) within the ``small`` tolerances; at 15^3 (path
+                  1's density) its distance printed, beside the card running
+                  its plain versions.
+  batch_sweep     ``run_batch``'s sweep at full width: 8 slots x 75,000 soma
+                  agents (500 um, 50^3 boxes, two 100^3 fields each; 8 seeds
+                  and a per-slot initial concentration of substance_1), 20
+                  steps; every slot's final state and series bit-identical to
+                  its solo card run; batched and solo step medians, agent-steps
+                  a second, launches a batched step (cell_rank,
+                  cell_list_force, diffusion3d once a call site, not once a
+                  slot), device-to-host reads a step both ways, peak memory.
+  batch_spheroid  the spheroid in 4 slots of 25,000 cells (capacity 32,768
+                  each), sorted every step, fused, 10 steps: births and
+                  deaths in every slot, every slot bit-identical to its solo
+                  run; then ``batch_spheroid_dense``, the same with the dense
+                  pairwise_force kernel, 2 steps.
+  abm_serve       ``launch/abm_serve.serve``: 10 soma sessions of 20,000
+                  agents through 4 slots in chunks of 8 (budgets 24, one of
+                  21), one NaN-bombed and evicted; the 21-step session saved
+                  and restored through the checkpoint store and served on to
+                  24; every done series equal to its solo run (SHA-256).
+  kernels (batch) cell_rank, cell_list_force and diffusion3d at batch_sweep's
+                  final state over all 8 slots in one call, pairwise_force
+                  over batch_spheroid_dense's 4 slots' flat candidates: each
+                  bit-identical to one launch a slot (``solo_ms`` times the B
+                  launches), against the plain version (diffusion bit for
+                  bit, forces atol 1e-5 x max|F|).
   lm_small        path 3 at a small size: reduced phi4-mini (f32, 2 layers,
                   head_dim 16), weights from one CPU generator, the prefill
                   step with the flash kernel (f32: the SIMT kernel) and 8
@@ -103,7 +134,9 @@ cell_list_force and cell_window_force calls and of the pairwise_force call
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -145,6 +178,36 @@ CKPT_EVERY = 4
 ELASTIC_STEPS = 6
 ELASTIC_EVERY = 2
 
+# Batches of sessions (core/batch.py, launch/abm_serve.py): the soma model at
+# path 1's density (0.6 agents a 10 um box, 5 um voxels) in slots of a
+# batch, and the spheroid at path 2's rates in 4 slots of a quarter of its
+# capacity.
+# batch_small holds the card to the CPU at the ``small`` phase's density
+# (0.12 agents a box). At path 1's 0.6 the contacts amplify last-bit
+# differences to ~3e-4 in 8 steps, solo runs as much as batched ones, and
+# the card running its plain versions parts from the CPU as far as its
+# kernels do (scripts/card_cpu_divergence.py): that density is run and its
+# three readings printed beside the gated one.
+BATCH_SMALL_AGENTS = 2_000
+BATCH_SMALL_CASES = (           # (name, space um, field resolution, gated)
+    ("small_density", 260.0, 52, True),     # 26^3 boxes
+    ("path1_density", 150.0, 30, False),    # 15^3 boxes
+)
+SWEEP_SLOTS = 8
+SWEEP_AGENTS = 75_000
+SWEEP_SPACE = 500.0            # 50^3 boxes of 10 um
+SWEEP_RES = 100                # 5 um voxels
+SWEEP_STEPS = 20
+SPHB_SLOTS = 4
+SPHB_CELLS = 25_000
+SPHB_CAPACITY = 32_768
+SPHB_SPACE = (0.0, 504.0)      # 28^3 boxes of 18 um
+SPHB_STEPS = 10
+SPHB_DENSE_STEPS = 2
+SERVE_AGENTS = 20_000
+SERVE_SPACE = 320.0            # 32^3 boxes
+SERVE_RES = 64
+
 # The LM serving path: phi4-mini-3.8b at its published widths and depth.
 LM_ARCH = "phi4-mini-3.8b"
 LM_BATCH = 4
@@ -179,6 +242,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def warm_timed(fn):
+    """``(fn(), its CUDA-event ms)`` of one call after a warm-up call, as
+    ``cuda_ms(fn, 1)`` times it, for plain versions that take seconds: they
+    run twice, not a third time for their answer."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -229,9 +307,10 @@ def read_counts() -> dict:
 
 # --------------------------------------------------------------------- model
 
-def soma_model(n, space, resolution, seed, device, concentration=None):
+def soma_model(n, space, resolution, seed, device, concentration=None, **attrs):
     """The soma-clustering model of examples/quickstart.py (paper §4.7.1),
-    with every kernel of the slice switched on."""
+    with every kernel of the slice switched on; ``attrs``: more agent
+    attributes."""
     from repro_torch import Simulation
     from repro_torch.core import ForceParams, chemotaxis, concentration_at, secretion
 
@@ -252,7 +331,7 @@ def soma_model(n, space, resolution, seed, device, concentration=None):
     return (
         Simulation(space=(0.0, space), cell_size=10.0, boundary="closed", dt=1.0,
                    max_per_cell=64, seed=seed, rank_impl="cuda", device=device)
-        .add_agents(n, position=pos, diameter=5.0, kind=kind, exposure=0.0)
+        .add_agents(n, position=pos, diameter=5.0, kind=kind, exposure=0.0, **attrs)
         .add_substance("substance_0", diffusion=4.0, decay=0.002,
                        resolution=resolution, concentration=conc[0])
         .add_substance("substance_1", diffusion=4.0, decay=0.002,
@@ -803,6 +882,534 @@ def phase_elastic():
          run_s=[run_s, run2_s], second_run_bit_identical=True)
 
 
+# ------------------------------------------------------------------- batches
+
+def slots_of(states, slots):
+    """Solo views of a slots-layout state, one a slot."""
+    from repro_torch.core.slots import slot_of
+
+    return [slot_of(states, b) for b in range(slots)]
+
+
+def step_clock():
+    """A post op that synchronises and stamps the host clock at the end of
+    each step, batched or solo (``batched=True``: once a batched step)."""
+    from repro_torch.core import Operation
+
+    ends = []
+
+    def fn(ctx, state):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return state
+
+    return Operation("step_clock", fn, phase="post", batched=True), ends
+
+
+def step_ms(start, ends):
+    return [1e3 * (b - a) for a, b in zip([start] + ends[:-1], ends)]
+
+
+def dtoh_reads(run) -> float:
+    """Device-to-host copies a step of ``run(n)`` (n steps from one state),
+    from profiled runs of 3 steps and of 1: the difference over 2, so the
+    reads a run makes once (its budgets, its start counter) drop out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for n in (1, 3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(n)
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events() if "DtoH" in e.name))
+    return (counts[1] - counts[0]) / 2
+
+
+def _with_impl(fn, impl, /, *args, **kwargs):
+    return fn(*args, **{**kwargs, "impl": impl})
+
+
+@contextlib.contextmanager
+def plain_versions_on_card():
+    """The soma path's kernel dispatchers take their plain versions on card
+    tensors as they do on CPU tensors: the card in the CPU's sum orders."""
+    from repro_torch.kernels.cell_force import ops as cf_ops
+    from repro_torch.kernels.cell_rank import ops as cr_ops
+    from repro_torch.kernels.diffusion3d import ops as d3_ops
+
+    swaps = ((cr_ops, "cell_rank", "tiled"), (cf_ops, "cell_list_force", "reference"),
+             (d3_ops, "diffusion_step", "reference"))
+    saved = [getattr(module, name) for module, name, _ in swaps]
+    for (module, name, impl), fn in zip(swaps, saved):
+        setattr(module, name, functools.partial(_with_impl, fn, impl))
+    try:
+        yield
+    finally:
+        for (module, name, _), fn in zip(swaps, saved):
+            setattr(module, name, fn)
+
+
+def phase_batch_small():
+    """3 slots of the soma model at 2,000 agents each (different starts), 8
+    steps batched on the card: each slot bit-identical to its solo card run.
+    At the ``small`` phase's density the batched run on the CPU (plain
+    versions) must be within that phase's tolerances of the card's; at path
+    1's density its distance is printed, beside that of the card running its
+    plain versions."""
+    n, steps = BATCH_SMALL_AGENTS, 8
+    for density, space, res, gated in BATCH_SMALL_CASES:
+        fields = ramp_fields(res)
+        out = {}
+        for run in ("cuda", "cpu") if gated else ("cuda", "cpu", "card_plain"):
+            dev = "cpu" if run == "cpu" else "cuda"
+            built = soma_model(n, space, res, 0, dev, concentration=fields).observe_kinds(
+                frequency=3).build()
+            starts = [soma_model(n, space, res, s, dev, concentration=fields).build().state
+                      for s in range(3)]
+            eng = built.batched()
+            if run == "card_plain":
+                with plain_versions_on_card():
+                    out[run] = eng.run(eng.stack(starts), steps)[0].states
+                continue
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                reset_counts()
+            bstate, obs, counts = eng.run(eng.stack(starts), steps)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts()
+                for b, (start, got) in enumerate(zip(starts, slots_of(bstate.states, 3))):
+                    solo, solo_obs = built.run(steps, state=start)
+                    bad = differing_leaves(solo, got)
+                    rows = obs["kind_counts"][b][: int(counts["kind_counts"][b])]
+                    if bad or not torch.equal(rows, solo_obs["kind_counts"]):
+                        raise AssertionError(f"batch_small: slot {b} differs from its solo "
+                                             f"card run in {bad or 'kind_counts'} ({density})")
+            out[run] = bstate.states
+        pos = {k: v.pool.position.cpu() for k, v in out.items()}
+        pos_err = float((pos["cuda"] - pos["cpu"]).abs().max())
+        field_err = 0.0
+        for name in out["cuda"].grids:
+            g = out["cuda"].grids[name].concentration.cpu()
+            c = out["cpu"].grids[name].concentration
+            if gated:
+                torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5 * float(c.abs().max()))
+            field_err = max(field_err, float((g - c).abs().max()))
+        if gated and not pos_err <= 1e-4:
+            raise AssertionError(f"batch_small: positions differ from the CPU batch by {pos_err}")
+        want = {"cell_rank": steps + 1, "cell_list_force": steps, "diffusion3d": 2 * steps}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"batch_small: launches {launches}, want {want} ({density})")
+        extra = {} if gated else dict(
+            max_position_err_vs_card_plain=float((pos["cuda"] - pos["card_plain"]).abs().max()),
+            max_position_err_card_plain_vs_cpu=float(
+                (pos["card_plain"] - pos["cpu"]).abs().max()))
+        emit("batch_small", density=density, agents_a_box=n / (space / 10.0) ** 3,
+             cpu_tolerances_gated=gated, slots=3, agents_a_slot=n, steps=steps,
+             slots_bit_identical_to_solo=True, max_position_err_vs_cpu=pos_err,
+             max_field_err_vs_cpu=field_err, launches={k: launches[k] for k in want}, **extra)
+
+
+def sweep_model(device="cuda", concentration=None):
+    """Path 1's soma model at one slot's size: 500 um, 50^3 boxes of 10 um,
+    75,000 agents (0.6 a box), two 100^3 fields at 5 um."""
+    return soma_model(SWEEP_AGENTS, SWEEP_SPACE, SWEEP_RES, 0, device,
+                      concentration=concentration)
+
+
+def phase_batch_sweep():
+    """``run_batch``'s sweep at full width: 8 slots x 75,000 soma agents (8
+    seeds, a per-slot initial concentration of substance_1), 20 steps in one
+    batch; then the 8 solo runs on the card.  Every slot's final state and
+    series bit-identical to its solo run; step times, launches and
+    device-to-host reads a step both ways."""
+    clock, ends = step_clock()
+    sim = sweep_model().observe_kinds(frequency=SWEEP_STEPS // 4).observe(
+        "exposure_sum", lambda s: s.pool.get("exposure").sum())
+    built = sim.op(clock).build()
+    spec = built.config.spec
+    assert spec.dims == (int(SWEEP_SPACE // 10),) * 3 and spec.max_per_cell == 64
+    seeds = [100 + b for b in range(SWEEP_SLOTS)]
+    params = {"substance:substance_1": np.linspace(0.0, 3.5, SWEEP_SLOTS).astype(np.float32)}
+    eng = built.batched()
+    bstate = eng.sweep_state(seeds=seeds, params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ends.clear()
+    start = time.perf_counter()
+    final, obs, counts = eng.run(bstate, SWEEP_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    batch_ms = step_ms(start, ends)
+    sorts = len(range(0, SWEEP_STEPS, built.config.sort_frequency))
+    want = {"cell_rank": SWEEP_STEPS + sorts, "cell_list_force": SWEEP_STEPS,
+            "diffusion3d": 2 * SWEEP_STEPS, "cell_window_force": 0, "pairwise_force": 0}
+    if any(launches[k] != v for k, v in want.items()) or len(batch_ms) != SWEEP_STEPS:
+        raise AssertionError(f"batch_sweep: launches {launches}, want {want}; "
+                             f"{len(batch_ms)} steps timed")
+    states = final.states
+    health = {f.name: getattr(states.health, f.name).tolist()
+              for f in dataclasses.fields(states.health)}
+    if any(any(v) for v in health.values()):
+        raise AssertionError(f"batch_sweep: health not clean: {health}")
+    if not bool(torch.isfinite(states.pool.position).all()):
+        raise AssertionError("batch_sweep: non-finite positions")
+    reads_batched = dtoh_reads(lambda n: eng.run(final, n))
+    if not reads_batched >= 1:      # the step reads its counters: the trace lost copies
+        raise AssertionError(f"batch_sweep: {reads_batched} device-to-host reads a step")
+
+    solo_ms = []
+    for b, seed in enumerate(seeds):
+        state = eng.session_state(seed=seed, params={k: v[b] for k, v in params.items()})
+        torch.cuda.synchronize()
+        ends.clear()
+        t0 = time.perf_counter()
+        solo, solo_obs = built.run(SWEEP_STEPS, state=state)
+        torch.cuda.synchronize()
+        solo_ms += step_ms(t0, ends)
+        got = slots_of(states, SWEEP_SLOTS)[b]
+        bad = differing_leaves({"state": solo, "obs": solo_obs},
+                               {"state": got, "obs": {k: v[b][: int(counts[k][b])]
+                                                      for k, v in obs.items()}})
+        if bad:
+            raise AssertionError(f"batch_sweep: slot {b} differs from its solo run in {bad}")
+        if b == 0:
+            reads_solo = dtoh_reads(lambda n: built.run(n, state=solo))
+        del solo, solo_obs
+    med_b, med_s = statistics.median(batch_ms), statistics.median(solo_ms)
+    agents = SWEEP_SLOTS * SWEEP_AGENTS
+    emit("batch_sweep", slots=SWEEP_SLOTS, agents_a_slot=SWEEP_AGENTS, boxes_a_slot=spec.n_cells,
+         voxels_per_substance=SWEEP_RES**3, steps=SWEEP_STEPS, run_s=run_s,
+         median_step_ms=med_b, min_step_ms=min(batch_ms), max_step_ms=max(batch_ms),
+         step_ms=batch_ms, solo_median_step_ms=med_s, solo_min_step_ms=min(solo_ms),
+         solo_max_step_ms=max(solo_ms),
+         agent_steps_per_s=agents / (med_b / 1e3),
+         solo_agent_steps_per_s=SWEEP_AGENTS / (med_s / 1e3),
+         launches=launches,
+         launches_a_batched_step={k: launches[k] / SWEEP_STEPS for k in
+                                  ("cell_rank", "cell_list_force", "diffusion3d")},
+         dtoh_reads_a_batched_step=reads_batched, dtoh_reads_a_solo_step=reads_solo,
+         peak_memory_bytes=peak,
+         cell_list_bytes=SWEEP_SLOTS * spec.n_cells * spec.max_per_cell * 4,
+         field_bytes=SWEEP_SLOTS * 2 * SWEEP_RES**3 * 4,
+         slots_bit_identical_to_solo=True)
+    return built, final, launches
+
+
+def spheroid_batch(impl, steps, name):
+    """4 slots of the spheroid (25,000 cells, capacity 32,768 each, ages set,
+    a seed a slot), sorted every step, ``steps`` steps batched, then each
+    slot's solo card run: every slot bit-identical."""
+    from repro_torch.core import prng
+
+    pos, diam, age = spheroid_start(SPHB_CELLS, SPHB_SPACE, lattice=12.0)
+    built = spheroid_model(pos, diam, SPHB_SPACE, SPHB_CAPACITY, "cuda", impl=impl).build()
+    start = with_ages(built, age)
+    starts = [dataclasses.replace(start, rng=prng.PRNGKey(200 + b, device=start.rng.device))
+              for b in range(SPHB_SLOTS)]
+    eng = built.batched()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final, _, _ = eng.run(eng.stack(starts), steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    births, deaths = [], []
+    solo_s = 0.0
+    for b, (s0, got) in enumerate(zip(starts, slots_of(final.states, SPHB_SLOTS))):
+        t0 = time.perf_counter()
+        solo, _ = built.run(steps, state=s0)
+        torch.cuda.synchronize()
+        solo_s += time.perf_counter() - t0
+        bad = differing_leaves(solo, got)
+        if bad:
+            raise AssertionError(f"{name}: slot {b} differs from its solo run in {bad}")
+        alive = got.pool.alive
+        n1 = int(alive.sum())
+        births.append(int((alive & (got.pool.age <= steps)).sum()))
+        deaths.append(SPHB_CELLS + births[-1] - n1)
+    return built, final, launches, dict(run_s=run_s, solo_runs_s=solo_s, births=births,
+                                        deaths=deaths)
+
+
+def phase_batch_spheroid():
+    built, final, launches, stats = spheroid_batch("fused", SPHB_STEPS, "batch_spheroid")
+    if not (all(x > 0 for x in stats["births"]) and all(x > 0 for x in stats["deaths"])):
+        raise AssertionError(f"batch_spheroid: births {stats['births']}, "
+                             f"deaths {stats['deaths']}")
+    want = {"cell_rank": SPHB_STEPS, "cell_list_force": SPHB_STEPS, "pairwise_force": 0,
+            "cell_window_force": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"batch_spheroid: launches {launches}, want {want}")
+    emit("batch_spheroid", slots=SPHB_SLOTS, cells_a_slot=SPHB_CELLS,
+         capacity_a_slot=SPHB_CAPACITY, boxes=built.config.spec.n_cells, steps=SPHB_STEPS,
+         launches=launches, slots_bit_identical_to_solo=True, **stats)
+
+    dbuilt, dfinal, dlaunches, dstats = spheroid_batch("cuda", SPHB_DENSE_STEPS,
+                                                       "batch_spheroid_dense")
+    if dlaunches["pairwise_force"] != SPHB_DENSE_STEPS:
+        raise AssertionError(f"batch_spheroid_dense: launches {dlaunches}")
+    emit("batch_spheroid_dense", slots=SPHB_SLOTS, steps=SPHB_DENSE_STEPS, launches=dlaunches,
+         slots_bit_identical_to_solo=True, **dstats)
+    return dbuilt, dfinal, dlaunches
+
+
+def serve_model(device="cuda"):
+    """The soma model at 20,000 agents a session (320 um, 32^3 boxes, two
+    64^3 fields) with a NaN bomb armed by an attr."""
+
+    def nan_bomb(ctx, state):
+        pos = state.pool.position.clone()
+        hit = state.step >= state.pool.attrs["nan_bomb_at"][0].to(state.step.dtype)
+        pos[0, 0] = torch.where(hit, torch.nan, pos[0, 0])
+        return dataclasses.replace(state, pool=state.pool.replace(position=pos))
+
+    return (soma_model(SERVE_AGENTS, SERVE_SPACE, SERVE_RES, 0, device,
+                       nan_bomb_at=np.full(SERVE_AGENTS, 2**30, np.int32))
+            .op(nan_bomb, name="nan_bomb", phase="post")
+            .observe_kinds(frequency=4)
+            .observe("exposure_sum", lambda s: s.pool.get("exposure").sum())
+            .build())
+
+
+def phase_abm_serve():
+    """``launch/abm_serve.serve`` on the card: 10 sessions through 4 slots
+    in chunks of 8 (budgets 24, one of 21), one session NaN-bombed at step 5
+    and evicted; the 21-step session's final state saved and restored
+    through the checkpoint store and served again to 24.  Every done
+    session's series equal to its solo run (SHA-256)."""
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch.abm_serve import SessionRequest, _series_sha, serve
+
+    built = serve_model()
+    eng = built.batched()
+    # A session's own initial substance_1 level (the soma model draws no
+    # random numbers, so a seed alone would not tell two sessions apart).
+    params = [{"substance:substance_1": np.float32(0.25 * i)} for i in range(10)]
+    params[6]["attr:nan_bomb_at"] = np.int32(5)
+    reqs = [SessionRequest(name=f"s{i}", n_steps=21 if i == 3 else 24, seed=300 + i,
+                           params=params[i]) for i in range(10)]
+    lines = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = {r.name: r for r in serve(built, reqs, slots=4, chunk=8, log=lines.append)}
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_serve_") as d:
+        first = results["s3"]
+        ckpt.save(d, first.steps, {"state": first.final})
+        _, back = ckpt.restore(d, {"state": built.state})
+    (resumed,) = serve(built, [SessionRequest(name="s3+", n_steps=24, state=back["state"])],
+                       slots=4, chunk=8, log=lines.append)
+    sick = results.pop("s6")
+    if sick.status != "evicted" or sick.health["nonfinite_agents"] < 1 or sick.steps >= 24:
+        raise AssertionError(f"abm_serve: the bombed session ended {sick.status} at "
+                             f"step {sick.steps}, health {sick.health}")
+    shas = {}
+    for name, r in sorted(results.items()):
+        req = next(q for q in reqs if q.name == name)
+        if r.status != "done" or r.steps != req.n_steps:
+            raise AssertionError(f"abm_serve: {name} ended {r.status} at step {r.steps}")
+        _, solo = built.run(req.n_steps, state=eng.session_state(seed=req.seed,
+                                                                 params=req.params))
+        if _series_sha(r.obs) != _series_sha(solo):
+            raise AssertionError(f"abm_serve: {name}'s series differs from its solo run")
+        shas[name] = _series_sha(r.obs)[:16]
+    _, solo = built.run(24, state=eng.session_state(seed=303, params=params[3]))
+    joined = {k: np.concatenate([results["s3"].obs[k]]
+                                + ([resumed.obs[k]] if k in resumed.obs else []))
+              for k in solo}
+    if resumed.status != "done" or _series_sha(joined) != _series_sha(solo):
+        raise AssertionError("abm_serve: the restored session's joined series differs "
+                             "from its solo run")
+    if not all(launches[k] > 0 for k in ("cell_rank", "cell_list_force", "diffusion3d")):
+        raise AssertionError(f"abm_serve: launches {launches}")
+    if len(set(shas.values())) != len(shas):
+        raise AssertionError(f"abm_serve: sessions with equal series {shas}")
+    emit("abm_serve", sessions=10, slots=4, chunk=8, agents_a_session=SERVE_AGENTS,
+         serve_s=serve_s, evicted=sick.name, evicted_at_step=sick.steps,
+         resumed_from_step=first.steps, series_sha=shas, launches=launches,
+         chunks=[ln for ln in lines if ln.startswith("chunk")],
+         summary=[ln for ln in lines if ln.startswith("served")])
+
+
+def batch_kernel_rows(sweep, dense):
+    """The four kernels of the batched path at its shapes, each call over
+    every slot: ``cell_rank``, ``cell_list_force`` and ``diffusion3d`` at
+    batch_sweep's final state (8 slots), ``pairwise_force`` at
+    batch_spheroid_dense's (4 slots, the spheroid_dense capacity split in
+    four).  Each held bit for bit against one launch a slot (timed as
+    ``solo_ms``, the B calls together) and against its plain version."""
+    from repro_torch.core.grid import _live_cell_ids, _slot_keys, build_index, sort_agents
+    from repro_torch.core.grid import candidate_neighbors_arrays
+    from repro_torch.core.slots import to_flat
+    from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.cell_force.ref import cell_list_force_ref
+    from repro_torch.kernels.cell_rank import kernel as cr_k
+    from repro_torch.kernels.cell_rank import ops as cr_ops
+    from repro_torch.kernels.diffusion3d import kernel as d3_k
+    from repro_torch.kernels.diffusion3d.ref import diffusion_step_ref
+    from repro_torch.kernels.pairwise_force import kernel as pf_k
+    from repro_torch.kernels.pairwise_force.ref import pairwise_force_ref
+
+    rows = []
+    built, final, launches = sweep
+    spec, b = built.config.spec, final.batch_size
+    n_cells, m = spec.n_cells, spec.max_per_cell
+    pool = to_flat(final.states).pool
+    c = pool.capacity // b
+    per = lambda x, s: x.reshape((b, -1) + tuple(x.shape[1:]))[s]
+
+    def same_as_solo(name, got, solo):
+        for s, want in enumerate(solo):
+            if not torch.equal(got[s] if got.shape[0] == b else per(got, s), want):
+                raise AssertionError(f"{name}: slot {s} differs from a launch of that slot "
+                                     f"alone")
+
+    # ---- cell_rank over session-offset keys.
+    cid = _live_cell_ids(spec, pool.position, pool.alive)
+    keys = _slot_keys(cid, b, n_cells + 1)
+    n_all = b * (n_cells + 1) - 1
+    check_cell_rank(keys, n_all)
+    cids = [per(cid, s).contiguous() for s in range(b)]
+    same_as_solo("cell_rank", cr_k.cell_rank_cuda(keys, n_all),
+                 [cr_k.cell_rank_cuda(x, n_cells) for x in cids])
+    rows.append(dict(
+        name=f"cell_rank[{b} slots]", route="cuda",
+        source="src/repro_torch/kernels/cell_rank/csrc/cell_rank.cu",
+        replaces="src/repro/kernels/cell_rank/kernel.py:88",
+        launches=launches["cell_rank"], max_abs_err=0.0, slots=b,
+        plain_ms=cuda_ms(lambda: cr_ops.cell_rank_tiled(keys, n_all), 3), library_ms=None,
+        solo_ms=cuda_ms(lambda: [cr_k.cell_rank_cuda(x, n_cells) for x in cids], 20),
+        **cell_rank_times(keys, n_all),
+    ))
+
+    # ---- cell_list_force with the slot axis.
+    index = build_index(spec, pool)
+    if bool(index.overflowed.any()):
+        raise AssertionError("kernels: a slot of the final sweep state overflowed a box")
+    radius = pool.radius()
+    call = lambda: cf_k.cell_list_force_cuda(pool.position, radius, index.cell_list, spec.dims,
+                                             num_out=c)
+    solo_args = [(per(pool.position, s), per(radius, s), index.cell_list[s])
+                 for s in range(b)]
+    solo = lambda: [cf_k.cell_list_force_cuda(p, r, cl, spec.dims) for p, r, cl in solo_args]
+    got = call()
+    same_as_solo("cell_list_force", got, solo())
+    cnt = index.cell_count.reshape(-1).long()
+    k_max = max(int(cnt.max()), 1)
+    chunk = max(1, int(1e8 // (27 * k_max * k_max)))
+    plain = lambda: torch.cat([
+        sum(cell_list_force_ref(p, r, cl, spec.dims, cells=(lo, min(lo + chunk, n_cells)))
+            for lo in range(0, n_cells, chunk)) for p, r, cl in solo_args])
+    want, plain_ms = warm_timed(plain)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not scale > 0 or not err <= 1e-5 * scale:
+        raise AssertionError(f"cell_list_force[{b} slots]: max error {err} vs max|F| {scale}")
+    row_bytes = (torch.clamp(cnt + 1, max=m) * 4 + 31) // 32 * 32
+    force_bytes = int(row_bytes.sum()) + int(torch.clamp(cnt, max=m).sum()) * 16 + b * c * 12
+    pairs = sum(box_pairs(index.cell_count[s], spec.dims) for s in range(b))
+    rows.append(dict(
+        name=f"cell_list_force[{b} slots]", route="cuda",
+        source="src/repro_torch/kernels/cell_force/csrc/cell_list_force.cu",
+        replaces="src/repro/kernels/cell_force/kernel.py:186",
+        launches=launches["cell_list_force"], max_abs_err=err, slots=b,
+        ms=cuda_ms(call, 20), solo_ms=cuda_ms(solo, 10), plain_ms=plain_ms,
+        library_ms=None, **bound(force_bytes, 12 * pairs), pair_evaluations=pairs,
+        max_force=scale, fullest_box=k_max,
+    ))
+    del index, got, want
+
+    # ---- diffusion3d with the slot axis: one substance's 8 fields.
+    g = final.states.grids["substance_0"]
+    u = g.concentration.contiguous()
+    nu = g.diffusion_coefficient * built.config.dt / g.spacing**2
+    decay = g.decay_constant * built.config.dt
+    call = lambda: d3_k.diffusion_step_cuda(u, nu, decay)
+    fields = [u[s].contiguous() for s in range(b)]
+    solo = lambda: [d3_k.diffusion_step_cuda(x, nu, decay) for x in fields]
+    got, want = call(), diffusion_step_ref(u, nu, decay)
+    if not torch.equal(got, want):
+        raise AssertionError(f"diffusion3d[{b} slots]: {int((got != want).sum())} values "
+                             f"differ from the plain version")
+    same_as_solo("diffusion3d", got, solo())
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float32, device=u.device)
+    w[0, 0, 1, 1, 1] = (1.0 - decay) - 6.0 * nu
+    for i, j, k in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        w[0, 0, i, j, k] = nu
+    conv = lambda: torch.nn.functional.conv3d(u[:, None], w, padding=1)
+    rows.append(dict(
+        name=f"diffusion3d[{b} slots]", route="cuda",
+        source="src/repro_torch/kernels/diffusion3d/csrc/diffusion3d.cu",
+        replaces="src/repro/kernels/diffusion3d/kernel.py:61",
+        launches=launches["diffusion3d"], max_abs_err=0.0, slots=b,
+        ms=cuda_ms(call, 50), device_ms=graph_ms(call, 20), solo_ms=cuda_ms(solo, 20),
+        plain_ms=cuda_ms(lambda: diffusion_step_ref(u, nu, decay), 10),
+        library_ms=cuda_ms(conv, 10), **bound(2 * u.numel() * 4, 8 * u.numel()),
+        library_max_abs_err=float((conv()[:, 0] - want).abs().max()),
+    ))
+    del got, want, fields
+
+    # ---- pairwise_force over a batch's flat candidates.
+    built, final, launches = dense
+    spec, b = built.config.spec, final.batch_size
+    pool = sort_agents(spec, to_flat(final.states).pool)
+    index = build_index(spec, pool, assume_sorted=True)
+    pos, rad = pool.position, pool.radius()
+    cand, mask = candidate_neighbors_arrays(spec, index, pos, pool.alive)
+    c = pool.capacity // b
+    call = lambda: pf_k.pairwise_force_cuda(pos, rad, cand, mask)
+    solo_args = []
+    for s in range(b):
+        sp = dataclasses.replace(pool, **{
+            f: per(getattr(pool, f), s) for f in ("position", "diameter", "kind", "age",
+                                                  "alive", "static")},
+            attrs={k: per(v, s) for k, v in pool.attrs.items()}, overflow=pool.overflow[s])
+        si = build_index(spec, sp, assume_sorted=True)
+        sc, sm = candidate_neighbors_arrays(spec, si, sp.position, sp.alive)
+        solo_args.append((sp.position, sp.radius(), sc, sm))
+    solo = lambda: [pf_k.pairwise_force_cuda(*a) for a in solo_args]
+    got = call()
+    same_as_solo("pairwise_force", got, solo())
+    step = 8192
+    plain = lambda: torch.cat([
+        pairwise_force_ref(pos[i:i + step], rad[i:i + step], cand[i:i + step],
+                           mask[i:i + step], all_position=pos, all_radius=rad)
+        for i in range(0, pos.shape[0], step)])
+    want = plain()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not scale > 0 or not err <= 1e-5 * scale:
+        raise AssertionError(f"pairwise_force[{b} slots]: max error {err} vs max|F| {scale}")
+    slots_set = int(mask.sum())
+    n, kdim = cand.shape
+    rows.append(dict(
+        name=f"pairwise_force[{b} slots]", route="cuda",
+        source="src/repro_torch/kernels/pairwise_force/csrc/pairwise_force.cu",
+        replaces="src/repro/kernels/pairwise_force/kernel.py:107",
+        launches=launches["pairwise_force"], max_abs_err=err, slots=b,
+        ms=cuda_ms(call, 20), device_ms=graph_ms(call, 20), solo_ms=cuda_ms(solo, 10),
+        plain_ms=cuda_ms(plain, 1), library_ms=None,
+        **bound(n * kdim + 4 * slots_set + n * 16 + n * 12, 12 * slots_set),
+        candidate_slots=n * kdim, masked_in_slots=slots_set, max_force=scale,
+    ))
+    del cand, mask, solo_args
+    for r in rows:
+        emit("kernel", **r)
+    return rows
+
+
 # ------------------------------------------------------------------- kernels
 
 def rank_oracle(cid: torch.Tensor, n_cells: int) -> torch.Tensor:
@@ -938,7 +1545,7 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
     plain_f = lambda: sum(cell_list_force_ref(*args, num_out=pool.capacity,
                                               cells=(lo, min(lo + chunk, n_cells)))
                           for lo in range(0, n_cells, chunk))
-    want = plain_f()
+    want, plain_ms = warm_timed(plain_f)
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     if not scale > 0 or not err <= 1e-5 * scale:
@@ -961,7 +1568,7 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
         replaces="src/repro/kernels/cell_force/kernel.py:186",
         launches=launches["cell_list_force"], max_abs_err=err,
         ms=cuda_ms(list_force, 20),
-        plain_ms=cuda_ms(plain_f, 1),
+        plain_ms=plain_ms,
         library_ms=None,
         **bound(force_bytes, 12 * pairs),
         design_bound_ms=bound(design_bytes, 12 * pairs)["bound_ms"], design_bytes=design_bytes,
@@ -1087,7 +1694,8 @@ def spheroid_kernel_rows(built, final, window, launches, dense_launches, force_i
     plain = lambda: sum(cell_window_force_ref(pos, rad, cid, spec.dims, block=SPH_BLOCK,
                                               half_window=window, tiles=(t, min(t + 64, nbw)))
                         for t in range(0, nbw, 64))
-    got, want = win(), plain()
+    got = win()
+    want, plain_ms = warm_timed(plain)
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     witness = float((got - linear).abs().max())
@@ -1111,7 +1719,7 @@ def spheroid_kernel_rows(built, final, window, launches, dense_launches, force_i
         source="src/repro_torch/kernels/cell_force/csrc/cell_window_force.cu",
         replaces="src/repro/kernels/cell_force/kernel.py:330",
         launches=launches["cell_window_force"], max_abs_err=err,
-        ms=cuda_ms(win, 20), plain_ms=cuda_ms(plain, 1), library_ms=None,
+        ms=cuda_ms(win, 20), plain_ms=plain_ms, library_ms=None,
         # Bytes: position, radius and cell id read once, the output written
         # once.  Operations: ~12 f32 ops per true 27-box pair.
         **bound(32 * c, 12 * pairs),
@@ -1612,6 +2220,28 @@ def main() -> int:
     phase_elastic()
     torch.cuda.empty_cache()
     seconds["elastic"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch_s = {}
+
+    def lap(name):
+        nonlocal t0
+        batch_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    phase_batch_small()
+    lap("batch_small")
+    sweep = phase_batch_sweep()
+    lap("batch_sweep")
+    dense = phase_batch_spheroid()
+    lap("batch_spheroid")
+    phase_abm_serve()
+    lap("abm_serve")
+    rows += batch_kernel_rows(sweep, dense)
+    del sweep, dense
+    torch.cuda.empty_cache()
+    lap("kernels")
+    seconds["batch"] = sum(batch_s.values())
+    seconds["batch_phases"] = batch_s
     t0 = time.perf_counter()
 
     phase_lm_small()

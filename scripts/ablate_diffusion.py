@@ -111,11 +111,11 @@ def main() -> int:
         for per_sm in BLOCKS_PER_SM:
             fn = ctypes.CDLL(str(libs[name, per_sm])).diffusion3d_launch
             fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            call = lambda: _build.check(fn(0, u.data_ptr(), out.data_ptr(), *SHAPE, nu, keep,
-                                           stream), name)
+            call = lambda: _build.check(fn(0, u.data_ptr(), out.data_ptr(), 1, *SHAPE, nu,
+                                           keep, stream), name)
             out.fill_(float("nan"))
             call()
             torch.cuda.synchronize()

@@ -12,7 +12,9 @@ are built there, from its own sources), calls its ``cell_list_force_cuda``,
 of ``chip_smoke.py``'s kernels phases (the soma path's cell list, the
 spheroid's sorted pool at its window, cell_list_force on the spheroid's cell
 list, and every 8th row of the spheroid's dense candidates) and saves the
-outputs.  ``compare`` prints one JSON line: for each kernel, whether the two
+outputs, and prints each call's mean CUDA-event time over 20 calls after
+a warm-up (``ms``; time two checkouts in one machine, in turns).
+``compare`` prints one JSON line: for each kernel, whether the two
 outputs are equal bit for bit, how many values differ, by how much at most,
 and the largest magnitude of the first output.
 """
@@ -33,22 +35,31 @@ def run(inputs: str, tree: str, out: str) -> None:
     from repro_torch.kernels.pairwise_force import kernel as pf_k
 
     saved = torch.load(inputs, map_location="cuda:0")
-    got = {}
+    got, ms = {}, {}
     for name, call in saved.items():
         if name == "pairwise_force":
-            got[name] = pf_k.pairwise_force_cuda(*call["args"],
-                                                 all_position=call["all_position"],
-                                                 all_radius=call["all_radius"])
-            continue
-        *tensors, dims = call["args"]
-        if name.startswith("cell_list_force"):
-            got[name] = cf_k.cell_list_force_cuda(*tensors, dims, num_out=call["num_out"])
+            fn = lambda call=call: pf_k.pairwise_force_cuda(
+                *call["args"], all_position=call["all_position"],
+                all_radius=call["all_radius"])
+        elif name.startswith("cell_list_force"):
+            *tensors, dims = call["args"]
+            fn = lambda t=tensors, d=dims, call=call: cf_k.cell_list_force_cuda(
+                *t, d, num_out=call["num_out"])
         else:
-            got[name] = cf_k.cell_window_force_cuda(*tensors, dims, block=call["block"],
-                                                    half_window=call["half_window"])
-    torch.cuda.synchronize()
+            *tensors, dims = call["args"]
+            fn = lambda t=tensors, d=dims, call=call: cf_k.cell_window_force_cuda(
+                *t, d, block=call["block"], half_window=call["half_window"])
+        got[name] = fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            fn()
+        end.record()
+        end.synchronize()
+        ms[name] = start.elapsed_time(end) / 20
     torch.save({k: v.cpu() for k, v in got.items()}, out)
-    print(json.dumps({"tree": tree, "saved": out, "kernels": sorted(got),
+    print(json.dumps({"tree": tree, "saved": out, "kernels": sorted(got), "ms": ms,
                       "module": cf_k.__file__}))
 
 

@@ -4,6 +4,7 @@
 Run from the root of a checkout:
 
     python3 scripts/profile_torch_slice.py [--model soma|spheroid|spheroid_dense|
+                                                    batch_sweep|sweep_slot|
                                                     lm_prefill|lm_decode]
                                            [--steps 6] [--trace trace.json]
                                            [--tree DIR]
@@ -12,7 +13,10 @@ Builds one path of ``chip_smoke.py``: ``soma`` (600,000 agents in 100^3
 boxes, two 200^3 substances, cell_rank + cell_list_force + diffusion3d),
 ``spheroid`` (the 100,000-cell tumor spheroid sorted every step, forces by
 cell_window_force at the covering window W), ``spheroid_dense`` (the same
-start, forces by pairwise_force), ``lm_prefill`` (phi4-mini-3.8b at full
+start, forces by pairwise_force), ``batch_sweep`` (``chip_smoke.py``'s
+sweep: 8 slots of 75,000 soma agents stepped by the batch engine, one step =
+one batched step of all 8), ``sweep_slot`` (one of those slots run solo),
+``lm_prefill`` (phi4-mini-3.8b at full
 width, one step = one prefill call over 4 x 2,048 tokens, flash_attention +
 rmsnorm) or ``lm_decode`` (the same model, one step = one ``decode_step``
 for a batch of 4 at positions from 128 on, rmsnorm).  ``--tree DIR`` runs
@@ -69,6 +73,8 @@ def make_runner(cs, model: str, steps: int):
     """``run(n)``: advance the chosen path by ``n`` steps."""
     if model.startswith("lm_"):
         return lm_runner(cs, model, steps)
+    if model in ("batch_sweep", "sweep_slot"):
+        return sweep_runner(cs, model)
     if model == "soma":
         built = cs.soma_model(cs.N_AGENTS, cs.SPACE, cs.RESOLUTION, 0, "cuda").build()
         state = [built.state]
@@ -161,6 +167,28 @@ def host_split(prof, window_us: float, steps: int) -> dict:
     }
 
 
+def sweep_runner(cs, model: str):
+    """``chip_smoke.py``'s batch_sweep (seeds 100.., substance_1 from 0 to
+    3.5): the whole batch, or its first slot alone."""
+    import numpy as np
+
+    built = cs.sweep_model().build()
+    eng = built.batched()
+    params = {"substance:substance_1":
+              np.linspace(0.0, 3.5, cs.SWEEP_SLOTS).astype(np.float32)}
+    bstate = [eng.sweep_state(seeds=[100 + b for b in range(cs.SWEEP_SLOTS)],
+                              params=params)]
+    state = [eng.session_state(seed=100, params={k: v[0] for k, v in params.items()})]
+
+    def run(n):
+        if model == "batch_sweep":
+            bstate[0] = eng.run(bstate[0], n)[0]
+        else:
+            state[0], _ = built.run(n, state=state[0])
+
+    return run
+
+
 def lm_runner(cs, model: str, steps: int):
     from repro_torch.training import make_decode_step, make_prefill_step
 
@@ -193,8 +221,9 @@ def lm_runner(cs, model: str, steps: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("soma", "spheroid", "spheroid_dense", "lm_prefill",
-                                        "lm_decode"), default="soma")
+    ap.add_argument("--model", choices=("soma", "spheroid", "spheroid_dense", "batch_sweep",
+                                        "sweep_slot", "lm_prefill", "lm_decode"),
+                    default="soma")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
     ap.add_argument("--tree", default=str(ROOT),

@@ -12,6 +12,8 @@ Layer map (same module names as the reference):
   behaviors    the behaviours of App. D
   schedule     Algorithm 8 as data: Operation / Scheduler
   engine       the default schedule stepped eagerly
+  slots        the slot axis of a batch of sessions (flat view, selects)
+  batch        the many-session engine: BatchState, BatchedSimulation
 """
 
 from .agents import (
@@ -25,6 +27,7 @@ from .agents import (
     remove_agents,
 )
 from .api import BuiltSimulation, Observable, Simulation
+from .batch import NO_BUDGET, BatchedSimulation, BatchState, batched_run, slot_state
 from .behaviors import (
     INFECTED,
     RECOVERED,
@@ -71,6 +74,7 @@ from .schedule import HealthReport, Operation, OpContext, Scheduler
 
 __all__ = [
     "Simulation", "BuiltSimulation", "Observable",
+    "NO_BUDGET", "BatchedSimulation", "BatchState", "batched_run", "slot_state",
     "AgentPool", "add_agents", "compact", "compact_indices", "make_pool", "permute",
     "permute_to", "remove_agents",
     "INFECTED", "RECOVERED", "SUSCEPTIBLE", "StepContext", "apoptosis",

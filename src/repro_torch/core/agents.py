@@ -57,6 +57,20 @@ class AgentPool:
         return self.position.shape[0]
 
     @property
+    def slots(self) -> int | None:
+        """B for the flat view of a batch of B sessions (``core/slots.py``:
+        ``overflow`` is (B,), the rows are B blocks of C), None solo."""
+        return self.overflow.shape[0] if self.overflow.ndim else None
+
+    def per_slot(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-agent ``x`` as ``(slots, C, ...)`` (``(1, C, ...)`` solo)."""
+        return x.reshape((self.slots or 1, -1) + tuple(x.shape[1:]))
+
+    def slot_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-agent ``x`` summed within each slot, int32: (B,), () solo."""
+        return self.per_slot(x).sum(dim=1, dtype=torch.int32).reshape(self.overflow.shape)
+
+    @property
     def device(self) -> torch.device:
         return self.position.device
 
@@ -196,23 +210,26 @@ def compact_indices(mask: torch.Tensor, capacity: int, fill: int = 0):
     Returns ``(ids, valid, n)``: ``ids (capacity,) i32`` holds the r-th set
     index at rank r (``fill`` beyond), ``valid (capacity,) bool`` marks the
     occupied ranks, ``n ()`` i32 is the set-bit count (may exceed capacity).
+    A ``(B, m)`` mask compacts each row on its own: ``(B, capacity)``,
+    ``(B, capacity)``, ``(B,)``.
     """
-    m = mask.shape[0]
+    m = mask.shape[-1]
     dev = mask.device
     mi = mask.to(torch.int32)
-    n = mi.sum(dtype=torch.int32)
-    rank = torch.cumsum(mi, 0, dtype=torch.int32) - 1
+    n = mi.sum(dim=-1, dtype=torch.int32)
+    rank = torch.cumsum(mi, -1, dtype=torch.int32) - 1
     slot = torch.where(mask & (rank < capacity), rank, capacity)
     # One spare slot takes every dropped write (the reference's mode="drop").
-    ids = torch.full((capacity + 1,), fill, dtype=torch.int32, device=dev)
-    ids[slot.long()] = torch.arange(m, dtype=torch.int32, device=dev)
-    valid = torch.arange(capacity, device=dev) < torch.clamp(n, max=capacity)
-    return ids[:capacity], valid, n
+    ids = torch.full(mask.shape[:-1] + (capacity + 1,), fill, dtype=torch.int32, device=dev)
+    ids.scatter_(-1, slot.long(), torch.arange(m, dtype=torch.int32, device=dev).expand_as(slot))
+    valid = torch.arange(capacity, device=dev) < torch.clamp(n, max=capacity)[..., None]
+    return ids[..., :capacity], valid, n
 
 
 def free_slot_table(alive: torch.Tensor) -> torch.Tensor:
-    """``table[r]`` = index of the r-th free (dead) slot, capacity where none."""
-    c = alive.shape[0]
+    """``table[r]`` = index of the r-th free (dead) slot, capacity where none
+    (row by row for a ``(B, C)`` mask)."""
+    c = alive.shape[-1]
     ids, _, _ = compact_indices(~alive, c, fill=c)
     return ids
 
@@ -237,27 +254,35 @@ def add_agents(
     with it (row i describes the child of agent i).  The k-th spawn in index
     order takes the k-th free slot; spawns beyond the free slots are dropped
     and counted in ``overflow``.  Attrs not given are inherited from the
-    spawner, ``age`` defaults to 0 and ``static`` is cleared.
+    spawner, ``age`` defaults to 0 and ``static`` is cleared.  On the flat
+    view of a batch the ranks, free slots and overflow are each slot's own,
+    so births land in the rows a solo run of the slot gives them.
     """
     spawn_mask = spawn_mask & pool.alive
-    c = pool.capacity
-    spawn_rank = torch.cumsum(spawn_mask.to(torch.int32), 0, dtype=torch.int32) - 1
-    n_free = (~pool.alive).sum(dtype=torch.int32)
-    n_spawn = spawn_mask.sum(dtype=torch.int32)
-    free_slots = free_slot_table(pool.alive)
-    fits = spawn_mask & (spawn_rank < n_free)
-    # Index c is the reference's mode="drop": a spare row, cut off below.
-    target = torch.where(fits, free_slots[torch.clamp(spawn_rank, 0, c - 1).long()], c)
-    target = target.long()
+    rows = pool.capacity
+    spawn = pool.per_slot(spawn_mask)                                   # (B, C)
+    alive = pool.per_slot(pool.alive)
+    b, c = spawn.shape
+    spawn_rank = torch.cumsum(spawn.to(torch.int32), 1, dtype=torch.int32) - 1
+    n_free = (~alive).sum(dim=1, dtype=torch.int32)
+    n_spawn = spawn.sum(dim=1, dtype=torch.int32)
+    free_slots = free_slot_table(alive)
+    fits = spawn & (spawn_rank < n_free[:, None])
+    # Row ``rows`` is the reference's mode="drop": a spare row, cut off below.
+    local = free_slots.gather(1, torch.clamp(spawn_rank, 0, c - 1).long())
+    if b > 1:
+        local = local + torch.arange(0, rows, c, dtype=torch.int32, device=pool.device)[:, None]
+    target = torch.where(fits, local, rows).reshape(-1).long()
 
     def put(dst: torch.Tensor, src) -> torch.Tensor:
         src = torch.as_tensor(src, dtype=dst.dtype, device=dst.device)
         out = torch.cat([dst, dst[:1]], dim=0)
         out[target] = src.expand_as(dst)
-        return out[:c]
+        return out[:rows]
 
-    age_src = torch.zeros((c,), dtype=torch.float32, device=pool.device) if age is None else age
+    age_src = torch.zeros((rows,), dtype=torch.float32, device=pool.device) if age is None else age
     attrs = dict(attrs or {})
+    dropped = torch.clamp(n_spawn - n_free, min=0).reshape(pool.overflow.shape)
     return pool.replace(
         position=put(pool.position, position),
         diameter=put(pool.diameter, diameter),
@@ -266,7 +291,7 @@ def add_agents(
         alive=put(pool.alive, True),
         static=put(pool.static, False),
         attrs={name: put(arr, attrs.get(name, arr)) for name, arr in pool.attrs.items()},
-        overflow=pool.overflow + torch.clamp(n_spawn - n_free, min=0),
+        overflow=pool.overflow + dropped,
     )
 
 

@@ -20,15 +20,17 @@ Checkpointed runs are the reference's: ``run(n, checkpoint_dir=d,
 checkpoint_every=k)`` persists the full run (state and observable rows) every
 ``k`` steps in the reference's on-disk format, and ``Simulation.resume(d)``
 finishes a killed run bit for bit; a checkpoint written by either package
-resumes in the other.  Batched runs and the distributed engine are later
-slices and raise ``NotImplementedError``.
+resumes in the other.  ``BuiltSimulation.batched()`` is the many-session
+engine (``core/batch.py``) and ``run_batch`` sweeps B variants through it,
+slot b bit-identical to a solo run of its variant.  The distributed engine
+is a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -393,8 +395,13 @@ class Simulation:
         """:meth:`run` (the port runs eagerly; there is nothing to compile)."""
         return self.build(seed=seed).run_jit(n_steps, **run_kwargs)
 
-    def run_batch(self, *args, **kwargs):
-        _not_ported("Simulation.run_batch (batched serving)", 13)
+    def run_batch(self, n_steps: int, params: Optional[Dict[str, Any]] = None, *,
+                  seeds: Optional[Sequence[int]] = None, batch: Optional[int] = None,
+                  seed: Optional[int] = None):
+        """Build and sweep B variants in one batched run → ``(finals, obs)``.
+        See :meth:`BuiltSimulation.run_batch` for the override namespace;
+        slot b is bit-exactly the solo run of that variant."""
+        return self.build(seed=seed).run_batch(n_steps, params, seeds=seeds, batch=batch)
 
     def resume(self, checkpoint_dir: str, seed: Optional[int] = None, **resume_kwargs):
         """Rebuild this model and finish an interrupted checkpointed run:
@@ -618,5 +625,49 @@ class BuiltSimulation:
         return self._run_checkpointed(target - step, state, checkpoint_dir, every, keep,
                                       on_chunk, obs_acc=acc, target_step=target)
 
-    def run_batch(self, *args, **kwargs):
-        _not_ported("BuiltSimulation.run_batch (batched serving)", 13)
+    @functools.cached_property
+    def _runner_cache(self) -> Dict[tuple, Any]:
+        # One runner per execution signature, for the BuiltSimulation's
+        # lifetime: ``("batch",)`` holds the BatchedSimulation.  The solo
+        # run needs none (the port runs eagerly).
+        return {}
+
+    def batched(self):
+        """The many-simulation engine for this model: a
+        :class:`~repro_torch.core.batch.BatchedSimulation` stepping B session
+        states at once, with the built state as the validation template.
+        Cached for the model's lifetime."""
+        from . import batch as _batch
+
+        cache = self._runner_cache
+        if ("batch",) not in cache:
+            cache[("batch",)] = _batch.BatchedSimulation(
+                self.config, self.scheduler, self.state, self.observables)
+        return cache[("batch",)]
+
+    def run_batch(self, n_steps: int, params: Optional[Dict[str, Any]] = None, *,
+                  seeds: Optional[Sequence[int]] = None, batch: Optional[int] = None):
+        """Sweep B parameter variants through one batched run.
+
+        ``params`` maps override keys to per-slot values with a leading slot
+        axis: ``"attr:NAME"`` sets initial agent-attr values (scalar per
+        slot, or per-agent over the registered agents), and
+        ``"substance:NAME"`` sets initial concentrations (uniform scalar per
+        slot, or a full field); per-slot op constants ride as attrs the op
+        reads.  ``seeds`` gives slot ``b`` its own ``PRNGKey(seeds[b])``
+        stream (default: ``fold_in(built_rng, b)``); ``batch`` forces the
+        width when neither implies it.
+
+        Returns ``(finals, obs)``: the stacked final states (every leaf with
+        a leading B axis) and ``obs[name]`` of shape ``(B, rows, ...)``.
+        Slot b equals a solo run of that variant, bit for bit.
+        """
+        eng = self.batched()
+        bstate = eng.sweep_state(batch=batch, seeds=seeds, params=params)
+        bstate, obs, counts = eng.run(bstate, n_steps)
+        # Sweep slots share the built start step, so every slot fired the
+        # same rows: trim the buffers by slot 0's count.
+        if obs:
+            fired = {k: int(v[0]) for k, v in counts.items()}
+            obs = {k: v[:, : fired[k]] for k, v in obs.items()}
+        return bstate.states, obs

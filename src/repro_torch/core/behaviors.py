@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -27,13 +27,16 @@ class StepContext:
     """Per-iteration environment handed to each behavior (built by the
     scheduler's ``env_build`` op, threaded by the ``behaviors`` op).
     ``cand`` / ``cand_mask`` / ``src_*`` delegate to the lazy
-    :class:`NeighborContext`."""
+    :class:`NeighborContext`.  In a batch's step (``core/slots.py``) the
+    pool is the flat view of B sessions and ``rng`` a (B, 2) key batch:
+    ``next_rng`` splits every session's key, and the draws of ``prng`` give
+    each session its solo draws."""
 
-    rng: torch.Tensor            # (2,) uint32 key data
+    rng: torch.Tensor            # (2,) uint32 key data; (B, 2) in a batch
     grids: Dict[str, dgrid.DiffusionGrid]
     neighbors: NeighborContext
     dt: torch.Tensor             # () f32
-    step: int
+    step: Any                    # the counter; a tuple, one a session, in a batch
     min_bound: float
     max_bound: float
 

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .grid import fdiv
+from .slots import row_slot
 
 IMPLS = ("reference", "cuda")
 
@@ -28,7 +29,9 @@ class DiffusionGrid:
     ``n_valid`` / ``frame_shift`` are the reference's ghost-voxel padding
     fields of uneven distributed splits; ``None`` single-node.  The fields
     marked ``static`` are the reference's static pytree metadata: a
-    checkpoint holds no array for them.
+    checkpoint holds no array for them.  In a batch's flat view
+    (``core/slots.py``) ``concentration`` is (B, nx, ny, nz), one field a
+    session, and agent positions are B blocks of rows, block b in field b.
     """
 
     concentration: torch.Tensor  # (nx, ny, nz) float32
@@ -41,7 +44,12 @@ class DiffusionGrid:
 
     @property
     def resolution(self) -> Tuple[int, int, int]:
-        return tuple(self.concentration.shape)  # type: ignore[return-value]
+        return tuple(self.concentration.shape[-3:])  # type: ignore[return-value]
+
+    @property
+    def slots(self) -> int | None:
+        """B for a batch's fields, None solo."""
+        return self.concentration.shape[0] if self.concentration.ndim == 4 else None
 
 
 def make_grid(
@@ -72,12 +80,12 @@ def _laplacian_zero_outside(u: torch.Tensor, dx: float) -> torch.Tensor:
     """7-point Laplacian with zero concentration outside the boundary."""
     z = F.pad(u, (1, 1, 1, 1, 1, 1))
     lap = (
-        z[2:, 1:-1, 1:-1]
-        + z[:-2, 1:-1, 1:-1]
-        + z[1:-1, 2:, 1:-1]
-        + z[1:-1, :-2, 1:-1]
-        + z[1:-1, 1:-1, 2:]
-        + z[1:-1, 1:-1, :-2]
+        z[..., 2:, 1:-1, 1:-1]
+        + z[..., :-2, 1:-1, 1:-1]
+        + z[..., 1:-1, 2:, 1:-1]
+        + z[..., 1:-1, :-2, 1:-1]
+        + z[..., 1:-1, 1:-1, 2:]
+        + z[..., 1:-1, 1:-1, :-2]
         - 6.0 * u
     )
     return fdiv(lap, dx * dx)
@@ -133,8 +141,13 @@ def _nearest_voxel(grid: DiffusionGrid, position: torch.Tensor) -> torch.Tensor:
 
 
 def _flat(grid: DiffusionGrid, ijk: torch.Tensor) -> torch.Tensor:
-    _, ny, nz = grid.resolution
-    return ((ijk[..., 0].long() * ny + ijk[..., 1]) * nz + ijk[..., 2]).reshape(-1)
+    """Flat voxel index of ``ijk`` (N, 3); in a batch's fields the rows are
+    the flat view's, each offset into its own session's field."""
+    nx, ny, nz = grid.resolution
+    flat = ((ijk[..., 0].long() * ny + ijk[..., 1]) * nz + ijk[..., 2]).reshape(-1)
+    if grid.slots is not None:
+        flat = flat + row_slot(flat.shape[0], grid.slots, flat.device) * (nx * ny * nz)
+    return flat
 
 
 def increase_concentration(
@@ -142,7 +155,10 @@ def increase_concentration(
 ) -> DiffusionGrid:
     """Scatter-add secretion at agent positions (Algorithm 6).  Repeated
     voxels accumulate in agent-index order on the CPU; on the card the
-    deterministic ``index_put_`` sums them in a fixed order too."""
+    deterministic ``index_put_`` sums them in a fixed order too (a stable
+    sort of the indices, then each run of equal ones in order), so a batch's
+    one scatter over all sessions sums each voxel as the session's solo
+    scatter does."""
     ijk = _nearest_voxel(grid, position)
     amount = torch.as_tensor(amount, dtype=torch.float32, device=position.device)
     amount = amount.expand(position.shape[:-1])
@@ -150,7 +166,7 @@ def increase_concentration(
         amount = torch.where(mask, amount, 0.0)
     flat = grid.concentration.reshape(-1).clone()
     flat.index_put_((_flat(grid, ijk),), amount.reshape(-1), accumulate=True)
-    return dataclasses.replace(grid, concentration=flat.reshape(grid.resolution))
+    return dataclasses.replace(grid, concentration=flat.reshape(grid.concentration.shape))
 
 
 def concentration_at(grid: DiffusionGrid, position: torch.Tensor) -> torch.Tensor:

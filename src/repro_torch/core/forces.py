@@ -15,6 +15,13 @@ when a cell overflowed, the Morton window's coverage gate and the §5.5
 compaction's fallback when the active set overflowed — are host-side
 ``if``s on a device scalar here: one synchronisation each, taken on every
 call that reaches them.
+
+Over the flat view of a batch (``core/slots.py``) each session takes its own
+branch: the predicates of every session are read in one device-to-host
+read, each branch that a live session needs is evaluated for the whole
+batch, and each session keeps its own branch's rows, as ``vmap`` lowers the
+reference's ``lax.cond`` to a select.  The Morton window kernel has no slot
+axis yet, so ``tile_order="morton"`` in a batch raises.
 """
 
 from __future__ import annotations
@@ -27,9 +34,16 @@ import torch
 from .agents import AgentPool, compact_indices
 from .grid import NEIGHBOR_OFFSETS, GridIndex, GridSpec, neighbor_cell_ids
 from .neighbors import NeighborContext
+from .slots import row_slot
 
 IMPLS = ("reference", "fused", "cuda")
 TILE_ORDERS = ("linear", "morton")
+
+#: Raised for ``tile_order="morton"`` in a batch: ``cell_window_force``
+#: decodes cell ids by floor division, so session-offset ids would make one
+#: session's top z-layer and the next one's bottom layer neighbours.
+MORTON_IN_BATCH = ("tile_order='morton' in a batch is not ported yet: ROADMAP §0, "
+                   "the slot axis of cell_window_force")
 
 
 def check_impl(impl: str, tile_order: str = "linear") -> None:
@@ -39,6 +53,27 @@ def check_impl(impl: str, tile_order: str = "linear") -> None:
         raise ValueError(f"unknown force impl {impl!r}{hint}; expected {IMPLS}")
     if tile_order not in TILE_ORDERS:
         raise ValueError(f"unknown tile_order {tile_order!r}; expected {TILE_ORDERS}")
+
+
+def _read_flags(flags: dict) -> dict:
+    """``{name: () or (B,) bool tensor}`` → ``{name: [bool] a session}``, in
+    one device-to-host read."""
+    if not flags:
+        return {}
+    names = list(flags)
+    rows = torch.stack([flags[n].reshape(-1) for n in names]).tolist()
+    return dict(zip(names, rows))
+
+
+def _per_session(pick, a, b, c: int) -> torch.Tensor:
+    """Rows of ``a`` for the sessions where ``pick`` (a bool a session) is
+    set, of ``b`` elsewhere; each session is ``c`` rows."""
+    if all(pick):
+        return a
+    if not any(pick):
+        return b
+    rows = torch.tensor(pick, device=a.device).repeat_interleave(c)
+    return torch.where(rows[:, None], a, b)
 
 
 def _window_need(spec: GridSpec, index: GridIndex, block: int) -> torch.Tensor:
@@ -190,6 +225,7 @@ def mechanical_forces(
     morton_block: Optional[int] = None,
     morton_window: Optional[int] = None,
     morton_fallback: bool = True,
+    live=None,
 ) -> torch.Tensor:
     """Net mechanical force per agent, (C, 3).
 
@@ -206,6 +242,9 @@ def mechanical_forces(
     candidate subset; more active agents than that falls back to the full
     evaluation.  ``tile``: evaluate the dense path in agent tiles.
     ``row_mask``: rows outside it get zero force (output masking only).
+    Over a batch's flat view (``index.slots``) ``live`` (a bool a session)
+    names the sessions whose branches count; the others' rows are computed
+    on whichever branch is evaluated (their step is rolled back).
     """
     check_impl(impl, tile_order)
     if neighbors is None:
@@ -218,7 +257,21 @@ def mechanical_forces(
             "ghost-extended neighbor sources (the distributed engine) are not "
             "ported yet: ROADMAP queue 1 item 14"
         )
+    slots = index.slots
+    if slots is not None and tile_order == "morton":
+        raise NotImplementedError(MORTON_IN_BATCH)
+    b = slots or 1
+    per = c // b
+    live = [True] * b if live is None else list(live)
     src_pos, src_rad = pool.position, radius
+
+    # The branch predicates of every session, in one read.
+    flags = {}
+    if impl == "fused" and fused_fallback:
+        flags["overflowed"] = index.overflowed
+    if active_capacity is not None:
+        flags["crowded"] = pool.slot_sum(pool.alive & ~pool.static) > int(active_capacity)
+    flags = _read_flags(flags)
 
     def dense_eval(cache: bool) -> torch.Tensor:
         cand, mask = neighbors.candidates(cache=cache)
@@ -251,7 +304,7 @@ def mechanical_forces(
         return cf_ops.cell_list_force(
             src_pos, src_rad, index.cell_list, spec.dims,
             k=params.repulsion_k, gamma=params.attraction_gamma,
-            impl="cuda", num_out=c,
+            impl="cuda", num_out=per,
         )
 
     def dense() -> torch.Tensor:
@@ -266,19 +319,28 @@ def mechanical_forces(
                 k=params.repulsion_k, gamma=params.attraction_gamma, impl="cuda",
                 all_position=src_pos, all_radius=src_rad,
             )
-        if fused_fallback and bool(index.overflowed):
+        if "overflowed" not in flags:
+            return fused()
+        fall = [f and l for f, l in zip(flags["overflowed"], live)]
+        if not any(fall):
+            return fused()
+        if all(f or not l for f, l in zip(flags["overflowed"], live)):
             return dense_eval(cache=False)
-        return fused()
+        return _per_session(fall, dense_eval(cache=False), fused(), per)
 
     if active_capacity is None:
         return torch.where(out_mask[:, None], dense(), 0.0)
 
     # ---- §5.5 static-agent omission via work compaction -------------------
     a = int(active_capacity)
-    active = pool.alive & ~pool.static
-    if int(active.sum()) > a:
+    full = [f and l for f, l in zip(flags["crowded"], live)]
+    if all(f or not l for f, l in zip(flags["crowded"], live)):
         return torch.where(out_mask[:, None], dense(), 0.0)
-    act_ids, act_valid, _ = compact_indices(active, a)
+    act_ids, act_valid, _ = compact_indices(pool.per_slot(pool.alive & ~pool.static), a)
+    if slots is not None:
+        act_ids = act_ids + torch.arange(0, c, per, dtype=torch.int32,
+                                         device=pool.device)[:, None]
+    act_ids, act_valid = act_ids.reshape(-1), act_valid.reshape(-1)
     cand, mask = neighbors.candidates_for(act_ids, act_valid)
     ids = act_ids.long()
     sub_force = forces_from_candidates(
@@ -288,6 +350,8 @@ def mechanical_forces(
     force = torch.zeros((c, 3), dtype=sub_force.dtype, device=pool.device)
     force.index_put_((ids,), torch.where(act_valid[:, None], sub_force, 0.0),
                      accumulate=True)
+    if any(full):
+        force = _per_session(full, dense(), force, per)
     return torch.where(out_mask[:, None], force, 0.0)
 
 
@@ -319,12 +383,20 @@ def update_static_flags_celllist(
     "any agent in the 27-box moved" from a per-cell any-reduction over
     ``cell_list`` and an (N, 27) cell-level gather.  ``query_position``: the
     positions the index was built from (default: the pool's current ones).
+    Over a batch's index each session reads its own cells.
     """
     moved = _moved(pool, displacement, params)
-    slot_valid = index.cell_list < moved.shape[0]
-    safe = torch.where(slot_valid, index.cell_list, 0).long()
-    cell_moved = (moved[safe] & slot_valid).any(dim=1)                # (n_cells,)
     qpos = pool.position if query_position is None else query_position
     nbr_cid, in_range = neighbor_cell_ids(spec, qpos)                 # (N, 27)
+    b = index.slots or 1
+    per = moved.shape[0] // b
+    cell_list = index.cell_list.reshape(b, spec.n_cells, -1)
+    slot_valid = cell_list < per
+    safe = torch.where(slot_valid, cell_list, 0).long()
+    if b > 1:
+        safe = safe + torch.arange(0, moved.shape[0], per, device=safe.device)[:, None, None]
+        base = row_slot(nbr_cid.shape[0], b, nbr_cid.device) * spec.n_cells
+        nbr_cid = nbr_cid + base[:, None]
+    cell_moved = (moved[safe] & slot_valid).any(dim=2).reshape(-1)   # (B·n_cells,)
     neighbor_moved = (cell_moved[nbr_cid.long()] & in_range).any(dim=1)
     return pool.replace(static=pool.alive & ~moved & ~neighbor_moved)

@@ -17,6 +17,7 @@ import torch
 
 from . import morton
 from .agents import AgentPool, permute, permute_to
+from .slots import row_slot
 
 RANK_IMPLS = ("tiled", "cuda", "reference")
 
@@ -60,12 +61,22 @@ class GridIndex:
                    agent-index order.
     cell_count:    (n_cells,) int32 — #agents per cell (may exceed M).
     overflowed:    () bool — any cell exceeded max_per_cell.
+
+    Over the flat view of B sessions of C rows (``core/slots.py``) each
+    session has its own grid: ``cell_of_agent`` (B·C,) within-session cell
+    ids, ``cell_list`` (B, n_cells, M) of within-session agent ids (C where
+    empty), ``cell_count`` (B, n_cells), ``overflowed`` (B,).
     """
 
     cell_of_agent: torch.Tensor
     cell_list: torch.Tensor
     cell_count: torch.Tensor
     overflowed: torch.Tensor
+
+    @property
+    def slots(self) -> int | None:
+        """B for the index of a batch's flat view, None solo."""
+        return self.cell_list.shape[0] if self.cell_list.ndim == 3 else None
 
 
 def fdiv(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -111,6 +122,15 @@ def _live_cell_ids(spec: GridSpec, position: torch.Tensor, alive: torch.Tensor):
     return torch.where(alive, cid, spec.n_cells).to(torch.int32)
 
 
+def _slot_keys(ids: torch.Tensor, slots: int | None, per_slot: int) -> torch.Tensor:
+    """Ids of a batch's flat view made distinct across sessions: row r's id
+    plus ``slot(r) · per_slot``.  Offset after ``cell_coords`` has clamped
+    them, so no agent (a NaN one included) reaches another session's cells."""
+    if slots is None:
+        return ids
+    return ids + (row_slot(ids.shape[0], slots, ids.device) * per_slot).to(ids.dtype)
+
+
 def sort_agents(spec: GridSpec, pool: AgentPool, rank_tile: int | None = None
                 ) -> AgentPool:
     """§5.4.2 agent sorting: reorder the pool along the space-filling curve,
@@ -118,35 +138,44 @@ def sort_agents(spec: GridSpec, pool: AgentPool, rank_tile: int | None = None
 
     Counting sort: ``dest[i] = z_offset[cell[i]] + rank_within_cell[i]`` —
     exactly the slot a stable argsort on the Morton key gives agent ``i``.
-    Grids past ``MAX_TABLE_CELLS`` use that stable argsort directly.
+    Grids past ``MAX_TABLE_CELLS`` use that stable argsort directly.  A
+    batch's flat view sorts each session within its own rows, in one rank
+    over ids offset per session (each with its own dead bin).
     """
     from repro_torch.kernels.cell_rank import ops as cr_ops
 
+    slots = pool.slots
+    rows = pool.capacity
     if spec.n_cells > morton.MAX_TABLE_CELLS:
         key = sort_key(spec, cell_coords(spec, pool.position))
-        key = torch.where(pool.alive, key, 0xFFFFFFFF)
+        key = _slot_keys(torch.where(pool.alive, key, 0xFFFFFFFF), slots, 1 << 32)
         perm = torch.sort(key, stable=True).indices
         return permute(pool, perm)
 
     n_cells = spec.n_cells
+    b = slots or 1
     cid = _live_cell_ids(spec, pool.position, pool.alive)
-    zid = layout_rank_table(spec, pool.device)[cid.long()]
-    rank = cr_ops.cell_rank(zid, n_cells=n_cells, impl=spec.rank_impl, tile=rank_tile)
-    counts = torch.bincount(zid.long(), minlength=n_cells + 1).to(torch.int32)
-    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    dest = offsets[zid.long()] + rank
+    zid = _slot_keys(layout_rank_table(spec, pool.device)[cid.long()], slots, n_cells + 1)
+    rank = cr_ops.cell_rank(zid, n_cells=b * (n_cells + 1) - 1, impl=spec.rank_impl,
+                            tile=rank_tile)
+    counts = torch.bincount(zid.long(), minlength=b * (n_cells + 1)).to(torch.int32)
+    counts = counts.reshape(b, n_cells + 1)
+    offsets = torch.cumsum(counts, 1, dtype=torch.int32) - counts
+    dest = offsets.reshape(-1)[zid.long()] + rank
+    dest = _slot_keys(dest, slots, rows // b)
     return permute_to(pool, dest)
 
 
 def cell_starts_sorted(spec: GridSpec, cell_count: torch.Tensor):
-    """Per-cell ``[start, end)`` row ranges of a layout-sorted pool."""
+    """Per-cell ``[start, end)`` row ranges of a layout-sorted pool (within
+    each session for a ``(B, n_cells)`` count)."""
     order = torch.from_numpy(
         morton.zorder_cells(spec.dims, spec.use_morton)
     ).to(cell_count.device).long()
-    zcounts = cell_count[order]
-    zstarts = torch.cumsum(zcounts, 0, dtype=torch.int32) - zcounts
+    zcounts = cell_count[..., order]
+    zstarts = torch.cumsum(zcounts, -1, dtype=torch.int32) - zcounts
     start = torch.zeros_like(cell_count)
-    start[order] = zstarts
+    start[..., order] = zstarts
     return start, start + cell_count
 
 
@@ -156,39 +185,51 @@ def build_index_arrays(
     alive: torch.Tensor,
     rank_tile: int | None = None,
     assume_sorted: bool = False,
+    slots: int | None = None,
 ) -> GridIndex:
     """Build the cell list (the §5.3.1 build stage): cell id per agent, rank
     within its cell (``kernels/cell_rank``, or ``row − cell_start`` when
     ``assume_sorted`` promises a layout-sorted pool), scatter into
-    ``cell_list[cell, rank]``."""
+    ``cell_list[cell, rank]``.  ``slots``: the positions are the flat view of
+    that many sessions; each gets its own grid, from one rank over ids
+    offset per session."""
     from repro_torch.kernels.cell_rank import ops as cr_ops
 
-    c = position.shape[0]
+    rows = position.shape[0]
     dev = position.device
     n_cells = spec.n_cells
+    b = slots or 1
+    c = rows // b
     cid = _live_cell_ids(spec, position, alive)
+    key = _slot_keys(cid, slots, n_cells + 1)
 
-    counts = torch.bincount(cid.long(), minlength=n_cells + 1).to(torch.int32)
-    cell_count = counts[:n_cells]
+    counts = torch.bincount(key.long(), minlength=b * (n_cells + 1)).to(torch.int32)
+    cell_count = counts.reshape(b, n_cells + 1)[:, :n_cells]
 
+    local = torch.arange(rows, dtype=torch.int32, device=dev)
+    if slots is not None:
+        local = local % c
     if assume_sorted:
         start, _ = cell_starts_sorted(spec, cell_count)
-        start_ext = torch.cat([start, torch.zeros((1,), dtype=torch.int32, device=dev)])
-        rank = torch.arange(c, dtype=torch.int32, device=dev) - start_ext[cid.long()]
+        start_ext = torch.cat([start, torch.zeros((b, 1), dtype=torch.int32, device=dev)], 1)
+        rank = local - start_ext.reshape(-1)[key.long()]
     else:
-        rank = cr_ops.cell_rank(cid, n_cells=n_cells, impl=spec.rank_impl,
+        rank = cr_ops.cell_rank(key, n_cells=b * (n_cells + 1) - 1, impl=spec.rank_impl,
                                 tile=rank_tile)
-    overflowed = (cell_count > spec.max_per_cell).any()
+    overflowed = (cell_count > spec.max_per_cell).any(dim=1)
 
     # Scatter into the dense cell list; overflow and dead agents all write
     # the spare last slot, which is cut off.
     m = spec.max_per_cell
     valid = alive & (rank < m)
-    flat_idx = torch.where(valid, cid * m + rank, n_cells * m)
-    cell_list = torch.full((n_cells * m + 1,), c, dtype=torch.int32, device=dev)
-    cell_list[flat_idx.long()] = torch.arange(c, dtype=torch.int32, device=dev)
-    cell_list = cell_list[: n_cells * m].reshape(n_cells, m)
+    cell = _slot_keys(cid, slots, n_cells).long()
+    flat_idx = torch.where(valid, cell * m + rank, b * n_cells * m)
+    cell_list = torch.full((b * n_cells * m + 1,), c, dtype=torch.int32, device=dev)
+    cell_list[flat_idx.long()] = local
+    cell_list = cell_list[: b * n_cells * m].reshape(b, n_cells, m)
 
+    if slots is None:
+        cell_list, cell_count, overflowed = cell_list[0], cell_count[0], overflowed[0]
     return GridIndex(
         cell_of_agent=cid,
         cell_list=cell_list,
@@ -200,7 +241,8 @@ def build_index_arrays(
 def build_index(spec: GridSpec, pool: AgentPool, rank_tile: int | None = None,
                 assume_sorted: bool = False) -> GridIndex:
     return build_index_arrays(spec, pool.position, pool.alive,
-                              rank_tile=rank_tile, assume_sorted=assume_sorted)
+                              rank_tile=rank_tile, assume_sorted=assume_sorted,
+                              slots=pool.slots)
 
 
 NEIGHBOR_OFFSETS = torch.tensor(
@@ -229,17 +271,26 @@ def candidate_neighbors_arrays(
 ):
     """Candidate neighbor ids per query (27-box stencil): ``(cand, mask)``,
     ``cand (N, 27·M) int32`` into the indexed set (indexed capacity where
-    empty), ``mask (N, 27·M) bool`` (valid ∧ ¬self ∧ query alive)."""
+    empty), ``mask (N, 27·M) bool`` (valid ∧ ¬self ∧ query alive).  Over a
+    batch's index the ids are rows of the flat view: a query (its session
+    told by its id, default its row) reads its own session's cells."""
     n = query_position.shape[0]
     m = spec.max_per_cell
     nbr_cid, in_range = neighbor_cell_ids(spec, query_position)
-    cand = index.cell_list[nbr_cid.long()]                       # (N, 27, M)
     sentinel = index.cell_of_agent.shape[0]
-    valid = in_range[:, :, None] & (cand < sentinel)
-    cand = torch.where(valid, cand, sentinel).reshape(n, 27 * m)
-    valid = valid.reshape(n, 27 * m)
     if query_ids is None:
         query_ids = torch.arange(n, dtype=torch.int32, device=query_position.device)
+    b = index.slots or 1
+    c = sentinel // b
+    if b > 1:
+        base = (query_ids.long() // c)[:, None]
+        nbr_cid = nbr_cid + base * spec.n_cells
+    cand = index.cell_list.reshape(-1, m)[nbr_cid.long()]        # (N, 27, M)
+    valid = in_range[:, :, None] & (cand < c)
+    if b > 1:
+        cand = cand + (base[:, :, None] * c).to(torch.int32)
+    cand = torch.where(valid, cand, sentinel).reshape(n, 27 * m)
+    valid = valid.reshape(n, 27 * m)
     mask = valid & (cand != query_ids[:, None]) & query_alive[:, None]
     return cand, mask
 

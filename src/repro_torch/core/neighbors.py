@@ -23,7 +23,9 @@ class NeighborContext:
 
     ``src_*`` tensors are what candidate ids index into (the pool's own
     arrays single-node); ``query_*`` describe the agents queries are
-    answered for.
+    answered for.  Over the flat view of a batch (``core/slots.py``) the
+    index is the batch's and the candidate ids are rows of the flat view,
+    each query's within its own session.
     """
 
     spec: GridSpec

@@ -18,7 +18,13 @@ same keys as the reference:
   normal(key, shape)  = √2 · erfinv(uniform(key, shape, nextafter(−1, 0), 1))
 
 Keys are (2,) uint32 tensors (or (n, 2) for ``split``) on any device; the
-hash runs in int64 arithmetic masked to 32 bits.  ``random_bits`` and
+hash runs in int64 arithmetic masked to 32 bits.  A *key batch* is a (B, 2)
+tensor, one key a slot of a batch of sessions (``core/slots.py``):
+``fold_in`` takes one datum or one a slot, ``split`` gives (num, B, 2), and
+``random_bits`` / ``uniform`` / ``normal`` draw a ``shape`` whose leading
+dimension is B·R as B blocks of R rows, block b drawn from key b exactly as
+the solo draw of shape ``(R,) + shape[1:]``, so slot b of a batched draw is
+the solo draw bit for bit.  ``random_bits`` and
 ``uniform`` are bit-exact; ``normal`` evaluates XLA's single-precision
 ``erfinv`` polynomial in the same order and agrees to 3 ulp over every
 value ``uniform`` can give (the two ``log1p``s differ by up to 2 ulp).
@@ -73,7 +79,8 @@ def PRNGKey(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for ``data`` a python int or a
-    uint32/int32 scalar tensor."""
+    uint32/int32 tensor; a (B, 2) key batch takes one datum or (B,) of them,
+    and a (2,) key with (B,) data gives a (B, 2) batch."""
     k = _as_u64(key)
     d = _as_u64(torch.as_tensor(data, device=key.device))
     zero = torch.zeros_like(d)
@@ -81,17 +88,28 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` key data, (num, 2) uint32."""
+    """``jax.random.split(key, num)`` key data, (num, 2) uint32; a (B, 2)
+    key batch gives (num, B, 2)."""
     k = _as_u64(key)
     i = torch.arange(num, dtype=torch.int64, device=key.device)
+    i = i.reshape((num,) + (1,) * (key.ndim - 1))
     return _as_key(*threefry2x32(k[None], (i >> 32) & _MASK, i & _MASK))
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (32-bit), as int64 holding uint32."""
+    """``jax.random.bits(key, shape)`` (32-bit), as int64 holding uint32.
+    A (B, 2) key batch draws ``shape[0] // B`` rows from each key."""
     shape = tuple(int(d) for d in shape)
     k = _as_u64(key)
-    i = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    per = shape
+    if key.ndim == 2:
+        slots = key.shape[0]
+        if shape[0] % slots:
+            raise ValueError(f"random_bits: {shape[0]} rows do not split over "
+                             f"{slots} keys")
+        per = (shape[0] // slots,) + shape[1:]
+        k = k[:, None, :]
+    i = torch.arange(math.prod(per), dtype=torch.int64, device=key.device)
     x0, x1 = threefry2x32(k, (i >> 32) & _MASK, i & _MASK)
     return (x0 ^ x1).reshape(shape)
 

@@ -8,6 +8,13 @@ the phase partition in order.
 
 Eager execution replaces the reference's tracing: the step counter is read
 to the host once per step, and a frequency gate is a plain ``if`` on it.
+:meth:`Scheduler.step_slots` is the step of a batch of sessions, over the
+flat view of its storage (``core/slots.py``): each session keeps its own
+counter, an op runs when any live session fires, and each session keeps the
+op's result only where it fired itself (a select, as ``vmap`` lowers the
+reference's ``lax.cond``).  The default ops are written for the flat view
+(``Operation.batched``); a custom op runs once a session, on views of that
+session's state and context, and its results are stacked back.
 Both gates skip the work when the op does not fire; ``"mask"`` still runs
 the op's function (its context writes happen, as in the reference) and
 discards the result.  The reference's rounding pins (``seal`` and the
@@ -26,8 +33,9 @@ from . import diffusion as dgrid
 from . import prng
 from .behaviors import StepContext
 from .forces import mechanical_forces, update_static_flags_celllist
-from .grid import build_index, sort_agents
+from .grid import GridIndex, build_index, sort_agents
 from .neighbors import NeighborContext
+from .slots import select, slot_of, to_flat, to_slots, tree_map
 
 PHASES = ("pre", "agent", "post")
 GATES = ("cond", "mask")
@@ -50,6 +58,8 @@ class HealthReport:
     nonfinite_agents:    live agents with a non-finite position or float
                          attribute on the latest inspected step.
     nonfinite_steps:     cumulative steps with any non-finite live agent.
+
+    A batch's report has (B,) fields, one value a session.
     """
 
     pool_overflow: torch.Tensor
@@ -80,23 +90,58 @@ class OpContext:
     """Per-iteration scratch threaded through the ops of one step.
 
     config:        the EngineConfig the schedule was built from.
-    step:          this iteration's counter (pre-increment), on the host.
-    rng:           this iteration's folded key, (2,) uint32.
+    step:          this iteration's counter (pre-increment), on the host
+                   (a tuple, one a session, in a batch's step).
+    rng:           this iteration's folded key, (2,) uint32 ((B, 2) in a
+                   batch's step).
     index:         the GridIndex built by ``env_build``.
     neighbors:     the step's NeighborContext (lazy dense candidates).
     sctx:          the behaviors' StepContext.
     pre_positions: pool positions at environment-build time (§5.5).
     extras:        free-form scratch for custom ops.
+    live:          a batch's step only: a bool a session, the sessions this
+                   step advances (the others are rolled back after it).
     """
 
     config: Any
-    step: int
+    step: Any
     rng: torch.Tensor
     index: Any = None
     neighbors: Optional[NeighborContext] = None
     sctx: Optional[StepContext] = None
     pre_positions: Optional[torch.Tensor] = None
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    live: Optional[Tuple[bool, ...]] = None
+
+    def slot(self, b: int, rows: int) -> "OpContext":
+        """Session ``b``'s context in a batch's step: views of its rows
+        (``rows`` a session) of the index, neighbours, step context and
+        start positions, its counter and key."""
+        n = len(self.live)
+        index = neighbors = sctx = pre = None
+        if self.index is not None:
+            index = GridIndex(
+                cell_of_agent=self.index.cell_of_agent.reshape(n, rows)[b],
+                cell_list=self.index.cell_list[b], cell_count=self.index.cell_count[b],
+                overflowed=self.index.overflowed[b])
+        if self.neighbors is not None:
+            nb = self.neighbors
+            view = lambda x: x.reshape((n, rows) + tuple(x.shape[1:]))[b]
+            neighbors = NeighborContext(
+                spec=nb.spec, index=index, src_position=view(nb.src_position),
+                src_radius=view(nb.src_radius), src_kind=view(nb.src_kind),
+                src_alive=view(nb.src_alive), query_position=view(nb.query_position),
+                query_alive=view(nb.query_alive))
+        if self.sctx is not None:
+            sctx = dataclasses.replace(
+                self.sctx, rng=self.sctx.rng[b], neighbors=neighbors, step=self.step[b],
+                grids={k: dataclasses.replace(g, concentration=g.concentration[b])
+                       for k, g in self.sctx.grids.items()})
+        if self.pre_positions is not None:
+            pre = self.pre_positions.reshape(n, rows, -1)[b]
+        return OpContext(config=self.config, step=self.step[b], rng=self.rng[b],
+                         index=index, neighbors=neighbors, sctx=sctx, pre_positions=pre,
+                         extras=self.extras)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +154,9 @@ class Operation:
                iteration, 0 = disabled.
     gate:      "cond" (skip the work) or "mask" (run, then keep the old
                state when the op does not fire).
+    batched:   ``fn`` also takes the flat view of a batch of sessions and
+               its context (the default ops); otherwise a batch's step runs
+               it once a session, on that session's views.
     """
 
     name: str
@@ -116,6 +164,7 @@ class Operation:
     phase: str = "agent"
     frequency: int = 1
     gate: str = "cond"
+    batched: bool = False
 
     def __post_init__(self):
         if self.phase not in PHASES:
@@ -187,6 +236,30 @@ class Scheduler:
             state = run_op(op, ctx, state)
         return dataclasses.replace(state, step=state.step + 1)
 
+    def step_slots(self, state, live, steps):
+        """One iteration of Algorithm 8 over the flat view of a batch of
+        sessions (``core/slots.py``).  ``live`` and ``steps`` are a bool and
+        the pre-increment counter a session, on the host.  Every counter
+        advances; the caller rolls the sessions that are not live back."""
+        live, steps = tuple(bool(x) for x in live), tuple(int(x) for x in steps)
+        ctx = OpContext(config=self.config, step=steps,
+                        rng=self.fold_rng(state, state.step), live=live)
+        for op in self.ordered_ops():
+            if op.frequency == 0:
+                continue
+            fires = tuple(l and s % op.frequency == 0 for l, s in zip(live, steps))
+            if op.gate == "cond" and not any(fires):
+                continue
+            if op.batched:
+                new = op.fn(ctx, state)
+                if any(l and not f for l, f in zip(live, fires)):
+                    keep = torch.tensor(fires, device=state.step.device)
+                    new = to_flat(select(keep, to_slots(new), to_slots(state)))
+                state = new
+            else:
+                state = _run_per_slot(op, ctx, state, fires)
+        return dataclasses.replace(state, step=state.step + 1)
+
     # -- composition --------------------------------------------------------
 
     def op_names(self) -> Tuple[str, ...]:
@@ -230,6 +303,37 @@ class Scheduler:
         return dataclasses.replace(self, ops=self.ops[:i] + self.ops[i + 1:])
 
 
+def _run_per_slot(op: Operation, ctx: OpContext, state, fires):
+    """A custom op in a batch's step: once a live session (a "cond" op only
+    where it fires), on views of the session's state and context; the
+    sessions where it fired take its result, stacked back leaf by leaf."""
+    slots = to_slots(state)
+    rows = state.pool.capacity // len(fires)
+    pairs = []
+    for b, (live, fired) in enumerate(zip(ctx.live, fires)):
+        if not live or (op.gate == "cond" and not fired):
+            continue
+        view = slot_of(slots, b)
+        out = op.fn(ctx.slot(b, rows), view)
+        if fired:
+            pairs.append((b, view, out))
+    if not pairs:
+        return state
+
+    def stack(old, *leaves):
+        changed = [(b, new) for (b, _, _), view, new in zip(pairs, leaves[::2], leaves[1::2])
+                   if new is not view]
+        if not changed:
+            return old
+        old = old.clone()
+        for b, new in changed:
+            old[b] = new
+        return old
+
+    trees = [t for _, view, out in pairs for t in (view, out)]
+    return to_flat(tree_map(stack, slots, *trees))
+
+
 # ---------------------------------------------------------------------------
 # Default operations
 # ---------------------------------------------------------------------------
@@ -252,7 +356,7 @@ def sort_op(config) -> Operation:
         return dataclasses.replace(state, pool=sort_agents(config.spec, state.pool))
 
     return Operation("sort", fn, phase="pre", frequency=config.sort_frequency,
-                     gate="cond")
+                     gate="cond", batched=True)
 
 
 def env_build_op(config) -> Operation:
@@ -280,7 +384,7 @@ def env_build_op(config) -> Operation:
         )
         return state
 
-    return Operation("env_build", fn, phase="pre")
+    return Operation("env_build", fn, phase="pre", batched=True)
 
 
 def behaviors_op(config) -> Operation:
@@ -293,7 +397,7 @@ def behaviors_op(config) -> Operation:
         ctx.sctx = sctx
         return dataclasses.replace(state, pool=pool, grids=dict(sctx.grids))
 
-    return Operation("behaviors", fn, phase="agent")
+    return Operation("behaviors", fn, phase="agent", batched=True)
 
 
 def force_pass(config, ctx: OpContext, state, *, row_mask=None) -> torch.Tensor:
@@ -313,6 +417,7 @@ def force_pass(config, ctx: OpContext, state, *, row_mask=None) -> torch.Tensor:
         morton_block=config.morton_block,
         morton_window=config.morton_window,
         morton_fallback=config.morton_window_fallback,
+        live=ctx.live,
     )
 
 
@@ -328,7 +433,7 @@ def forces_op(config) -> Operation:
         force = force_pass(config, ctx, state)
         return dataclasses.replace(state, pool=apply_force(state.pool, force, config.dt))
 
-    return Operation("forces", fn, phase="agent")
+    return Operation("forces", fn, phase="agent", batched=True)
 
 
 def boundary_op(config) -> Operation:
@@ -340,7 +445,7 @@ def boundary_op(config) -> Operation:
             state, pool=pool.replace(position=apply_boundary(config, pool.position))
         )
 
-    return Operation("boundary", fn, phase="post")
+    return Operation("boundary", fn, phase="post", batched=True)
 
 
 def static_flags_op(config) -> Operation:
@@ -354,7 +459,7 @@ def static_flags_op(config) -> Operation:
         )
         return dataclasses.replace(state, pool=pool)
 
-    return Operation("static_flags", fn, phase="post")
+    return Operation("static_flags", fn, phase="post", batched=True)
 
 
 def diffusion_op(config) -> Operation:
@@ -372,7 +477,7 @@ def diffusion_op(config) -> Operation:
         return dataclasses.replace(state, grids=grids)
 
     return Operation("diffusion", fn, phase="post",
-                     frequency=config.diffusion_frequency, gate="cond")
+                     frequency=config.diffusion_frequency, gate="cond", batched=True)
 
 
 def age_op(config) -> Operation:
@@ -383,7 +488,7 @@ def age_op(config) -> Operation:
         pool = pool.replace(age=pool.age + torch.where(pool.alive, config.dt, 0.0))
         return dataclasses.replace(state, pool=pool)
 
-    return Operation("age", fn, phase="post")
+    return Operation("age", fn, phase="post", batched=True)
 
 
 def health_op(config) -> Operation:
@@ -397,11 +502,11 @@ def health_op(config) -> Operation:
         for v in pool.attrs.values():
             if v.is_floating_point():
                 bad |= ~torch.isfinite(v.reshape(v.shape[0], -1)).all(dim=-1)
-        n_bad = (bad & pool.alive).sum(dtype=torch.int32)
+        n_bad = pool.slot_sum(bad & pool.alive)
         prev = state.health
         cell_ovf = (
             ctx.index.overflowed.to(torch.int32) if ctx.index is not None
-            else torch.zeros((), dtype=torch.int32, device=pool.device)
+            else torch.zeros_like(pool.overflow, dtype=torch.int32)
         )
         report = dataclasses.replace(
             prev,
@@ -413,4 +518,4 @@ def health_op(config) -> Operation:
         return dataclasses.replace(state, health=report)
 
     return Operation("health", fn, phase="post",
-                     frequency=config.health_frequency, gate="cond")
+                     frequency=config.health_frequency, gate="cond", batched=True)

@@ -48,6 +48,17 @@
 // with explicit round-to-nearest intrinsics so that nvcc contracts nothing into
 // an FMA.  Pairs that do not overlap (delta <= 0) add nothing and are skipped.
 //
+// Slots: a batch of B sessions, each with its own grid, runs in one launch.
+// blockIdx.y is the session: its cell list (n_cells rows of M within-session
+// ids, sentinel s_rows), its s_rows agents and its num_out output rows sit
+// at offsets of b * n_cells * M, b * s_rows and b * num_out in the stacked
+// arrays.  A block reads only its own session's rows and agents, so the
+// neighbour walk never leaves the session, and each session's output is what
+// a launch over that session alone gives, bit for bit.  A solo launch takes
+// an instantiation without the offsets: holding the four offset pointers
+// costs the kernel 13 registers, which would cost a solo launch a block per
+// multiprocessor.
+//
 // What remains: each halo row and agent is read once per tile that sees it
 // (about 2.5x the function's bytes for a 4 x 4 x 16 tile, mostly from L2), and
 // about half of the time is the round-to-nearest square roots and divisions of
@@ -137,6 +148,7 @@ __device__ __forceinline__ float4 agent(const float* __restrict__ pos,
                      __ldg(&rad[j]));
 }
 
+template <bool kSlots>
 __global__ void __launch_bounds__(kThreads)
     cell_list_force_kernel(const float* __restrict__ pos, const float* __restrict__ rad,
                            const int* __restrict__ cell_list, int nx, int ny, int nz, int m,
@@ -144,6 +156,13 @@ __global__ void __launch_bounds__(kThreads)
                            int tz, int budget, int* __restrict__ crowded,
                            float* __restrict__ out) {
   extern __shared__ float4 smem[];
+  if (kSlots) {
+    const long long b = blockIdx.y;
+    pos += b * s_rows * 3;
+    rad += b * s_rows;
+    cell_list += b * nx * ny * static_cast<long long>(nz) * m;
+    out += b * num_out * 3;
+  }
   const int hy = ty + 2, hz = tz + 2;
   const int nh = (tx + 2) * hy * hz;  // halo boxes
   const int ni = tx * ty * tz;        // interior boxes
@@ -260,24 +279,27 @@ long long shared_bytes(int tx, int ty, int tz, int budget) {
 
 }  // namespace
 
-extern "C" int cell_list_force_launch(int device, const void* pos, const void* rad,
-                                      const void* cell_list, int nx, int ny, int nz, int m,
-                                      int s_rows, int num_out, float k, float gamma, int tx,
-                                      int ty, int tz, int budget, void* crowded, void* out,
-                                      void* stream) {
+extern "C" int cell_list_force_launch(int device, int slots, const void* pos,
+                                      const void* rad, const void* cell_list, int nx, int ny,
+                                      int nz, int m, int s_rows, int num_out, float k,
+                                      float gamma, int tx, int ty, int tz, int budget,
+                                      void* crowded, void* out, void* stream) {
   cudaSetDevice(device);
+  if (slots <= 0) return static_cast<int>(cudaGetLastError());
+  if (slots > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long blocks = static_cast<long long>((nx + tx - 1) / tx) * ((ny + ty - 1) / ty) *
                            ((nz + tz - 1) / tz);
   const long long shared = shared_bytes(tx, ty, tz, budget);
   if (blocks > 0) {
+    auto kernel = slots > 1 ? cell_list_force_kernel<true> : cell_list_force_kernel<false>;
     if (shared > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          cell_list_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(shared));
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    cell_list_force_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                             static_cast<size_t>(shared), static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(slots));
+    kernel<<<grid, kThreads, static_cast<size_t>(shared),
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(pos), static_cast<const float*>(rad),
         static_cast<const int*>(cell_list), nx, ny, nz, m, s_rows, num_out, k, gamma, tx, ty,
         tz, budget, static_cast<int*>(crowded), static_cast<float*>(out));

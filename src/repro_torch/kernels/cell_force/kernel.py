@@ -5,7 +5,8 @@ notes are in the sources).
 
 Agent order in, agent order out: no planar layout is built.  ``launches``
 counts ``cell_list_force_cuda``'s kernel launches and ``window_launches``
-``cell_window_force_cuda``'s (one per call each).
+``cell_window_force_cuda``'s (one per call each; ``cell_list_force_cuda``
+takes a batch's sessions in one call and one launch).
 
 ``cell_list_force_cuda`` runs one block per ``TILE`` of boxes and stages a
 tile's halo in shared memory when it holds at most ``STAGE_BUDGET`` agents;
@@ -41,7 +42,7 @@ def _lib():
     lib = _build.load("cell_list_force")
     if not getattr(lib, "_typed", False):
         lib.cell_list_force_launch.argtypes = [
-            _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P,
+            _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P,
         ]
         lib.cell_list_force_launch.restype = _I
         lib._typed = True
@@ -77,9 +78,9 @@ def crowded_tiles(device: torch.device, reset: bool = False) -> int:
 
 
 def cell_list_force_cuda(
-    position: torch.Tensor,    # (S, 3) f32
-    radius: torch.Tensor,      # (S,) f32
-    cell_list: torch.Tensor,   # (n_cells, M) int32, empty slots = S
+    position: torch.Tensor,    # (S, 3) f32; (B·S, 3) with a slot axis
+    radius: torch.Tensor,      # (S,) f32; (B·S,)
+    cell_list: torch.Tensor,   # (n_cells, M) int32, empty slots = S; (B, n_cells, M)
     dims: tuple,
     k: float = 2.0,
     gamma: float = 1.0,
@@ -87,32 +88,42 @@ def cell_list_force_cuda(
 ) -> torch.Tensor:
     """Net Eq-4.1 force per agent, ``(num_out, 3)`` f32: every listed agent
     against the other listed agents of its 27-box.  Rows not listed (dead
-    agents, agents dropped by an overflowed cell) are zero."""
+    agents, agents dropped by an overflowed cell) are zero.
+
+    With a slot axis (``cell_list`` (B, n_cells, M) of within-session ids,
+    the B sessions' S rows each stacked in ``position`` / ``radius``) one
+    launch computes every session against its own grid: ``(B·num_out, 3)``."""
     global launches
     nx, ny, nz = (int(d) for d in dims)
-    s = position.shape[0]
-    n_cells, m = cell_list.shape
+    slots = cell_list.shape[0] if cell_list.ndim == 3 else 1
+    rows = position.shape[0]
+    s = rows // slots
+    n_cells, m = cell_list.shape[-2:]
     out_n = s if num_out is None else int(num_out)
-    if n_cells != nx * ny * nz:
-        raise ValueError(f"cell_list_force: cell_list has {n_cells} rows, dims {dims}")
-    if position.shape != (s, 3) or radius.shape != (s,):
+    if cell_list.ndim not in (2, 3) or n_cells != nx * ny * nz:
+        raise ValueError(f"cell_list_force: cell_list has {n_cells} rows "
+                         f"({tuple(cell_list.shape)}), dims {dims}")
+    if position.shape != (s * slots, 3) or radius.shape != (s * slots,):
         raise ValueError(f"cell_list_force: position {tuple(position.shape)} / "
-                         f"radius {tuple(radius.shape)} must be (S, 3) / (S,)")
+                         f"radius {tuple(radius.shape)} must be (S, 3) / (S,) a slot, "
+                         f"{slots} slots")
     if position.dtype != torch.float32 or radius.dtype != torch.float32:
         raise ValueError("cell_list_force: position and radius must be float32")
     if cell_list.dtype != torch.int32:
         raise ValueError("cell_list_force: cell_list must be int32")
     if not 0 <= out_n <= s:
         raise ValueError(f"cell_list_force: num_out {out_n} outside [0, {s}]")
+    if slots > 65535:
+        raise ValueError(f"cell_list_force: {slots} slots; at most 65,535")
     _build.require_cuda("cell_list_force", position, radius, cell_list)
-    out = torch.zeros((out_n, 3), dtype=torch.float32, device=position.device)
-    if n_cells == 0 or out_n == 0:
+    out = torch.zeros((slots * out_n, 3), dtype=torch.float32, device=position.device)
+    if n_cells == 0 or out_n == 0 or slots == 0:
         return out
     tx, ty, tz = TILE
     lib = _lib()
     _build.check(
         lib.cell_list_force_launch(
-            position.device.index, _build.ptr(position), _build.ptr(radius),
+            position.device.index, slots, _build.ptr(position), _build.ptr(radius),
             _build.ptr(cell_list), nx, ny, nz, m, s, out_n, float(k),
             float(gamma), tx, ty, tz, STAGE_BUDGET,
             _build.ptr(_crowded_counter(position.device)), _build.ptr(out),

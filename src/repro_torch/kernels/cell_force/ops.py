@@ -26,9 +26,9 @@ IMPLS = ("cuda", "reference")
 
 
 def cell_list_force(
-    position: torch.Tensor,    # (S, 3) f32 — all indexed agents
-    radius: torch.Tensor,      # (S,) f32
-    cell_list: torch.Tensor,   # (n_cells, M) int32, empty slots = S
+    position: torch.Tensor,    # (S, 3) f32 — all indexed agents; (B·S, 3) with slots
+    radius: torch.Tensor,      # (S,) f32; (B·S,)
+    cell_list: torch.Tensor,   # (n_cells, M) int32, empty slots = S; (B, n_cells, M)
     dims: tuple,               # (nx, ny, nz); n_cells must equal nx·ny·nz
     k: float = 2.0,
     gamma: float = 1.0,
@@ -36,7 +36,9 @@ def cell_list_force(
     num_out: int | None = None,
 ) -> torch.Tensor:
     """Net Eq-4.1 force per agent, ``(num_out, 3)``; rows ``≥ num_out`` of the
-    sources contribute to others but receive nothing."""
+    sources contribute to others but receive nothing.  A ``(B, n_cells, M)``
+    cell list of within-session ids makes it B sessions at once, each against
+    its own S rows: ``(B·num_out, 3)``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown cell_list_force impl {impl!r}; expected {IMPLS}")
     if impl == "cuda" and position.device.type != "cpu":
@@ -44,6 +46,13 @@ def cell_list_force(
             position.contiguous(), radius.contiguous(), cell_list.contiguous(),
             dims, k=k, gamma=gamma, num_out=num_out,
         )
+    if cell_list.ndim == 3:
+        slots = cell_list.shape[0]
+        s = position.shape[0] // slots
+        return torch.cat([
+            cell_list_force_ref(position[b * s:(b + 1) * s], radius[b * s:(b + 1) * s],
+                                cell_list[b], dims, k=k, gamma=gamma, num_out=num_out)
+            for b in range(slots)])
     return cell_list_force_ref(position, radius, cell_list, dims, k=k,
                                gamma=gamma, num_out=num_out)
 

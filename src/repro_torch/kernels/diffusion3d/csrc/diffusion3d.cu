@@ -29,6 +29,13 @@
 // Arithmetic: the Pallas kernel's sum order (kernel.py:30-34) and the plain
 // version's, with round-to-nearest intrinsics so that nvcc contracts nothing
 // into an FMA: the output equals the plain version bit for bit.
+//
+// Slots: a batch of B sessions steps its B fields, (B, nx, ny, nz), in one
+// launch: blockIdx.y is the field, and each block reads and writes only its
+// own field, with zeros outside it, so no halo crosses from one field to the
+// next and each field's output is what a launch of that field alone gives,
+// bit for bit (the x runs are cut for the B fields together, which moves no
+// voxel's arithmetic).
 #include <cuda_runtime.h>
 
 namespace {
@@ -107,6 +114,9 @@ __global__ void __launch_bounds__(kThreads)
     diffusion3d_kernel(const float* __restrict__ u, float* __restrict__ out, int nx, int ny,
                        int nz, int tiles_y, int tiles_z, int run, float nu, float keep) {
   __shared__ __align__(16) float ring[kStages * kPlane];
+  const long long field = static_cast<long long>(blockIdx.y) * nx * ny * nz;
+  u += field;
+  out += field;
   int b = blockIdx.x;
   const int tz = b % tiles_z;
   b /= tiles_z;
@@ -162,33 +172,36 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-extern "C" int diffusion3d_launch(int device, const void* u, void* out, int nx, int ny,
-                                  int nz, float nu, float keep, void* stream) {
+extern "C" int diffusion3d_launch(int device, const void* u, void* out, int slots, int nx,
+                                  int ny, int nz, float nu, float keep, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nx <= 0 || ny <= 0 || nz <= 0) return static_cast<int>(cudaSuccess);
+  if (slots <= 0 || nx <= 0 || ny <= 0 || nz <= 0) return static_cast<int>(cudaSuccess);
+  if (slots > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles_y = (ny + kTy - 1) / kTy, tiles_z = (nz + kTz - 1) / kTz;
   const long long want = static_cast<long long>(sms) * kBlocksPerSm;
-  long long runs = (want + tiles_y * tiles_z - 1) / (tiles_y * tiles_z);
+  const long long tiles = tiles_y * tiles_z * slots;
+  long long runs = (want + tiles - 1) / tiles;
   runs = runs < 1 ? 1 : (runs > nx ? nx : runs);
   const int run = static_cast<int>((nx + runs - 1) / runs);
   runs = (nx + run - 1) / run;
   const long long blocks = runs * tiles_y * tiles_z;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(slots));
   const bool vec = nz % 4 == 0 && (reinterpret_cast<size_t>(u) & 15) == 0 &&
                    (reinterpret_cast<size_t>(out) & 15) == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* src = static_cast<const float*>(u);
   float* dst = static_cast<float*>(out);
   if (vec) {
-    diffusion3d_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+    diffusion3d_kernel<true><<<grid, kThreads, 0, st>>>(
         src, dst, nx, ny, nz, static_cast<int>(tiles_y), static_cast<int>(tiles_z), run, nu,
         keep);
   } else {
-    diffusion3d_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+    diffusion3d_kernel<false><<<grid, kThreads, 0, st>>>(
         src, dst, nx, ny, nz, static_cast<int>(tiles_y), static_cast<int>(tiles_z), run, nu,
         keep);
   }

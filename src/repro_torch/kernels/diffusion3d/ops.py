@@ -17,7 +17,8 @@ IMPLS = ("cuda", "reference")
 
 def diffusion_step(u: torch.Tensor, nu_dt_dx2: float, decay_dt: float = 0.0,
                    impl: str = "cuda") -> torch.Tensor:
-    """One Eq-4.3 step, zero outside the grid."""
+    """One Eq-4.3 step, zero outside the grid, of ``u`` (nx, ny, nz) or of
+    each field of ``u`` (B, nx, ny, nz) (one launch for all B)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown diffusion_step impl {impl!r}; expected {IMPLS}")
     if impl == "cuda" and u.device.type != "cpu":

@@ -24,12 +24,16 @@ def pairwise_force_ref(
     Σ_j [k·δ − γ√(r̄δ)]⁺ · (x_i − x_j)/|x_i − x_j| over the masked candidates."""
     src_pos = position if all_position is None else all_position
     src_rad = radius if all_radius is None else all_radius
+    # A masked-out slot's offset is zero whatever row it read, so it meets
+    # no other agent's values: a non-finite agent reaches only the rows it
+    # is a candidate of, as in the kernel, and a batch's flat candidates
+    # never read another session.
     safe = torch.where(cand_mask, cand, 0).long()
     cpos = src_pos[safe]                                    # (N, K, 3)
     crad = src_rad[safe]                                    # (N, K)
-    dx = position[:, None, 0] - cpos[..., 0]
-    dy = position[:, None, 1] - cpos[..., 1]
-    dz = position[:, None, 2] - cpos[..., 2]
+    dx = torch.where(cand_mask, position[:, None, 0] - cpos[..., 0], 0.0)
+    dy = torch.where(cand_mask, position[:, None, 1] - cpos[..., 1], 0.0)
+    dz = torch.where(cand_mask, position[:, None, 2] - cpos[..., 2], 0.0)
     dist = torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-20)
     r = radius[:, None]
     delta = r + crad - dist

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro_torch.core import grid
+from repro_torch.core.slots import slot_of as tree_slot
 from repro_torch.kernels import _build
 from repro_torch.kernels.cell_force import kernel as cf_kernel
 from repro_torch.kernels.cell_force import ops as cf_ops
@@ -42,6 +43,7 @@ from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from torch_force_cases import DENSE_CASES, FORCE_CASES, WINDOW_CASES, runs_cut_by_a_window_edge
+from torch_force_cases import slot_pools
 from torch_force_cases import dense_inputs as _dense_inputs
 from torch_force_cases import force_inputs as _force_inputs
 from torch_force_cases import window_inputs as _window_inputs
@@ -595,6 +597,126 @@ def test_spheroid_on_card_matches_cpu(card, variant):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
     np.testing.assert_allclose(gpu.position.cpu().numpy(), cpu.position.numpy(), atol=1e-4)
     assert int(cpu.alive.sum()) != 300
+
+
+# ------------------------------------------------------------- slot axis
+# One launch over a batch's 3 sessions against 3 solo launches, bit for bit;
+# session 1 has NaN positions and session 2 no live agent, and neither may
+# change what the others get.
+
+SLOTS, SLOT_ROWS, SLOT_SPACE = 3, 2000, 60.0
+SLOT_SPEC = grid.GridSpec(origin=(0.0, 0.0, 0.0), box_size=6.0, dims=(10, 10, 10),
+                          max_per_cell=24, rank_impl="cuda")
+
+
+def _slot_case(dev):
+    pools, flat = slot_pools(SLOTS, SLOT_ROWS, SLOT_SPEC, SLOT_SPACE, nan_slot=1,
+                             empty_slot=2)
+    move = lambda p: dataclasses.replace(p, **{
+        f.name: (getattr(p, f.name).to(dev) if f.name != "attrs" else
+                 {k: v.to(dev) for k, v in p.attrs.items()})
+        for f in dataclasses.fields(p)})
+    return [move(p) for p in pools], move(flat)
+
+
+def _rows(x, b):
+    return x.reshape((SLOTS, -1) + tuple(x.shape[1:]))[b]
+
+
+def _bits(a, b, what):
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(), what
+
+
+@pytest.mark.cuda
+def test_cell_rank_one_launch_over_slots_equals_solo_launches(card):
+    pools, flat = _slot_case(card)
+    n = SLOT_SPEC.n_cells
+    cid = grid._live_cell_ids(SLOT_SPEC, flat.position, flat.alive)
+    before = cr_kernel.launches
+    ranks = cr_kernel.cell_rank_cuda(grid._slot_keys(cid, SLOTS, n + 1), SLOTS * (n + 1) - 1)
+    assert cr_kernel.launches == before + 1
+    for b in range(SLOTS):
+        _bits(_rows(ranks, b), cr_kernel.cell_rank_cuda(_rows(cid, b).contiguous(), n), b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cell_list_force_one_launch_over_slots_equals_solo_launches(card):
+    pools, flat = _slot_case(card)
+    index = grid.build_index(SLOT_SPEC, flat)
+    before = cf_kernel.launches
+    got = cf_kernel.cell_list_force_cuda(flat.position, flat.radius(), index.cell_list,
+                                         SLOT_SPEC.dims, num_out=SLOT_ROWS)
+    assert cf_kernel.launches == before + 1 and got.shape == (SLOTS * SLOT_ROWS, 3)
+    for b, pool in enumerate(pools):
+        solo_index = grid.build_index(SLOT_SPEC, pool)
+        solo = cf_kernel.cell_list_force_cuda(pool.position, pool.radius(),
+                                              solo_index.cell_list, SLOT_SPEC.dims)
+        _bits(_rows(got, b), solo, b)
+        if b != 1:
+            want = cell_list_force_ref(pool.position, pool.radius(), solo_index.cell_list,
+                                       SLOT_SPEC.dims)
+            np.testing.assert_allclose(solo.cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+    assert not bool(_rows(got, 2).any())             # no live agent, no force
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 20, 18, 24), (3, 9, 7, 13)], ids=["vec", "scalar"])
+def test_diffusion_one_launch_over_slots_equals_solo_launches(card, shape):
+    g = torch.Generator(device=card).manual_seed(0)
+    u = torch.rand(shape, generator=g, device=card) * 5
+    u[1, 3, 4, 5] = float("nan")
+    u[2] = 0.0
+    before = d3_kernel.launches
+    got = d3_kernel.diffusion_step_cuda(u, 0.1, 0.002)
+    assert d3_kernel.launches == before + 1
+    for b in range(shape[0]):
+        _bits(got[b], d3_kernel.diffusion_step_cuda(u[b].contiguous(), 0.1, 0.002), b)
+    _bits(got, diffusion_step_ref(u, 0.1, 0.002), "plain")
+    assert bool(torch.isfinite(got[0]).all()) and not bool(got[2].any())
+
+
+@pytest.mark.cuda
+def test_pairwise_force_flat_candidates_equal_solo_launches(card):
+    pools, flat = _slot_case(card)
+    index = grid.build_index(SLOT_SPEC, flat)
+    cand, mask = grid.candidate_neighbors_arrays(SLOT_SPEC, index, flat.position, flat.alive)
+    got = pf_kernel.pairwise_force_cuda(flat.position, flat.radius(), cand, mask)
+    for b, pool in enumerate(pools):
+        solo_index = grid.build_index(SLOT_SPEC, pool)
+        scand, smask = grid.candidate_neighbors_arrays(SLOT_SPEC, solo_index, pool.position,
+                                                       pool.alive)
+        _bits(_rows(got, b), pf_kernel.pairwise_force_cuda(pool.position, pool.radius(),
+                                                           scand, smask), b)
+
+
+@pytest.mark.cuda
+def test_run_batch_on_card_equals_solo_card_runs(card):
+    """The soma model with every kernel of the slice, 3 seeds in one batch:
+    each slot bit-identical to its solo card run; one launch a step of
+    cell_list_force and of diffusion3d per field, for all three slots."""
+    built = _soma_sim("cuda").build()
+    seeds = [1, 2, 3]
+    counts = [m.launches for m in (cr_kernel, cf_kernel, d3_kernel)]
+    finals, obs = built.run_batch(6, seeds=seeds)
+    torch.cuda.synchronize()
+    assert [m.launches - c for m, c in zip((cr_kernel, cf_kernel, d3_kernel), counts)] \
+        == [6 + 1, 6, 12]
+    eng = built.batched()
+    for b, seed in enumerate(seeds):
+        solo, solo_obs = built.run(6, state=eng.session_state(seed=seed))
+        _assert_same_leaves(solo, tree_slot(finals, b))
+        for k in solo_obs:
+            _bits(solo_obs[k], obs[k][b], (b, k))
+    # A slot whose budget ends mid-run is rolled back by a select each step
+    # after it (its key included) and stays bit-frozen.
+    bstate = eng.stack([eng.session_state(seed=1), eng.session_state(seed=2)],
+                       budgets=[2, 6])
+    bstate, _, _ = eng.run(bstate, 6)
+    assert bstate.states.step.tolist() == [2, 6]
+    solo, _ = built.run(2, state=eng.session_state(seed=1))
+    _assert_same_leaves(solo, tree_slot(bstate.states, 0))
 
 
 # ------------------------------------------------------------ checkpoints

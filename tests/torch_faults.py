@@ -25,6 +25,24 @@ def nan_bomb_op(at_step: int):
     return nan_bomb
 
 
+def nan_bomb_attr_op(attr: str = "nan_bomb_at"):
+    """``nan_bomb_op`` with the trigger step carried by agent 0's ``attr``
+    value: every session runs one model, and which sessions blow up (and
+    when) is state — a per-slot override in a sweep, or a request param of
+    the session server.  In a batch it runs once a session, on that
+    session's state, so agent 0 is the session's own.  Declare the attr with
+    a sentinel default (e.g. 2**30) so sessions without an override never
+    trigger."""
+
+    def nan_bomb(ctx, state):
+        pos = state.pool.position.clone()
+        hit = state.step >= state.pool.attrs[attr][0].to(state.step.dtype)
+        pos[0, 0] = torch.where(hit, torch.nan, pos[0, 0])
+        return dataclasses.replace(state, pool=state.pool.replace(position=pos))
+
+    return nan_bomb
+
+
 def dividing_sim(capacity: int, n0: int = 24, seed: int = 7,
                  division_probability: float = 0.4, space: float = 40.0,
                  device: str = "cpu"):

@@ -161,3 +161,32 @@ def dense_inputs(name):
         return (pos[rows], rad[rows], cand[rows].contiguous(), mask[rows].contiguous(),
                 pos, rad)
     return pos, rad, cand, mask, pos, rad
+
+
+def slot_pools(slots, capacity, spec, space, nan_slot=None, empty_slot=None):
+    """``slots`` solo pools (a seed each, the later ones with fewer agents)
+    and their flat view, the batch layout of ``repro_torch.core.slots``.
+    ``nan_slot``'s positions are NaN in every third row; ``empty_slot`` has
+    no live agent."""
+    pools = []
+    for b in range(slots):
+        rng = np.random.default_rng(b)
+        n = capacity - 8 * b
+        pos = rng.uniform(0.0, space, (n, 3)).astype(np.float32)
+        if b == nan_slot:
+            pos[::3] = np.nan
+        pool = agents.make_pool(capacity, pos,
+                                diameter=rng.uniform(3.0, 6.0, n).astype(np.float32),
+                                kind=rng.integers(0, 2, n).astype(np.int32),
+                                attrs={"w": rng.normal(size=(n, 2)).astype(np.float32)})
+        if b == empty_slot:
+            pool = pool.replace(alive=torch.zeros_like(pool.alive))
+        pools.append(pool)
+    rows = lambda xs: torch.cat(xs)
+    flat = pools[0].replace(
+        position=rows([p.position for p in pools]), diameter=rows([p.diameter for p in pools]),
+        kind=rows([p.kind for p in pools]), age=rows([p.age for p in pools]),
+        alive=rows([p.alive for p in pools]), static=rows([p.static for p in pools]),
+        attrs={k: rows([p.attrs[k] for p in pools]) for k in pools[0].attrs},
+        overflow=torch.stack([p.overflow for p in pools]))
+    return pools, flat
