@@ -96,6 +96,37 @@ printing one JSON line; any failure raises and exits non-zero:
                   bit-identical to one launch a slot (``solo_ms`` times the B
                   launches), against the plain version (diffusion bit for
                   bit, forces atol 1e-5 x max|F|).
+  dist_small      the distributed engine (``core/distributed.py``) at the
+                  reference's test sizes: the 4x2 force-only relaxation (500
+                  agents, 5 steps, fused) and its corner-cluster layout (572
+                  agents, 8 steps, fused and the dense pairwise_force over
+                  ghost-extended sources) on a mesh of 8 ranks on the card,
+                  each against the same mesh on the CPU: integer leaves
+                  equal, floats within 5e-4; fused and dense card runs within
+                  5e-4; the overlapped schedule bit-identical to the serial
+                  one; one overlapped step with a Morton-window interior pass
+                  (cell_window_force launched) within 1e-5 of the serial step.
+  distributed     path 1's soma model (600,000 agents, two 200^3 fields, the
+                  exposure op, closed boundary, a ``gid`` attribute) through
+                  ``Simulation.distribute`` on a 2x2 mesh of 4 ranks on the
+                  one card (150,000 agents and capacity 160,000 a rank, 100 x
+                  100 x 200 voxels a field a rank, halo 10 um, halo and
+                  migration buffers 4,096, int16 codec, fused), 20
+                  steps. Gates: 600,000 alive at every step, the population
+                  series equal to the single-node card run's, every overflow
+                  counter 0, a second run bit-identical in every leaf and
+                  series, 4 overlapped steps bit-identical to the serial
+                  run's first 4. Printed: the largest gid-matched distance to
+                  the single-node run with codecs int16 and none, the step-0
+                  band counts, wire bytes a step and their ratio, the median
+                  step against the single-node one, the host's time a step in
+                  migrate + halo_exchange and in the other ops, launches a
+                  step, peak memory.
+  kernels (dist)  cell_list_force over rank 0's ghost-extended sources (S = C
+                  + 4H rows, num_out = C) of the distributed run's final
+                  state, against its plain version (atol 1e-5 x max|F|), its
+                  rows checked to stop at their first sentinel; cell_rank on
+                  that halo-extended grid, exact.
   lm_small        path 3 at a small size: reduced phi4-mini (f32, 2 layers,
                   head_dim 16), weights from one CPU generator, the prefill
                   step with the flash kernel (f32: the SIMT kernel) and 8
@@ -207,6 +238,18 @@ SPHB_DENSE_STEPS = 2
 SERVE_AGENTS = 20_000
 SERVE_SPACE = 320.0            # 32^3 boxes
 SERVE_RES = 64
+# The distributed engine: path 1's soma model split over a 2x2 mesh of four
+# ranks on the one card (x and y decomposed, 500 x 500 x 1000 um a rank),
+# halo = the interaction radius, halo buffers sized to the ~3,000-3,120
+# agents of a face band.  Contacts push ~1,900 agents across a face in a
+# step at this density (25x the ~77 of a 200 um run on the CPU), so the
+# migration buffers hold 4,096 too.
+DIST_MESH = (2, 2)
+DIST_CAPACITY = 160_000
+DIST_HALO = 10.0
+DIST_HALO_CAPACITY = 4096
+DIST_MIGRATE_CAPACITY = 4096
+DIST_OVERLAP_STEPS = 4
 
 # The LM serving path: phi4-mini-3.8b at its published widths and depth.
 LM_ARCH = "phi4-mini-3.8b"
@@ -1412,6 +1455,418 @@ def batch_kernel_rows(sweep, dense):
 
 # ------------------------------------------------------------------- kernels
 
+# ---------------------------------------------------------------- distributed
+
+def dist_force_case(corners: bool):
+    """tests/dist_scenarios.py's 4x2 force-only relaxation (500 agents,
+    extent 16 a rank, halo 2, halo buffers of 96, migration buffers of 48,
+    int16 codec) and, with ``corners``, its fused-parity layout: three
+    clusters of 24 overlapping agents on rank corners."""
+    from repro_torch.core.distributed import DomainConfig
+
+    dcfg = DomainConfig(mesh_axes=("data", "model"), axis_sizes=(4, 2), extent=16.0,
+                        halo_width=2.0, halo_capacity=96, migrate_capacity=48, depth=16.0,
+                        halo_codec="int16")
+    rng = np.random.default_rng(42)
+    pos = rng.uniform(2.0, [62.0, 30.0, 14.0], (500, 3))
+    if corners:
+        rng = np.random.default_rng(3)
+        pos = np.concatenate([pos] + [
+            np.stack([rng.uniform(cx - 1.5, cx + 1.5, 24), rng.uniform(cy - 1.5, cy + 1.5, 24),
+                      rng.uniform(4.0, 12.0, 24)], axis=1)
+            for cx, cy in ((16.0, 16.0), (32.0, 16.0), (48.0, 16.0))])
+    return dcfg, pos.astype(np.float32), (256 if corners else 192)
+
+
+def dist_small_run(dcfg, pos, capacity, device, steps, **engine):
+    """``steps`` distributed steps of a force-only case on ``device``
+    (``"cuda"`` or ``"cpu"``), grid ranks by cell_rank."""
+    from repro_torch.core import EngineConfig, ForceParams
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    ecfg = EngineConfig(spec=dcfg.grid_spec(box_size=2.0, max_per_cell=32, rank_impl="cuda"),
+                        force_params=ForceParams(), dt=0.05, min_bound=0.0, max_bound=16.0,
+                        boundary="open", sort_frequency=4, **engine)
+    mesh = make_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices=device)
+    state = dist.init_dist_state(dcfg, capacity, pos, diameter=1.6, device=mesh.devices[0])
+    step = dist.make_distributed_step(mesh, dcfg, ecfg)
+    for _ in range(steps):
+        state = step(state)
+    return state
+
+
+def dist_leaf_errors(card, cpu, label, atol):
+    """Integer and bool leaves of a card state equal to the CPU run's, float
+    leaves within ``atol``; returns the largest float difference."""
+    a, b = state_leaves(card), state_leaves(cpu)
+    if list(a) != list(b):
+        raise AssertionError(f"{label}: leaves differ: {sorted(set(a) ^ set(b))}")
+    worst = 0.0
+    for k in a:
+        x, y = a[k].cpu(), b[k]
+        if x.is_floating_point():
+            err = float((x - y).abs().max()) if x.numel() else 0.0
+            if not err <= atol:
+                raise AssertionError(f"{label}: {k} differs from the CPU run by {err}")
+            worst = max(worst, err)
+        elif not torch.equal(x, y):
+            raise AssertionError(f"{label}: {k}: {int((x != y).sum())} values differ "
+                                 f"from the CPU run")
+    return worst
+
+
+def phase_dist_small():
+    """The distributed engine at the reference's test sizes on the card
+    against the port's CPU run of the same 4x2 mesh."""
+    import dataclasses as dc
+
+    out = {}
+    relax = dist_force_case(False)
+    corners = dist_force_case(True)
+    reset_counts()
+    fused = {dev: dist_small_run(*relax, dev, 5, force_impl="fused") for dev in ("cuda", "cpu")}
+    out["relax_fused_5_steps_max_float_err"] = dist_leaf_errors(
+        fused["cuda"], fused["cpu"], "dist_small relax", 5e-4)
+    launches = read_counts()
+    for name in ("cell_rank", "cell_list_force"):
+        if launches[name] == 0:
+            raise AssertionError(f"dist_small: {name} was not launched")
+    out["relax_launches"] = launches
+
+    runs = {}
+    for impl in ("fused", "cuda"):
+        reset_counts()
+        for dev in ("cuda", "cpu"):
+            runs[impl, dev] = dist_small_run(*corners, dev, 8, force_impl=impl)
+        out[f"corners_{impl}_launches"] = read_counts()
+        out[f"corners_{impl}_8_steps_max_float_err"] = dist_leaf_errors(
+            runs[impl, "cuda"], runs[impl, "cpu"], f"dist_small corners {impl}", 5e-4)
+    if out["corners_cuda_launches"]["pairwise_force"] == 0:
+        raise AssertionError("dist_small: pairwise_force was not launched")
+    gap = float((runs["fused", "cuda"].pool.position
+                 - runs["cuda", "cuda"].pool.position).abs().max())
+    if not gap < 5e-4:
+        raise AssertionError(f"dist_small: fused and dense card runs part by {gap}")
+    out["corners_fused_vs_dense_card"] = gap
+
+    dcfg, pos, cap = corners
+    overlap = dist_small_run(dc.replace(dcfg, overlap_halo=True), pos, cap, "cuda", 8,
+                             force_impl="fused")
+    bad = differing_leaves(runs["fused", "cuda"], overlap)
+    if bad:
+        raise AssertionError(f"dist_small: overlapped schedule differs from serial in {bad}")
+
+    reset_counts()
+    morton = dist_small_run(dc.replace(dcfg, overlap_halo=True), pos, cap, "cuda", 1,
+                            force_impl="fused", tile_order="morton", morton_window=2)
+    out["morton_overlap_launches"] = read_counts()
+    if out["morton_overlap_launches"]["cell_window_force"] == 0:
+        raise AssertionError("dist_small: the Morton interior pass did not launch "
+                             "cell_window_force")
+    serial1 = dist_small_run(dcfg, pos, cap, "cuda", 1, force_impl="fused")
+    err = float((morton.pool.position - serial1.pool.position).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"dist_small: Morton-interior overlap step parts from the serial "
+                             f"step by {err}")
+    out["morton_overlap_vs_serial_max_err"] = err
+    emit("dist_small", mesh=[4, 2], agents=[500, 572], overlap_bit_identical=True, **out)
+
+
+def dist_soma(codec="int16", overlap=False, device="cuda"):
+    """Path 1's soma model through ``Simulation.distribute`` on a 2x2 mesh of
+    ranks on the one card, with a ``gid`` attribute and a ``pop`` series."""
+    from repro_torch.core.distributed import DomainConfig
+    from repro_torch.launch.mesh import make_mesh
+
+    half = SPACE / DIST_MESH[0]
+    dcfg = DomainConfig(mesh_axes=("x", "y"), axis_sizes=DIST_MESH, extent=half,
+                        halo_width=DIST_HALO, halo_capacity=DIST_HALO_CAPACITY,
+                        migrate_capacity=DIST_MIGRATE_CAPACITY, depth=SPACE,
+                        halo_codec=codec, overlap_halo=overlap)
+    sim = dist_soma_model(device)
+    return sim.distribute(make_mesh(DIST_MESH, ("x", "y"), devices=device), dcfg,
+                          capacity=DIST_CAPACITY)
+
+
+def dist_soma_model(device):
+    return (soma_model(N_AGENTS, SPACE, RESOLUTION, 0, device,
+                       gid=np.arange(N_AGENTS, dtype=np.int32))
+            .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
+
+
+def gid_distance(a, b, dims, extent):
+    """Largest distance between matched rows of ``a`` and ``b`` (the
+    single-node run's), the first ``dims`` coordinates taken on the torus of
+    period SPACE (the distributed engine's decomposed dims wrap, where the
+    single-node closed boundary clamps): over all agents, and over those the
+    single-node run keeps 20 um (two halo widths) away from every rank face
+    of those dims (a rank samples and secretes into its own voxels only, so
+    chemotaxis within a voxel of a face differs from the single-node run's)."""
+    d = a - b
+    d[:, :dims] -= SPACE * np.round(d[:, :dims] / SPACE)
+    dist = np.linalg.norm(d, axis=1)
+    off = b[:, :dims] - extent * np.round(b[:, :dims] / extent)
+    inner = (np.abs(off) >= 2 * DIST_HALO).all(1)
+    return {"all": float(dist.max()),
+            "inner": float(dist[inner].max()) if inner.any() else None}
+
+
+def gid_positions(state, dcfg=None):
+    """``{gid: global position}`` arrays: (gid sorted, positions) of the
+    live agents; a stacked distributed state is rebased rank by rank."""
+    pool = state.pool
+    pos = pool.position.detach().cpu().numpy().astype(np.float64)
+    alive = pool.alive.cpu().numpy()
+    gid = pool.get("gid").cpu().numpy()
+    if dcfg is not None:
+        for r in range(pos.shape[0]):
+            for d, c in enumerate(dcfg.device_coords(r)):
+                pos[r, :, d] += c * dcfg.extent
+    pos, gid = pos[alive], gid[alive]
+    order = np.argsort(gid)
+    return gid[order], pos[order]
+
+
+def timed_ops(dsim):
+    """A copy of ``dsim``'s step whose ops add their host seconds to
+    ``seconds[op name]`` (no synchronisation: the host's own time)."""
+    from repro_torch.core import distributed as dist
+
+    seconds = {}
+
+    def wrap(op):
+        fn = op.fn
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            seconds[op.name] = seconds.get(op.name, 0.0) + time.perf_counter() - t0
+            return out
+
+        return dataclasses.replace(op, fn=timed)
+
+    sched = dataclasses.replace(dsim.scheduler, ops=tuple(wrap(op) for op in dsim.scheduler.ops))
+    step = dist.DistributedStep(mesh=dsim.step.mesh, dcfg=dsim.dcfg, config=dsim.config,
+                                scheduler=sched)
+    return dataclasses.replace(dsim, scheduler=sched, step=step), seconds
+
+
+def phase_distributed():
+    """Path 1's 600,000-agent soma model on a 2x2 mesh of four ranks on the
+    card, through ``Simulation.distribute``; against the single-node card run
+    of the same model in the same call."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.api import Observable
+
+    t0 = time.perf_counter()
+    # The single-node reference run, timed step by step.
+    single_ends = []
+
+    def clock_single(state):
+        torch.cuda.synchronize()
+        single_ends.append(time.perf_counter())
+        return torch.zeros((), dtype=torch.int32, device=state.pool.device)
+
+    built = dist_soma_model("cuda").observe("step_clock", clock_single).build()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    single4, obs4 = built.run(DIST_OVERLAP_STEPS)
+    single, single_obs = built.run(STEPS - DIST_OVERLAP_STEPS, state=single4)
+    single_step_s = [b - a for a, b in zip([start] + single_ends[:-1], single_ends)]
+    single_pop = torch.cat([obs4["pop"], single_obs["pop"]]).cpu()
+    single4 = gid_positions(single4)
+    del built
+
+    dsim = dist_soma()
+    dcfg = dsim.dcfg
+    state0 = dsim.state
+    if int(state0.pool.alive.sum()) != N_AGENTS:
+        raise AssertionError("distributed: binning lost agents")
+    # The first exchange's band counts (corner halos included), from step 0.
+    ranks = dsim.step.unstack(state0)
+    bands, _ = dist.halo_exchange(dcfg, dsim.mesh, [s.pool for s in ranks],
+                                  [s.codec for s in ranks])
+    h, c = dcfg.halo_capacity, state0.pool.position.shape[1]
+    band_counts = [[int(g_alive[c + k * h:c + (k + 1) * h].sum()) for k in range(4)]
+                   for (_, _, _, g_alive, _, _) in bands]
+    del bands, ranks
+    setup_s = time.perf_counter() - t0
+
+    ends = []
+
+    def clock(state):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return torch.zeros((), dtype=torch.int32, device=state.pool.device)
+
+    dsim = dataclasses.replace(dsim, observables=dsim.observables + (
+        Observable("step_clock", clock),))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    s4, obs4 = dsim.run(DIST_OVERLAP_STEPS)
+    final, obs16 = dsim.run(STEPS - DIST_OVERLAP_STEPS, state=s4)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([start] + ends[:-1], ends)]
+    pop = torch.cat([obs4["pop"], obs16["pop"]]).cpu()
+    for name in ("cell_rank", "cell_list_force"):
+        if launches[name] == 0:
+            raise AssertionError(f"distributed: {name} was not launched")
+
+    # ---- the gates.
+    if not bool((pop == N_AGENTS).all()) or pop.shape[0] != STEPS:
+        raise AssertionError(f"distributed: population series {pop.tolist()}")
+    if not torch.equal(pop, single_pop):
+        raise AssertionError("distributed: population series differs from the single-node run")
+    counters = {"migrate_overflow": final.migrate_overflow, "halo_overflow": final.halo_overflow,
+                "pool_overflow": final.pool.overflow,
+                **{f"health.{f.name}": getattr(final.health, f.name)
+                   for f in dataclasses.fields(final.health)}}
+    bad = {k: int(v.sum()) for k, v in counters.items() if int(v.sum()) != 0}
+    if bad:
+        raise AssertionError(f"distributed: counters not zero: {bad}")
+    if not bool(torch.isfinite(final.pool.position[final.pool.alive]).all()):
+        raise AssertionError("distributed: non-finite positions")
+
+    again, obs_again = dist_soma().run(STEPS)
+    bad = differing_leaves(final, again)
+    if bad or not torch.equal(obs_again["pop"].cpu(), pop):
+        raise AssertionError(f"distributed: a second run differs in {bad or ['pop']}")
+    del again
+
+    overlap, _ = dist_soma(overlap=True).run(DIST_OVERLAP_STEPS)
+    bad = differing_leaves(s4, overlap)
+    if bad:
+        raise AssertionError(f"distributed: the overlapped schedule differs from the serial "
+                             f"run after {DIST_OVERLAP_STEPS} steps in {bad}")
+    if not np.array_equal(gid_positions(s4, dcfg)[0], single4[0]):
+        raise AssertionError("distributed: the live gids differ from the single-node run")
+    dist_at4 = gid_distance(gid_positions(s4, dcfg)[1], single4[1], dcfg.n_decomposed,
+                           dcfg.extent)
+    del overlap, s4
+
+    # ---- printed, not gated.
+    sg, sp = gid_positions(single)
+    dg, dp = gid_positions(final, dcfg)
+    if not np.array_equal(sg, dg):
+        raise AssertionError("distributed: the live gids differ from the single-node run")
+    dist_int16 = gid_distance(dp, sp, dcfg.n_decomposed, dcfg.extent)
+    plain, _ = dist_soma(codec="none").run(STEPS)
+    dist_none = gid_distance(gid_positions(plain, dcfg)[1], sp, dcfg.n_decomposed,
+                             dcfg.extent)
+    del plain
+    wire = dist.halo_wire_stats(final)
+    ranks_n = dcfg.n_devices
+
+    timed, seconds = timed_ops(dsim)
+    timed_steps = 3
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    timed.run(timed_steps, state=final)
+    torch.cuda.synchronize()
+    timed_wall = time.perf_counter() - t1
+    exchange = seconds.get("migrate", 0.0) + seconds.get("halo_exchange", 0.0)
+    emit("distributed", agents=N_AGENTS, mesh=list(DIST_MESH), ranks=ranks_n,
+         capacity_a_rank=DIST_CAPACITY, halo_width=DIST_HALO,
+         halo_capacity=DIST_HALO_CAPACITY, migrate_capacity=DIST_MIGRATE_CAPACITY,
+         grid_dims_a_rank=list(dsim.config.spec.dims), steps=STEPS, setup_s=setup_s,
+         run_s=run_s, median_step_ms=1e3 * statistics.median(step_s),
+         step_ms=[1e3 * t for t in step_s],
+         single_node_median_step_ms=1e3 * statistics.median(single_step_s),
+         band_counts_step0=band_counts, band_count_max=max(max(b) for b in band_counts),
+         payload_bytes_a_step=wire["payload_bytes"] / STEPS,
+         baseline_bytes_a_step=wire["baseline_bytes"] / STEPS,
+         compression_ratio=wire["compression_ratio"],
+         host_ms_a_step_exchange=1e3 * exchange / timed_steps,
+         host_ms_a_step_other_ops=1e3 * (sum(seconds.values()) - exchange) / timed_steps,
+         wall_ms_a_step_timed=1e3 * timed_wall / timed_steps,
+         host_ms_a_step_by_op={k: 1e3 * v / timed_steps for k, v in seconds.items()},
+         launches=launches,
+         launches_a_step={k: v / STEPS for k, v in launches.items() if v},
+         peak_memory_bytes=peak,
+         max_gid_distance_to_single_node={"int16": dist_int16, "none": dist_none,
+                                          f"int16_after_{DIST_OVERLAP_STEPS}": dist_at4},
+         overlap_bit_identical_steps=DIST_OVERLAP_STEPS, second_run_bit_identical=True)
+    return dsim, final, launches
+
+
+def dist_kernel_rows(dsim, final, launches):
+    """cell_list_force over ghost-extended sources (``S = C + 4H`` rows,
+    ``num_out = C``) and cell_rank on the halo-extended grid, at rank 0 of
+    the distributed run's final state (its pool and its latest ghost frame)."""
+    from repro_torch.core.grid import _live_cell_ids, build_index_arrays
+    from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.cell_force.ref import cell_list_force_ref
+    from repro_torch.kernels.cell_rank import ops as cr_ops
+
+    spec = dsim.config.spec
+    rank0 = dsim.step.unstack(final)[0]
+    pool, gf = rank0.pool, rank0.ghost
+    c = pool.capacity
+    g_pos = torch.cat([pool.position, gf.position]).contiguous()
+    g_rad = torch.cat([pool.radius(), gf.radius]).contiguous()
+    g_alive = torch.cat([pool.alive, gf.alive])
+    s, n_cells, m = g_pos.shape[0], spec.n_cells, spec.max_per_cell
+    rows = []
+
+    cid = _live_cell_ids(spec, g_pos, g_alive)
+    check_cell_rank(cid, n_cells)
+    rows.append(dict(
+        name="cell_rank[halo grid]", route="cuda",
+        source="src/repro_torch/kernels/cell_rank/csrc/cell_rank.cu",
+        replaces="src/repro/kernels/cell_rank/kernel.py:88",
+        launches=launches["cell_rank"], max_abs_err=0.0,
+        plain_ms=cuda_ms(lambda: cr_ops.cell_rank_tiled(cid, n_cells), 5), library_ms=None,
+        sources=s, ghost_rows=s - c, **cell_rank_times(cid, n_cells),
+    ))
+
+    index = build_index_arrays(spec, g_pos, g_alive)
+    if bool(index.overflowed):
+        raise AssertionError("kernels: the halo-extended grid overflowed a box")
+    # Each row is filled in slots 0..min(count, M)-1 and holds the sentinel
+    # after them: the kernel walks a row only up to its first sentinel.
+    cnt = index.cell_count.long()
+    filled = index.cell_list < s
+    want = torch.arange(m, device=cnt.device)[None, :] < torch.clamp(cnt, max=m)[:, None]
+    if not torch.equal(filled, want):
+        raise AssertionError("kernels: a halo-extended cell-list row has a gap before its "
+                             "last agent")
+    args = (g_pos, g_rad, index.cell_list, spec.dims)
+    got = cf_k.cell_list_force_cuda(*args, num_out=c)
+    k_max = max(int(cnt.max()), 1)
+    chunk = max(1, int(1e8 // (27 * k_max * k_max)))
+    plain_f = lambda: sum(cell_list_force_ref(*args, num_out=c,
+                                              cells=(lo, min(lo + chunk, n_cells)))
+                          for lo in range(0, n_cells, chunk))
+    want_f, plain_ms = warm_timed(plain_f)
+    scale = float(want_f.abs().max())
+    err = float((got - want_f).abs().max())
+    if not scale > 0 or not err <= 1e-5 * scale:
+        raise AssertionError(f"cell_list_force[ghost]: max error {err} vs max|F| {scale}")
+    ints = torch.clamp(cnt + 1, max=m)
+    listed = torch.clamp(cnt, max=m)
+    force_bytes = int(((ints * 4 + 31) // 32 * 32).sum()) + int(listed.sum()) * 16 + c * 12
+    pairs = box_pairs(cnt, spec.dims)
+    rows.append(dict(
+        name="cell_list_force[ghost]", route="cuda",
+        source="src/repro_torch/kernels/cell_force/csrc/cell_list_force.cu",
+        replaces="src/repro/kernels/cell_force/kernel.py:186",
+        launches=launches["cell_list_force"], max_abs_err=err,
+        ms=cuda_ms(lambda: cf_k.cell_list_force_cuda(*args, num_out=c), 20),
+        plain_ms=plain_ms, library_ms=None, **bound(force_bytes, 12 * pairs),
+        sources=s, num_out=c, ghost_rows_live=int(gf.alive.sum()), n_cells=n_cells,
+        pair_evaluations=pairs, max_force=scale, fullest_box=k_max,
+    ))
+    for r in rows:
+        emit("kernel", **r)
+    return rows
+
+
 def rank_oracle(cid: torch.Tensor, n_cells: int) -> torch.Tensor:
     """Within-cell ranks from a stable sort (used here only)."""
     order = torch.sort(cid.long(), stable=True).indices
@@ -2242,6 +2697,14 @@ def main() -> int:
     lap("kernels")
     seconds["batch"] = sum(batch_s.values())
     seconds["batch_phases"] = batch_s
+    t0 = time.perf_counter()
+
+    phase_dist_small()
+    dist = phase_distributed()
+    rows += dist_kernel_rows(*dist)
+    del dist
+    torch.cuda.empty_cache()
+    seconds["distributed"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     phase_lm_small()

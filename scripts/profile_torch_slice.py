@@ -4,7 +4,7 @@
 Run from the root of a checkout:
 
     python3 scripts/profile_torch_slice.py [--model soma|spheroid|spheroid_dense|
-                                                    batch_sweep|sweep_slot|
+                                                    batch_sweep|sweep_slot|distributed|
                                                     lm_prefill|lm_decode]
                                            [--steps 6] [--trace trace.json]
                                            [--tree DIR]
@@ -15,7 +15,9 @@ boxes, two 200^3 substances, cell_rank + cell_list_force + diffusion3d),
 cell_window_force at the covering window W), ``spheroid_dense`` (the same
 start, forces by pairwise_force), ``batch_sweep`` (``chip_smoke.py``'s
 sweep: 8 slots of 75,000 soma agents stepped by the batch engine, one step =
-one batched step of all 8), ``sweep_slot`` (one of those slots run solo),
+one batched step of all 8), ``sweep_slot`` (one of those slots run solo), ``distributed`` (the soma
+model through ``Simulation.distribute`` on ``chip_smoke.py``'s 2 x 2 mesh of
+four ranks on the card, one step = one lock-step iteration of all four),
 ``lm_prefill`` (phi4-mini-3.8b at full
 width, one step = one prefill call over 4 x 2,048 tokens, flash_attention +
 rmsnorm) or ``lm_decode`` (the same model, one step = one ``decode_step``
@@ -75,6 +77,14 @@ def make_runner(cs, model: str, steps: int):
         return lm_runner(cs, model, steps)
     if model in ("batch_sweep", "sweep_slot"):
         return sweep_runner(cs, model)
+    if model == "distributed":
+        dsim = cs.dist_soma()
+        dstate = [dsim.state]
+
+        def run(n):
+            dstate[0], _ = dsim.run(n, state=dstate[0])
+
+        return run
     if model == "soma":
         built = cs.soma_model(cs.N_AGENTS, cs.SPACE, cs.RESOLUTION, 0, "cuda").build()
         state = [built.state]
@@ -222,7 +232,8 @@ def lm_runner(cs, model: str, steps: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("soma", "spheroid", "spheroid_dense", "batch_sweep",
-                                        "sweep_slot", "lm_prefill", "lm_decode"),
+                                        "sweep_slot", "distributed", "lm_prefill",
+                                        "lm_decode"),
                     default="soma")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")

@@ -22,8 +22,11 @@ checkpoint_every=k)`` persists the full run (state and observable rows) every
 finishes a killed run bit for bit; a checkpoint written by either package
 resumes in the other.  ``BuiltSimulation.batched()`` is the many-session
 engine (``core/batch.py``) and ``run_batch`` sweeps B variants through it,
-slot b bit-identical to a solo run of its variant.  The distributed engine
-is a later slice and raises ``NotImplementedError``.
+slot b bit-identical to a solo run of its variant.  ``distribute(mesh,
+dcfg)`` deploys the same description on the distributed engine
+(``core/distributed.py``) over an in-process mesh (``launch/mesh.py``); its
+grid build takes the facade's ``rank_impl``, where the reference's takes
+the default.
 """
 
 from __future__ import annotations
@@ -45,14 +48,11 @@ from .engine import EngineConfig, SimulationState, init_state
 from .forces import ForceParams
 from .grid import spec_for_space
 from .schedule import Operation, Scheduler
+from .slots import tree_map
 
 # Pool fields that are not free-form attrs (have dedicated arguments).
 _RESERVED_ATTRS = ("position", "diameter", "kind", "age", "alive", "static",
                    "overflow")
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1 item {item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,7 +332,7 @@ class Simulation:
         if not self._groups:
             raise ValueError("no agents registered — call add_agents first")
         n_total = sum(g.n for g in self._groups)
-        capacity = n_total if self.capacity is None else int(self.capacity)
+        capacity = self._capacity()
         if n_total > capacity:
             raise ValueError(f"{n_total} registered agents exceed capacity {capacity}")
         cat = lambda xs: torch.cat(xs, dim=0)
@@ -411,8 +411,130 @@ class Simulation:
         the checkpoint; restore's shape and dtype checks enforce that."""
         return self.build(seed=seed).resume(checkpoint_dir, **resume_kwargs)
 
-    def distribute(self, *args, **kwargs):
-        _not_ported("Simulation.distribute (the distributed engine)", 14)
+    def distribute(self, mesh, dcfg, capacity: Optional[int] = None,
+                   seed: Optional[int] = None) -> "DistributedSimulation":
+        """Deploy the same model description onto a mesh (Ch. 6).
+
+        ``dcfg`` (a :class:`~repro_torch.core.distributed.DomainConfig`)
+        chooses the decomposition; it must tile the declared space
+        (``extent × axis_size`` per decomposed dim, ``depth`` = the full
+        extent on the rest) and its ``halo_width`` must reach the
+        interaction radius.  Agents are binned to ranks, substances split,
+        and the same behaviours, mechanics, custom ops and observables run
+        through the distributed schedule.  ``capacity`` is per rank (default:
+        the single-node capacity).  ``mesh`` is a
+        :class:`~repro_torch.launch.mesh.Mesh`; the state lives on its
+        devices.
+        """
+        from . import distributed as dist
+
+        extent_total = self.max_bound - self.min_bound
+        for d in range(dcfg.n_decomposed):
+            want = extent_total / dcfg.axis_sizes[d]
+            if abs(dcfg.extent - want) > 1e-6 * max(extent_total, 1.0):
+                raise ValueError(
+                    f"DomainConfig.extent {dcfg.extent} × axis_sizes[{d}]="
+                    f"{dcfg.axis_sizes[d]} does not tile the declared space "
+                    f"extent {extent_total} (want extent {want})")
+        if dcfg.n_decomposed < 3 and abs(dcfg.depth - extent_total) > 1e-6 * max(
+                extent_total, 1.0):
+            raise ValueError(f"DomainConfig.depth {dcfg.depth} must equal the space extent "
+                             f"{extent_total} on non-decomposed dims")
+        radius = self.interaction_radius()
+        if dcfg.halo_width < radius - 1e-9:
+            raise ValueError(f"DomainConfig.halo_width {dcfg.halo_width} < interaction "
+                             f"radius {radius}: remote neighbors would be missed")
+        mesh = dist._check_mesh(mesh, dcfg)
+        device = mesh.devices[0]
+
+        # The single-node config with the deployment's fields swapped: the
+        # halo-extended grid (with the facade's rank_impl) and the local frame.
+        ecfg = dataclasses.replace(
+            self._engine_config(),
+            spec=dcfg.grid_spec(box_size=radius, max_per_cell=self.max_per_cell,
+                                use_morton=self.use_morton, rank_impl=self.rank_impl),
+            min_bound=0.0,
+            max_bound=extent_total,
+        )
+        scheduler = self._apply_custom_ops(dist.distributed_scheduler(dcfg, ecfg))
+
+        if not self._groups:
+            raise ValueError("no agents registered — call add_agents first")
+        g = lambda arrs: np.concatenate([a.detach().cpu().numpy() for a in arrs])
+        positions = g([grp.position for grp in self._groups]) - self.min_bound
+        state = dist.init_dist_state(
+            dcfg,
+            capacity=self._capacity() if capacity is None else int(capacity),
+            positions=positions.astype(np.float32),
+            diameter=g([grp.diameter for grp in self._groups]),
+            kind=g([grp.kind for grp in self._groups]),
+            seed=self.seed if seed is None else seed,
+            attrs={name: g([grp.attrs[name] for grp in self._groups])
+                   for name in self._attr_schema},
+            stacked_grids=self._split_grids(dcfg, device),
+            device=device,
+        )
+        step = dist.make_distributed_step(mesh, dcfg, ecfg, scheduler=scheduler)
+        return DistributedSimulation(mesh=mesh, dcfg=dcfg, config=ecfg, scheduler=scheduler,
+                                     state=state, step=step,
+                                     observables=tuple(self._observables))
+
+    def _capacity(self) -> int:
+        n_total = sum(g.n for g in self._groups)
+        return n_total if self.capacity is None else int(self.capacity)
+
+    def _split_grids(self, dcfg, device) -> Dict[str, dgrid.DiffusionGrid]:
+        """Each global substance grid split into per-rank local grids
+        (stacked on a leading rank axis) in the rank-local frame (origin 0).
+
+        Uneven splits use ghost-voxel padding: every rank carries a uniform
+        ``ceil(R/S)``-voxel frame; ranks past the end of the global lattice
+        pad with zeros, and the grid's ``n_valid`` / ``frame_shift`` mask the
+        padding out of diffusion and sampling.  A resolution smaller than the
+        mesh raises, as does an uneven split under a toroidal boundary."""
+        out: Dict[str, dgrid.DiffusionGrid] = {}
+        nd = dcfg.n_decomposed
+        for name, grid in self._grids.items():
+            res = grid.resolution
+            small = [d for d in range(nd) if res[d] < dcfg.axis_sizes[d]]
+            if small:
+                detail = ", ".join(f"dim {d}: {res[d]} < {dcfg.axis_sizes[d]}" for d in small)
+                raise ValueError(
+                    f"substance {name!r}: resolution smaller than the mesh on dims "
+                    f"{small} ({detail}); every decomposed dim needs at least one "
+                    f"voxel per device")
+            uneven = [d for d in range(nd) if res[d] % dcfg.axis_sizes[d] != 0]
+            if uneven and self.boundary == "toroidal":
+                raise ValueError(
+                    f"substance {name!r}: uneven split on dims {uneven} with a toroidal "
+                    f"boundary — ghost-voxel padding would break the periodic wrap "
+                    f"alignment; pick a resolution divisible by the device counts on "
+                    f"every decomposed dim")
+            per = [-(-res[d] // dcfg.axis_sizes[d]) if d < nd else res[d] for d in range(3)]
+            conc = grid.concentration.detach().cpu().numpy()
+            locals_ = []
+            for dev in range(dcfg.n_devices):
+                coords = list(dcfg.device_coords(dev)) + [0] * (3 - nd)
+                lo = [coords[d] * per[d] if d < nd else 0 for d in range(3)]
+                block = conc[tuple(slice(lo[d], min(lo[d] + per[d], res[d]))
+                                   for d in range(3))]
+                block = np.pad(block, [(0, per[d] - block.shape[d]) for d in range(3)])
+                extra = {}
+                if uneven:
+                    extra = dict(
+                        n_valid=torch.tensor(
+                            [min(per[d], max(res[d] - lo[d], 0)) if d < nd else res[d]
+                             for d in range(3)], dtype=torch.int32, device=device),
+                        frame_shift=torch.tensor(
+                            [lo[d] * grid.spacing - coords[d] * dcfg.extent if d < nd
+                             else 0.0 for d in range(3)], dtype=torch.float32,
+                            device=device),
+                    )
+                locals_.append(dataclasses.replace(
+                    grid, concentration=torch.from_numpy(np.ascontiguousarray(block)).to(
+                        device), origin=(0.0, 0.0, 0.0), **extra))
+            out[name] = tree_map(lambda *xs: torch.stack(xs), *locals_)
+        return out
 
 
 def _slice_observed(observables, ys: Dict[str, torch.Tensor], start: int,
@@ -671,3 +793,80 @@ class BuiltSimulation:
             fired = {k: int(v[0]) for k, v in counts.items()}
             obs = {k: v[:, : fired[k]] for k, v in obs.items()}
         return bstate.states, obs
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedSimulation:
+    """The same model deployed on a mesh: the stacked per-rank state and the
+    distributed step (``core/distributed.py``).
+
+    ``run`` steps the ranks in lock-step; observables are evaluated on the
+    *stacked* state (the built-in kind-counts observable flattens the rank
+    axis; custom observables that index pool arrays see a leading rank
+    axis).  Between observable firings the loop keeps one state a rank and
+    stacks only when an observable fires and at the end of a chunk.
+    """
+
+    mesh: Any
+    dcfg: Any
+    config: EngineConfig
+    scheduler: Scheduler
+    state: Any                       # DistState
+    step: Any                        # core.distributed.DistributedStep
+    observables: Tuple[Observable, ...] = ()
+
+    def run(self, n_steps: int, state=None, *, checkpoint_dir: Optional[str] = None,
+            checkpoint_every: Optional[int] = None, keep: int = 3,
+            on_chunk: Optional[Callable[[Any], None]] = None):
+        """Step ``n_steps`` iterations → ``(final_state, {name: rows})``.
+        ``checkpoint_dir=`` persists the stacked state and the observable
+        rows every ``checkpoint_every`` steps, as ``BuiltSimulation.run``
+        does; :meth:`resume` finishes a killed run bit for bit."""
+        state = self.state if state is None else state
+        if checkpoint_dir is None:
+            return self._run_chunk(n_steps, state)
+        return _checkpointed_loop(
+            self._run_chunk, state, n_steps, engine="dist",
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            keep=keep, on_chunk=on_chunk,
+        )
+
+    def _run_chunk(self, n_steps: int, state):
+        live = [o for o in self.observables if o.frequency > 0]
+        rows: Dict[str, List[torch.Tensor]] = {o.name: [] for o in live}
+        # One host read of the counter; it advances by exactly 1 a step.
+        start = _step_of(state)
+        ranks = self.step.unstack(state)
+        for i in range(n_steps):
+            ranks = self.step.step_ranks(ranks, start + i)
+            fired = [o for o in live if (start + i) % o.frequency == 0]
+            if fired:
+                stacked = self.step.stack(ranks)
+                for o in fired:
+                    rows[o.name].append(o.fn(stacked))
+        state = self.step.stack(ranks) if n_steps else state
+        obs = {}
+        for o in live:
+            r = rows[o.name]
+            if r:
+                obs[o.name] = torch.stack(r)
+            else:
+                proto = o.fn(state)
+                obs[o.name] = torch.zeros((0,) + tuple(proto.shape), dtype=proto.dtype,
+                                          device=proto.device)
+        return state, obs
+
+    def resume(self, checkpoint_dir: str, *, keep: int = 3,
+               on_chunk: Optional[Callable[[Any], None]] = None):
+        """Finish an interrupted distributed checkpointed run.  The
+        checkpoint's per-rank shapes are checked against this deployment's
+        state, so a different mesh shape or capacity fails loudly."""
+        step, state, acc, target, every = _resume_payload(
+            checkpoint_dir, "dist", self.state, self.observables)
+        if target - step <= 0:
+            return state, _obs_tensors(acc, state.pool.device)
+        return _checkpointed_loop(
+            self._run_chunk, state, target - step, engine="dist",
+            checkpoint_dir=checkpoint_dir, checkpoint_every=every, keep=keep,
+            on_chunk=on_chunk, obs_acc=acc, target_step=target,
+        )

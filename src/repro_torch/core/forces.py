@@ -22,6 +22,12 @@ read, each branch that a live session needs is evaluated for the whole
 batch, and each session keeps its own branch's rows, as ``vmap`` lowers the
 reference's ``lax.cond`` to a select.  The Morton window kernel has no slot
 axis yet, so ``tile_order="morton"`` in a batch raises.
+
+Ghost-extended sources (the distributed engine, ``NeighborContext.
+for_sources``): the index and the cell list cover the local pool's C rows
+and the halo rows after them; the forces are the C local rows'
+(``num_out=C``), and the Morton window is taken only when the sources are
+the pool itself.
 """
 
 from __future__ import annotations
@@ -252,18 +258,22 @@ def mechanical_forces(
     radius = pool.radius()
     c = pool.capacity
     out_mask = pool.alive if row_mask is None else pool.alive & row_mask
-    if neighbors.src_position.shape[0] != c:
-        raise NotImplementedError(
-            "ghost-extended neighbor sources (the distributed engine) are not "
-            "ported yet: ROADMAP queue 1 item 14"
-        )
     slots = index.slots
     if slots is not None and tile_order == "morton":
         raise NotImplementedError(MORTON_IN_BATCH)
     b = slots or 1
     per = c // b
     live = [True] * b if live is None else list(live)
-    src_pos, src_rad = pool.position, radius
+    if neighbors.src_position.shape[0] == c:
+        # The sources ARE the pool: use its current arrays (behaviors may
+        # have moved agents since the context was built).
+        src_pos, src_rad = pool.position, radius
+    else:
+        # Ghost-extended sources (the distributed engine): the local rows
+        # refreshed to the pool's current state, the halo rows the
+        # exchange-time snapshot.
+        src_pos = torch.cat([pool.position, neighbors.src_position[c:]])
+        src_rad = torch.cat([radius, neighbors.src_radius[c:]])
 
     # The branch predicates of every session, in one read.
     flags = {}
@@ -285,7 +295,9 @@ def mechanical_forces(
     def fused() -> torch.Tensor:
         from repro_torch.kernels.cell_force import ops as cf_ops
 
-        if tile_order == "morton":
+        # The Morton window walks the pool's own rows: taken only when the
+        # sources are the pool.
+        if tile_order == "morton" and src_pos is pool.position:
             ok = True
             if morton_fallback:
                 # One device-to-host read for the gate and the kernel's id check.
@@ -378,18 +390,25 @@ def update_static_flags_celllist(
     displacement: torch.Tensor,
     params: ForceParams,
     query_position: Optional[torch.Tensor] = None,
+    ghost_alive: Optional[torch.Tensor] = None,
 ) -> AgentPool:
     """§5.5 static detection through the cell list — no dense candidates:
     "any agent in the 27-box moved" from a per-cell any-reduction over
     ``cell_list`` and an (N, 27) cell-level gather.  ``query_position``: the
     positions the index was built from (default: the pool's current ones).
     Over a batch's index each session reads its own cells.
+
+    ``ghost_alive``: alive flags of the source rows beyond the pool (the
+    distributed engine's aura agents, ids ≥ ``pool.capacity`` in the cell
+    list).  Their displacement is not known locally, so a live ghost counts
+    as moved: an agent whose 27-box reaches a live ghost never goes static.
     """
     moved = _moved(pool, displacement, params)
     qpos = pool.position if query_position is None else query_position
     nbr_cid, in_range = neighbor_cell_ids(spec, qpos)                 # (N, 27)
     b = index.slots or 1
-    per = moved.shape[0] // b
+    src_moved = moved if ghost_alive is None else torch.cat([moved, ghost_alive])
+    per = src_moved.shape[0] // b
     cell_list = index.cell_list.reshape(b, spec.n_cells, -1)
     slot_valid = cell_list < per
     safe = torch.where(slot_valid, cell_list, 0).long()
@@ -397,6 +416,6 @@ def update_static_flags_celllist(
         safe = safe + torch.arange(0, moved.shape[0], per, device=safe.device)[:, None, None]
         base = row_slot(nbr_cid.shape[0], b, nbr_cid.device) * spec.n_cells
         nbr_cid = nbr_cid + base[:, None]
-    cell_moved = (moved[safe] & slot_valid).any(dim=2).reshape(-1)   # (B·n_cells,)
+    cell_moved = (src_moved[safe] & slot_valid).any(dim=2).reshape(-1)   # (B·n_cells,)
     neighbor_moved = (cell_moved[nbr_cid.long()] & in_range).any(dim=1)
     return pool.replace(static=pool.alive & ~moved & ~neighbor_moved)

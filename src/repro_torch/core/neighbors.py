@@ -25,7 +25,8 @@ class NeighborContext:
     arrays single-node); ``query_*`` describe the agents queries are
     answered for.  Over the flat view of a batch (``core/slots.py``) the
     index is the batch's and the candidate ids are rows of the flat view,
-    each query's within its own session.
+    each query's within its own session.  In the distributed engine the
+    sources are the ghost-extended rows (:meth:`for_sources`).
     """
 
     spec: GridSpec
@@ -54,6 +55,27 @@ class NeighborContext:
             src_alive=pool.alive,
             query_position=pool.position,
             query_alive=pool.alive,
+        )
+
+    @classmethod
+    def for_sources(cls, spec: GridSpec, index: GridIndex, pool: AgentPool,
+                    src_position: torch.Tensor, src_radius: torch.Tensor,
+                    src_kind: torch.Tensor, src_alive: torch.Tensor
+                    ) -> "NeighborContext":
+        """Distributed case (§6.2.1): queries are the local pool, sources the
+        ghost-extended (local + halo) rows the ``index`` was built over.  The
+        first ``pool.capacity`` source rows are the pool itself, so
+        ``query_ids`` is a plain arange into the sources."""
+        return cls(
+            spec=spec,
+            index=index,
+            src_position=src_position,
+            src_radius=src_radius,
+            src_kind=src_kind,
+            src_alive=src_alive,
+            query_position=pool.position,
+            query_alive=pool.alive,
+            query_ids=torch.arange(pool.capacity, dtype=torch.int32, device=pool.device),
         )
 
     def candidates(self, cache: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:

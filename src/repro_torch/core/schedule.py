@@ -157,6 +157,10 @@ class Operation:
     batched:   ``fn`` also takes the flat view of a batch of sessions and
                its context (the default ops); otherwise a batch's step runs
                it once a session, on that session's views.
+    collective: ``fn`` takes the lists of every rank's context and state
+               and returns the list of new states (the distributed engine's
+               exchanges, ``core/distributed.py``); only the distributed
+               executor runs it.
     """
 
     name: str
@@ -165,6 +169,7 @@ class Operation:
     frequency: int = 1
     gate: str = "cond"
     batched: bool = False
+    collective: bool = False
 
     def __post_init__(self):
         if self.phase not in PHASES:
@@ -233,6 +238,9 @@ class Scheduler:
         step = int(state.step)
         ctx = OpContext(config=self.config, step=step, rng=self.fold_rng(state, step))
         for op in self.ordered_ops():
+            if op.collective:
+                raise ValueError(f"op {op.name!r} is collective: it runs in the "
+                                 f"distributed executor only")
             state = run_op(op, ctx, state)
         return dataclasses.replace(state, step=state.step + 1)
 
@@ -400,16 +408,20 @@ def behaviors_op(config) -> Operation:
     return Operation("behaviors", fn, phase="agent", batched=True)
 
 
-def force_pass(config, ctx: OpContext, state, *, row_mask=None) -> torch.Tensor:
-    """One ``mechanical_forces`` dispatch with the config's knobs applied."""
+def force_pass(config, ctx: OpContext, state, *, index=None, neighbors=None,
+               row_mask=None) -> torch.Tensor:
+    """One ``mechanical_forces`` dispatch with the config's knobs applied,
+    over the step's index and context unless ``index`` / ``neighbors`` are
+    given (the distributed overlapped schedule runs an interior pass over a
+    local-only index and a shell pass over the ghost-extended one)."""
     return mechanical_forces(
         config.spec,
-        ctx.index,
+        ctx.index if index is None else index,
         state.pool,
         config.force_params,
         active_capacity=config.active_capacity,
         impl=config.force_impl,
-        neighbors=ctx.neighbors,
+        neighbors=ctx.neighbors if neighbors is None else neighbors,
         fused_fallback=config.fused_overflow_fallback,
         tile=config.force_tile,
         tile_order=config.tile_order,
@@ -449,13 +461,19 @@ def boundary_op(config) -> Operation:
 
 
 def static_flags_op(config) -> Operation:
-    """§5.5 static-agent detection for the next iteration (post standalone)."""
+    """§5.5 static-agent detection for the next iteration (post standalone).
+    Over ghost-extended sources a live halo row counts as moved."""
 
     def fn(ctx: OpContext, state):
         pool = state.pool
+        nb = ctx.neighbors
+        ghost_alive = None
+        if nb.src_alive.shape[0] != pool.capacity:
+            ghost_alive = nb.src_alive[pool.capacity:]
         pool = update_static_flags_celllist(
             config.spec, ctx.index, pool, pool.position - ctx.pre_positions,
-            config.force_params, query_position=ctx.neighbors.query_position,
+            config.force_params, query_position=nb.query_position,
+            ghost_alive=ghost_alive,
         )
         return dataclasses.replace(state, pool=pool)
 
@@ -493,7 +511,9 @@ def age_op(config) -> Operation:
 
 def health_op(config) -> Operation:
     """Fold saturation / corruption telemetry into ``state.health`` (last
-    post op).  Pure reductions on the device; nothing is read to the host."""
+    post op).  Pure reductions on the device; nothing is read to the host.
+    The distributed exchange counters are read from a state that carries
+    them (``DistState``) and stay 0 otherwise."""
 
     def fn(ctx: OpContext, state):
         pool = state.pool
@@ -508,8 +528,12 @@ def health_op(config) -> Operation:
             ctx.index.overflowed.to(torch.int32) if ctx.index is not None
             else torch.zeros_like(pool.overflow, dtype=torch.int32)
         )
+        exchange = {name: getattr(state, name).to(torch.int32)
+                    for name in ("migrate_overflow", "halo_overflow")
+                    if hasattr(state, name)}
         report = dataclasses.replace(
             prev,
+            **exchange,
             pool_overflow=pool.overflow.to(torch.int32),
             cell_overflow_steps=prev.cell_overflow_steps + cell_ovf,
             nonfinite_agents=n_bad,

@@ -88,9 +88,13 @@ def cell_list_force_ref(
     rbar = qr * cr / torch.clamp(qr + cr, min=1e-20)
     mag = k * delta - gamma * torch.sqrt(torch.clamp(rbar * delta, min=0.0))
     scale = torch.where(overlap, mag / dist, 0.0)
+    # Each pair's f32 force, summed in f64 and rounded once: the sum then
+    # does not depend on how many slot columns the trimming kept (a source
+    # set with more rows, such as the distributed engine's ghost-extended
+    # one, keeps more), which a vectorized f32 sum's order does.
     slot_force = torch.stack(
-        [(scale * dxc).sum(2), (scale * dyc).sum(2), (scale * dzc).sum(2)], dim=-1
-    )                                                              # (Q, M, 3)
+        [(scale * d).to(torch.float64).sum(2) for d in (dxc, dyc, dzc)], dim=-1
+    ).to(torch.float32)                                            # (Q, M, 3)
 
     # Sentinel S and rows ≥ num_out drop: they land in a spare row, cut off.
     slots = q_ids.reshape(-1).long()

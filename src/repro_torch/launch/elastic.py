@@ -24,9 +24,9 @@ Failure model & responses
    (:func:`surviving_mesh_shape`) and the plan to re-shard the latest
    checkpoint onto it (:func:`reshard_plan`).
 
-The distributed regrowth (``grow_dist_state``, ``run_elastic_distributed``)
-comes with the distributed engine.  The policy layer imports no torch at
-module scope.
+The distributed engine regrows the same way (:func:`grow_dist_state`,
+:func:`run_elastic_distributed`), its exchange buffers with its pools.  The
+policy layer imports no torch at module scope.
 """
 
 from __future__ import annotations
@@ -147,8 +147,33 @@ def grow_state(state, new_capacity: int):
 
 
 def grow_dist_state(state, new_capacity: int, new_dcfg):
-    raise NotImplementedError(
-        "grow_dist_state (distributed regrowth) is not ported yet: ROADMAP queue 1 item 14")
+    """Distributed regrow: per-rank pool rows padded to ``new_capacity``,
+    fresh halo-codec buffers and ghost frame at the new halo capacity (the
+    codec's ``prev_ids`` freshness bits make a reset safe: the first exchange
+    after it ships full precision), exchange counters and health reset, on
+    the state's device.  The cumulative wire-byte counters are kept."""
+    import torch
+
+    from repro_torch.core.distributed import GhostFrame, HaloCodecState, replicate
+    from repro_torch.core.schedule import empty_health
+
+    device = state.pool.device
+    n_dev = state.pool.position.shape[0]
+    scale = float(state.codec.scale.reshape(-1)[0])
+    codec1 = HaloCodecState.create(new_dcfg.n_decomposed, new_dcfg.halo_capacity, scale,
+                                   device)
+    zeros = torch.zeros((n_dev,), dtype=torch.int32, device=device)
+    return dataclasses.replace(
+        state,
+        pool=grow_pool(state.pool, new_capacity, axis=1),
+        codec=replicate(codec1, n_dev),
+        migrate_overflow=zeros,
+        halo_overflow=zeros.clone(),
+        health=replicate(empty_health(device), n_dev),
+        # The aura frame sizes with halo_capacity; a zeroed frame is safe —
+        # every step's exchange rewrites it before any op reads it.
+        ghost=replicate(GhostFrame.create(new_dcfg, device), n_dev),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +249,74 @@ def run_elastic(
     return state, _obs_tensors(acc, state.pool.device), grows
 
 
-def run_elastic_distributed(sim, mesh, dcfg, n_steps: int, checkpoint_dir: str, **kwargs):
-    raise NotImplementedError(
-        "run_elastic_distributed (the distributed engine) is not ported yet: "
-        "ROADMAP queue 1 item 14")
+def run_elastic_distributed(
+    sim,
+    mesh,
+    dcfg,
+    n_steps: int,
+    checkpoint_dir: str,
+    checkpoint_every: Optional[int] = None,
+    grow_factor: float = 2.0,
+    max_regrows: int = 3,
+    seed: Optional[int] = None,
+    keep: int = 3,
+    capacity: Optional[int] = None,
+):
+    """Distributed counterpart of :func:`run_elastic`.
+
+    A regrow scales the per-rank pool capacity AND the exchange-buffer
+    bounds (``halo_capacity`` / ``migrate_capacity``) by ``grow_factor``,
+    re-deploys through ``sim.distribute`` on the grown ``DomainConfig``, and
+    pads the restored state into the new shapes (:func:`grow_dist_state`).
+    Returns ``(final_state, {name: rows}, n_regrows)``.
+    """
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.core.api import _concat_obs, _obs_tensors, _step_of
+
+    dsim = sim.distribute(mesh, dcfg, capacity=capacity, seed=seed)
+    every = int(checkpoint_every) if checkpoint_every else int(n_steps)
+    if every <= 0:
+        raise ValueError(f"checkpoint_every must be positive, got {every}")
+    state = dsim.state
+    acc: Dict[str, np.ndarray] = {}
+    step = _step_of(state)
+    target = step + int(n_steps)
+    grows = 0
+
+    def save(st, at):
+        ckpt.save(checkpoint_dir, at, {"state": st, "obs": acc}, keep=keep)
+
+    save(state, step)
+    while step < target:
+        new_state, obs = dsim.run(min(every, target - step), state=state)
+        action = check_abm_state(new_state.health, grow_factor)
+        if action.kind == "halt":
+            raise RuntimeError(
+                f"elastic run halted at step {_step_of(new_state)}: {action.reason}"
+            )
+        if action.kind == "grow_capacity":
+            if grows >= max_regrows:
+                raise RuntimeError(
+                    f"still saturated after {grows} regrows: {action.reason}"
+                )
+            grows += 1
+            g = action.grow_factor
+            new_cap = int(math.ceil(state.pool.position.shape[1] * g))
+            dcfg = dataclasses.replace(
+                dcfg,
+                halo_capacity=int(math.ceil(dcfg.halo_capacity * g)),
+                migrate_capacity=int(math.ceil(dcfg.migrate_capacity * g)),
+            )
+            _, payload = ckpt.restore(checkpoint_dir, {"state": state, "obs": acc})
+            dsim = sim.distribute(mesh, dcfg, capacity=new_cap, seed=seed)
+            state = grow_dist_state(payload["state"], new_cap, dcfg)
+            save(state, step)              # re-anchor at the new shapes
+            continue
+        state = new_state
+        acc = _concat_obs(acc, obs)
+        step = _step_of(state)
+        save(state, step)
+    return state, _obs_tensors(acc, state.pool.device), grows
 
 
 # ---------------------------------------------------------------------------

@@ -221,6 +221,77 @@ def test_cell_list_force_kernel_matches_plain(card, case):
     np.testing.assert_array_equal(part.cpu().numpy(), got.cpu().numpy()[: cap // 2])
 
 
+def _dist_case():
+    """The reference's 4×2 force-only relaxation (tests/torch_dist_reference.py)."""
+    import torch_dist_reference as R
+    from repro_torch.core import EngineConfig, ForceParams
+    from repro_torch.core import distributed as dist
+
+    domain, engine, pos = R.force_setup()
+    dcfg = dist.DomainConfig(**domain, halo_codec="int16")
+    ecfg = EngineConfig(spec=dcfg.grid_spec(box_size=2.0, max_per_cell=32, rank_impl="cuda"),
+                        force_params=ForceParams(), force_impl="fused", **engine)
+    return dcfg, ecfg, pos
+
+
+def _ghost_inputs():
+    """Rank 0's ghost-extended sources after one step of the 4×2 case, from
+    ``halo_exchange``, and the halo-extended grid built over them, on the
+    CPU: (position (S, 3), radius (S,), index, spec, C)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    dcfg, ecfg, pos = _dist_case()
+    mesh = make_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices="cpu")
+    state = dist.make_distributed_step(mesh, dcfg, ecfg)(
+        dist.init_dist_state(dcfg, 192, pos, diameter=1.6))
+    ranks = dist.unstack_state(state, mesh.devices)
+    out, _ = dist.halo_exchange(dcfg, mesh, [r.pool for r in ranks], [r.codec for r in ranks])
+    g_pos, g_rad, _, g_alive, _, _ = out[0]
+    index = grid.build_index_arrays(ecfg.spec, g_pos, g_alive)
+    return g_pos, g_rad, index, ecfg.spec, ranks[0].pool.capacity
+
+
+@pytest.mark.cuda
+def test_cell_list_force_over_ghost_sources_matches_plain(card):
+    """The distributed engine's input: S = C + 2·D·H sources (the pool and
+    its halo rows), forces for the first C rows only."""
+    pos, rad, index, spec, c = _ghost_inputs()
+    assert pos.shape[0] > c and bool((index.cell_list[index.cell_list < pos.shape[0]] >= c).any())
+    want = cell_list_force_ref(pos, rad, index.cell_list, spec.dims, num_out=c)
+    got = cf_ops.cell_list_force(pos.to(card), rad.to(card), index.cell_list.to(card),
+                                 spec.dims, impl="cuda", num_out=c)
+    assert got.shape == (c, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    assert float(want.abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+def test_dist_small_step_on_card_matches_cpu(card):
+    """One step of the 4×2 relaxation (fused forces over ghost-extended
+    sources, cell_rank) on the card against the CPU: integer leaves equal,
+    floats within 5e-4 (the reference's fused-against-dense tolerance)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    dcfg, ecfg, pos = _dist_case()
+    finals = {}
+    for dev in (card, CPU):
+        mesh = make_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices=[dev] * dcfg.n_devices)
+        state = dist.init_dist_state(dcfg, 192, pos, diameter=1.6, device=dev)
+        before = cf_kernel.launches
+        finals[dev.type] = dist.make_distributed_step(mesh, dcfg, ecfg)(state)
+        if dev.type == "cuda":
+            assert cf_kernel.launches == before + dcfg.n_devices
+    card_leaves, cpu_leaves = _leaves(finals["cuda"]), _leaves(finals["cpu"])
+    assert list(card_leaves) == list(cpu_leaves)
+    for a, b in zip(card_leaves.values(), cpu_leaves.values()):
+        if a.is_floating_point():
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=5e-4)
+        else:
+            assert torch.equal(a.cpu(), b)
+
+
 # ---------------------------------------------------------- cell_window_force
 
 @pytest.mark.cuda
@@ -909,11 +980,18 @@ def test_build_recipe():
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
 
 
-@pytest.mark.parametrize("case", ["generic", "overflowed", "full_row"])
+@pytest.mark.parametrize("case", ["generic", "overflowed", "full_row", "ghost_extended"])
 def test_cell_list_rows_stop_at_first_sentinel(case):
     """The force kernel stops a row walk at its first sentinel, so the
-    build must fill slots 0..min(count, M)-1 of each row and nothing else."""
-    pos, _, index, spec, cap = _force_inputs(case)
+    build must fill slots 0..min(count, M)-1 of each row and nothing else
+    (``ghost_extended``: the distributed engine's halo-extended build over
+    a rank's pool and its halo rows)."""
+    if case == "ghost_extended":
+        pos, _, index, spec, _ = _ghost_inputs()
+        cap = pos.shape[0]
+        assert int((index.cell_list >= 192).logical_and(index.cell_list < cap).sum()) > 0
+    else:
+        pos, _, index, spec, cap = _force_inputs(case)
     occupied = index.cell_list.numpy() < cap
     filled = np.minimum(index.cell_count.numpy(), spec.max_per_cell)
     np.testing.assert_array_equal(

@@ -1,0 +1,240 @@
+"""The port's distributed engine against the reference, from the same inputs.
+
+The reference needs several devices: it runs once for the module, in one
+subprocess with eight forced host devices (``tests/torch_dist_reference.py``),
+and writes its results into an ``.npz``.  The port runs here on the CPU on
+an in-process mesh, from the reference's initial state carried across by
+``convert.dist_state_from_numpy`` or from its own ``Simulation.distribute``
+of the same description.
+
+Tolerances: integer and bool leaves (pool order, alive, kind, counters,
+wire bytes, codec ids, the ghost frame's alive and kind) are exact.  Float
+leaves are within 1e-5 after one step and within one int16 quantum,
+``(extent + 2·halo) / 32767``, after five or more: the reference's XLA
+contracts the codec's ``ref + q·s`` into an FMA for some columns, the port
+rounds the product first, so a ghost coordinate may differ by one ulp and
+the force chain carries it on (on the 4×2 case the two agree bit for bit
+after one step and to one ulp after five).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_reference as R
+from torch_parity import CPU
+
+from repro_torch.convert import dist_state_from_numpy, dist_state_to_numpy
+from repro_torch.core import EngineConfig, ForceParams, Simulation
+from repro_torch.core import distributed as dist
+from repro_torch.launch.mesh import make_mesh
+
+_HERE = os.path.dirname(__file__)
+
+
+def _mesh(domain):
+    return make_mesh(domain["axis_sizes"], domain["mesh_axes"], devices="cpu")
+
+
+def _resume_model():
+    domain, space, pos, kinds = R.resume_setup()
+    return (Simulation(space=(0.0, space), cell_size=2.0, boundary="open", dt=0.05,
+                       max_per_cell=32, seed=3, sort_frequency=4, capacity=256, device="cpu")
+            .add_agents(position=pos, diameter=1.6, kind=kinds)
+            .mechanics(ForceParams())
+            .observe_kinds("counts", n_kinds=2)).distribute(_mesh(domain),
+                                                            dist.DomainConfig(**domain))
+
+
+class _Killed(Exception):
+    pass
+
+
+def _killer(state):
+    if int(state.step.reshape(-1)[0]) >= R.RESUME_KILL:
+        raise _Killed
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    """The reference's results; first the port's killed run it resumes."""
+    tmp = tmp_path_factory.mktemp("dist_ref")
+    port_ckpt = str(tmp / "port_ckpt")
+    with pytest.raises(_Killed):
+        _resume_model().run(R.RESUME_STEPS, checkpoint_dir=port_ckpt,
+                            checkpoint_every=R.RESUME_EVERY, on_chunk=_killer)
+    out = str(tmp / "ref.npz")
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([os.path.join(_HERE, "..", "src"),
+                                           os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, os.path.join(_HERE, "torch_dist_reference.py"),
+                           out, port_ckpt], capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with np.load(out) as z:
+        arrays = {k: z[k] for k in z.files}
+    arrays["_dir"] = out
+    return arrays
+
+
+def _state(ref, key):
+    return dist_state_from_numpy(R.unflatten(ref, key), CPU)
+
+
+def _assert_matches(port_np, ref_np, tol, label):
+    """Every leaf of two numpy-layout states: integers and bools exact,
+    floats within ``tol``."""
+    got, want = R.flatten(port_np), R.flatten(ref_np)
+    assert sorted(got) == sorted(want), (label, sorted(set(got) ^ set(want)))
+    for key in want:
+        a, b = np.asarray(got[key]), np.asarray(want[key])
+        assert a.shape == b.shape, (label, key, a.shape, b.shape)
+        if np.issubdtype(b.dtype, np.floating):
+            np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=f"{label}: {key}")
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{label}: {key}")
+
+
+def _float_tol(steps, domain):
+    if steps <= 1:
+        return 1e-5
+    return (domain["extent"] + 2 * domain["halo_width"]) / 32767.0
+
+
+# ------------------------------------------------------------------ cases
+
+
+def test_init_dist_state_matches_reference(ref):
+    """Binning, rebasing, codec scale, keys and buffers of the initial state."""
+    domain, engine, pos = R.force_setup()
+    for codec in R.FORCE_CODECS:
+        dcfg = dist.DomainConfig(**domain, halo_codec=codec)
+        state = dist.init_dist_state(dcfg, capacity=192, positions=pos, diameter=1.6)
+        _assert_matches(dist_state_to_numpy(state), R.unflatten(ref, f"force/{codec}/0"),
+                        0.0, f"init {codec}")
+
+
+@pytest.mark.parametrize("codec", R.FORCE_CODECS)
+def test_force_relaxation_matches_reference(ref, codec):
+    """tests/dist_scenarios.py's 4×2 relaxation after 1 and 5 steps: the
+    whole stacked state, codec state, ghost frame and counters included."""
+    domain, engine, _ = R.force_setup()
+    dcfg = dist.DomainConfig(**domain, halo_codec=codec)
+    ecfg = EngineConfig(spec=dcfg.grid_spec(box_size=2.0, max_per_cell=32),
+                        force_params=ForceParams(), **engine)
+    step = dist.make_distributed_step(_mesh(domain), dcfg, ecfg)
+    state = _state(ref, f"force/{codec}/0")
+    for i in range(1, max(R.FORCE_STEPS) + 1):
+        state = step(state)
+        if i in R.FORCE_STEPS:
+            _assert_matches(dist_state_to_numpy(state), R.unflatten(ref, f"force/{codec}/{i}"),
+                            _float_tol(i, domain), f"{codec} step {i}")
+    assert int(state.halo_payload_bytes[0]) > 0
+
+
+@pytest.mark.parametrize("boundary", ["closed", "toroidal"])
+def test_distributed_diffuse_uneven_split_matches_reference(ref, boundary):
+    """The facade's ghost-voxel split (n_valid, frame_shift, blocks) and
+    three distributed_diffuse steps on it."""
+    domain, space, res, field, pos = R.diffuse_setup()
+    dcfg = dist.DomainConfig(**domain)
+    sim = (Simulation(space=(0.0, space), cell_size=2.0, boundary="closed", dt=0.05,
+                      max_per_cell=32, capacity=16, device="cpu")
+           .add_agents(position=pos, diameter=1.6)
+           .add_substance("s", diffusion=1.0, resolution=res, concentration=field))
+    stacked = sim._split_grids(dcfg, CPU)["s"]
+    np.testing.assert_array_equal(stacked.n_valid.numpy(), ref["diffuse/n_valid"])
+    np.testing.assert_array_equal(stacked.frame_shift.numpy(), ref["diffuse/frame_shift"])
+    np.testing.assert_array_equal(stacked.concentration.numpy(), ref["diffuse/0"])
+    mesh = _mesh(domain)
+    grids = [dataclasses.replace(stacked, concentration=stacked.concentration[r],
+                                 n_valid=stacked.n_valid[r],
+                                 frame_shift=stacked.frame_shift[r]) for r in range(4)]
+    for _ in range(R.DIFFUSE_STEPS):
+        grids = dist.distributed_diffuse(dcfg, mesh, grids, 0.05, boundary)
+    got = np.stack([g.concentration.numpy() for g in grids])
+    np.testing.assert_allclose(got, ref[f"diffuse/{boundary}"], rtol=0, atol=1e-6)
+
+
+def test_facade_soma_model_matches_reference(ref):
+    """Simulation.distribute of a soma model on a 2×2 mesh: the initial
+    state exactly, then 4 steps (series exact)."""
+    from repro_torch.core import chemotaxis, concentration_at, secretion
+
+    domain, space, res, pos, kind, fields = R.soma_setup()
+
+    def exposure_op(ctx, state):
+        pool = state.pool
+        c0 = concentration_at(state.grids["substance_0"], pool.position)
+        c1 = concentration_at(state.grids["substance_1"], pool.position)
+        own = torch.where(pool.kind == 0, c0, c1)
+        dose = torch.where(pool.alive, own * ctx.config.dt, 0.0)
+        return dataclasses.replace(
+            state, pool=pool.set_attr("exposure", pool.get("exposure") + dose))
+
+    soma = (Simulation(space=(0.0, space), cell_size=4.0, boundary="closed", dt=1.0,
+                       max_per_cell=32, seed=4, device="cpu")
+            .add_agents(position=pos, diameter=3.0, kind=kind, exposure=0.0)
+            .add_substance("substance_0", diffusion=0.4, decay=0.002, resolution=res,
+                           concentration=fields[0])
+            .add_substance("substance_1", diffusion=0.4, decay=0.002, resolution=res,
+                           concentration=fields[1])
+            .use(secretion("substance_0", 1.0, kind=0), secretion("substance_1", 1.0, kind=1),
+                 chemotaxis("substance_0", 0.75, kind=0),
+                 chemotaxis("substance_1", 0.75, kind=1))
+            .mechanics(ForceParams())
+            .op(exposure_op, name="exposure", phase="post")
+            .observe_kinds("kinds", n_kinds=2))
+    dsim = soma.distribute(_mesh(domain), dist.DomainConfig(**domain), capacity=128)
+    assert dsim.config.spec.rank_impl == "tiled"
+    _assert_matches(dist_state_to_numpy(dsim.state), R.unflatten(ref, "soma/0"), 0.0, "init")
+    final, obs = dsim.run(R.SOMA_STEPS)
+    np.testing.assert_array_equal(obs["kinds"].numpy(), ref["soma/obs/kinds"])
+    _assert_matches(dist_state_to_numpy(final), R.unflatten(ref, "soma/final"),
+                    _float_tol(R.SOMA_STEPS, domain), "soma")
+
+
+def test_port_resumes_a_reference_checkpoint(ref):
+    """The reference's killed run, finished by the port's resume: the
+    reference's straight run's state and series."""
+    domain = R.resume_setup()[0]
+    final, obs = _resume_model().resume(ref["_dir"] + ".ckpt")
+    np.testing.assert_array_equal(obs["counts"].numpy(), ref["resume/straight_obs/counts"])
+    _assert_matches(dist_state_to_numpy(final), R.unflatten(ref, "resume/straight"),
+                    _float_tol(R.RESUME_STEPS, domain), "port resume")
+
+
+def test_reference_resumes_a_port_checkpoint(ref):
+    """The port's killed run (the fixture's), finished by the reference:
+    the port's straight run's state and series."""
+    domain = R.resume_setup()[0]
+    straight, obs = _resume_model().run(R.RESUME_STEPS)
+    np.testing.assert_array_equal(obs["counts"].numpy(), ref["resume/of_port_obs/counts"])
+    _assert_matches(dist_state_to_numpy(straight), R.unflatten(ref, "resume/of_port"),
+                    _float_tol(R.RESUME_STEPS, domain), "reference resume")
+
+
+def test_run_elastic_distributed_matches_reference(ref, tmp_path):
+    """Regrows, the population series and every integer leaf exact."""
+    from repro_torch.core import cell_division
+    from repro_torch.launch import elastic
+
+    domain, space, pos = R.elastic_setup()
+    grow = (Simulation(space=(0.0, space), cell_size=3.0, boundary="open", dt=1.0,
+                       max_per_cell=32, seed=2, capacity=256, device="cpu")
+            .add_agents(position=pos, diameter=2.0)
+            .use(cell_division(0.5))
+            .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
+    final, obs, grows = elastic.run_elastic_distributed(
+        grow, _mesh(domain), dist.DomainConfig(**domain), R.ELASTIC_STEPS, str(tmp_path),
+        checkpoint_every=R.ELASTIC_EVERY, capacity=32, max_regrows=4)
+    assert grows == int(ref["elastic/grows"]) >= 1
+    np.testing.assert_array_equal(obs["pop"].numpy(), ref["elastic/obs/pop"])
+    _assert_matches(dist_state_to_numpy(final), R.unflatten(ref, "elastic/final"),
+                    _float_tol(R.ELASTIC_STEPS, domain), "elastic")

@@ -44,6 +44,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.serve, repro_torch.launch.elastic\n"
         "import repro_torch.launch.abm_serve, repro_torch.core.batch\n"
         "import repro_torch.core.slots, repro_torch.checkpoint\n"
+        "import repro_torch.core.distributed, repro_torch.core.delta\n"
+        "import repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -163,20 +165,10 @@ def test_unported_facade_entry_points_raise():
 
     from repro_torch import Simulation
 
-    sim = Simulation(space=10.0, device="cpu").add_agents(
-        position=np.full((2, 3), 5.0, np.float32))
-    built = sim.build()
-    from repro_torch.launch import elastic
-
     morton = Simulation(space=10.0, device="cpu").add_agents(
         position=np.full((2, 3), 5.0, np.float32)).mechanics(
         impl="fused", tile_order="morton").build()
-    for call, item in [
-        (lambda: sim.distribute(None, None), "item 14"),
-        (lambda: elastic.grow_dist_state(built.state, 4, None), "item 14"),
-        (lambda: elastic.run_elastic_distributed(sim, None, None, 2, "ckpt"), "item 14"),
-        # Batches run (queue 1 item 13); the Morton window's slot axis does not.
-        (lambda: morton.run_batch(2, batch=2), "slot axis of cell_window_force"),
-    ]:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # The distributed engine runs (queue 1 item 14) and batches run (item
+    # 13); the Morton window's slot axis does not.
+    with pytest.raises(NotImplementedError, match="slot axis of cell_window_force"):
+        morton.run_batch(2, batch=2)
