@@ -85,6 +85,14 @@ printing one JSON line; any failure raises and exits non-zero:
                   deaths in every slot, every slot bit-identical to its solo
                   run; then ``batch_spheroid_dense``, the same with the dense
                   pairwise_force kernel, 2 steps.
+  batch_spheroid_morton
+                  the same 4 slots with ``tile_order="morton"``: blocks of
+                  128 rows, the half-window the least that covers every slot
+                  at step 0 plus 25%, 10 steps with births and deaths; every
+                  slot bit-identical to its solo Morton run, cell_window_force
+                  launched once a step for all four slots and no slot falling
+                  back to the linear kernel (the fallbacks' count printed), in
+                  the batch and in the solo runs.
   abm_serve       ``launch/abm_serve.serve``: 10 soma sessions of 20,000
                   agents through 4 slots in chunks of 8 (budgets 24, one of
                   21), one NaN-bombed and evicted; the 21-step session saved
@@ -92,10 +100,26 @@ printing one JSON line; any failure raises and exits non-zero:
                   24; every done series equal to its solo run (SHA-256).
   kernels (batch) cell_rank, cell_list_force and diffusion3d at batch_sweep's
                   final state over all 8 slots in one call, pairwise_force
-                  over batch_spheroid_dense's 4 slots' flat candidates: each
-                  bit-identical to one launch a slot (``solo_ms`` times the B
-                  launches), against the plain version (diffusion bit for
-                  bit, forces atol 1e-5 x max|F|).
+                  over batch_spheroid_dense's 4 slots' flat candidates,
+                  cell_window_force over batch_spheroid_morton's 4 slots
+                  (sorted as the next step sorts them, within-slot cell ids):
+                  each bit-identical to one launch a slot (``solo_ms`` times
+                  the B launches), against the plain version (diffusion bit
+                  for bit, forces atol 1e-5 x max|F|; the window also against
+                  cell_list_force over the same slots).
+  calibrate       the paper's §4.4.10 calibration (``repro_torch.optim.pso``)
+                  of the SIR model of examples/epidemiology_sir.py at its full
+                  population (2,000 agents, 20 infected, space 100) on the
+                  card, its runs cut from 1,000 steps to 300 (an SIR step
+                  takes 15-23 ms): PSOConfig(n_particles=4, seed=1), one
+                  iteration over the example's bounds, 8 runs; the median
+                  run's wall time and step, the 72 runs of 1,000 steps of the
+                  example's full calibration (8 particles, 8 iterations)
+                  reckoned from it, the history and the best triple with its
+                  MSE over the 300 steps.  Then the fast mode's
+                  calibrated triple (3.24, 0.36, 6.2) at 400 agents, space 55,
+                  300 steps: trajectory RMSE against the analytical solution
+                  below 0.08, the example's own bar.
   dist_small      the distributed engine (``core/distributed.py``) at the
                   reference's test sizes: the 4x2 force-only relaxation (500
                   agents, 5 steps, fused) and its corner-cluster layout (572
@@ -235,6 +259,19 @@ SPHB_CAPACITY = 32_768
 SPHB_SPACE = (0.0, 504.0)      # 28^3 boxes of 18 um
 SPHB_STEPS = 10
 SPHB_DENSE_STEPS = 2
+# The SIR calibration of examples/epidemiology_sir.py (paper §4.4.10, Table
+# 4.3 measles rates): its population, its bounds, and the fast mode's check.
+# Its runs are 1,000 steps; an SIR step takes 15-23 ms on the card
+# (host-bound), so the 8 runs here are cut to 300 steps to keep the phase
+# near a minute; the example's full calibration (72 runs of 1,000 steps) is
+# reckoned from the measured step.
+SIR_BETA, SIR_GAMMA = 0.06719, 0.00521
+CAL_AGENTS, CAL_INFECTED, CAL_SPACE, CAL_STEPS = 2_000, 20, 100.0, 300
+CAL_FULL_STEPS = 1_000
+CAL_BOUNDS = [(1.0, 6.0), (0.05, 0.6), (1.0, 8.0)]
+CAL_PARTICLES, CAL_ITERS, CAL_SEED = 4, 1, 1
+CAL_FULL_RUNS = 8 * (8 + 1)      # the example's n_particles=8, n_iters=8
+SIR_FAST = ((3.24, 0.36, 6.2), 400, 8, 55.0, 300)   # params, agents, infected, space, steps
 SERVE_AGENTS = 20_000
 SERVE_SPACE = 320.0            # 32^3 boxes
 SERVE_RES = 64
@@ -1143,14 +1180,15 @@ def phase_batch_sweep():
     return built, final, launches
 
 
-def spheroid_batch(impl, steps, name):
+def spheroid_batch(steps, name, **mechanics):
     """4 slots of the spheroid (25,000 cells, capacity 32,768 each, ages set,
     a seed a slot), sorted every step, ``steps`` steps batched, then each
-    slot's solo card run: every slot bit-identical."""
+    slot's solo card run: every slot bit-identical.  ``solo_launches``: the
+    four solo runs' launches."""
     from repro_torch.core import prng
 
     pos, diam, age = spheroid_start(SPHB_CELLS, SPHB_SPACE, lattice=12.0)
-    built = spheroid_model(pos, diam, SPHB_SPACE, SPHB_CAPACITY, "cuda", impl=impl).build()
+    built = spheroid_model(pos, diam, SPHB_SPACE, SPHB_CAPACITY, "cuda", **mechanics).build()
     start = with_ages(built, age)
     starts = [dataclasses.replace(start, rng=prng.PRNGKey(200 + b, device=start.rng.device))
               for b in range(SPHB_SLOTS)]
@@ -1164,6 +1202,7 @@ def spheroid_batch(impl, steps, name):
     launches = read_counts()
     births, deaths = [], []
     solo_s = 0.0
+    reset_counts()
     for b, (s0, got) in enumerate(zip(starts, slots_of(final.states, SPHB_SLOTS))):
         t0 = time.perf_counter()
         solo, _ = built.run(steps, state=s0)
@@ -1177,11 +1216,11 @@ def spheroid_batch(impl, steps, name):
         births.append(int((alive & (got.pool.age <= steps)).sum()))
         deaths.append(SPHB_CELLS + births[-1] - n1)
     return built, final, launches, dict(run_s=run_s, solo_runs_s=solo_s, births=births,
-                                        deaths=deaths)
+                                        deaths=deaths, solo_launches=read_counts())
 
 
 def phase_batch_spheroid():
-    built, final, launches, stats = spheroid_batch("fused", SPHB_STEPS, "batch_spheroid")
+    built, final, launches, stats = spheroid_batch(SPHB_STEPS, "batch_spheroid", impl="fused")
     if not (all(x > 0 for x in stats["births"]) and all(x > 0 for x in stats["deaths"])):
         raise AssertionError(f"batch_spheroid: births {stats['births']}, "
                              f"deaths {stats['deaths']}")
@@ -1193,13 +1232,49 @@ def phase_batch_spheroid():
          capacity_a_slot=SPHB_CAPACITY, boxes=built.config.spec.n_cells, steps=SPHB_STEPS,
          launches=launches, slots_bit_identical_to_solo=True, **stats)
 
-    dbuilt, dfinal, dlaunches, dstats = spheroid_batch("cuda", SPHB_DENSE_STEPS,
-                                                       "batch_spheroid_dense")
+    dbuilt, dfinal, dlaunches, dstats = spheroid_batch(SPHB_DENSE_STEPS,
+                                                       "batch_spheroid_dense", impl="cuda")
     if dlaunches["pairwise_force"] != SPHB_DENSE_STEPS:
         raise AssertionError(f"batch_spheroid_dense: launches {dlaunches}")
     emit("batch_spheroid_dense", slots=SPHB_SLOTS, steps=SPHB_DENSE_STEPS, launches=dlaunches,
          slots_bit_identical_to_solo=True, **dstats)
     return dbuilt, dfinal, dlaunches
+
+
+def phase_batch_spheroid_morton():
+    """batch_spheroid's 4 slots with Morton windows: the half-window the
+    least that covers every slot's sorted start (the slots share it) plus
+    25%, capped at the block count.  Every step of the batch and of each
+    solo run must take the window kernel: a step where a slot fell back
+    launches cell_list_force."""
+    pos, diam, _ = spheroid_start(SPHB_CELLS, SPHB_SPACE, lattice=12.0)
+    linear = spheroid_model(pos, diam, SPHB_SPACE, SPHB_CAPACITY, "cuda", impl="fused").build()
+    cover = covering_window(linear, linear.state)
+    window = min(cover + -(-cover // 4), SPHB_CAPACITY // SPH_BLOCK)
+    del linear
+    built, final, launches, stats = spheroid_batch(
+        SPHB_STEPS, "batch_spheroid_morton", impl="fused", tile_order="morton",
+        morton_block=SPH_BLOCK, morton_window=window)
+    if not (all(x > 0 for x in stats["births"]) and all(x > 0 for x in stats["deaths"])):
+        raise AssertionError(f"batch_spheroid_morton: births {stats['births']}, "
+                             f"deaths {stats['deaths']}")
+    want = {"cell_rank": SPHB_STEPS, "cell_window_force": SPHB_STEPS, "cell_list_force": 0,
+            "pairwise_force": 0}
+    solo_want = {k: SPHB_SLOTS * v for k, v in want.items()}
+    solo = stats["solo_launches"]
+    if any(launches[k] != v for k, v in want.items()) or any(
+            solo[k] != v for k, v in solo_want.items()):
+        raise AssertionError(f"batch_spheroid_morton: launches {launches} (want {want}), "
+                             f"solo runs {solo} (want {solo_want}); a slot fell back to "
+                             f"the linear kernel")
+    emit("batch_spheroid_morton", slots=SPHB_SLOTS, cells_a_slot=SPHB_CELLS,
+         capacity_a_slot=SPHB_CAPACITY, boxes=built.config.spec.n_cells, steps=SPHB_STEPS,
+         block=SPH_BLOCK, half_window=window, covering_half_window=cover,
+         blocks=SPHB_CAPACITY // SPH_BLOCK, launches=launches,
+         fallback_launches=launches["cell_list_force"],
+         solo_fallback_launches=solo["cell_list_force"],
+         slots_bit_identical_to_solo=True, **stats)
+    return built, final, launches, window
 
 
 def serve_model(device="cuda"):
@@ -1453,7 +1528,177 @@ def batch_kernel_rows(sweep, dense):
     return rows
 
 
-# ------------------------------------------------------------------- kernels
+def batch_window_row(morton):
+    """cell_window_force over batch_spheroid_morton's 4 slots in one launch:
+    the final state's flat view sorted as the next step sorts it, each
+    slot's index built within its own grid (within-slot cell ids).  Held bit
+    for bit against one launch a slot (``solo_ms`` times the four), against
+    the plain version slot by slot and against cell_list_force over the
+    same slots (atol 1e-5 x max|F|); the bound as path 2's row counts it."""
+    from repro_torch.core.forces import _morton_window_ok
+    from repro_torch.core.grid import build_index, sort_agents
+    from repro_torch.core.slots import to_flat
+    from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.cell_force.ref import cell_window_force_ref, window_walk
+
+    built, final, launches, window = morton
+    spec, b = built.config.spec, final.batch_size
+    pool = sort_agents(spec, to_flat(final.states).pool)
+    index = build_index(spec, pool, assume_sorted=True)
+    gate = _morton_window_ok(spec, index, SPH_BLOCK, window) & ~index.overflowed
+    if not bool(gate.all()):
+        raise AssertionError(f"kernels: the window does not cover every slot ({gate.tolist()})")
+    pos, rad, cid = pool.position, pool.radius(), index.cell_of_agent
+    c = pool.capacity // b
+    if int(cid.max()) > spec.n_cells:
+        raise AssertionError("kernels: cell ids are not within each slot's grid")
+    per = lambda x, s: x[s * c:(s + 1) * c]
+    call = lambda: cf_k.cell_window_force_cuda(pos, rad, cid, spec.dims, block=SPH_BLOCK,
+                                               half_window=window, slots=b)
+    solo_args = [(per(pos, s).contiguous(), per(rad, s).contiguous(), per(cid, s).contiguous())
+                 for s in range(b)]
+    solo = lambda: [cf_k.cell_window_force_cuda(*a, spec.dims, block=SPH_BLOCK,
+                                                half_window=window) for a in solo_args]
+    got = call()
+    for s, want in enumerate(solo()):
+        if not torch.equal(per(got, s), want):
+            raise AssertionError(f"cell_window_force[{b} slots]: slot {s} differs from a "
+                                 f"launch of that slot alone")
+    nbw = -(-c // SPH_BLOCK)
+    plain = lambda: torch.cat([
+        sum(cell_window_force_ref(*a, spec.dims, block=SPH_BLOCK, half_window=window,
+                                  tiles=(t, min(t + 64, nbw))) for t in range(0, nbw, 64))
+        for a in solo_args])
+    want, plain_ms = warm_timed(plain)
+    linear = cf_k.cell_list_force_cuda(pos, rad, index.cell_list, spec.dims, num_out=c)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    witness = float((got - linear).abs().max())
+    if not scale > 0 or not err <= 1e-5 * scale or not witness <= 1e-5 * scale:
+        raise AssertionError(f"cell_window_force[{b} slots]: max error {err} (vs "
+                             f"cell_list_force {witness}) vs max|F| {scale}")
+    pairs = sum(box_pairs(index.cell_count[s], spec.dims) for s in range(b))
+    visited = sum(int((e - st).sum()) for st, e in (
+        window_walk(a[2], spec.dims, SPH_BLOCK, window) for a in solo_args))
+    design_bytes = b * 16 * spec.n_cells + 8 * int((index.cell_count > 0).sum()) + 36 * b * c
+    row = dict(
+        name=f"cell_window_force[{b} slots]", route="cuda",
+        source="src/repro_torch/kernels/cell_force/csrc/cell_window_force.cu",
+        replaces="src/repro/kernels/cell_force/kernel.py:330",
+        launches=launches["cell_window_force"], max_abs_err=err, slots=b,
+        ms=cuda_ms(call, 20), solo_ms=cuda_ms(solo, 20), plain_ms=plain_ms, library_ms=None,
+        **bound(32 * b * c, 12 * pairs),
+        design_bound_ms=bound(design_bytes, 12 * pairs)["bound_ms"], design_bytes=design_bytes,
+        half_window=window, block=SPH_BLOCK, pair_evaluations=pairs,
+        candidate_rows_visited=visited, max_force=scale, max_err_vs_cell_list_force=witness,
+    )
+    emit("kernel", **row)
+    return [row]
+
+
+# ---------------------------------------------------------------- calibration
+
+def analytical_sir(n, i0, beta, gamma, steps):
+    """RK4 integration of the Kermack-McKendrick ODEs (hourly steps), as
+    examples/epidemiology_sir.py integrates them: (steps + 1, 3)."""
+    y = np.array([n - i0, i0, 0.0], np.float64)
+
+    def f(y):
+        s, i, _ = y
+        inf = beta * s * i / n
+        return np.array([-inf, inf - gamma * i, gamma * i])
+
+    out = [y.copy()]
+    for _ in range(steps):
+        k1 = f(y)
+        k2 = f(y + 0.5 * k1)
+        k3 = f(y + 0.5 * k2)
+        k4 = f(y + k3)
+        y = y + (k1 + 2 * k2 + 2 * k3 + k4) / 6.0
+        out.append(y.copy())
+    return np.stack(out)
+
+
+def sir_counts(params, n, i0, space, steps, seed=0):
+    """The agent-based SIR model of examples/epidemiology_sir.py (random
+    movement, infection, recovery, the infectious-time op, toroidal space)
+    run ``steps`` steps on the card: the S/I/R counts a step, (steps, 3)."""
+    from repro_torch import Simulation
+    from repro_torch.core import (INFECTED, SUSCEPTIBLE, prng, random_movement,
+                                  sir_infection, sir_recovery)
+
+    radius, prob, move = (float(p) for p in params)
+
+    def infectious_time(ctx, state):
+        pool = state.pool
+        dt = torch.where(pool.alive & (pool.kind == INFECTED), ctx.config.dt, 0.0)
+        return dataclasses.replace(state, pool=pool.set_attr("t_inf", pool.get("t_inf") + dt))
+
+    pos = prng.uniform(prng.PRNGKey(seed), (n, 3), 0.0, space)
+    kind = torch.where(torch.arange(n) < i0, INFECTED, SUSCEPTIBLE).to(torch.int32)
+    built = (
+        Simulation(space=(0.0, space), cell_size=max(radius, 4.0), boundary="toroidal",
+                   dt=1.0, max_per_cell=128, seed=seed, device="cuda")
+        .add_agents(n, position=pos, diameter=0.5, kind=kind, t_inf=0.0)
+        .use(random_movement(move), sir_infection(radius, prob), sir_recovery(SIR_GAMMA))
+        .op(infectious_time, name="infectious_time", phase="post")
+        .observe_kinds("counts", n_kinds=3)
+        .build()
+    )
+    final, obs = built.run(steps)
+    counts = obs["counts"].cpu().numpy()
+    if counts.shape != (steps, 3) or not (counts.sum(axis=1) == n).all():
+        raise AssertionError(f"calibrate: counts {counts.shape} do not sum to {n} a step")
+    return counts, final
+
+
+def phase_calibrate():
+    """``optim.pso.optimize`` over the SIR model at the example's full size
+    on the card (8 runs), then the fast mode's calibrated triple against the
+    analytical solution."""
+    from repro_torch.core import RECOVERED
+    from repro_torch.optim import pso
+
+    truth = analytical_sir(CAL_AGENTS, CAL_INFECTED, SIR_BETA, SIR_GAMMA, CAL_STEPS)[1:]
+    runs = []
+
+    def objective(p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts, _ = sir_counts(p, CAL_AGENTS, CAL_INFECTED, CAL_SPACE, CAL_STEPS)
+        runs.append(time.perf_counter() - t0)
+        return float(np.mean(((counts - truth) / CAL_AGENTS) ** 2))
+
+    t0 = time.perf_counter()
+    best, err, history = pso.optimize(objective, CAL_BOUNDS, n_iters=CAL_ITERS,
+                                      config=pso.PSOConfig(n_particles=CAL_PARTICLES,
+                                                           seed=CAL_SEED))
+    calibration_s = time.perf_counter() - t0
+    if len(runs) != CAL_PARTICLES * (CAL_ITERS + 1) or not np.isfinite(err):
+        raise AssertionError(f"calibrate: {len(runs)} runs, best MSE {err}")
+    median_s = statistics.median(runs)
+    full_run_s = median_s * CAL_FULL_STEPS / CAL_STEPS
+
+    params, n, i0, space, steps = SIR_FAST
+    fast_truth = analytical_sir(n, i0, SIR_BETA, SIR_GAMMA, steps)[1:]
+    counts, final = sir_counts(params, n, i0, space, steps)
+    rmse = float(np.sqrt(np.mean(((counts - fast_truth) / n) ** 2)))
+    recovered = final.pool.kind == RECOVERED
+    if not rmse < 0.08 or not bool(recovered.any()):
+        raise AssertionError(f"calibrate: the fast mode's triple gives RMSE {rmse} "
+                             f"(bar 0.08), {int(recovered.sum())} recovered")
+    emit("calibrate", agents=CAL_AGENTS, infected=CAL_INFECTED, space=CAL_SPACE,
+         steps=CAL_STEPS, bounds=CAL_BOUNDS, n_particles=CAL_PARTICLES, n_iters=CAL_ITERS,
+         seed=CAL_SEED, runs=len(runs), run_s=runs, median_run_s=median_s,
+         median_step_ms=1e3 * median_s / CAL_STEPS, calibration_s=calibration_s,
+         full_steps=CAL_FULL_STEPS, full_run_s_reckoned=full_run_s,
+         full_calibration_runs=CAL_FULL_RUNS,
+         full_calibration_s_reckoned=CAL_FULL_RUNS * full_run_s, history=history,
+         best=[float(x) for x in best], best_mse=err,
+         fast_check=dict(params=list(params), agents=n, space=space, steps=steps,
+                         rmse=rmse, bar=0.08,
+                         mean_infectious_h=float(final.pool.get("t_inf")[recovered].mean())))
+
 
 # ---------------------------------------------------------------- distributed
 
@@ -2689,14 +2934,20 @@ def main() -> int:
     lap("batch_sweep")
     dense = phase_batch_spheroid()
     lap("batch_spheroid")
+    morton = phase_batch_spheroid_morton()
+    lap("batch_spheroid_morton")
     phase_abm_serve()
     lap("abm_serve")
     rows += batch_kernel_rows(sweep, dense)
-    del sweep, dense
+    rows += batch_window_row(morton)
+    del sweep, dense, morton
     torch.cuda.empty_cache()
     lap("kernels")
     seconds["batch"] = sum(batch_s.values())
     seconds["batch_phases"] = batch_s
+    t0 = time.perf_counter()
+    phase_calibrate()
+    seconds["calibrate"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     phase_dist_small()

@@ -14,9 +14,12 @@ spheroid's sorted pool at its window, cell_list_force on the spheroid's cell
 list, and every 8th row of the spheroid's dense candidates) and saves the
 outputs, and prints each call's mean CUDA-event time over 20 calls after
 a warm-up (``ms``; time two checkouts in one machine, in turns).
-``compare`` prints one JSON line: for each kernel, whether the two
-outputs are equal bit for bit, how many values differ, by how much at most,
-and the largest magnitude of the first output.
+``run --plain`` also runs that checkout's plain PyTorch versions of the
+three kernels on the same inputs (in chunks, as chip_smoke.py calls them;
+saved as ``plain:<name>``, not timed).  ``compare`` prints one JSON line:
+for each kernel (and plain version), whether the two outputs are equal bit
+for bit, how many values differ, by how much at most, and the largest
+magnitude of the first output.
 """
 
 from __future__ import annotations
@@ -29,7 +32,33 @@ from pathlib import Path
 import torch
 
 
-def run(inputs: str, tree: str, out: str) -> None:
+def plain(name: str, call: dict) -> torch.Tensor:
+    """The plain version of the kernel that ``name``'s saved call ran."""
+    from repro_torch.kernels.cell_force.ref import cell_list_force_ref, cell_window_force_ref
+    from repro_torch.kernels.pairwise_force.ref import pairwise_force_ref
+
+    if name == "pairwise_force":
+        pos, rad, cand, mask = call["args"]
+        step = 8192
+        return torch.cat([pairwise_force_ref(
+            pos[i:i + step], rad[i:i + step], cand[i:i + step], mask[i:i + step],
+            all_position=call["all_position"], all_radius=call["all_radius"])
+            for i in range(0, pos.shape[0], step)])
+    *tensors, dims = call["args"]
+    if name.startswith("cell_list_force"):
+        n_cells, m = tensors[2].shape
+        chunk = max(1, int(1e8 // (27 * m * m)))
+        return sum(cell_list_force_ref(*tensors, dims, num_out=call["num_out"],
+                                       cells=(lo, min(lo + chunk, n_cells)))
+                   for lo in range(0, n_cells, chunk))
+    block, window = call["block"], call["half_window"]
+    nbw = -(-tensors[0].shape[0] // block)
+    return sum(cell_window_force_ref(*tensors, dims, block=block, half_window=window,
+                                     tiles=(t, min(t + 64, nbw)))
+               for t in range(0, nbw, 64))
+
+
+def run(inputs: str, tree: str, out: str, with_plain: bool = False) -> None:
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     from repro_torch.kernels.cell_force import kernel as cf_k
     from repro_torch.kernels.pairwise_force import kernel as pf_k
@@ -58,6 +87,9 @@ def run(inputs: str, tree: str, out: str) -> None:
         end.record()
         end.synchronize()
         ms[name] = start.elapsed_time(end) / 20
+    if with_plain:
+        for name, call in saved.items():
+            got[f"plain:{name}"] = plain(name, call)
     torch.save({k: v.cpu() for k, v in got.items()}, out)
     print(json.dumps({"tree": tree, "saved": out, "kernels": sorted(got), "ms": ms,
                       "module": cf_k.__file__}))
@@ -82,6 +114,8 @@ def main() -> int:
     r.add_argument("--inputs", required=True)
     r.add_argument("--tree", required=True, help="root of the checkout whose kernels run")
     r.add_argument("--out", required=True)
+    r.add_argument("--plain", action="store_true",
+                   help="also run the checkout's plain versions on the inputs")
     c = sub.add_parser("compare")
     c.add_argument("a")
     c.add_argument("b")
@@ -90,7 +124,7 @@ def main() -> int:
         if not torch.cuda.is_available():
             print("force_kernel_bits: no CUDA device is available", file=sys.stderr)
             return 1
-        run(args.inputs, args.tree, args.out)
+        run(args.inputs, args.tree, args.out, with_plain=args.plain)
     else:
         compare(args.a, args.b)
     return 0

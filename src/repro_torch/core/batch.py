@@ -44,7 +44,6 @@ from . import engine as _engine
 from . import prng
 from .agents import as_tensor
 from .engine import SimulationState
-from .forces import MORTON_IN_BATCH
 from .schedule import Scheduler
 from .slots import select, slot_of, to_flat, to_slots, tree_map
 
@@ -133,8 +132,6 @@ def batched_run(
     Returns ``(bstate', obs, counts)`` with ``obs[name]`` of shape
     ``(B, ⌈n_steps/k⌉, ...)`` and ``counts[name]`` (B,) i32 rows written.
     """
-    if config.tile_order == "morton":
-        raise NotImplementedError(MORTON_IN_BATCH)
     sched = scheduler or Scheduler.default(config)
     batch = bstate.batch_size
     dev = bstate.active.device
@@ -330,8 +327,6 @@ class BatchedSimulation:
 
     def __init__(self, config, scheduler: Scheduler, template: SimulationState,
                  observables=()):
-        if config.tile_order == "morton":
-            raise NotImplementedError(MORTON_IN_BATCH)
         self.config = config
         self.scheduler = scheduler
         self.template = template

@@ -20,8 +20,10 @@ Over the flat view of a batch (``core/slots.py``) each session takes its own
 branch: the predicates of every session are read in one device-to-host
 read, each branch that a live session needs is evaluated for the whole
 batch, and each session keeps its own branch's rows, as ``vmap`` lowers the
-reference's ``lax.cond`` to a select.  The Morton window kernel has no slot
-axis yet, so ``tile_order="morton"`` in a batch raises.
+reference's ``lax.cond`` to a select.  So with ``tile_order="morton"`` a
+session whose window covers it takes the window kernel and one whose
+window does not the linear kernel, each kernel launched at most once a step
+for every session.
 
 Ghost-extended sources (the distributed engine, ``NeighborContext.
 for_sources``): the index and the cell list cover the local pool's C rows
@@ -45,12 +47,6 @@ from .slots import row_slot
 IMPLS = ("reference", "fused", "cuda")
 TILE_ORDERS = ("linear", "morton")
 
-#: Raised for ``tile_order="morton"`` in a batch: ``cell_window_force``
-#: decodes cell ids by floor division, so session-offset ids would make one
-#: session's top z-layer and the next one's bottom layer neighbours.
-MORTON_IN_BATCH = ("tile_order='morton' in a batch is not ported yet: ROADMAP §0, "
-                   "the slot axis of cell_window_force")
-
 
 def check_impl(impl: str, tile_order: str = "linear") -> None:
     """Raise on a force impl or tile order the port does not know."""
@@ -62,13 +58,17 @@ def check_impl(impl: str, tile_order: str = "linear") -> None:
 
 
 def _read_flags(flags: dict) -> dict:
-    """``{name: () or (B,) bool tensor}`` → ``{name: [bool] a session}``, in
-    one device-to-host read."""
+    """``{name: () or (B,) bool tensor}`` → ``{name: [bool] a session, or
+    one for a () flag}``, in one device-to-host read."""
     if not flags:
         return {}
-    names = list(flags)
-    rows = torch.stack([flags[n].reshape(-1) for n in names]).tolist()
-    return dict(zip(names, rows))
+    parts = [flags[n].reshape(-1) for n in flags]
+    values = torch.cat(parts).tolist()
+    out, at = {}, 0
+    for name, part in zip(flags, parts):
+        out[name] = values[at:at + part.numel()]
+        at += part.numel()
+    return out
 
 
 def _per_session(pick, a, b, c: int) -> torch.Tensor:
@@ -85,24 +85,30 @@ def _per_session(pick, a, b, c: int) -> torch.Tensor:
 def _window_need(spec: GridSpec, index: GridIndex, block: int) -> torch.Tensor:
     """(C,) int32: the half-window, in blocks of ``block`` rows, that each
     live agent needs to see the lowest and highest row of its 27-box (from
-    the stale cell ids the kernels use); 0 for dead rows."""
+    the stale cell ids the kernels use); 0 for dead rows.  Over a batch's
+    flat view, rows and blocks count within each session's own rows."""
     cid = index.cell_of_agent
-    c = cid.shape[0]
+    rows_all = cid.shape[0]
+    b = index.slots or 1
+    c = rows_all // b
     dev = cid.device
     n_cells = spec.n_cells
     nx, ny, nz = spec.dims
-    rows = torch.arange(c, dtype=torch.int32, device=dev)
-    ci = cid.long().clamp_(min=0)   # a negative id is refused by the caller
-    rmin = torch.full((n_cells + 1,), c, dtype=torch.int32, device=dev)
+    slot = row_slot(rows_all, b, dev)
+    rows = (torch.arange(rows_all, device=dev) - slot * c).to(torch.int32)
+    # Each session's cells and its dead bin: a table of n_cells + 1 a session.
+    base = slot * (n_cells + 1)
+    ci = base + cid.long().clamp(0, n_cells)   # a negative id is refused by the caller
+    rmin = torch.full((b * (n_cells + 1),), c, dtype=torch.int32, device=dev)
     rmin = rmin.scatter_reduce(0, ci, rows, "amin")
-    rmax = torch.full((n_cells + 1,), -1, dtype=torch.int32, device=dev)
+    rmax = torch.full((b * (n_cells + 1),), -1, dtype=torch.int32, device=dev)
     rmax = rmax.scatter_reduce(0, ci, rows, "amax")
     ijk = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], dim=-1)
     nbr = ijk[:, None, :] + NEIGHBOR_OFFSETS.to(dev)[None]              # (C, 27, 3)
     dims = torch.tensor(spec.dims, dtype=torch.int32, device=dev)
     in_range = ((nbr >= 0) & (nbr < dims)).all(dim=-1)
     ncid = torch.clamp((nbr[..., 0] * ny + nbr[..., 1]) * nz + nbr[..., 2], 0, n_cells - 1)
-    ncid = ncid.long()
+    ncid = base[:, None] + ncid.long()
     nmn = torch.where(in_range, rmin[ncid], c).amin(dim=1)
     nmx = torch.where(in_range, rmax[ncid], -1).amax(dim=1)
     blk = rows // block
@@ -112,24 +118,28 @@ def _window_need(spec: GridSpec, index: GridIndex, block: int) -> torch.Tensor:
 
 def _morton_window_ok(spec: GridSpec, index: GridIndex, block: Optional[int],
                       window: Optional[int]) -> torch.Tensor:
-    """() bool: may this step run the Morton-window kernel exactly?  True iff
-    every live agent's 27-box neighbours sit within ``± half_window`` blocks
-    of its own row, checked from the actual rows (an unsorted pool simply
-    fails and takes the linear path)."""
+    """() bool, or (B,) a session over a batch's flat view: may this step
+    run the Morton-window kernel exactly?  True iff every live agent's
+    27-box neighbours sit within ``± half_window`` blocks of its own row,
+    checked from the actual rows (an unsorted pool simply fails and takes
+    the linear path)."""
     from repro_torch.kernels.cell_force import ops as cf_ops
 
-    bw, h = cf_ops.window_defaults(index.cell_of_agent.shape[0], block, window)
-    return (_window_need(spec, index, bw) <= h).all()
+    b = index.slots
+    per = index.cell_of_agent.shape[0] // (b or 1)
+    bw, h = cf_ops.window_defaults(per, block, window)
+    ok = _window_need(spec, index, bw) <= h
+    return ok.all() if b is None else ok.reshape(b, per).all(dim=1)
 
 
 def covering_half_window(spec: GridSpec, index: GridIndex, block: Optional[int] = None
                          ) -> int:
     """The least ``half_window`` (in blocks) for which the Morton coverage
-    gate passes on this index."""
+    gate passes on this index (in every session of a batch's)."""
     from repro_torch.kernels.cell_force import ops as cf_ops
 
     c = index.cell_of_agent.shape[0]
-    bw, _ = cf_ops.window_defaults(c, block, None)
+    bw, _ = cf_ops.window_defaults(c // (index.slots or 1), block, None)
     return int(_window_need(spec, index, bw).max()) if c else 0
 
 
@@ -259,8 +269,6 @@ def mechanical_forces(
     c = pool.capacity
     out_mask = pool.alive if row_mask is None else pool.alive & row_mask
     slots = index.slots
-    if slots is not None and tile_order == "morton":
-        raise NotImplementedError(MORTON_IN_BATCH)
     b = slots or 1
     per = c // b
     live = [True] * b if live is None else list(live)
@@ -275,13 +283,25 @@ def mechanical_forces(
         src_pos = torch.cat([pool.position, neighbors.src_position[c:]])
         src_rad = torch.cat([radius, neighbors.src_radius[c:]])
 
+    # The Morton window walks the pool's own rows: taken only when the
+    # sources are the pool.
+    morton = impl == "fused" and tile_order == "morton" and src_pos is pool.position
+
     # The branch predicates of every session, in one read.
     flags = {}
     if impl == "fused" and fused_fallback:
         flags["overflowed"] = index.overflowed
     if active_capacity is not None:
         flags["crowded"] = pool.slot_sum(pool.alive & ~pool.static) > int(active_capacity)
+    if morton and morton_fallback:
+        from repro_torch.kernels.cell_force import ops as cf_ops
+
+        flags["window"] = (_morton_window_ok(spec, index, morton_block, morton_window)
+                           & ~index.overflowed)
+        flags["negative"] = cf_ops.negative_ids(index.cell_of_agent)
     flags = _read_flags(flags)
+    if "negative" in flags:
+        cf_ops.reject_negative_ids(flags["negative"][0])
 
     def dense_eval(cache: bool) -> torch.Tensor:
         cand, mask = neighbors.candidates(cache=cache)
@@ -292,32 +312,32 @@ def mechanical_forces(
         return forces_from_candidates(pool.position, radius, cand, mask, params,
                                       all_position=src_pos, all_radius=src_rad)
 
-    def fused() -> torch.Tensor:
+    def fused(use) -> torch.Tensor:
+        """The fused kernels' rows; ``use`` (a bool a session) names the
+        sessions whose rows count.  Each of those takes the window kernel
+        where its coverage gate passed and the linear kernel where it
+        failed; each kernel runs at most once, over every session."""
         from repro_torch.kernels.cell_force import ops as cf_ops
 
-        # The Morton window walks the pool's own rows: taken only when the
-        # sources are the pool.
-        if tile_order == "morton" and src_pos is pool.position:
-            ok = True
-            if morton_fallback:
-                # One device-to-host read for the gate and the kernel's id check.
-                gate = (_morton_window_ok(spec, index, morton_block, morton_window)
-                        & ~index.overflowed)
-                ok, negative = torch.stack(
-                    [gate, cf_ops.negative_ids(index.cell_of_agent)]).tolist()
-                cf_ops.reject_negative_ids(negative)
-            if ok:
-                return cf_ops.cell_window_force(
-                    pool.position, radius, index.cell_of_agent, spec.dims,
-                    k=params.repulsion_k, gamma=params.attraction_gamma,
-                    block=morton_block, window=morton_window, impl="cuda",
-                    ids_checked=morton_fallback,
-                )
-        return cf_ops.cell_list_force(
+        linear = lambda: cf_ops.cell_list_force(
             src_pos, src_rad, index.cell_list, spec.dims,
             k=params.repulsion_k, gamma=params.attraction_gamma,
             impl="cuda", num_out=per,
         )
+        if not morton:
+            return linear()
+        window = lambda: cf_ops.cell_window_force(
+            pool.position, radius, index.cell_of_agent, spec.dims,
+            k=params.repulsion_k, gamma=params.attraction_gamma,
+            block=morton_block, window=morton_window, impl="cuda",
+            ids_checked=morton_fallback, slots=slots,
+        )
+        ok = flags["window"] if morton_fallback else [True] * b
+        if not any(u and not w for u, w in zip(use, ok)):
+            return window()
+        if not any(u and w for u, w in zip(use, ok)):
+            return linear()
+        return _per_session(ok, window(), linear(), per)
 
     def dense() -> torch.Tensor:
         if impl == "reference":
@@ -332,13 +352,14 @@ def mechanical_forces(
                 all_position=src_pos, all_radius=src_rad,
             )
         if "overflowed" not in flags:
-            return fused()
+            return fused(live)
         fall = [f and l for f, l in zip(flags["overflowed"], live)]
         if not any(fall):
-            return fused()
+            return fused(live)
         if all(f or not l for f, l in zip(flags["overflowed"], live)):
             return dense_eval(cache=False)
-        return _per_session(fall, dense_eval(cache=False), fused(), per)
+        return _per_session(fall, dense_eval(cache=False),
+                            fused([l and not f for f, l in zip(fall, live)]), per)
 
     if active_capacity is None:
         return torch.where(out_mask[:, None], dense(), 0.0)

@@ -49,6 +49,16 @@
 // The reference sums each window block with jnp.sum and then across blocks;
 // parity is to float tolerance.
 //
+// Slots: a batch of B pools, each with its own grid, runs in one launch.
+// blockIdx.y is the pool: its c rows of position, radius and cell id, its
+// output rows and its n_cells entries of the span table sit at offsets of
+// b * c and b * n_cells in the stacked arrays, and its cell ids count within
+// its own grid.  Rows, tiles and windows count within the pool, so a walk
+// never leaves it, and each pool's output is what a launch over that pool
+// alone gives, bit for bit.  A solo launch is the same kernel with one pool
+// (zero offsets): unlike cell_list_force's, the offsets cost this kernel no
+// register (93 in ptxas's report, one fewer than without them).
+//
 // Bound on this card: the function needs one read of 20 bytes per row and 12
 // bytes of output, and ~20 f32 operations for each true 27-box pair: about a
 // microsecond at the spheroid's shape.  What remains: the span table (8 bytes
@@ -67,6 +77,9 @@ constexpr int kThreads = 128;
 __global__ void __launch_bounds__(kThreads)
     cell_span_kernel(const int* __restrict__ cell, int c, int n_cells,
                      int2* __restrict__ span) {
+  const long long b = blockIdx.y;
+  cell += b * c;
+  span += b * n_cells;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= c) return;
   const int cid = __ldg(&cell[r]);
@@ -80,9 +93,15 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ cell, const int2* __restrict__ span,
                         int nx, int ny, int nz, int c, int bw, int h, float k, float gamma,
                         float* __restrict__ out) {
+  const int n_cells = nx * ny * nz;
+  const long long b = blockIdx.y;
+  pos += b * c * 3;
+  rad += b * c;
+  cell += b * c;
+  span += b * n_cells;
+  out += b * c * 3;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= c) return;
-  const int n_cells = nx * ny * nz;
   const int nyz = ny * nz;
   const int qcid = __ldg(&cell[q]);
   float fx = 0.f, fy = 0.f, fz = 0.f;
@@ -161,26 +180,30 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// span: scratch of n_cells int2, filled here.  Rows must number < 0x7F7F7F7F.
-extern "C" int cell_window_force_launch(int device, const void* pos, const void* rad,
-                                        const void* cell, int nx, int ny, int nz, int c,
-                                        int bw, int h, float k, float gamma, void* span,
-                                        void* out, void* stream) {
+// slots pools of c rows each (pos, rad, cell and out stacked); span: scratch
+// of slots * n_cells int2, filled here.  Rows of a pool must number
+// < 0x7F7F7F7F; slots at most 65,535 (the grid's y dimension).
+extern "C" int cell_window_force_launch(int device, int slots, const void* pos,
+                                        const void* rad, const void* cell, int nx, int ny,
+                                        int nz, int c, int bw, int h, float k, float gamma,
+                                        void* span, void* out, void* stream) {
   cudaSetDevice(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_cells = nx * ny * nz;
-  if (c == 0) return static_cast<int>(cudaGetLastError());
-  const unsigned blocks = static_cast<unsigned>((c + kThreads - 1) / kThreads);
+  if (c == 0 || slots <= 0) return static_cast<int>(cudaGetLastError());
+  if (slots > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>((c + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(slots));
   cudaError_t err = cudaSuccess;
   if (n_cells > 0) {
-    err = cudaMemsetAsync(span, 0x7F, static_cast<size_t>(n_cells) * sizeof(int2), st);
+    err = cudaMemsetAsync(span, 0x7F, static_cast<size_t>(slots) * n_cells * sizeof(int2), st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cell_span_kernel<<<blocks, kThreads, 0, st>>>(static_cast<const int*>(cell), c, n_cells,
-                                                  static_cast<int2*>(span));
+    cell_span_kernel<<<grid, kThreads, 0, st>>>(static_cast<const int*>(cell), c, n_cells,
+                                                static_cast<int2*>(span));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  window_force_kernel<<<blocks, kThreads, 0, st>>>(
+  window_force_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(pos), static_cast<const float*>(rad),
       static_cast<const int*>(cell), static_cast<const int2*>(span), nx, ny, nz, c, bw, h, k,
       gamma, static_cast<float*>(out));

@@ -5,8 +5,8 @@ notes are in the sources).
 
 Agent order in, agent order out: no planar layout is built.  ``launches``
 counts ``cell_list_force_cuda``'s kernel launches and ``window_launches``
-``cell_window_force_cuda``'s (one per call each; ``cell_list_force_cuda``
-takes a batch's sessions in one call and one launch).
+``cell_window_force_cuda``'s (one per call each; both take a batch's
+sessions in one call and one launch).
 
 ``cell_list_force_cuda`` runs one block per ``TILE`` of boxes and stages a
 tile's halo in shared memory when it holds at most ``STAGE_BUDGET`` agents;
@@ -53,7 +53,7 @@ def _window_lib():
     lib = _build.load("cell_window_force")
     if not getattr(lib, "_typed", False):
         lib.cell_window_force_launch.argtypes = [
-            _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
+            _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
         ]
         lib.cell_window_force_launch.restype = _I
         lib._typed = True
@@ -136,23 +136,34 @@ def cell_list_force_cuda(
 
 
 def cell_window_force_cuda(
-    position: torch.Tensor,       # (C, 3) f32
-    radius: torch.Tensor,         # (C,) f32
-    cell_of_agent: torch.Tensor,  # (C,) int32 (≥ n_cells: dead)
+    position: torch.Tensor,       # (C, 3) f32; (B·C, 3) with slots
+    radius: torch.Tensor,         # (C,) f32; (B·C,)
+    cell_of_agent: torch.Tensor,  # (C,) int32 (≥ n_cells: dead); (B·C,) within-session
     dims: tuple,
     k: float = 2.0,
     gamma: float = 1.0,
     block: int = 128,
     half_window: int = 8,
+    slots: int = 1,
 ) -> torch.Tensor:
     """Net Eq-4.1 force per agent, ``(C, 3)`` f32: each query row of tile
     ``row // block`` against the rows of window blocks ``tile ± half_window``
     (those that exist), pairs masked by 27-box adjacency, liveness and row
-    identity.  Dead rows are zero."""
+    identity.  Dead rows are zero.
+
+    ``slots=B``: the rows are B sessions of C rows each, stacked, with cell
+    ids within each session's own grid (never offset per session: the kernel
+    decodes ids by division); one launch computes each session against its
+    own rows, ``(B·C, 3)``."""
     global window_launches
     nx, ny, nz = (int(d) for d in dims)
-    c = position.shape[0]
-    if position.shape != (c, 3) or radius.shape != (c,) or cell_of_agent.shape != (c,):
+    rows = position.shape[0]
+    if slots < 1 or rows % slots:
+        raise ValueError(f"cell_window_force: {rows} rows do not split into {slots} slots")
+    if slots > 65535:
+        raise ValueError(f"cell_window_force: {slots} slots; at most 65,535")
+    c = rows // slots
+    if position.shape != (rows, 3) or radius.shape != (rows,) or cell_of_agent.shape != (rows,):
         raise ValueError(f"cell_window_force: position {tuple(position.shape)} / radius "
                          f"{tuple(radius.shape)} / cell_of_agent "
                          f"{tuple(cell_of_agent.shape)} must be (C, 3) / (C,) / (C,)")
@@ -166,15 +177,15 @@ def cell_window_force_cuda(
     if c >= 0x7F7F7F7F:
         raise ValueError(f"cell_window_force: {c} rows; the row table holds < 0x7F7F7F7F")
     _build.require_cuda("cell_window_force", position, radius, cell_of_agent)
-    out = torch.empty((c, 3), dtype=torch.float32, device=position.device)
-    if c == 0:
+    out = torch.empty((rows, 3), dtype=torch.float32, device=position.device)
+    if rows == 0:
         return out
-    # Each cell's (first, ~last) row (scratch, filled by the launch).
-    span = torch.empty((nx * ny * nz, 2), dtype=torch.int32, device=position.device)
+    # Each session's cells' (first, ~last) row (scratch, filled by the launch).
+    span = torch.empty((slots * nx * ny * nz, 2), dtype=torch.int32, device=position.device)
     lib = _window_lib()
     _build.check(
         lib.cell_window_force_launch(
-            position.device.index, _build.ptr(position), _build.ptr(radius),
+            position.device.index, slots, _build.ptr(position), _build.ptr(radius),
             _build.ptr(cell_of_agent), nx, ny, nz, c, block, half_window, float(k),
             float(gamma), _build.ptr(span), _build.ptr(out), _build.stream_of(position),
         ),

@@ -60,7 +60,7 @@ def cell_list_force(
 def window_defaults(c: int, block: int | None, window: int | None
                     ) -> tuple[int, int]:
     """The Morton window geometry ``(block, half_window)`` for a pool of
-    ``c`` rows (the reference's, copied).
+    ``c`` rows, a batch's per session (the reference's, copied).
 
     block:  tile/window width (default 128), halved until it is ≤ c.
     window: half-window in blocks; default ±⌈blocks/8⌉.  A Z-sorted pool's
@@ -90,9 +90,9 @@ def reject_negative_ids(negative: bool) -> None:
 
 
 def cell_window_force(
-    position: torch.Tensor,       # (C, 3) f32 layout-sorted pool positions
-    radius: torch.Tensor,         # (C,) f32
-    cell_of_agent: torch.Tensor,  # (C,) int32 linear cell id (dead → n_cells)
+    position: torch.Tensor,       # (C, 3) f32 layout-sorted pool positions; (B·C, 3)
+    radius: torch.Tensor,         # (C,) f32; (B·C,)
+    cell_of_agent: torch.Tensor,  # (C,) int32 linear cell id (dead → n_cells); (B·C,)
     dims: tuple,                  # (nx, ny, nz)
     k: float = 2.0,
     gamma: float = 1.0,
@@ -100,6 +100,7 @@ def cell_window_force(
     window: int | None = None,
     impl: str = "cuda",
     ids_checked: bool = False,
+    slots: int | None = None,
 ) -> torch.Tensor:
     """Net Eq-4.1 force per agent, ``(C, 3)``, via the Morton window: each
     query tile of ``block`` rows against the rows of ``± half_window``
@@ -108,22 +109,37 @@ def cell_window_force(
     checks that per step; ``window ≥ ⌈C/block⌉`` is all-pairs).  Dead rows
     get zero.  Agent order in and out: no planar copy.
 
+    ``slots=B``: the flat view of B sessions of C rows each, with cell ids
+    within each session's grid; every session against its own rows, the
+    window geometry from C (``(B·C, 3)``).
+
     A negative cell id raises ``ValueError`` on both paths: the reference
     decodes one by floor division into cells beside x = 0, and the kernel
     has no rows for cells that do not exist.  The check reads one flag
-    from the card; ``ids_checked=True`` skips it for a caller that has
-    already rejected negative ids (``core.forces`` does, in the read its
-    coverage gate makes)."""
+    from the card, over every session; ``ids_checked=True`` skips it for a
+    caller that has already rejected negative ids (``core.forces`` does, in
+    the read its coverage gate makes)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown cell_window_force impl {impl!r}; expected {IMPLS}")
+    b = slots or 1
+    rows = position.shape[0]
+    if rows % b:
+        raise ValueError(f"cell_window_force: {rows} rows do not split into {b} slots")
     if not ids_checked:
         reject_negative_ids(bool(negative_ids(cell_of_agent)))
-    bw, h = window_defaults(position.shape[0], block, window)
+    c = rows // b
+    bw, h = window_defaults(c, block, window)
     if impl == "cuda" and position.device.type != "cpu":
         return _kernel.cell_window_force_cuda(
             position.contiguous(), radius.contiguous(),
             cell_of_agent.to(torch.int32).contiguous(), dims, k=k, gamma=gamma,
-            block=bw, half_window=h,
+            block=bw, half_window=h, slots=b,
         )
+    if b > 1:
+        return torch.cat([
+            cell_window_force_ref(position[s * c:(s + 1) * c], radius[s * c:(s + 1) * c],
+                                  cell_of_agent[s * c:(s + 1) * c], dims, k=k, gamma=gamma,
+                                  block=bw, half_window=h)
+            for s in range(b)])
     return cell_window_force_ref(position, radius, cell_of_agent, dims, k=k, gamma=gamma,
                                  block=bw, half_window=h)

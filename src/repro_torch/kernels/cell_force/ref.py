@@ -91,9 +91,12 @@ def cell_list_force_ref(
     # Each pair's f32 force, summed in f64 and rounded once: the sum then
     # does not depend on how many slot columns the trimming kept (a source
     # set with more rows, such as the distributed engine's ghost-extended
-    # one, keeps more), which a vectorized f32 sum's order does.
+    # one, keeps more), which a vectorized f32 sum's order does.  A pair
+    # adds only where it overlaps, as in the kernel: a sentinel slot reads
+    # row 0 and a non-finite row's offset is NaN, and 0 · NaN is NaN.
     slot_force = torch.stack(
-        [(scale * d).to(torch.float64).sum(2) for d in (dxc, dyc, dzc)], dim=-1
+        [torch.where(overlap, scale * d, 0.0).to(torch.float64).sum(2)
+         for d in (dxc, dyc, dzc)], dim=-1
     ).to(torch.float32)                                            # (Q, M, 3)
 
     # Sentinel S and rows ≥ num_out drop: they land in a spare row, cut off.
@@ -168,8 +171,9 @@ def cell_window_force_ref(
         rbar = qr * wr / torch.clamp(qr + wr, min=1e-20)
         mag = k * delta - gamma * torch.sqrt(torch.clamp(rbar * delta, min=0.0))
         scale = torch.where(overlap, mag / dist, 0.0)
-        out[q] = torch.stack([(scale * dxc).sum(1), (scale * dyc).sum(1),
-                              (scale * dzc).sum(1)], dim=-1)
+        # A pair adds only where it overlaps (a non-finite offset adds nothing).
+        out[q] = torch.stack([torch.where(overlap, scale * d, 0.0).sum(1)
+                              for d in (dxc, dyc, dzc)], dim=-1)
     return out
 
 

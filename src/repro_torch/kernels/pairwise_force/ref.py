@@ -24,10 +24,10 @@ def pairwise_force_ref(
     Σ_j [k·δ − γ√(r̄δ)]⁺ · (x_i − x_j)/|x_i − x_j| over the masked candidates."""
     src_pos = position if all_position is None else all_position
     src_rad = radius if all_radius is None else all_radius
-    # A masked-out slot's offset is zero whatever row it read, so it meets
-    # no other agent's values: a non-finite agent reaches only the rows it
-    # is a candidate of, as in the kernel, and a batch's flat candidates
-    # never read another session.
+    # A masked-out slot's offset is zero whatever row it read, so a batch's
+    # flat candidates never read another session; a pair adds only where it
+    # overlaps, so a non-finite candidate (its offset NaN) adds nothing, as
+    # in the kernel.
     safe = torch.where(cand_mask, cand, 0).long()
     cpos = src_pos[safe]                                    # (N, K, 3)
     crad = src_rad[safe]                                    # (N, K)
@@ -41,5 +41,5 @@ def pairwise_force_ref(
     rbar = r * crad / torch.clamp(r + crad, min=1e-20)
     mag = k * delta - gamma * torch.sqrt(torch.clamp(rbar * delta, min=0.0))
     scale = torch.where(overlap, mag / dist, 0.0)
-    return torch.stack([(scale * dx).sum(1), (scale * dy).sum(1), (scale * dz).sum(1)],
+    return torch.stack([torch.where(overlap, scale * d, 0.0).sum(1) for d in (dx, dy, dz)],
                        dim=-1)

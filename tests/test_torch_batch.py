@@ -33,6 +33,7 @@ from repro_torch.checkpoint.checkpoint import _leaves_with_paths
 from repro_torch.core import ForceParams, behaviors
 from repro_torch.core.batch import slot_state
 from repro_torch.core.slots import slot_of
+from torch_force_cases import fused_call_counts
 from torch_parity import to_np
 
 
@@ -309,14 +310,26 @@ def test_compaction_fallback_taken_by_one_slot_only():
     assert int(active) > 12 >= int((fresh.pool.alive & ~fresh.pool.static).sum())
 
 
-def test_morton_window_in_a_batch_raises_naming_its_roadmap_entry():
+def test_morton_window_in_a_batch_runs_and_each_slot_equals_solo(monkeypatch):
+    """The calls that raised while the window kernel had no slot axis
+    (``batched()``, ``run_batch``) run: each slot equals its solo run, and
+    the window dispatcher is called once a step for all the slots."""
     pos, diam, _ = U.spheroid_start(40, 200.0, lattice=20.0)
     built = U.spheroid(pos, diam, space=200.0, capacity=128, tile_order="morton",
-                       morton_window=4).build()
-    with pytest.raises(NotImplementedError, match="slot axis of cell_window_force"):
-        built.batched()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        built.run_batch(2, batch=2)
+                       morton_window=4, sort_frequency=1).build()
+    calls = fused_call_counts(monkeypatch)
+    finals, _ = built.run_batch(2, batch=2)
+    assert calls == {"window": 2, "linear": 0}
+    eng = built.batched()
+    bstate, _, _ = eng.run(eng.stack([eng.session_state(seed=1), eng.session_state(seed=2)]), 2)
+    for b, seed in enumerate((1, 2)):
+        solo, _ = built.run(2, state=eng.session_state(seed=seed))
+        _assert_states_equal(solo, slot_state(bstate, b), f"slot {b}")
+    rng = built.state.rng
+    for b in range(2):
+        key = tc.prng.fold_in(rng, b)
+        solo, _ = built.run(2, state=dataclasses.replace(built.state, rng=key))
+        _assert_states_equal(solo, slot_of(finals, b), f"run_batch slot {b}")
 
 
 # --------------------------------------------- against the reference
@@ -399,6 +412,58 @@ def test_run_batch_matches_the_reference_on_soma():
     tfinals, tobs = _soma(Simulation, tc, torch,
                           device="cpu").build().run_batch(4, params, seeds=[7, 8])
     _assert_matches_reference(tfinals, tobs, jfinals, jobs, float_attrs=("exposure",))
+
+
+MORTON_BLOCK = 32
+
+
+def _spheroid_morton(pkg, lib, pos, diam, window, **kw):
+    """The spheroid at the Table 4.2 rates, sorted every step, forces by the
+    Morton window (blocks of 32 rows, 12 of them)."""
+    return (
+        pkg(space=(0.0, 200.0), cell_size=18.0, boundary="closed", dt=1.0,
+            capacity=384, max_per_cell=16, seed=0, sort_frequency=1, **kw)
+        .add_agents(len(pos), position=pos, diameter=diam)
+        .use(lib.brownian_motion(0.15), lib.growth(60.0, 18.0),
+             lib.cell_division(0.02, trigger_diameter=17.0),
+             lib.apoptosis(0.002, min_age=87.0))
+        .mechanics(lib.ForceParams(), impl="fused", tile_order="morton",
+                   morton_block=MORTON_BLOCK, morton_window=window)
+        .observe_kinds(n_kinds=1)
+    )
+
+
+def test_morton_run_batch_matches_the_reference_on_the_spheroid(monkeypatch):
+    """3 slots of 300 cells (the parity tests' 20 µm lattice), 3 steps, the
+    window at the covering half-window of the sorted start + 25%: the port's
+    run_batch against the reference's (vmapped, Pallas in interpret mode).
+    Integers exact, positions within 1e-4; each slot bit-identical to the
+    port's solo run."""
+    from repro_torch.core import forces as t_forces
+    from repro_torch.core import grid as t_grid
+
+    pos, diam, _ = U.spheroid_start(300, 200.0, lattice=20.0)
+    template = _spheroid_morton(Simulation, tc, pos, diam, 1, device="cpu").build()
+    spec = template.config.spec
+    pool = t_grid.sort_agents(spec, template.state.pool)
+    cover = t_forces.covering_half_window(
+        spec, t_grid.build_index(spec, pool, assume_sorted=True), MORTON_BLOCK)
+    window = cover + -(-cover // 4)
+    assert 0 < cover < window < 384 // MORTON_BLOCK
+    seeds = [3, 4, 5]
+    jfinals, jobs = _jax_run_batch(_spheroid_morton(JSimulation, jc, pos, diam, window), 3,
+                                   seeds)
+    built = _spheroid_morton(Simulation, tc, pos, diam, window, device="cpu").build()
+    calls = fused_call_counts(monkeypatch)
+    tfinals, tobs = built.run_batch(3, seeds=seeds)
+    assert calls == {"window": 3, "linear": 0}
+    _assert_matches_reference(tfinals, tobs, jfinals, jobs)
+    alive = to_np(tfinals.pool.alive)
+    assert (alive[:, 300:].sum(1) > 0).all()                 # births in every slot
+    eng = built.batched()
+    for b, seed in enumerate(seeds):
+        solo, _ = built.run(3, state=eng.session_state(seed=seed))
+        _assert_states_equal(solo, slot_of(tfinals, b), f"slot {b}")
 
 
 def test_run_batch_matches_the_reference_on_the_spheroid():

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import grid
+from repro_torch.core import agents, grid
 from repro_torch.core.slots import slot_of as tree_slot
 from repro_torch.kernels import _build
 from repro_torch.kernels.cell_force import kernel as cf_kernel
@@ -43,7 +43,7 @@ from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from torch_force_cases import DENSE_CASES, FORCE_CASES, WINDOW_CASES, runs_cut_by_a_window_edge
-from torch_force_cases import slot_pools
+from torch_force_cases import MIXED_BLOCK, MIXED_SPEC, mixed_gate_pools, move_pool, slot_pools
 from torch_force_cases import dense_inputs as _dense_inputs
 from torch_force_cases import force_inputs as _force_inputs
 from torch_force_cases import window_inputs as _window_inputs
@@ -317,6 +317,50 @@ def test_cell_window_force_kernel_matches_plain(card, name):
         assert float(want.abs().max()) > 0.1
     if name == "sorted_straddling_runs":
         assert runs_cut_by_a_window_edge(cid.numpy(), spec.n_cells, block, window) > 0
+
+
+# ------------------------------------------------ non-finite sources
+
+def _nan_inputs(rows):
+    """The "generic" force case with x = NaN at ``rows``, made live, the
+    grid rebuilt over it, on the CPU."""
+    pos, rad, index, spec, cap = _force_inputs("generic")
+    alive = index.cell_of_agent < spec.n_cells
+    alive[list(rows)] = True
+    pos = pos.clone()
+    pos[list(rows), 0] = float("nan")
+    pool = agents.make_pool(cap, pos, diameter=2.0 * rad, device=CPU).replace(alive=alive)
+    return pos, rad, grid.build_index(spec, pool), spec, alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(0,), (0, 17)], ids=["row0", "row0_interior"])
+@pytest.mark.parametrize("kernel", ["cell_list_force", "cell_window_force", "pairwise_force"])
+def test_force_kernels_match_plain_with_nan_agents(card, kernel, rows):
+    """NaN at row 0 (read by the plain cell_list_force's sentinel slots) and
+    at an interior row: the kernel and its plain version have the same
+    non-finite rows (none) and agree within 1e-5 elsewhere."""
+    pos, rad, index, spec, alive = _nan_inputs(rows)
+    if kernel == "cell_list_force":
+        call = lambda *t: cf_ops.cell_list_force(*t, spec.dims, impl="cuda")
+        args = (pos, rad, index.cell_list)
+        want = cell_list_force_ref(*args, spec.dims)
+    elif kernel == "cell_window_force":
+        call = lambda *t: cf_ops.cell_window_force(*t, spec.dims, block=64, window=20,
+                                                   impl="cuda")
+        args = (pos, rad, index.cell_of_agent)
+        want = cell_window_force_ref(*args, spec.dims, block=64, half_window=20)
+    else:
+        cand, mask = grid.candidate_neighbors_arrays(spec, index, pos, alive)
+        call = lambda *t: pf_ops.pairwise_force(*t, impl="cuda")
+        args = (pos, rad, cand, mask)
+        want = pairwise_force_ref(*args)
+    got = call(*(t.to(card) for t in args)).cpu()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert bool(torch.isfinite(got).all()) and not bool(got[list(rows)].any())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    assert float(want.abs().max()) > 0.1
 
 
 # ------------------------------------------------------------- pairwise_force
@@ -683,11 +727,7 @@ SLOT_SPEC = grid.GridSpec(origin=(0.0, 0.0, 0.0), box_size=6.0, dims=(10, 10, 10
 def _slot_case(dev):
     pools, flat = slot_pools(SLOTS, SLOT_ROWS, SLOT_SPEC, SLOT_SPACE, nan_slot=1,
                              empty_slot=2)
-    move = lambda p: dataclasses.replace(p, **{
-        f.name: (getattr(p, f.name).to(dev) if f.name != "attrs" else
-                 {k: v.to(dev) for k, v in p.attrs.items()})
-        for f in dataclasses.fields(p)})
-    return [move(p) for p in pools], move(flat)
+    return [move_pool(p, dev) for p in pools], move_pool(flat, dev)
 
 
 def _rows(x, b):
@@ -760,6 +800,63 @@ def test_pairwise_force_flat_candidates_equal_solo_launches(card):
                                                        pool.alive)
         _bits(_rows(got, b), pf_kernel.pairwise_force_cuda(pool.position, pool.radius(),
                                                            scand, smask), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,window", [(128, 2), (64, 40)], ids=["narrow", "allpairs"])
+def test_cell_window_force_one_launch_over_slots_equals_solo_launches(card, block, window):
+    """One launch over the 3 sessions (NaN positions in session 1, no live
+    agent in session 2) is bit for bit 3 solo launches; each session against
+    the plain version: the same non-finite rows (none: a NaN agent adds no
+    force) and the rest within 1e-5."""
+    pools, flat = _slot_case(card)
+    index = grid.build_index(SLOT_SPEC, flat)
+    assert int(index.cell_of_agent.max()) <= SLOT_SPEC.n_cells        # within-session ids
+    before = cf_kernel.window_launches
+    got = cf_kernel.cell_window_force_cuda(flat.position, flat.radius(), index.cell_of_agent,
+                                           SLOT_SPEC.dims, block=block, half_window=window,
+                                           slots=SLOTS)
+    assert cf_kernel.window_launches == before + 1 and got.shape == (SLOTS * SLOT_ROWS, 3)
+    for b, pool in enumerate(pools):
+        cid = grid.build_index(SLOT_SPEC, pool).cell_of_agent
+        solo = cf_kernel.cell_window_force_cuda(pool.position, pool.radius(), cid,
+                                                SLOT_SPEC.dims, block=block,
+                                                half_window=window)
+        _bits(_rows(got, b), solo, b)
+        want = cell_window_force_ref(pool.position, pool.radius(), cid, SLOT_SPEC.dims,
+                                     block=block, half_window=window)
+        assert torch.equal(torch.isfinite(solo), torch.isfinite(want)), b
+        np.testing.assert_allclose(solo.cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+    assert bool(torch.isfinite(got).all()) and not bool(_rows(got, 2).any())
+    assert float(_rows(got, 0).abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+def test_mixed_morton_gates_batched_step_on_card_equals_solo_steps(card):
+    """The engine's force dispatch over one flat view on the card: the
+    sorted session's window covers it, the shuffled one's does not, the
+    third is empty.  One window launch and one linear launch for the three,
+    and each session's forces equal its solo step's bit for bit."""
+    from repro_torch.core import forces
+
+    pools, flat, window = mixed_gate_pools(device=card)
+    kw = dict(impl="fused", tile_order="morton", morton_block=MIXED_BLOCK,
+              morton_window=window)
+    params = forces.ForceParams()
+    counts = lambda: (cf_kernel.window_launches, cf_kernel.launches)
+    before = counts()
+    got = forces.mechanical_forces(MIXED_SPEC, grid.build_index(MIXED_SPEC, flat), flat,
+                                   params, **kw)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1)
+    took = []
+    for b, pool in enumerate(pools):
+        before = counts()
+        solo = forces.mechanical_forces(MIXED_SPEC, grid.build_index(MIXED_SPEC, pool), pool,
+                                        params, **kw)
+        took.append(tuple(a - c for a, c in zip(counts(), before)))
+        _bits(got.reshape(3, -1, 3)[b], solo, b)
+    assert took == [(1, 0), (0, 1), (1, 0)]
+    assert float(got.abs().max()) > 0.1
 
 
 @pytest.mark.cuda
@@ -881,6 +978,10 @@ def test_wrappers_refuse_cpu_tensors_and_bad_inputs():
         cf_kernel.cell_window_force_cuda(pos, rad, index.cell_of_agent, spec.dims, block=6)
     with pytest.raises(ValueError, match="int32"):
         cf_kernel.cell_window_force_cuda(pos, rad, index.cell_of_agent.long(), spec.dims)
+    with pytest.raises(ValueError, match="do not split into 3 slots"):
+        cf_kernel.cell_window_force_cuda(pos, rad, index.cell_of_agent, spec.dims, slots=3)
+    with pytest.raises(ValueError, match="do not split into 3 slots"):
+        cf_ops.cell_window_force(pos, rad, index.cell_of_agent, spec.dims, slots=3)
     cand = torch.zeros((pos.shape[0], 5), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         pf_kernel.pairwise_force_cuda(pos, rad, cand, cand > 0)

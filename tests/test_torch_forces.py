@@ -515,3 +515,102 @@ def test_mechanical_forces_cuda_matches_jax_pallas(case, active_capacity):
     got = t_forces.mechanical_forces(tspec, tidx, tpool, t_forces.ForceParams(),
                                      active_capacity=active_capacity, impl="cuda")
     np.testing.assert_allclose(to_np(got), want, atol=ATOL)
+
+
+# ------------------------------------------- non-finite sources (plain versions)
+
+def _nan_corner_case():
+    """4³ boxes of 5 µm: agent 0 with x = NaN (its cell clamps to 0), agents
+    1 and 2 of radius 2 overlapping 1 µm apart in the far corner box (cell
+    63), and 5 dead rows.  Eq 4.1 gives ∓(2·3 − √3) along x to 1 and 2."""
+    pos = np.full((8, 3), 2.5, np.float32)
+    pos[0, 0] = np.nan
+    pos[1] = (17.0, 17.5, 17.5)
+    pos[2] = (18.0, 17.5, 17.5)
+    alive = np.arange(8) < 3
+    spec = t_grid.GridSpec(origin=(0.0, 0.0, 0.0), box_size=5.0, dims=(4, 4, 4),
+                           max_per_cell=4)
+    pool = t_agents.make_pool(8, pos, diameter=4.0, device=CPU)
+    pool = pool.replace(alive=torch.from_numpy(alive))
+    return spec, pool, t_grid.build_index(spec, pool), pos, alive
+
+
+NAN_CORNER_FORCE = 6.0 - np.sqrt(3.0)          # k·δ − γ·√(r̄·δ), δ = 3, r̄ = 1
+
+
+def _plain_forces(spec, pool, index):
+    """Every plain force version the engine reaches, on one pool: the two
+    fused ones through their dispatchers (both impls), the dense one over
+    the engine's candidates, and the engine's three force impls."""
+    pos, rad, cid = pool.position, pool.radius(), index.cell_of_agent
+    cand, mask = t_grid.candidate_neighbors_arrays(spec, index, pos, pool.alive)
+    out = {}
+    for impl in ("reference", "cuda"):
+        out[f"cell_list_force[{impl}]"] = t_cf.cell_list_force(
+            pos, rad, index.cell_list, spec.dims, impl=impl)
+        out[f"cell_window_force[{impl}]"] = t_cf.cell_window_force(
+            pos, rad, cid, spec.dims, block=2, window=8, impl=impl)
+        out[f"pairwise_force[{impl}]"] = t_pf.pairwise_force(pos, rad, cand, mask, impl=impl)
+    for impl, kw in (("reference", {}), ("fused", {}), ("cuda", {}),
+                     ("fused", dict(tile_order="morton", morton_block=2, morton_window=8))):
+        out[f"mechanical_forces[{impl}{'+morton' if kw else ''}]"] = \
+            t_forces.mechanical_forces(spec, index, pool, t_forces.ForceParams(), impl=impl,
+                                       **kw)
+    return out
+
+
+def test_plain_force_versions_add_nothing_from_a_nan_agent():
+    """Row 0 NaN (the row the fault models NaN-bomb), read by every sentinel
+    slot of the plain cell_list_force: agents 1 and 2 still get ∓4.2679,
+    the NaN agent itself zero, as the kernels give."""
+    spec, pool, index, _, _ = _nan_corner_case()
+    assert int(index.cell_of_agent[0]) == 0 and int(index.cell_of_agent[1]) == 63
+    want = np.zeros((8, 3), np.float32)
+    want[1, 0], want[2, 0] = -NAN_CORNER_FORCE, NAN_CORNER_FORCE
+    for name, got in _plain_forces(spec, pool, index).items():
+        np.testing.assert_allclose(to_np(got), want, rtol=1e-6, atol=0, err_msg=name)
+
+
+def test_reference_propagates_nan_where_the_port_does_not():
+    """The reference's fused kernel (and its oracle) multiplies a masked
+    pair's zero scale by a NaN offset: on the NaN corner case its forces on
+    agents 1 and 2 are NaN, the port's ∓4.2679 (ROADMAP §3, "Quirks")."""
+    spec, pool, index, pos, alive = _nan_corner_case()
+    jpool = j_agents.make_pool(8, jnp.asarray(pos), diameter=4.0).replace(
+        alive=jnp.asarray(alive))
+    jspec = j_grid.GridSpec(origin=(0.0, 0.0, 0.0), box_size=5.0, dims=(4, 4, 4),
+                            max_per_cell=4)
+    jidx = j_grid.build_index(jspec, jpool)
+    np.testing.assert_array_equal(to_np(jidx.cell_list), to_np(index.cell_list))
+    want = to_np(j_cf.cell_list_force(jpool.position, jpool.radius(), jidx.cell_list,
+                                      jspec.dims))
+    got = to_np(t_cf.cell_list_force(pool.position, pool.radius(), index.cell_list,
+                                     spec.dims, impl="reference"))
+    assert np.isnan(want[1:3, 0]).all()            # agent 0's x is the NaN
+    np.testing.assert_array_equal(got[1:3, 1:], want[1:3, 1:])
+    np.testing.assert_allclose(got[1:3, 0], [-NAN_CORNER_FORCE, NAN_CORNER_FORCE], rtol=1e-6)
+
+
+@pytest.mark.parametrize("rows", [(0,), (0, 17), (17,)], ids=["row0", "row0_interior",
+                                                                   "interior"])
+def test_a_nan_agent_is_a_dead_one_to_the_plain_force_versions(rows):
+    """NaN at row 0 and at an interior live row: every plain version gives
+    finite forces, equal (to the parity tolerance: the cell lists and
+    candidate rows differ by the NaN agents' slots) to the same pool with
+    those agents dead, and zero on the NaN rows."""
+    _, _, _, tspec, tpool, _ = _setup("generic")
+    assert all(bool(tpool.alive[r]) for r in rows)
+    pos = tpool.position.clone()
+    pos[list(rows), 0] = float("nan")
+    sick = tpool.replace(position=pos)
+    dead_mask = tpool.alive.clone()
+    dead_mask[list(rows)] = False
+    dead = tpool.replace(position=pos, alive=dead_mask)
+    got = _plain_forces(tspec, sick, t_grid.build_index(tspec, sick))
+    want = _plain_forces(tspec, dead, t_grid.build_index(tspec, dead))
+    for name in got:
+        out = to_np(got[name])
+        assert np.isfinite(out).all(), name
+        assert not out[list(rows)].any(), name
+        np.testing.assert_allclose(out, to_np(want[name]), atol=ATOL, err_msg=name)
+    assert float(np.abs(to_np(want["cell_list_force[reference]"])).max()) > 0.1

@@ -45,7 +45,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.abm_serve, repro_torch.core.batch\n"
         "import repro_torch.core.slots, repro_torch.checkpoint\n"
         "import repro_torch.core.distributed, repro_torch.core.delta\n"
-        "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mesh, repro_torch.optim.pso\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -160,15 +160,22 @@ def test_ported_force_paths_run(kw):
     assert bool((moved > 0).any()) and bool(torch.isfinite(final.pool.position).all())
 
 
-def test_unported_facade_entry_points_raise():
+def test_morton_facade_runs_in_a_batch():
+    """``tile_order="morton"`` through ``run_batch`` (it raised while the
+    window kernel had no slot axis): each slot equals its solo run."""
     import numpy as np
 
     from repro_torch import Simulation
+    from repro_torch.core import prng
 
-    morton = Simulation(space=10.0, device="cpu").add_agents(
-        position=np.full((2, 3), 5.0, np.float32)).mechanics(
-        impl="fused", tile_order="morton").build()
-    # The distributed engine runs (queue 1 item 14) and batches run (item
-    # 13); the Morton window's slot axis does not.
-    with pytest.raises(NotImplementedError, match="slot axis of cell_window_force"):
-        morton.run_batch(2, batch=2)
+    pos = np.random.default_rng(0).uniform(20, 30, (40, 3)).astype(np.float32)
+    built = (Simulation(space=50.0, cell_size=5.0, sort_frequency=1, device="cpu")
+             .add_agents(position=pos, diameter=4.0)
+             .mechanics(impl="fused", tile_order="morton", morton_window=4)).build()
+    finals, _ = built.run_batch(2, batch=2)
+    for b in range(2):
+        key = prng.fold_in(built.state.rng, b)
+        solo, _ = built.run(2, state=dataclasses.replace(built.state, rng=key))
+        assert torch.equal(finals.pool.position[b], solo.pool.position)
+    moved = (finals.pool.position[0] - built.state.pool.position).abs().amax(dim=1)
+    assert bool((moved > 0).any()) and bool(torch.isfinite(finals.pool.position).all())

@@ -22,12 +22,14 @@ from repro_torch.core.diffusion import (
     increase_concentration,
     make_grid,
 )
+from repro_torch.core import forces
 from repro_torch.core.forces import ForceParams, update_static_flags_celllist
 from repro_torch.kernels.cell_force import ops as cf_ops
 from repro_torch.kernels.cell_rank import ops as cr_ops
 from repro_torch.kernels.diffusion3d import ops as d3_ops
 from repro_torch.kernels.pairwise_force import ops as pf_ops
-from torch_force_cases import slot_pools
+from torch_force_cases import (MIXED_BLOCK, MIXED_SPEC, fused_call_counts, mixed_gate_pools,
+                               slot_pools)
 
 torch.set_num_threads(1)
 
@@ -121,6 +123,8 @@ def test_force_kernels_plain_versions_are_per_session(case):
     fused = cf_ops.cell_list_force(flat.position, radius, index.cell_list, SPEC.dims,
                                    impl="cuda", num_out=C)
     dense = pf_ops.pairwise_force(flat.position, radius, cand, mask, impl="cuda")
+    window = cf_ops.cell_window_force(flat.position, radius, index.cell_of_agent, SPEC.dims,
+                                      block=16, window=2, impl="cuda", slots=B)
     for b, pool in enumerate(pools):
         solo = grid.build_index(SPEC, pool)
         scand, smask = grid.candidate_neighbors_arrays(SPEC, solo, pool.position, pool.alive)
@@ -131,8 +135,68 @@ def test_force_kernels_plain_versions_are_per_session(case):
             (b, "cell_list_force"))
         _same(_rows(dense, b), pf_ops.pairwise_force(
             pool.position, pool.radius(), scand, smask, impl="cuda"), (b, "pairwise_force"))
-        if b != case.get("nan_slot"):
-            assert bool(torch.isfinite(_rows(fused, b)).all())
+        _same(_rows(window, b), cf_ops.cell_window_force(
+            pool.position, pool.radius(), solo.cell_of_agent, SPEC.dims, block=16, window=2,
+            impl="cuda"), (b, "cell_window_force"))
+    # A NaN agent adds no force to any pair (as in the kernels), so even the
+    # NaN session's forces are finite.
+    for out in (fused, dense, window):
+        assert bool(torch.isfinite(out).all())
+
+
+def test_morton_gate_is_per_session():
+    """The window each row needs, the coverage gate and the covering
+    half-window over a batch's flat view: each session's own, from rows
+    and blocks counted within it (a sorted, a shuffled, an empty session)."""
+    pools, flat, window = mixed_gate_pools()
+    index = grid.build_index(MIXED_SPEC, flat)
+    need = forces._window_need(MIXED_SPEC, index, MIXED_BLOCK)
+    covers = []
+    for b, pool in enumerate(pools):
+        solo = grid.build_index(MIXED_SPEC, pool)
+        _same(need.reshape(3, -1)[b], forces._window_need(MIXED_SPEC, solo, MIXED_BLOCK), b)
+        covers.append(forces.covering_half_window(MIXED_SPEC, solo, MIXED_BLOCK))
+        for w in (window - 1, window, None):
+            assert bool(forces._morton_window_ok(MIXED_SPEC, index, MIXED_BLOCK, w)[b]) == \
+                bool(forces._morton_window_ok(MIXED_SPEC, solo, MIXED_BLOCK, w)), (b, w)
+    gate = forces._morton_window_ok(MIXED_SPEC, index, MIXED_BLOCK, window)
+    assert gate.tolist() == [True, False, True]
+    assert covers == [window, covers[1], 0] and covers[1] > window
+    assert forces.covering_half_window(MIXED_SPEC, index, MIXED_BLOCK) == covers[1]
+
+
+def test_mixed_morton_gates_over_one_flat_view_equal_each_solo_call(monkeypatch):
+    """Over one flat view, the sorted session takes the window kernel and the
+    shuffled one the linear kernel (the empty one either): each kernel is
+    called once for all three sessions, and each session's forces equal its
+    solo call's bit for bit."""
+    pools, flat, window = mixed_gate_pools()
+    params = ForceParams()
+    kw = dict(impl="fused", tile_order="morton", morton_block=MIXED_BLOCK,
+              morton_window=window)
+    calls = fused_call_counts(monkeypatch)
+    got = forces.mechanical_forces(MIXED_SPEC, grid.build_index(MIXED_SPEC, flat), flat,
+                                   params, **kw)
+    assert calls == {"window": 1, "linear": 1}
+    took = []
+    for b, pool in enumerate(pools):
+        before = dict(calls)
+        solo = forces.mechanical_forces(MIXED_SPEC, grid.build_index(MIXED_SPEC, pool), pool,
+                                        params, **kw)
+        took.append("window" if calls["window"] > before["window"] else "linear")
+        _same(_rows3(got, b), solo, b)
+    assert took == ["window", "linear", "window"]
+    assert float(got.abs().max()) > 0.1 and not bool(_rows3(got, 2).any())
+    # Sessions that are not live do not count: with only the sorted one live,
+    # the window kernel alone runs.
+    calls.update(window=0, linear=0)
+    forces.mechanical_forces(MIXED_SPEC, grid.build_index(MIXED_SPEC, flat), flat, params,
+                             live=[True, False, False], **kw)
+    assert calls == {"window": 1, "linear": 0}
+
+
+def _rows3(x, b):
+    return x.reshape((3, -1) + tuple(x.shape[1:]))[b]
 
 
 def test_dense_force_over_chunks_of_queries_equals_one_call():

@@ -182,11 +182,73 @@ def slot_pools(slots, capacity, spec, space, nan_slot=None, empty_slot=None):
         if b == empty_slot:
             pool = pool.replace(alive=torch.zeros_like(pool.alive))
         pools.append(pool)
+    return pools, stack_pools(pools)
+
+
+def stack_pools(pools):
+    """The flat view of equally sized solo pools (``repro_torch.core.slots``)."""
     rows = lambda xs: torch.cat(xs)
-    flat = pools[0].replace(
+    return pools[0].replace(
         position=rows([p.position for p in pools]), diameter=rows([p.diameter for p in pools]),
         kind=rows([p.kind for p in pools]), age=rows([p.age for p in pools]),
         alive=rows([p.alive for p in pools]), static=rows([p.static for p in pools]),
         attrs={k: rows([p.attrs[k] for p in pools]) for k in pools[0].attrs},
         overflow=torch.stack([p.overflow for p in pools]))
-    return pools, flat
+
+
+def mixed_gate_pools(capacity=256, seed=5, device=None):
+    """Three pools of one grid (``MIXED_SPEC``) for the Morton window's
+    per-session gate: layout-sorted (its window covers it at
+    ``covering_half_window``), the same agents shuffled (no narrow window
+    covers it), and one with no live agent.  Returns ``(pools, flat view,
+    half_window)`` with the half-window (blocks of ``MIXED_BLOCK``) that
+    covers the sorted pool and not the shuffled one."""
+    from repro_torch.core.forces import covering_half_window
+
+    rng = np.random.default_rng(seed)
+    n = capacity - 16
+    pos = rng.uniform(0.0, 40.0, (n, 3)).astype(np.float32)
+    diam = rng.uniform(3.0, 6.0, n).astype(np.float32)
+    pool = agents.make_pool(capacity, pos, diameter=diam)
+    ordered = grid.sort_agents(MIXED_SPEC, pool)
+    perm = torch.from_numpy(rng.permutation(capacity))
+    shuffled = ordered.replace(position=ordered.position[perm],
+                               diameter=ordered.diameter[perm], kind=ordered.kind[perm],
+                               age=ordered.age[perm], alive=ordered.alive[perm],
+                               static=ordered.static[perm])
+    empty = ordered.replace(alive=torch.zeros_like(ordered.alive))
+    pools = [ordered, shuffled, empty]
+    window = covering_half_window(MIXED_SPEC, grid.build_index(MIXED_SPEC, ordered),
+                                  MIXED_BLOCK)
+    if device is not None:
+        pools = [move_pool(p, device) for p in pools]
+    return pools, stack_pools(pools), window
+
+
+def move_pool(pool, device):
+    """``pool`` with every tensor leaf on ``device``."""
+    return dataclasses.replace(pool, **{
+        f.name: ({k: v.to(device) for k, v in pool.attrs.items()} if f.name == "attrs"
+                 else getattr(pool, f.name).to(device))
+        for f in dataclasses.fields(pool)})
+
+
+MIXED_SPEC = grid.GridSpec(origin=(0.0, 0.0, 0.0), box_size=5.0, dims=(8, 8, 8),
+                           max_per_cell=16, rank_impl="cuda")
+MIXED_BLOCK = 16
+
+
+def fused_call_counts(monkeypatch):
+    """``{"window": n, "linear": n}``: calls of the two fused force
+    dispatchers (``cell_window_force``, ``cell_list_force``) from here on,
+    counted through ``monkeypatch``.  On CPU tensors no launch counter moves,
+    so this is how a CPU test sees which fused kernel a step took."""
+    from repro_torch.kernels.cell_force import ops as cf_ops
+
+    calls = {"window": 0, "linear": 0}
+    for name, fn in (("window", cf_ops.cell_window_force), ("linear", cf_ops.cell_list_force)):
+        def spy(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(cf_ops, fn.__name__, spy)
+    return calls
