@@ -172,6 +172,32 @@ printing one JSON line; any failure raises and exits non-zero:
                   ``scaled_dot_product_attention`` / ``rms_norm`` and (flash)
                   the SIMT kernel on the same inputs; then both flash kernels
                   on every mask variant at small shapes.
+  families_small  reduced paligemma, olmoe, rwkv6, recurrentgemma and whisper
+                  (f32) on the card against the CPU: the prefill step (flash
+                  kernel) and 8 decode steps, logits atol 1e-4.
+  <family>_prefill, <family>_serve
+                  the other serving families at published widths and full
+                  depth, bf16 weights from a seed, one model on the card at a
+                  time: vlm (paligemma-3b, 4 x (256 patches + 2,048 tokens);
+                  decode_step with a cache of 256 + 192 slots), moe
+                  (olmoe-1b-7b, 4 x 2,048; the assignments dropped by capacity
+                  a layer), rwkv6 (rwkv6-1.6b, 4 x 2,048), hybrid
+                  (recurrentgemma-9b, 2 x 4,096, past its 2,048 window) and
+                  audio (whisper-base, 4 x (1,500 frames, 448 tokens)); serve:
+                  ``launch/serve.py``'s loop, batch 4, 128 + 64 tokens (rwkv6
+                  and hybrid also against their prefill step, relative L2 <=
+                  0.05).  Setup, median prefill ms and prompt tokens a second,
+                  decode ms a step, peak memory, the flash launches (tensor
+                  cores and SIMT) and rmsnorm launches against the count the
+                  layer list implies, finite logits.  phi3.5-moe-42b-a6.6b
+                  (83.8 GB in bf16) does not fit one card.
+  kernels (LM families)
+                  flash_attention (the SIMT kernel at D 256) and rmsnorm on
+                  the first calls' inputs of the vlm and hybrid prefills,
+                  against their plain versions (one bf16 ulp), timed beside
+                  them and ``scaled_dot_product_attention`` with the same
+                  boolean mask / ``rms_norm``; the flash bound also over the
+                  64 x 64 tiles holding a visible pair.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; the ``kernels`` line gives each kernel's count from the path
@@ -295,6 +321,21 @@ LM_PREFILL_LEN = 2048
 LM_SERVE_PROMPT = 128
 LM_SERVE_GEN = 64
 BF16_TENSOR_OPS_PER_S = 989e12   # dense bf16 tensor-core rate
+
+# The other serving families at their published widths and full depth:
+# (phase prefix, arch, prefill batch, prefill prompt tokens).  The VLM
+# prefill adds its 256 patches before the prompt; whisper's prompt is 448
+# decoder tokens over 1,500 frames.  Serving: batch 4, 128 + 64 tokens.
+# phi3.5-moe-42b-a6.6b (41.9e9 parameters, 83.8 GB in bf16) exceeds one
+# card; olmoe runs the same MoE code.
+FAMILY_PHASES = (
+    ("vlm", "paligemma-3b", 4, 2048),
+    ("moe", "olmoe-1b-7b", 4, 2048),
+    ("rwkv6", "rwkv6-1.6b", 4, 2048),
+    ("hybrid", "recurrentgemma-9b", 2, 4096),
+    ("audio", "whisper-base", 4, 448),
+)
+FLASH_TILE = 64                  # the SIMT kernel's query and key tiles
 
 
 def emit(phase: str, **fields) -> None:
@@ -2859,6 +2900,351 @@ def phase_flash_variants():
     emit("flash_variants", cases={k: list(v[0]) + [v[1]] for k, v in FLASH_VARIANTS.items()},
          max_abs_err=errs, tolerance="f32 2e-5; bf16 one bf16 ulp")
 
+# -------------------------------------------------------- the LM families
+
+def family_model(arch: str, reduced: bool = False):
+    """``arch`` with the flash kernel for prefill attention."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import build_model
+
+    cfg = reduced_config(arch) if reduced else get_config(arch)
+    return build_model(dataclasses.replace(cfg, attention_impl="cuda"))
+
+
+def family_batch(cfg, batch, length, device, dtype, seed=1):
+    """Tokens from a numpy seed, and unit-normal ``patches`` (VLM) or
+    ``frames`` (encoder–decoder) from a generator on ``device``."""
+    out = {"tokens": lm_tokens(batch, length, cfg.vocab_size, seed).to(device)}
+    g = torch.Generator(device=device).manual_seed(seed)
+    if cfg.family == "vlm":
+        out["patches"] = torch.randn((batch, cfg.prefix_tokens, cfg.d_model), generator=g,
+                                     device=device).to(dtype)
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=g,
+                                    device=device).to(dtype)
+    return out
+
+
+def family_launches(cfg, prefill_calls: int, decode_steps: int, dtype) -> dict:
+    """The launches the model's layer list implies: a flash call for each
+    attention layer, cross-attention and encoder layer of a prefill (the
+    kernel by the dispatch rule); two RMSNorms a layer and the final one a
+    call or step where the config norms by RMS."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+
+    want = {k: 0 for k in kernel_counters()}
+    attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds())
+    flash = attn * (2 if cfg.is_encoder_decoder else 1) + cfg.n_encoder_layers
+    tc = fa_k.uses_tensor_cores(dtype, cfg.head_dim)
+    want["flash_attention" if tc else "flash_attention_simt"] = flash * prefill_calls
+    if cfg.norm == "rmsnorm":
+        want["rmsnorm"] = (2 * cfg.n_layers + 1) * (prefill_calls + decode_steps)
+    return want
+
+
+def moe_drop_spy():
+    """Wrap ``moe.assignments`` to keep each call's count of assignments
+    dropped by capacity (a device tensor, read later) and of assignments;
+    returns ``(drops, undo)``."""
+    from repro_torch.models import moe as moe_mod
+
+    drops, old = [], moe_mod.assignments
+
+    def spy(*args, **kw):
+        rank, keep, order = old(*args, **kw)
+        drops.append(((~keep).sum(), keep.numel()))
+        return rank, keep, order
+
+    moe_mod.assignments = spy
+
+    def undo():
+        moe_mod.assignments = old
+
+    return drops, undo
+
+
+def phase_families_small():
+    """Each family's reduced config (f32) on the card against the CPU: one
+    set of weights from a CPU generator, the prefill step (flash kernel) on
+    24-token prompts and 8 decode steps; logits atol 1e-4, launches as the
+    layer list implies."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    errs = {}
+    for _, arch, _, _ in FAMILY_PHASES:
+        model = family_model(arch, reduced=True)
+        cfg = model.cfg
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        batch = family_batch(cfg, 2, 24, "cpu", torch.float32)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(dev), params)
+            if dev == "cuda":
+                reset_counts()
+            pre = make_prefill_step(model)(p, {k: v.to(dev) for k, v in batch.items()})
+            cache = model.init_cache(2, 32, dev)
+            step = make_decode_step(model)
+            dec = []
+            for i in range(8):
+                lg, cache = step(p, cache, batch["tokens"][:, i:i + 1].to(dev), i)
+                dec.append(lg)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts()
+            out[dev] = (pre.cpu(), torch.cat(dec, 1).cpu())
+        want = family_launches(cfg, 1, 8, torch.float32)
+        if launches != want:
+            raise AssertionError(f"families_small {arch}: launches {launches}, want {want}")
+        errs[arch] = [float((a - b).abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
+        if not max(errs[arch]) <= 1e-4:
+            raise AssertionError(f"families_small {arch}: logits differ from the CPU by "
+                                 f"{errs[arch]}")
+    emit("families_small", max_logit_err={a: {"prefill": e[0], "decode": e[1]}
+                                          for a, e in errs.items()}, tolerance=1e-4)
+
+
+def phase_family_prefill(prefix: str, arch: str, batch: int, length: int):
+    """Full-width ``make_prefill_step`` of ``arch`` (bf16 weights from a seed)
+    over ``batch`` prompts: one warm-up and 3 timed calls, counters zeroed
+    just before the warm-up and read after the last call.  Returns the first
+    flash and RMSNorm calls' inputs and the launches."""
+    from repro_torch.models.params import tree_size
+    from repro_torch.training import make_prefill_step
+
+    t0 = time.perf_counter()
+    model = family_model(arch)
+    cfg = model.cfg
+    params = model.init(0, device="cuda", dtype=model.compute_dtype)
+    n_params = tree_size(params)
+    inputs = family_batch(cfg, batch, length, "cuda", model.compute_dtype)
+    step = make_prefill_step(model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    store, undo = capture_first_calls()
+    drops, undo_drops = moe_drop_spy()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    try:
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = step(params, inputs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+    finally:
+        undo()
+        undo_drops()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = family_launches(cfg, 4, 0, model.compute_dtype)
+    if launches != want:
+        raise AssertionError(f"{prefix}_prefill: launches {launches}, want {want}")
+    finite = bool(torch.isfinite(logits).all())
+    if tuple(logits.shape) != (batch, 1, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{prefix}_prefill: logits {tuple(logits.shape)}, finite {finite}")
+    med = statistics.median(times[1:])
+    extra = {}
+    if cfg.is_moe:
+        layer_drops = [int(d) for d, _ in drops[:cfg.n_layers]]       # the warm-up call
+        extra = dict(capacity_factor=cfg.capacity_factor,
+                     assignments_per_layer=drops[0][1], dropped_per_layer=layer_drops,
+                     dropped_share=sum(layer_drops) / (drops[0][1] * cfg.n_layers))
+    if cfg.family == "vlm":
+        extra["patches"] = cfg.prefix_tokens
+    if cfg.is_encoder_decoder:
+        extra["frames"] = cfg.encoder_seq
+    emit(f"{prefix}_prefill", arch=cfg.name, nvidia_smi=nvidia_smi_line(), layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, params=n_params, batch=batch,
+         prompt_len=length, setup_s=setup_s, warmup_ms=1e3 * times[0],
+         call_ms=[1e3 * t for t in times[1:]], median_ms=1e3 * med,
+         prompt_tokens_per_s=batch * length / med, peak_memory_bytes=peak,
+         launches=launches, launches_per_call={k: v // 4 for k, v in launches.items() if v},
+         logits_finite=finite, **extra)
+    del params, inputs, logits
+    torch.cuda.empty_cache()
+    return store, launches
+
+
+def decode_loop(model, params, prompt, gen, cache_len):
+    """serve.py's loop through ``decode_step`` with a cache of ``cache_len``
+    slots: the prompt fed token by token, then ``gen`` greedy tokens."""
+    cache = model.init_cache(prompt.shape[0], cache_len, prompt.device)
+    step = torch.no_grad()(model.decode_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(prompt.shape[1]):
+        logits, cache = step(params, cache, prompt[:, i:i + 1], i)
+    torch.cuda.synchronize()
+    t_prompt = time.perf_counter() - t0
+    generated = []
+    t0 = time.perf_counter()
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    for i in range(prompt.shape[1], prompt.shape[1] + gen):
+        generated.append(tok[:, 0].cpu().numpy())
+        logits, cache = step(params, cache, tok, i)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    return dict(prefill_s=t_prompt, decode_s=time.perf_counter() - t0, logits=logits,
+                generated=np.stack(generated, axis=1))
+
+
+def phase_family_serve(prefix: str, arch: str):
+    """Batch 4, 128 prompt tokens fed through ``decode_step`` and 64 greedy
+    tokens at full width: ``serve.main`` (the VLM: the same loop with a
+    cache of 256 + 192 slots, so that the decode positions, offset by the
+    prefix, are written).  rwkv6 and recurrentgemma also hold the prompt's
+    last logits against the prefill step on the same prompts (relative L2
+    <= 0.05)."""
+    from repro_torch.launch import serve
+    from repro_torch.training import make_prefill_step
+
+    steps = LM_SERVE_PROMPT + LM_SERVE_GEN
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if prefix == "vlm":
+        model = family_model(arch)
+        params = model.init(0, device="cuda", dtype=model.compute_dtype)
+        prompt = lm_tokens(LM_BATCH, LM_SERVE_PROMPT, model.cfg.vocab_size, 0).cuda()
+        reset_counts()
+        out = decode_loop(model, params, prompt, LM_SERVE_GEN, model.cfg.prefix_tokens + steps)
+        out["config"] = model.cfg
+        del params
+    else:
+        reset_counts()
+        out = serve.main(["--arch", arch, "--no-reduced", "--batch", str(LM_BATCH),
+                          "--prompt-len", str(LM_SERVE_PROMPT), "--gen", str(LM_SERVE_GEN),
+                          "--seed", "0"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = out["config"]
+    want = family_launches(cfg, 0, steps, torch.bfloat16)
+    if launches != want:
+        raise AssertionError(f"{prefix}_serve: launches {launches}, want {want}")
+    finite = bool(torch.isfinite(out["logits"]).all())
+    if out["generated"].shape != (LM_BATCH, LM_SERVE_GEN) or not finite:
+        raise AssertionError(f"{prefix}_serve: generated {out['generated'].shape}, "
+                             f"finite {finite}")
+    extra = {}
+    if prefix in ("rwkv6", "hybrid"):
+        pre = make_prefill_step(family_model(arch))(out["params"], {"tokens": out["prompt"]})
+        dec = out["prompt_logits"][:, 0]
+        rel_l2 = float(torch.linalg.norm(dec - pre[:, 0]) / torch.linalg.norm(pre[:, 0]))
+        if not rel_l2 <= 0.05:
+            raise AssertionError(f"{prefix}_serve: decode vs prefill relative L2 {rel_l2}")
+        extra = dict(decode_vs_prefill_rel_l2=rel_l2,
+                     top1_agree=(dec.argmax(-1) == pre[:, 0].argmax(-1)).tolist())
+    emit(f"{prefix}_serve", arch=cfg.name, nvidia_smi=nvidia_smi_line(), batch=LM_BATCH,
+         prompt_len=LM_SERVE_PROMPT, gen=LM_SERVE_GEN, run_s=run_s,
+         prefill_by_decode_ms_per_step=1e3 * out["prefill_s"] / LM_SERVE_PROMPT,
+         decode_s=out["decode_s"], decode_ms_per_step=1e3 * out["decode_s"] / LM_SERVE_GEN,
+         decode_tokens_per_s=LM_BATCH * LM_SERVE_GEN / out["decode_s"],
+         peak_memory_bytes=peak, launches=launches, logits_finite=finite,
+         sample=out["generated"][0][:8].tolist(), **extra)
+    del out
+    torch.cuda.empty_cache()
+
+
+def visible_tiles(tq, tk, causal, window, prefix, device) -> int:
+    """(64-query, 64-key) tiles holding a visible pair: the blocks a kernel
+    that skips hidden tiles computes."""
+    from repro_torch.kernels.flash_attention.ref import visible
+
+    vis = visible(torch.arange(tq, device=device)[:, None],
+                  torch.arange(tk, device=device)[None, :], causal, window, prefix)
+    vis = torch.nn.functional.pad(vis, (0, -tk % FLASH_TILE, 0, -tq % FLASH_TILE))
+    tiles = vis.reshape(vis.shape[0] // FLASH_TILE, FLASH_TILE, vis.shape[1] // FLASH_TILE,
+                        FLASH_TILE).any(3).any(1)
+    return int(tiles.sum())
+
+
+def family_kernel_rows(tag, store, launches):
+    """flash_attention and rmsnorm on the inputs of their first calls in a
+    family's prefill (layer 0), against their plain versions (one bf16
+    ulp), timed beside the plain versions and one PyTorch call of the same
+    function (``scaled_dot_product_attention`` with the same boolean mask,
+    ``rms_norm``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import visible
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    (q, k, v), kw = store["flash_attention"]
+    causal, window, prefix = kw["causal"], kw["window"], kw["prefix_len"]
+    b, hq, tq, d = q.shape
+    tk = k.shape[2]
+    mask = visible(torch.arange(tq, device=q.device)[:, None],
+                   torch.arange(tk, device=q.device)[None, :], causal, window, prefix)
+    kernel = lambda: fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                               prefix_len=prefix)
+    plain = lambda: fa_ops.chunked_attention(q, k, v, causal=causal, window=window,
+                                             prefix_len=prefix, block_k=128)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    tc = fa_k.uses_tensor_cores(q.dtype, d)
+    counter = "flash_attention" if tc else "flash_attention_simt"
+    want, plain_ms = warm_timed(plain)
+    err = bf16_ulp_check(f"flash_attention[{tag}]", kernel(), want)
+    lib_err = float((sdpa().float() - want.float()).abs().max())
+    pairs = int(mask.sum()) * b * hq
+    tiles = visible_tiles(tq, tk, causal, window, prefix, q.device) * b * hq
+    flash_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
+    rows = [dict(
+        name=f"flash_attention[{tag}]", route="cuda",
+        source=csrc + ("flash_attention_wgmma.cu" if tc else "flash_attention.cu"),
+        replaces="src/repro/kernels/flash_attention/kernel.py:150",
+        launches=launches[counter], max_abs_err=err, counter=counter,
+        ms=cuda_ms(kernel, 5), plain_ms=plain_ms, library_ms=cuda_ms(sdpa, 5),
+        **bound(flash_bytes, 4 * d * pairs, BF16_TENSOR_OPS_PER_S),
+        blocks_bound_ms=4 * d * tiles * FLASH_TILE ** 2 / BF16_TENSOR_OPS_PER_S * 1e3,
+        visible_pairs=pairs, visible_tiles=tiles, library_max_abs_err=lib_err,
+        mask={"causal": causal, "window": window, "prefix_len": prefix},
+        shape={"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
+    )]
+    (x, scale, eps), _ = store["rmsnorm"]
+    x2 = x.reshape(-1, x.shape[-1])
+    norm = lambda: rms_k.rmsnorm_cuda(x2, scale, eps)
+    plain = lambda: rmsnorm_ref(x2, scale, eps)
+    lib = lambda: F.rms_norm(x2, (x2.shape[-1],), weight=scale, eps=eps)
+    rows.append(dict(
+        name=f"rmsnorm[{tag}]", route="cuda",
+        source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:41",
+        launches=launches["rmsnorm"],
+        max_abs_err=bf16_ulp_check(f"rmsnorm[{tag}]", norm(), plain()),
+        ms=cuda_ms(norm, 50), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 50),
+        **bound(2 * x2.numel() * x2.element_size() + scale.numel() * scale.element_size(),
+                3 * x2.numel()),
+        shape={"x": list(x2.shape), "dtype": str(x2.dtype)},
+    ))
+    for r in rows:
+        emit("kernel", **r)
+    return rows
+
+
+def phase_families():
+    """The family phases in order, each model freed before the next; returns
+    the kernel rows of the VLM and hybrid prefills."""
+    rows = []
+    phase_families_small()
+    for prefix, arch, batch, length in FAMILY_PHASES:
+        store, launches = phase_family_prefill(prefix, arch, batch, length)
+        if prefix in ("vlm", "hybrid"):
+            rows += family_kernel_rows(arch, store, launches)
+        del store
+        torch.cuda.empty_cache()
+        phase_family_serve(prefix, arch)
+    return rows
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2966,6 +3352,9 @@ def main() -> int:
     phase_flash_variants()
     phase_lm_serve()
     seconds["path 3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows += phase_families()
+    seconds["families"] = time.perf_counter() - t0
     emit("wall", seconds=seconds)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,7 +1,7 @@
 """Architecture registry (``--arch <id>``), copied from ``repro.configs``.
 
 The reference's ``configs/shapes.py`` builds ``jax.ShapeDtypeStruct`` inputs
-for the dry-run; it has no counterpart here yet (ROADMAP queue 1, item 15).
+for the dry-run; it has no counterpart here yet (ROADMAP queue 1, item 15.6).
 """
 
 from .archs import ARCHS

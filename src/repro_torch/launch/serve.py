@@ -1,22 +1,23 @@
 """LM decode serving driver: prefill a batch of prompts, then decode.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --no-reduced --batch 4 --prompt-len 128 --gen 64          # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
-        --device cpu                                               # reduced config
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu  # reduced rwkv6
 
 Port of ``repro/launch/serve.py``: prompts from a numpy seed, the prompt
-prefilled token by token into the KV cache through ``decode_step``, then
-greedy decoding, the printed rates and the finite-logits check.  It adds
+prefilled token by token into the decode cache through ``decode_step``, then
+greedy decoding, the printed rates and the finite-logits check.  Every
+config of ``configs/archs.py`` serves.  As in the reference, the loop feeds
+tokens only: a VLM's decode cache holds no patch K/V and an
+encoder–decoder's ``cross_kv`` stays zero (ROADMAP §3).  It adds
 ``--device`` (default: the card) and makes ``--reduced`` switchable
 (``--no-reduced`` for the published config); the reference's flag is
 ``store_true`` with ``default=True``, so its full configs are unreachable
-from the command line (ROADMAP §3).  The default ``--arch`` is
-phi4-mini-3.8b, not the reference's rwkv6-1.6b, whose blocks are not ported
-yet.
+from the command line (ROADMAP §3).
 
 Weights are random, drawn from ``--seed`` on the target device and held in
-the compute dtype: the reference casts its f32 weights to the compute dtype
+the compute dtype, except the leaves the reference reads in f32
+(``Model.init``): the reference casts its f32 weights to the compute dtype
 at every use, and one cast up front gives the same values.
 """
 
@@ -45,7 +46,7 @@ def main(argv=None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser(
         description="LM decode serving demo: batched greedy decode through "
         "decode_step, on the card unless --device cpu.")
-    ap.add_argument("--arch", default="phi4-mini-3.8b")
+    ap.add_argument("--arch", default="rwkv6-1.6b")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

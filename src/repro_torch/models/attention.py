@@ -39,7 +39,7 @@ def attention_init(gen, d: int, n_heads: int, n_kv: int, head_dim: int,
     }
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
+def proj_heads(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
     """einsum("btd,dhk->bthk") as one matmul over the flattened heads."""
     d, h, k = w.shape
     y = torch.matmul(x.to(compute_dtype), w.to(compute_dtype).reshape(d, h * k))
@@ -55,9 +55,9 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, compute_dtype) -> torch.Tenso
 
 def _project_qkv(p, x: torch.Tensor, positions: Optional[torch.Tensor], theta: float,
                  compute_dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _proj(x, p["wq"], compute_dtype)
-    k = _proj(x, p["wk"], compute_dtype)
-    v = _proj(x, p["wv"], compute_dtype)
+    q = proj_heads(x, p["wq"], compute_dtype)
+    k = proj_heads(x, p["wk"], compute_dtype)
+    v = proj_heads(x, p["wv"], compute_dtype)
     if positions is not None:
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)

@@ -1,13 +1,30 @@
 """Model assembly: config → init / backbone / forward / cache / decode_step.
 
-Port of ``repro/models/model.py`` for the decoder families whose blocks are
-attention (``attn`` / ``local_attn``) plus a GLU or two-matrix MLP, with
-RMSNorm or LayerNorm: phi4-mini, gemma, mistral-nemo, command-r.  The
-reference's ``lax.scan`` over the stacked layer parameters is a Python loop
-over the leading layer axis; ``remat`` and the sharding hooks have no
-counterpart.  Not ported yet, each raising ``NotImplementedError`` with its
-ROADMAP item: MoE, ``rwkv6`` and ``rglru`` blocks, the encoder–decoder, the
-VLM prefix path and ``loss`` (training).
+Port of ``repro/models/model.py`` for every family of ``configs/archs.py``:
+
+  dense / moe      pre-norm decoder blocks (attention + GLU MLP or MoE);
+  ssm (rwkv6)      time-mix + channel-mix blocks;
+  hybrid (rglru)   the Griffin pattern (rglru, rglru, local_attn);
+  audio (whisper)  a bidirectional encoder over frame embeddings (the conv
+                   front end is a stub: the batch supplies ``frames``) and a
+                   decoder with cross-attention;
+  vlm (paligemma)  a prefix-LM decoder over patch embeddings (the SigLIP
+                   tower is a stub: the batch supplies ``patches``).
+
+The reference's ``lax.scan`` over the stacked layer parameters is a Python
+loop over the leading layer axis; ``remat`` and the sharding hooks have no
+counterpart.  ``loss`` (training) is not ported yet (ROADMAP queue 1, item
+15.5).
+
+Two quirks of the reference are kept, so that the port's decode equals its
+decode (ROADMAP §3):
+
+* Nothing writes the patches' K/V into the decode cache: a VLM decode step
+  writes at ``pos + prefix_tokens`` (``model.py:502-503``), which a cache of
+  fewer slots clamps to its last slot.
+* ``init_cache`` leaves ``cross_kv`` at zero: the reference's ignores its
+  ``enc_out`` argument (``model.py:392``), so its decode's cross-attention
+  adds 0; the port's ``init_cache`` takes no encoder output.
 """
 
 from __future__ import annotations
@@ -21,38 +38,44 @@ from repro_torch.device import resolve_device
 
 from . import attention as attn
 from . import layers as ll
-from .params import stack_layers, tree_map
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
+from .params import stack_layers, tree_leaves, tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _ATTN_KINDS = ("attn", "local_attn")
-ITEM = "ROADMAP queue 1, item 15"
+ITEM = "ROADMAP queue 1, item 15.5"
+# Decode routes one token a row: a capacity of 4 slots an expert drops none
+# (``model.py:486``).
+DECODE_CAPACITY_FACTOR = 4.0
+# Leaves the reference reads in f32 whatever the compute dtype (``.astype(
+# jnp.float32)`` at their use): the MoE router, rwkv6's decay LoRA, base and
+# bonus, the RG-LRU gates.  ``init(dtype=...)`` holds them in the param dtype.
+F32_LEAVES = frozenset({"router", "w0", "w_lora_a", "w_lora_b", "u", "wa", "ba", "wx", "bx",
+                        "lam"})
 
 
 def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _unported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.is_moe:
-        return "MoE blocks"
-    bad = sorted(set(cfg.block_pattern) - set(_ATTN_KINDS))
-    if bad:
-        return f"{'/'.join(bad)} blocks"
-    if cfg.is_encoder_decoder:
-        return "the encoder-decoder"
-    if cfg.family == "vlm":
-        return "the VLM prefix path"
-    return None
+def _hold(tree: Dict[str, Any], dtype: torch.dtype, f32_dtype: torch.dtype) -> Dict[str, Any]:
+    """``tree`` cast to ``dtype``, its ``F32_LEAVES`` to ``f32_dtype``."""
+    return {k: _hold(v, dtype, f32_dtype) if isinstance(v, dict)
+            else v.to(f32_dtype if k in F32_LEAVES else dtype) for k, v in tree.items()}
+
+
+def _copy_into(dst, src) -> None:
+    """Write a new recurrent state into the cache's tensors, in place."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
 
 
 class Model:
     """Stateless model functions bound to a ModelConfig."""
 
     def __init__(self, config: ModelConfig):
-        what = _unported(config)
-        if what is not None:
-            raise NotImplementedError(
-                f"{config.name}: {what} are not ported yet ({ITEM})")
         if config.attention_impl not in ("cuda", "chunked", "reference"):
             raise ValueError(f"unknown attention_impl {config.attention_impl!r}; expected "
                              f"'cuda' (the reference's 'pallas'), 'chunked' or 'reference'")
@@ -62,20 +85,47 @@ class Model:
         p = len(config.block_pattern)
         self.group_size = p
         self.n_groups = config.n_layers // p if config.scan_layers else 0
-        self.n_tail = config.n_layers - self.n_groups * p
         self.tail_kinds = config.layer_kinds()[self.n_groups * p:]
 
     # ------------------------------------------------------------- init
 
-    def _layer_init(self, gen, dtype, device):
+    def _layer_init(self, gen, kind: str):
+        """One layer's tree in the param dtype (the reference's
+        ``_layer_init``)."""
         cfg = self.cfg
-        d, f = cfg.d_model, cfg.d_ff
+        d, f, dt, dev = cfg.d_model, cfg.d_ff, self.param_dtype, gen.device
+        layer: Dict[str, Any] = {"ln1": ll.norm_init(d, cfg.norm, dt, dev)}
+        if kind in _ATTN_KINDS:
+            layer["attn"] = attn.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                                cfg.head_dim, dt)
+        elif kind == "rwkv6":
+            layer["tmix"] = rwkv_mod.rwkv6_init(gen, d, d // cfg.rnn_head_dim, cfg.rnn_head_dim,
+                                                dtype=dt)
+        elif kind == "rglru":
+            layer["rec"] = rglru_mod.rglru_init(gen, d, cfg.lru_width, cfg.conv1d_width, dt)
+        else:
+            raise ValueError(kind)
+        layer["ln2"] = ll.norm_init(d, cfg.norm, dt, dev)
+        if kind == "rwkv6":
+            layer["cmix"] = rwkv_mod.rwkv6_channel_init(gen, d, f, dt)
+        elif cfg.is_moe and kind in _ATTN_KINDS:
+            layer["moe"] = moe_mod.moe_init(gen, d, f, cfg.n_experts, dt)
+        else:
+            layer["mlp"] = ll.glu_mlp_init(gen, d, f, dt, cfg.activation)
+        if cfg.is_encoder_decoder and kind in _ATTN_KINDS:
+            layer["ln_cross"] = ll.norm_init(d, cfg.norm, dt, dev)
+            layer["cross"] = attn.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                                 cfg.head_dim, dt)
+        return layer
+
+    def _encoder_layer_init(self, gen):
+        cfg = self.cfg
+        d, dt, dev = cfg.d_model, self.param_dtype, gen.device
         return {
-            "ln1": ll.norm_init(d, cfg.norm, dtype, device),
-            "attn": attn.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                                        dtype),
-            "ln2": ll.norm_init(d, cfg.norm, dtype, device),
-            "mlp": ll.glu_mlp_init(gen, d, f, dtype, cfg.activation),
+            "ln1": ll.norm_init(d, cfg.norm, dt, dev),
+            "attn": attn.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt),
+            "ln2": ll.norm_init(d, cfg.norm, dt, dev),
+            "mlp": ll.glu_mlp_init(gen, d, cfg.d_ff, dt, cfg.activation),
         }
 
     def init(self, gen: Union[int, torch.Generator] = 0,
@@ -83,56 +133,130 @@ class Model:
              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
         """The parameter value tree, as the reference's ``unzip(init)[0]``:
         ``embed/table``, ``ln_f/scale``, ``logits/w`` (untied),
-        ``layers/b{j}/{ln1,attn,ln2,mlp}`` stacked along a leading layer axis,
-        ``tail{j}`` for layers past the last whole pattern group.
+        ``layers/b{j}/...`` stacked along a leading layer axis (``ln1``,
+        ``attn`` / ``tmix`` / ``rec``, ``ln2``, ``mlp`` / ``moe`` / ``cmix``,
+        and ``ln_cross`` / ``cross`` in an encoder–decoder), ``tail{j}`` for
+        layers past the last whole pattern group, and ``encoder``
+        (``layers``, ``pos_embed``, ``ln_f``) in an encoder–decoder.
 
         ``device`` is resolved by :func:`resolve_device`: the card unless
         the caller asks for the CPU.  Values are drawn in f32 by ``gen`` (a
-        seed makes a generator on ``device``) on the generator's device, cast
-        to ``dtype`` (default: the config's param dtype) and moved to
-        ``device``.  Holding the weights in the compute dtype gives the values
-        the reference's casts at every use give (``layers.py:48, 111``,
-        ``attention.py:49-51``); the norm scales are ones, exact in bf16."""
+        seed makes a generator on ``device``) on the generator's device, by
+        the reference's rules (``normal``'s fan-in quirk, zeros, ones and
+        the RG-LRU's Λ), cast to ``dtype`` (default: the config's param
+        dtype) and moved to ``device``.  Holding the weights in the compute
+        dtype gives the values the reference's casts at every use give
+        (``layers.py:48, 111``, ``attention.py:49-51``); the leaves it reads
+        in f32 (``F32_LEAVES``) stay in the param dtype; the norm scales are
+        ones, exact in bf16."""
         dev = resolve_device(device)
         if isinstance(gen, int):
             gen = torch.Generator(device=dev).manual_seed(gen)
         cfg = self.cfg
         dt = self.param_dtype if dtype is None else dtype
+        hold = lambda tree: _hold(tree, dt, self.param_dtype)
         gdev = gen.device
         tree: Dict[str, Any] = {
-            "embed": ll.embedding_init(gen, cfg.vocab_size, cfg.d_model, dt),
-            "ln_f": ll.norm_init(cfg.d_model, cfg.norm, dt, gdev),
+            "embed": hold(ll.embedding_init(gen, cfg.vocab_size, cfg.d_model, self.param_dtype)),
+            "ln_f": hold(ll.norm_init(cfg.d_model, cfg.norm, self.param_dtype, gdev)),
         }
         if not cfg.tie_embeddings:
-            tree["logits"] = ll.logits_init(gen, cfg.d_model, cfg.vocab_size, dt)
+            tree["logits"] = hold(ll.logits_init(gen, cfg.d_model, cfg.vocab_size,
+                                                 self.param_dtype))
         if self.n_groups:
             tree["layers"] = {
-                f"b{j}": stack_layers(lambda: self._layer_init(gen, dt, gdev), self.n_groups)
+                f"b{j}": stack_layers(
+                    lambda j=j: hold(self._layer_init(gen, cfg.block_pattern[j])),
+                    self.n_groups)
                 for j in range(self.group_size)
             }
-        for j in range(self.n_tail):
-            tree[f"tail{j}"] = self._layer_init(gen, dt, gdev)
+        for j, kind in enumerate(self.tail_kinds):
+            tree[f"tail{j}"] = hold(self._layer_init(gen, kind))
+        if cfg.is_encoder_decoder:
+            tree["encoder"] = hold({
+                "layers": stack_layers(lambda: self._encoder_layer_init(gen),
+                                       cfg.n_encoder_layers),
+                "pos_embed": torch.randn((cfg.encoder_seq, cfg.d_model), generator=gen,
+                                         device=gdev) * 0.02,
+                "ln_f": ll.norm_init(cfg.d_model, cfg.norm, self.param_dtype, gdev),
+            })
         return tree_map(lambda t: t.to(dev), tree)
 
     # ---------------------------------------------------------- forward
 
-    def _block_forward(self, lp, kind: str, x: torch.Tensor) -> torch.Tensor:
-        """One pre-norm residual block."""
+    def _attention(self, p, h: torch.Tensor, **kw) -> torch.Tensor:
+        cfg = self.cfg
+        return attn.attention_apply(
+            p, h, rope_theta=cfg.rope_theta, impl=cfg.attention_impl,
+            block_q=cfg.attention_block_q, block_k=cfg.attention_block_k,
+            compute_dtype=self.compute_dtype, **kw)
+
+    def _ffn(self, lp, kind: str, x: torch.Tensor, cache=None):
+        """The block's second half, ``x + ffn(ln2(x))``, and the MoE aux loss
+        (None for other blocks).  With ``cache`` (decode) the channel mix
+        reads and updates its token shift in place and the MoE keeps every
+        assignment."""
+        cfg = self.cfg
+        cd = self.compute_dtype
+        h2 = ll.norm_apply(lp["ln2"], x, cfg.norm)
+        aux = None
+        if kind == "rwkv6":
+            m, last = rwkv_mod.rwkv6_channel_mix(
+                lp["cmix"], h2, state=None if cache is None else cache["cmix_prev"],
+                compute_dtype=cd)
+            if cache is not None:
+                cache["cmix_prev"].copy_(last)
+        elif cfg.is_moe and kind in _ATTN_KINDS:
+            m, aux = moe_mod.moe_apply(
+                lp["moe"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                capacity_factor=cfg.capacity_factor if cache is None else DECODE_CAPACITY_FACTOR,
+                activation=cfg.activation, token_sort=cfg.moe_token_sort, compute_dtype=cd)
+        else:
+            m = ll.glu_mlp_apply(lp["mlp"], h2, cfg.activation, cd)
+        return x + m, aux
+
+    def _block_forward(self, lp, kind: str, x: torch.Tensor, enc_out: Optional[torch.Tensor],
+                       prefix_len: int):
+        """One pre-norm residual block: ``(x', aux or None)``."""
         cfg = self.cfg
         h = ll.norm_apply(lp["ln1"], x, cfg.norm)
-        a = attn.attention_apply(
-            lp["attn"], h,
-            causal=True,
-            window=cfg.window if kind == "local_attn" else None,
-            rope_theta=cfg.rope_theta,
-            impl=cfg.attention_impl,
-            block_q=cfg.attention_block_q,
-            block_k=cfg.attention_block_k,
-            compute_dtype=self.compute_dtype,
-        )
-        x = x + a
-        h2 = ll.norm_apply(lp["ln2"], x, cfg.norm)
-        return x + ll.glu_mlp_apply(lp["mlp"], h2, cfg.activation, self.compute_dtype)
+        if kind in _ATTN_KINDS:
+            x = x + self._attention(lp["attn"], h, causal=True,
+                                    window=cfg.window if kind == "local_attn" else None,
+                                    prefix_len=prefix_len)
+            if cfg.is_encoder_decoder and enc_out is not None:
+                hc = ll.norm_apply(lp["ln_cross"], x, cfg.norm)
+                x = x + self._attention(lp["cross"], hc, causal=False,
+                                        kv_override=self._encoder_kv(lp["cross"], enc_out))
+        elif kind == "rwkv6":
+            a, _ = rwkv_mod.rwkv6_time_mix(
+                lp["tmix"], h, cfg.d_model // cfg.rnn_head_dim, cfg.rnn_head_dim,
+                chunk=cfg.rwkv_chunk, impl="chunked", compute_dtype=self.compute_dtype)
+            x = x + a
+        elif kind == "rglru":
+            a, _ = rglru_mod.rglru_block_apply(lp["rec"], h, compute_dtype=self.compute_dtype)
+            x = x + a
+        return self._ffn(lp, kind, x)
+
+    def _encoder_kv(self, cross_p, enc_out: torch.Tensor):
+        """The encoder output's cross-attention K and V, (B, S, Hkv, Dh)."""
+        cd = self.compute_dtype
+        return (attn.proj_heads(enc_out, cross_p["wk"], cd),
+                attn.proj_heads(enc_out, cross_p["wv"], cd))
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The whisper encoder over (stub) frame embeddings (B, S, D)."""
+        cfg = self.cfg
+        ep = params["encoder"]
+        cd = self.compute_dtype
+        x = frames.to(cd) + ep["pos_embed"][None, :frames.shape[1]].to(cd)
+        for e in range(cfg.n_encoder_layers):
+            lp = tree_map(lambda a: a[e], ep["layers"])
+            x = x + self._attention(lp["attn"], ll.norm_apply(lp["ln1"], x, cfg.norm),
+                                    causal=False)
+            x = x + ll.glu_mlp_apply(lp["mlp"], ll.norm_apply(lp["ln2"], x, cfg.norm),
+                                     cfg.activation, cd)
+        return ll.norm_apply(ep["ln_f"], x, cfg.norm)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         x = ll.embed_apply(params["embed"], tokens, self.compute_dtype)
@@ -152,12 +276,24 @@ class Model:
             yield tree[f"tail{j}"], kind
 
     def backbone(self, params, batch: Dict[str, torch.Tensor]):
-        """Final-norm hidden states (B, T, D) and the MoE aux loss (0 here)."""
+        """Final-norm hidden states (B, T, D) of the tokens and the MoE aux
+        loss (f32, 0 without MoE).  A VLM batch carries ``patches`` (B, P,
+        D), prepended to the tokens and dropped after the final norm; an
+        encoder–decoder batch carries ``frames`` (B, S, D)."""
+        cfg = self.cfg
         x = self._embed(params, batch["tokens"])
+        prefix_len = 0
+        if cfg.family == "vlm":
+            x = torch.cat([batch["patches"].to(self.compute_dtype), x], dim=1)
+            prefix_len = cfg.prefix_tokens
+        enc_out = self.encode(params, batch["frames"]) if cfg.is_encoder_decoder else None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, kind in self._layers(params):
-            x = self._block_forward(lp, kind, x)
-        x = ll.norm_apply(params["ln_f"], x, self.cfg.norm)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = self._block_forward(lp, kind, x, enc_out, prefix_len)
+            if a is not None:
+                aux = aux + a
+        x = ll.norm_apply(params["ln_f"], x, cfg.norm)
+        return x[:, prefix_len:], aux
 
     def logits(self, params, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -179,18 +315,39 @@ class Model:
     def init_cache(self, batch: int, max_seq: int,
                    device: Union[str, torch.device, None] = None):
         """Decode cache on ``device`` (the card unless the caller asks for the
-        CPU), grouped to mirror the stacked layers: ``layers/b{j}/kv`` holds
-        (G, B, Hkv, S, Dh) tensors; a ``local_attn`` layer keeps a ring of
-        ``window`` slots."""
+        CPU), grouped to mirror the stacked layers (``layers/b{j}/...`` with
+        a leading group axis): an attention layer's ``kv`` (B, Hkv, S, Dh),
+        a ring of ``window`` slots for ``local_attn``, and in an
+        encoder–decoder ``cross_kv`` of ``encoder_seq`` zero slots (see the
+        module docstring); an rwkv6 layer's ``rwkv`` = (prev_x (B, D), S (B,
+        H, Dh, Dh) f32) and ``cmix_prev`` (B, D); an rglru layer's ``rglru``
+        :class:`RGLRUState`."""
         cfg = self.cfg
         dev = resolve_device(device)
+        cd = self.compute_dtype
 
         def one(kind):
-            s = max_seq
-            if kind == "local_attn" and cfg.window is not None:
-                s = min(max_seq, cfg.window)
-            return {"kv": attn.init_kv_cache(batch, cfg.n_kv_heads, s, cfg.head_dim,
-                                             self.compute_dtype, dev)}
+            c: Dict[str, Any] = {}
+            if kind in _ATTN_KINDS:
+                s = max_seq
+                if kind == "local_attn" and cfg.window is not None:
+                    s = min(max_seq, cfg.window)
+                c["kv"] = attn.init_kv_cache(batch, cfg.n_kv_heads, s, cfg.head_dim, cd, dev)
+                if cfg.is_encoder_decoder:
+                    c["cross_kv"] = attn.init_kv_cache(batch, cfg.n_kv_heads, cfg.encoder_seq,
+                                                       cfg.head_dim, cd, dev)
+            elif kind == "rwkv6":
+                h = cfg.d_model // cfg.rnn_head_dim
+                c["rwkv"] = (
+                    torch.zeros((batch, cfg.d_model), dtype=cd, device=dev),
+                    torch.zeros((batch, h, cfg.rnn_head_dim, cfg.rnn_head_dim),
+                                dtype=torch.float32, device=dev),
+                )
+                c["cmix_prev"] = torch.zeros((batch, cfg.d_model), dtype=cd, device=dev)
+            elif kind == "rglru":
+                c["rglru"] = rglru_mod.rglru_init_state(batch, cfg.lru_width, cfg.conv1d_width,
+                                                        cd, dev)
+            return c
 
         cache: Dict[str, Any] = {}
         if self.n_groups:
@@ -202,26 +359,47 @@ class Model:
             cache[f"tail{j}"] = one(kind)
         return cache
 
+    def _block_decode(self, lp, kind: str, c, x: torch.Tensor, pos: int, prefix_len: int):
+        cfg = self.cfg
+        cd = self.compute_dtype
+        h = ll.norm_apply(lp["ln1"], x, cfg.norm)
+        if kind in _ATTN_KINDS:
+            window = cfg.window if kind == "local_attn" else None
+            ring = window is not None and c["kv"]["k"].shape[2] == window
+            a, _ = attn.attention_decode(
+                lp["attn"], c["kv"], h, pos, window=window, prefix_len=prefix_len, ring=ring,
+                rope_theta=cfg.rope_theta, compute_dtype=cd)
+            x = x + a
+            if cfg.is_encoder_decoder:
+                hc = ll.norm_apply(lp["ln_cross"], x, cfg.norm)
+                a2, _ = attn.attention_decode(lp["cross"], c["cross_kv"], hc, pos,
+                                              rope_theta=cfg.rope_theta, compute_dtype=cd,
+                                              cross=True)
+                x = x + a2
+        elif kind == "rwkv6":
+            a, new = rwkv_mod.rwkv6_decode_step(
+                lp["tmix"], h, c["rwkv"], cfg.d_model // cfg.rnn_head_dim, cfg.rnn_head_dim,
+                compute_dtype=cd)
+            _copy_into(c["rwkv"], new)
+            x = x + a
+        elif kind == "rglru":
+            a, new = rglru_mod.rglru_decode_step(lp["rec"], h, c["rglru"], compute_dtype=cd)
+            _copy_into(c["rglru"], new)
+            x = x + a
+        return self._ffn(lp, kind, x, cache=c)[0]
+
     def decode_step(self, params, cache, tokens: torch.Tensor, pos):
         """One token for every sequence in the batch.
 
         tokens: (B, 1) int; pos: the current absolute position (an int or a
-        0-d tensor).  Returns ``(logits (B, 1, V) f32, cache)``; the cache is
-        updated in place."""
+        0-d tensor); a VLM decodes at ``pos + prefix_tokens``.  Returns
+        ``(logits (B, 1, V) f32, cache)``; the cache is updated in place."""
         cfg = self.cfg
-        pos = int(pos)
         x = self._embed(params, tokens)
+        prefix_len = cfg.prefix_tokens if cfg.family == "vlm" else 0
+        dec_pos = int(pos) + prefix_len
         for (lp, kind), (lc, _) in zip(self._layers(params), self._layers(cache)):
-            kv = lc["kv"]
-            window = cfg.window if kind == "local_attn" else None
-            ring = kind == "local_attn" and window is not None and kv["k"].shape[-2] == window
-            h = ll.norm_apply(lp["ln1"], x, cfg.norm)
-            a, _ = attn.attention_decode(
-                lp["attn"], kv, h, pos, window=window, ring=ring,
-                rope_theta=cfg.rope_theta, compute_dtype=self.compute_dtype)
-            x = x + a
-            h2 = ll.norm_apply(lp["ln2"], x, cfg.norm)
-            x = x + ll.glu_mlp_apply(lp["mlp"], h2, cfg.activation, self.compute_dtype)
+            x = self._block_decode(lp, kind, lc, x, dec_pos, prefix_len)
         x = ll.norm_apply(params["ln_f"], x, cfg.norm)
         return self.logits(params, x), cache
 

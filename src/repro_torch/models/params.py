@@ -4,7 +4,9 @@ The reference builds trees of ``Param`` (a value plus logical sharding
 axes) and splits them with ``unzip``.  The port keeps only the value tree,
 with the reference's structure key for key, so a reference tree converts by
 copying (``repro_torch.convert.lm_params_from_numpy``).  Logical axes wait
-for sharding (ROADMAP queue 1, item 15).
+for sharding (ROADMAP queue 1, item 15.6).  The tree helpers below walk dicts
+and tuples (the decode caches hold ``(prev_x, S)`` pairs and
+``RGLRUState`` named tuples).
 
 Draws come from an explicit ``torch.Generator`` on the device the values are
 made on.  The generator's stream differs from ``jax.random``'s, so parity
@@ -46,29 +48,31 @@ def stack_layers(make: Callable[[], Any], n: int) -> Any:
     first = make()
     stacked = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
 
-    def put(dst, src, g):
-        if isinstance(dst, dict):
-            for k in dst:
-                put(dst[k], src[k], g)
-        else:
+    def put(g, tree):
+        for dst, src in zip(tree_leaves(stacked), tree_leaves(tree)):
             dst[g] = src
 
-    put(stacked, first, 0)
+    put(0, first)
     del first
     for g in range(1, n):
-        put(stacked, make(), g)
+        put(g, make())
     return stacked
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     return fn(tree)
 
 
 def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 

@@ -1,7 +1,7 @@
 """Serve step builders of the LM stack, ported from ``repro/training.py``.
 
 Only the prefill and decode steps: ``make_train_step``, the train state and
-the sharding helpers belong to the training slice (ROADMAP queue 1, item 15).
+the sharding helpers belong to the training slice (ROADMAP queue 1, item 15.5).
 """
 
 from __future__ import annotations
@@ -15,10 +15,11 @@ from .models.model import Model
 
 def make_prefill_step(model: Model):
     """Forward over the full prompt; returns the last position's logits
-    ``(B, 1, V)`` in f32.  The attention of every layer runs
-    ``cfg.attention_impl``: the flash kernel only with ``"cuda"``, which
-    ``get_config`` / ``reduced_config`` do not set (their default
-    ``"chunked"`` is the plain version), so build the model from
+    ``(B, 1, V)`` in f32.  The batch is the backbone's: ``tokens``, and
+    ``patches`` (VLM) or ``frames`` (encoder–decoder).  The attention of
+    every layer runs ``cfg.attention_impl``: the flash kernel only with
+    ``"cuda"``, which ``get_config`` / ``reduced_config`` do not set (their
+    default ``"chunked"`` is the plain version), so build the model from
     ``dataclasses.replace(cfg, attention_impl="cuda")`` to run it."""
 
     @torch.no_grad()

@@ -516,6 +516,10 @@ FLASH_CASES = {
     "all_terms_d16": ((1, 4, 2, 80, 95, 16), dict(causal=True, window=8, prefix_len=5,
                                                    kv_offset=3)),
     "masked_rows_d64": ((1, 2, 1, 16, 40, 64), dict(causal=True, window=4, kv_offset=60)),
+    # paligemma's prefix-LM mask at D 256 and MQA group 8; recurrentgemma's
+    # window shorter than T at D 256 and group 16.
+    "prefix_g8_d256": ((2, 8, 1, 200, 200, 256), dict(causal=True, prefix_len=72)),
+    "window_g16_d256": ((1, 16, 1, 230, 230, 256), dict(causal=True, window=64)),
 }
 
 
@@ -562,6 +566,8 @@ FLASH_TC_CASES = {
     "ragged_full_d128": ((1, 3, 1, 131, 93, 128), dict(causal=False)),
     "ragged_window_prefix_d64": ((1, 8, 2, 150, 190, 64), dict(causal=True, window=70,
                                                                 prefix_len=9, kv_offset=40)),
+    # whisper's cross-attention: 448 decoder queries over 1,500 frames, D 64.
+    "whisper_cross_d64": ((1, 8, 8, 448, 1500, 64), dict(causal=False)),
 }
 
 
@@ -640,6 +646,79 @@ def test_lm_small_on_card_matches_cpu(card):
                 2, 5 + 8 * 5)
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+LM_FAMILIES = ["paligemma-3b", "olmoe-1b-7b", "rwkv6-1.6b", "recurrentgemma-9b",
+               "whisper-base"]
+
+
+def _family_batch(cfg, b, t):
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(
+            rng.normal(0, 1, (b, cfg.prefix_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(
+            rng.normal(0, 1, (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_family_on_card_matches_cpu(card, arch):
+    """Each family's reduced config (f32): the prefill step with the flash
+    kernel (the SIMT kernel in f32) and 8 decode steps on the card against
+    the CPU, logits atol 1e-4; the flash launches are the attention layers'
+    (encoder and cross-attention included), the rmsnorm launches the
+    RMSNorm configs' norms."""
+    from repro_torch import training
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import tree_map
+
+    cfg = dataclasses.replace(reduced_config(arch), attention_impl="cuda")
+    model = build_model(cfg)
+    params = model.init(0, device=CPU)
+    batch = _family_batch(cfg, 2, 24)
+    out = {}
+    counts = (fa_kernel.launches, rms_kernel.launches)
+    for dev in (card, CPU):
+        p = tree_map(lambda t: t.to(dev), params)
+        pre = training.make_prefill_step(model)(p, {k: v.to(dev) for k, v in batch.items()})
+        cache = model.init_cache(2, 32, dev)
+        logits = []
+        for i in range(8):
+            lg, cache = model.decode_step(p, cache, batch["tokens"][:, i:i + 1].to(dev), i)
+            logits.append(lg)
+        out[dev.type] = (pre.cpu(), torch.cat(logits, 1).cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            attn_layers = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds())
+            flash = attn_layers * (2 if cfg.is_encoder_decoder else 1) + cfg.n_encoder_layers
+            rms = (2 * cfg.n_layers + 1) * 9 if cfg.norm == "rmsnorm" else 0
+            assert (fa_kernel.launches - counts[0], rms_kernel.launches - counts[1]) == (
+                flash, rms)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_moe_combine_on_card_is_deterministic(card):
+    """bf16 MoE at olmoe's routing (64 experts, top 8) twice on the card:
+    bit for bit equal, and within a relative L2 of 2e-2 of the CPU."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(0)
+    p = moe.moe_init(g, 256, 128, 64)
+    x = torch.randn((2, 512, 256), generator=g)
+    kw = dict(top_k=8, n_experts=64, capacity_factor=1.25, compute_dtype=torch.bfloat16)
+    pc = {k: v.to(card) for k, v in p.items()}
+    first, aux1 = moe.moe_apply(pc, x.to(card), **kw)
+    second, aux2 = moe.moe_apply(pc, x.to(card), **kw)
+    assert torch.equal(first, second) and torch.equal(aux1, aux2)
+    cpu = moe.moe_apply(p, x, **kw)[0].float()
+    assert float(torch.linalg.norm(first.float().cpu() - cpu) / torch.linalg.norm(cpu)) <= 2e-2
 
 
 # --------------------------------------------------------------- the slice

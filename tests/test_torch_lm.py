@@ -1,13 +1,18 @@
 """The port's LM serving path against the reference ``Model`` on the CPU.
 
-Reduced configs (2 layers, d 64, head_dim 16, f32); weights drawn by the
-reference and carried across with ``convert.lm_params_from_numpy``; the
-reference runs its Pallas attention kernel in interpret mode
-(``attention_impl="pallas"``), the port ``"cuda"`` (its plain version on CPU
-tensors).  Tolerances: f32 logits ``atol=5e-5`` (products and softmax sums
-in other orders over d = 64 and two layers; seen: 2.5e-6 of logits up to
-3.9); bf16 logits relative L2 ≤ 2e-2 (the two frameworks round the bf16
-residual stream at other places; seen: 6e-3); greedy tokens exact.
+Reduced configs (2 layers, or 2 pattern groups; d 64, head_dim 16, f32);
+weights drawn by the reference and carried across with
+``convert.lm_params_from_numpy``; the reference runs its Pallas attention
+kernel in interpret mode (``attention_impl="pallas"``) or its O(T²) oracle,
+the port ``"cuda"`` (its plain version on CPU tensors).  Every config of
+``configs/archs.py`` builds; the VLM batch carries ``patches``, the
+encoder–decoder's ``frames``.  Tolerances: f32 logits ``atol=5e-5``
+(products and softmax sums in other orders over d = 64 and two layers;
+seen: 5.2e-6 of logits up to 5.4); bf16 logits relative L2 ≤ 2e-2 (the two
+frameworks round the bf16 residual stream at other places; seen: 6e-3);
+greedy tokens exact.  ``tests/test_torch_lm_families.py`` holds the new
+families' prefill and decode, ``test_torch_moe.py`` and
+``test_torch_recurrent.py`` their blocks.
 """
 
 import dataclasses
@@ -30,10 +35,10 @@ from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.models.model import build_model
 
 ATOL = 5e-5
-PORTED = ["phi4-mini-3.8b", "gemma-7b", "mistral-nemo-12b", "command-r-35b"]
-UNPORTED = {"phi3.5-moe-42b-a6.6b": "MoE", "olmoe-1b-7b": "MoE", "rwkv6-1.6b": "rwkv6",
-            "recurrentgemma-9b": "rglru", "whisper-base": "encoder-decoder",
-            "paligemma-3b": "VLM prefix"}
+PORTED = sorted(ARCHS)
+# The reference's attention in Pallas interpret mode where its mask varies
+# (prefix, window); the O(T²) oracle elsewhere, which is faster.
+PALLAS = ("phi4-mini-3.8b", "paligemma-3b", "recurrentgemma-9b")
 
 
 def _pair(arch="phi4-mini-3.8b", dtype="float32", jax_impl="pallas", port_impl="cuda"):
@@ -50,15 +55,29 @@ def _tokens(b, t, vocab, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, t)).astype(np.int32)
 
 
+def lm_batch(cfg, b, t, seed=0):
+    """A numpy batch: ``tokens``, and ``patches`` (VLM) or ``frames``
+    (encoder–decoder) of unit normals."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(0, 1, (b, cfg.prefix_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(0, 1, (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_forward_matches_jax(arch):
-    impl = "pallas" if arch == "phi4-mini-3.8b" else "reference"
+    impl = "pallas" if arch in PALLAS else "reference"
     mj, pj, mt, pt = _pair(arch, jax_impl=impl, port_impl="cuda")
-    toks = _tokens(2, 24, mj.cfg.vocab_size)
-    want, _ = mj.forward(pj, {"tokens": jnp.asarray(toks)})
-    got, _ = mt.forward(pt, {"tokens": torch.from_numpy(toks)})
+    batch = lm_batch(mj.cfg, 2, 24)
+    want, aux_want = mj.forward(pj, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, aux = mt.forward(pt, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, 24, mj.cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), to_np(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(float(aux), float(aux_want), rtol=1e-6)
+    assert (float(aux) > 0) == mj.cfg.is_moe
 
 
 def test_forward_bf16_matches_jax():
@@ -197,6 +216,38 @@ def test_params_round_trip_through_numpy():
         np.testing.assert_array_equal(np.asarray(a), b, err_msg=jax.tree_util.keystr(path))
 
 
+# (arch, overrides): recurrentgemma at 8 layers has two tail layers past its
+# two (rglru, rglru, local_attn) groups, as the published 38 has past 12.
+FAMILY_TREES = {"olmoe-1b-7b": {}, "rwkv6-1.6b": {}, "recurrentgemma-9b": {"n_layers": 8},
+                "whisper-base": {}, "paligemma-3b": {}}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_TREES))
+def test_family_trees_match_the_reference_and_round_trip(arch):
+    """The port's init tree has the reference's keys, shapes and dtypes
+    (``moe``, ``tmix``, ``cmix``, ``rec``, ``cross``, ``ln_cross``,
+    ``encoder``, ``tail{j}``); the reference's values go through
+    ``lm_params_from_numpy`` / ``lm_params_to_numpy`` bit for bit; held in
+    bf16, the leaves the reference reads in f32 stay f32."""
+    from repro_torch.models.model import F32_LEAVES
+
+    over = FAMILY_TREES[arch]
+    mj = jax_build_model(jax_reduced_config(arch, **over))
+    mt = build_model(reduced_config(arch, **over))
+    pj = jax.tree.map(np.asarray, unzip(mj.init(jax.random.PRNGKey(3)))[0])
+    flat = lambda tree: {jax.tree_util.keystr(p): (tuple(a.shape), str(a.dtype).split(".")[-1])
+                         for p, a in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert flat(mt.init(0, device="cpu")) == flat(pj)
+    back = convert.lm_params_to_numpy(convert.lm_params_from_numpy(pj, "cpu"))
+    assert jax.tree.structure(back) == jax.tree.structure(pj)
+    for a, b in zip(jax.tree.leaves(pj), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(a, b)
+    held = mt.init(0, device="cpu", dtype=torch.bfloat16)
+    for path, t in jax.tree_util.tree_flatten_with_path(held)[0]:
+        want = torch.float32 if path[-1].key in F32_LEAVES else torch.bfloat16
+        assert t.dtype == want, jax.tree_util.keystr(path)
+
+
 def test_serve_main_on_cpu(capsys):
     from repro_torch.launch import serve
 
@@ -230,12 +281,6 @@ def test_serve_reduced_flag_is_switchable(monkeypatch, flag, want_layers):
     assert seen["cfg"].n_layers == want_layers
     if flag:
         assert seen["cfg"] == get_config("phi4-mini-3.8b")
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_model(reduced_config(arch))
 
 
 def test_loss_raises_and_configs_are_the_reference_copies():
