@@ -172,6 +172,29 @@ printing one JSON line; any failure raises and exits non-zero:
                   ``scaled_dot_product_attention`` / ``rms_norm`` and (flash)
                   the SIMT kernel on the same inputs; then both flash kernels
                   on every mask variant at small shapes.
+  train_small     reduced phi4-mini (f32, ``remat=True``), one set of weights
+                  from a CPU generator, 3 ``make_train_step`` steps over the
+                  data pipeline's batches on the card and on the CPU (AdamW
+                  with eps 1e-3): losses and grad norms rtol 1e-5, every
+                  parameter atol 1e-5; the SIMT flash kernel once a layer in
+                  the forward and once in the recomputed forward, rmsnorm
+                  4 x layers + 1 a step.
+  train           phi4-mini-3.8b training at its published widths, cut to 16
+                  of 32 layers (f32 weights, grads and two AdamW moments take
+                  16 B a parameter: 45 GB), bf16 compute, remat, 2 x 2,048
+                  tokens a step: 2 warm-up and 4 timed steps; median step ms,
+                  tokens a second, peak memory, each step's loss and grad norm
+                  (finite), the tensor-core flash kernel 32 and rmsnorm 65
+                  launches a step; then one more AdamW update timed alone.
+  kernels (train) the flash row at the training shape (B 2, 24 / 8 heads, T
+                  2,048, D 128, causal, bf16): the tensor-core forward with
+                  its lse (against the plain version's: one bf16 ulp, lse
+                  rtol 1e-5), the plain backward a call, gradients through the
+                  kernel's forward against the plain forward's (relative L2
+                  <= 2e-2), ``scaled_dot_product_attention`` forward and
+                  forward + backward, the bound of forward + backward (3.5 x
+                  the forward's FLOP at 989 TFLOP/s); rmsnorm at (4,096,
+                  3,072) bf16 with its plain backward.
   families_small  reduced paligemma, olmoe, rwkv6, recurrentgemma and whisper
                   (f32) on the card against the CPU: the prefill step (flash
                   kernel) and 8 decode steps, logits atol 1e-4.
@@ -3245,6 +3268,264 @@ def phase_families():
         phase_family_serve(prefix, arch)
     return rows
 
+# ------------------------------------------------------------ LM training
+
+TRAIN_LAYERS = 16                # of phi4-mini's 32: params, f32 grads, two moments
+TRAIN_BATCH = 2
+TRAIN_LEN = 2048
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 4
+# train_small: AdamW with eps 1e-3, so that a gradient within round-off of 0
+# moves its parameter by about lr * g / eps on both devices, not by +-lr
+# with a sign that round-off picks.
+TRAIN_SMALL_OPT = dict(learning_rate=3e-3, warmup_steps=2, total_steps=10, eps=1e-3)
+TRAIN_SMALL_RTOL = 1e-5          # losses and grad norms
+TRAIN_SMALL_ATOL = 1e-5          # every parameter after 3 steps
+
+
+def train_model(reduced: bool):
+    """phi4-mini for training: the flash kernel, ``remat=True`` (the reduced
+    config turns it off), the full config cut to ``TRAIN_LAYERS`` layers."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import build_model
+
+    if reduced:
+        cfg = reduced_config(LM_ARCH)
+    else:
+        cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    return build_model(dataclasses.replace(cfg, attention_impl="cuda", remat=True))
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Launches of ``steps`` train steps: the flash kernel once a layer in
+    the forward and once in its recomputed forward; rmsnorm twice a layer in
+    each and once more for the final norm (outside the layers' remat)."""
+    want = {k: 0 for k in kernel_counters()}
+    tc = cfg.dtype == "bfloat16" and cfg.head_dim in (64, 128)
+    want["flash_attention" if tc else "flash_attention_simt"] = steps * 2 * cfg.n_layers
+    want["rmsnorm"] = steps * (4 * cfg.n_layers + 1)
+    return want
+
+
+def phase_train_small():
+    """Reduced phi4-mini (f32, remat) training on the card against the CPU:
+    one set of weights from a CPU generator, 3 ``make_train_step`` steps on
+    each over the data pipeline's batches; losses, grad norms and every
+    parameter compared and gated."""
+    from repro_torch import training
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+
+    model = train_model(reduced=True)
+    cfg = model.cfg
+    start = training.init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    data = DataConfig(seed=0, batch=2, seq_len=40)
+    opt = adamw.AdamWConfig(**TRAIN_SMALL_OPT)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = tree_map(lambda t: t.to(dev, copy=True), start)
+        step = training.make_train_step(model, opt)
+        batches = [device_batch(data, cfg, i, dev) for i in range(3)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_counts()
+        mets = []
+        for b in batches:
+            state, m = step(state, b)
+            mets.append(m)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts()
+        out[dev] = ([{k: float(v) for k, v in m.items()} for m in mets],
+                    [t.cpu() for t in tree_leaves(state.params)])
+    want = train_launches(cfg, 3)
+    if launches != want:
+        raise AssertionError(f"train_small: launches {launches}, want {want}")
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+           for k in ("loss", "ce", "grad_norm", "lr")}
+    param_err = max(float((a - b).abs().max()) for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    if not (max(rel.values()) <= TRAIN_SMALL_RTOL and param_err <= TRAIN_SMALL_ATOL):
+        raise AssertionError(f"train_small: card against CPU: relative {rel}, parameters "
+                             f"{param_err}")
+    emit("train_small", layers=cfg.n_layers, d_model=cfg.d_model, remat=cfg.remat, steps=3,
+         losses={d: [m["loss"] for m in out[d][0]] for d in out},
+         grad_norms={d: [m["grad_norm"] for m in out[d][0]] for d in out},
+         max_rel_err=rel, max_param_abs_err=param_err,
+         tolerance={"rtol": TRAIN_SMALL_RTOL, "param_atol": TRAIN_SMALL_ATOL},
+         adamw=TRAIN_SMALL_OPT, launches=launches)
+
+
+def phase_train():
+    """phi4-mini training at its published widths, 16 of 32 layers: f32
+    weights and AdamW moments drawn on the card, ``make_train_step`` over
+    the data pipeline's 2 x 2,048-token batches, 2 warm-up and 4 timed
+    steps; counters zeroed just before the first step and read after the
+    last.  Returns the first flash and rmsnorm calls' inputs and the
+    launches."""
+    from repro_torch import training
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.models.params import tree_size
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    model = train_model(reduced=False)
+    cfg = model.cfg
+    state = training.init_train_state(model, 0, "cuda")
+    n_params = tree_size(state.params)
+    data = DataConfig(seed=0, batch=TRAIN_BATCH, seq_len=TRAIN_LEN)
+    batches = [device_batch(data, cfg, i, "cuda") for i in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    opt = adamw.AdamWConfig()
+    step = training.make_train_step(model, opt)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    store, undo = capture_first_calls()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses, norms = [], [], []
+    try:
+        for b in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    finally:
+        undo()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(batches)
+    want = train_launches(cfg, n_steps)
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, want {want}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    med = statistics.median(times[TRAIN_WARMUP:])
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    # The optimizer's share of a step: one more AdamW update of every leaf
+    # (zero gradients; the same passes), timed after a warm-up call.
+    from repro_torch.models.params import tree_map
+
+    grads = tree_map(torch.zeros_like, state.params)
+    _, adamw_ms = warm_timed(lambda: adamw.apply(opt, state.opt, state.params, grads))
+    del grads
+    emit("train", arch=cfg.name, layers=cfg.n_layers, published_layers=32,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, params=n_params,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.dtype, remat=cfg.remat,
+         batch=TRAIN_BATCH, seq_len=TRAIN_LEN, setup_s=setup_s,
+         warmup_ms=[1e3 * t for t in times[:TRAIN_WARMUP]],
+         step_ms=[1e3 * t for t in times[TRAIN_WARMUP:]], median_step_ms=1e3 * med,
+         tokens_per_s=tokens / med, losses=losses, grad_norms=norms,
+         peak_memory_bytes=peak, adamw_apply_ms=adamw_ms, launches=launches,
+         launches_per_step={"flash_attention": launches["flash_attention"] / n_steps,
+                            "rmsnorm": launches["rmsnorm"] / n_steps})
+    del state, batches
+    torch.cuda.empty_cache()
+    return store, launches, cfg
+
+
+def train_kernel_rows(store, launches, cfg):
+    """The flash and rmsnorm rows at the training shape (layer 0's first
+    call in ``train``): the forward kernels with the outputs the backward
+    reads, the plain backward a call, and the library's forward + backward;
+    the kernels against their plain versions."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.chunked_vjp import attention_backward
+    from repro_torch.kernels.flash_attention.ref import visible
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    rows = []
+    (q, k, v), kw = store["flash_attention"]
+    q, k, v = (t.detach() for t in (q, k, v))
+    causal, window, prefix = kw["causal"], kw["window"], kw["prefix_len"]
+    b, hq, tq, d = q.shape
+    tk = k.shape[2]
+    block = cfg.attention_block_k
+    g = torch.Generator(device=q.device).manual_seed(3)
+    dout = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    fwd = lambda: fa_k.flash_attention_wgmma_cuda(q, k, v, causal=causal, window=window,
+                                                  prefix_len=prefix, return_lse=True)
+    plain_fwd = lambda: fa_ops.chunked_attention(q, k, v, causal=causal, window=window,
+                                                 prefix_len=prefix, block_k=128,
+                                                 return_lse=True)
+    out, lse = fwd()
+    (want, want_lse), plain_ms = warm_timed(plain_fwd)
+    err = bf16_ulp_check("flash_attention[train]", out, want)
+    lse_err = float((lse - want_lse).abs().max())
+    if not lse_err <= 1e-5 * float(want_lse.abs().max()) + 1e-5:
+        raise AssertionError(f"flash_attention[train]: lse differs by {lse_err}")
+    bwd = lambda: attention_backward(q, k, v, out, lse, dout, causal, window, prefix, 0, None,
+                                     block)
+    (dq, dk, dv), bwd_ms = warm_timed(bwd)
+    # The gradients through the plain forward: the same backward on its out and lse.
+    dq_w, dk_w, dv_w = attention_backward(q, k, v, want, want_lse, dout, causal, window, prefix,
+                                          0, None, block)
+    grad_rel = {n: float(torch.linalg.norm((a - w).float()) / torch.linalg.norm(w.float()))
+                for n, a, w in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w))}
+    if not max(grad_rel.values()) <= 2e-2:
+        raise AssertionError(f"flash_attention[train]: gradients through the kernel's forward "
+                             f"against the plain forward's: relative L2 {grad_rel}")
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qs, ks, vs), dout)
+
+    pairs = int(visible(torch.arange(tq, device=q.device)[:, None],
+                        torch.arange(tk, device=q.device)[None, :],
+                        causal, window, prefix).sum()) * b * hq
+    flash_ops = 4 * d * pairs
+    flash_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * lse.numel()
+    rows.append(dict(
+        name="flash_attention[train]", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:150",
+        launches=launches["flash_attention"], max_abs_err=err, lse_max_abs_err=lse_err,
+        ms=cuda_ms(fwd, 10), plain_ms=plain_ms, library_ms=cuda_ms(sdpa, 10),
+        **bound(flash_bytes, flash_ops, BF16_TENSOR_OPS_PER_S),
+        backward_plain_ms=bwd_ms, backward_block_k=block,
+        library_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd, 5),
+        fwd_bwd_bound_ms=3.5 * flash_ops / BF16_TENSOR_OPS_PER_S * 1e3,
+        serving_ms=cuda_ms(lambda: fa_k.flash_attention_wgmma_cuda(q, k, v, causal=causal), 10),
+        grad_rel_l2_vs_plain_forward=grad_rel, visible_pairs=pairs,
+        shape={"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
+    ))
+
+    (x, scale, eps), _ = store["rmsnorm"]
+    x2 = x.detach().reshape(-1, x.shape[-1])
+    scale = scale.detach()
+    norm = lambda: rms_k.rmsnorm_cuda(x2, scale, eps)
+    plain = lambda: rmsnorm_ref(x2, scale, eps)
+    # The library's fused path takes a weight of the input's dtype: the
+    # first call's scale is the init's ones, exact in bf16.
+    scale_lib = scale.to(x2.dtype)
+    lib = lambda: F.rms_norm(x2, (x2.shape[-1],), weight=scale_lib, eps=eps)
+    dy = torch.randn(x2.shape, generator=g, device=x2.device).to(x2.dtype)
+    rows.append(dict(
+        name="rmsnorm[train]", route="cuda",
+        source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:41",
+        launches=launches["rmsnorm"],
+        max_abs_err=bf16_ulp_check("rmsnorm[train]", norm(), plain()),
+        ms=cuda_ms(norm, 50), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 50),
+        **bound(2 * x2.numel() * x2.element_size() + scale.numel() * scale.element_size(),
+                3 * x2.numel()),
+        backward_plain_ms=cuda_ms(lambda: rms_ops.rmsnorm_backward(x2, scale, eps, dy), 20),
+        shape={"x": list(x2.shape), "dtype": str(x2.dtype), "scale_dtype": str(scale.dtype)},
+    ))
+    for r in rows:
+        emit("kernel", **r)
+    return rows
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3351,7 +3632,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_flash_variants()
     phase_lm_serve()
+    torch.cuda.empty_cache()
     seconds["path 3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_train_small()
+    rows += train_kernel_rows(*phase_train())
+    torch.cuda.empty_cache()
+    seconds["train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows += phase_families()
     seconds["families"] = time.perf_counter() - t0

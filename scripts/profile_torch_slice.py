@@ -5,7 +5,7 @@ Run from the root of a checkout:
 
     python3 scripts/profile_torch_slice.py [--model soma|spheroid|spheroid_dense|
                                                     batch_sweep|sweep_slot|distributed|
-                                                    lm_prefill|lm_decode]
+                                                    lm_prefill|lm_decode|train]
                                            [--steps 6] [--trace trace.json]
                                            [--tree DIR]
 
@@ -21,7 +21,11 @@ four ranks on the card, one step = one lock-step iteration of all four),
 ``lm_prefill`` (phi4-mini-3.8b at full
 width, one step = one prefill call over 4 x 2,048 tokens, flash_attention +
 rmsnorm) or ``lm_decode`` (the same model, one step = one ``decode_step``
-for a batch of 4 at positions from 128 on, rmsnorm).  ``--tree DIR`` runs
+for a batch of 4 at positions from 128 on, rmsnorm) or ``train``
+(``chip_smoke.py``'s training cell: phi4-mini at its published widths and
+16 of 32 layers, one step = one ``make_train_step`` over 2 x 2,048 tokens,
+with remat: the flash and rmsnorm kernels in the forward and the recomputed
+forward, the plain attention backward, AdamW).  ``--tree DIR`` runs
 another checkout's ``repro_torch`` (its kernels built there) under this
 script's measurement, so that two checkouts can be compared in one call.
 Runs a few steps to warm up, times ``--steps`` steps without the profiler
@@ -75,6 +79,8 @@ def make_runner(cs, model: str, steps: int):
     """``run(n)``: advance the chosen path by ``n`` steps."""
     if model.startswith("lm_"):
         return lm_runner(cs, model, steps)
+    if model == "train":
+        return train_runner(cs)
     if model in ("batch_sweep", "sweep_slot"):
         return sweep_runner(cs, model)
     if model == "distributed":
@@ -229,11 +235,29 @@ def lm_runner(cs, model: str, steps: int):
     return run
 
 
+def train_runner(cs):
+    from repro_torch import training
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.optim import adamw
+
+    model = cs.train_model(reduced=False)
+    state = [training.init_train_state(model, 0, "cuda")]
+    data = DataConfig(seed=0, batch=cs.TRAIN_BATCH, seq_len=cs.TRAIN_LEN)
+    batch = device_batch(data, model.cfg, 0, "cuda")
+    step = training.make_train_step(model, adamw.AdamWConfig())
+
+    def run(n):
+        for _ in range(n):
+            state[0], _ = step(state[0], batch)
+
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("soma", "spheroid", "spheroid_dense", "batch_sweep",
                                         "sweep_slot", "distributed", "lm_prefill",
-                                        "lm_decode"),
+                                        "lm_decode", "train"),
                     default="soma")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")

@@ -1,4 +1,5 @@
-"""Carry a simulation state, or LM parameters, across as numpy.
+"""Carry a simulation state, LM parameters, or an LM train state across as
+numpy.
 
 The layout is a nested dict of numpy arrays and python numbers — the
 leaves of the reference's ``SimulationState``:
@@ -26,6 +27,11 @@ leading rank axis, a grid may add ``n_valid`` / ``frame_shift``, and
 
 join the single-node leaves (``rng`` (R, 2), ``step`` (R,), ``health``
 fields (R,)).
+
+:func:`lm_params_from_numpy` / :func:`lm_params_to_numpy` carry the LM
+stack's parameter trees (nested dicts, the reference's keys), and
+:func:`train_state_from_numpy` / :func:`train_state_to_numpy` a whole train
+state: ``params``, ``opt`` (``step``, ``mu``, ``nu``) and ``step``.
 """
 
 from __future__ import annotations
@@ -205,3 +211,36 @@ def lm_params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
         return {k: lm_params_to_numpy(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+# ------------------------------------------------------------ train state
+
+def train_state_from_numpy(state, device: torch.device | str):
+    """The port's ``TrainState`` on ``device`` from the reference's (or any
+    object with its fields: ``params``, ``opt.step``, ``opt.mu``,
+    ``opt.nu``, ``step``) with numpy leaves; the steps as int32."""
+    from .optim.adamw import AdamWState
+    from .training import TrainState
+
+    return TrainState(
+        params=lm_params_from_numpy(state.params, device),
+        opt=AdamWState(step=_tensor(np.asarray(state.opt.step), device, torch.int32),
+                       mu=lm_params_from_numpy(state.opt.mu, device),
+                       nu=lm_params_from_numpy(state.opt.nu, device)),
+        step=_tensor(np.asarray(state.step), device, torch.int32),
+    )
+
+
+def train_state_to_numpy(state):
+    """A port ``TrainState`` with numpy leaves, the reference's fields and
+    order (``jax.tree.leaves`` of the two give the same arrays)."""
+    from .optim.adamw import AdamWState
+    from .training import TrainState
+
+    step = lambda t: t.detach().cpu().numpy()
+    return TrainState(
+        params=lm_params_to_numpy(state.params),
+        opt=AdamWState(step=step(state.opt.step), mu=lm_params_to_numpy(state.opt.mu),
+                       nu=lm_params_to_numpy(state.opt.nu)),
+        step=step(state.step),
+    )

@@ -32,7 +32,10 @@
 // all hidden is 0.  Visible: k < kv_len and (((not causal) or q + kv_offset >=
 // k) and ((no window) or q + kv_offset - k < window) or k < prefix_len).  The
 // output is rounded once to the input's dtype (the Pallas path writes f32 and
-// its wrapper casts, ops.py:153).
+// its wrapper casts, ops.py:153).  With an lse buffer the kernel also writes
+// each row's m + log(max(l, 1e-30)) in f32, (B, Hq, Tq) (the Pallas kernel's
+// m and l outputs, kernel.py:153-166, formed as chunked_vjp.py:118 forms
+// them): the training slice's backward reads it.
 //
 // Bound on this card: at the LM prefill shape (B 4, Hq 24, Hkv 8, T 2048,
 // D 128, causal, bf16) the causal half of Q K^T and P V is 1.03e11 FLOP:
@@ -106,7 +109,8 @@ struct Smem {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int hq, int group,
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse, int hq, int group,
                            int tq, long long qsb, long long qsh, long long qst, long long ksb,
                            long long ksh, long long kst, long long vsb, long long vsh,
                            long long vst, long long osb, long long osh, long long ost,
@@ -231,6 +235,8 @@ __global__ void __launch_bounds__(kThreads)
     const int t = q0 + ty + 16 * i;
     if (t >= tq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // the row's 16 threads hold the same m and l (butterfly reductions)
+    if (lse != nullptr && tx == 0) lse[static_cast<long long>(bh) * tq + t] = m[i] + logf(denom);
 #pragma unroll
     for (int jj = 0; jj < CPT; ++jj) {
       ob[t * ost + tx + 16 * jj] = from_f<T>(__fdiv_rn(acc[i][jj], denom));
@@ -239,9 +245,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out, int b, int hq,
-                         int hkv, int tq, const long long* st, Masks mk, float scale,
-                         cudaStream_t stream) {
+cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int b, int hq, int hkv, int tq, const long long* st, Masks mk,
+                         float scale, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, D>;
   const size_t bytes = Smem<D>::kBytes;
   cudaError_t err =
@@ -251,20 +257,22 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((tq + kBQ - 1) / kBQ, b * hq);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), hq, hq / hkv, tq, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      static_cast<T*>(out), lse, hq, hq / hkv, tq, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], mk, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* out, int b,
-                     int hq, int hkv, int tq, const long long* st, Masks mk, float scale,
+cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* out, float* lse,
+                     int b, int hq, int hkv, int tq, const long long* st, Masks mk, float scale,
                      cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_typed<T, 16>(q, k, v, out, b, hq, hkv, tq, st, mk, scale, stream);
-    case 64: return launch_typed<T, 64>(q, k, v, out, b, hq, hkv, tq, st, mk, scale, stream);
-    case 128: return launch_typed<T, 128>(q, k, v, out, b, hq, hkv, tq, st, mk, scale, stream);
-    case 256: return launch_typed<T, 256>(q, k, v, out, b, hq, hkv, tq, st, mk, scale, stream);
+    case 16: return launch_typed<T, 16>(q, k, v, out, lse, b, hq, hkv, tq, st, mk, scale, stream);
+    case 64: return launch_typed<T, 64>(q, k, v, out, lse, b, hq, hkv, tq, st, mk, scale, stream);
+    case 128:
+      return launch_typed<T, 128>(q, k, v, out, lse, b, hq, hkv, tq, st, mk, scale, stream);
+    case 256:
+      return launch_typed<T, 256>(q, k, v, out, lse, b, hq, hkv, tq, st, mk, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -273,9 +281,10 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v, void* o
 
 // dtype codes: 0 float32, 1 bfloat16 (kernel.py DTYPES).  strides: twelve
 // element strides, (batch, head, time) of q, k, v and out; the feature axis
-// is contiguous in each.
+// is contiguous in each.  lse: null, or a contiguous (B, Hq, Tq) f32 buffer.
 extern "C" int flash_attention_launch(int device, int dtype, int d, const void* q,
-                                      const void* k, const void* v, void* out, int b, int hq,
+                                      const void* k, const void* v, void* out, void* lse,
+                                      int b, int hq,
                                       int hkv, int tq, int tk, const long long* strides,
                                       int causal, int has_window, int window, int prefix_len,
                                       int kv_offset, float scale, void* stream) {
@@ -284,9 +293,13 @@ extern "C" int flash_attention_launch(int device, int dtype, int d, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = launch_d<float>(d, q, k, v, out, b, hq, hkv, tq, strides, mk, scale, s); break;
+    case 0:
+      err = launch_d<float>(d, q, k, v, out, static_cast<float*>(lse), b, hq, hkv, tq, strides,
+                            mk, scale, s);
+      break;
     case 1:
-      err = launch_d<__nv_bfloat16>(d, q, k, v, out, b, hq, hkv, tq, strides, mk, scale, s);
+      err = launch_d<__nv_bfloat16>(d, q, k, v, out, static_cast<float*>(lse), b, hq, hkv, tq,
+                                    strides, mk, scale, s);
       break;
     default: err = cudaErrorInvalidValue;
   }

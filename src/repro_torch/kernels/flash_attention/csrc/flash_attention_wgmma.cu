@@ -26,10 +26,16 @@
 //            cudaGetDriverEntryPoint (no -lcuda).
 //   S = QK^T wgmma m64n64k16, bf16 -> f32, Q and K both from shared memory
 //            (K stored as (Tk, D) rows is the K-major B operand).
-//   softmax  on the accumulator fragments in registers, in the log2 domain
-//            (x = s * scale * log2 e, p = 2^(x - m) by ex2.approx: two
-//            instructions where expf takes about eight; relative error
-//            ~2^-22, far below the bf16 ulp the output keeps): masks (a
+//   softmax  on the accumulator fragments in registers, with the running
+//            max m kept in units of the raw score s = q . k and
+//            p = 2^((s - m) * scale * log2 e) by ex2.approx (two instructions
+//            where expf takes about eight; relative error ~2^-22, far below
+//            the bf16 ulp the output keeps).  s - m is exact wherever s lies
+//            within a factor two of m (Sterbenz), so the rounding of a large
+//            score never enters the exponent (rounding x = s * scale * log2 e
+//            first puts an absolute error near 2e-6 into the exponent at
+//            |x| ~ 43, which a near-cancelling output keeps at a sharp
+//            softmax; ROADMAP section 3, repaired faults): masks (a
 //            second copy without them for tiles that the warpgroup's rows
 //            see whole), row max and row sum over the four lanes of a quad by
 //            shuffles, O rescaled only when a row's max moved; a tile the
@@ -48,7 +54,10 @@
 //            outputs beyond one bf16 ulp of the exact result at a sharp
 //            softmax (PERF.md).
 //   output   acc / max(l, 1e-30) rounded once to bf16 and stored from the
-//            registers with the output's strides.
+//            registers with the output's strides; when the caller passes an
+//            lse buffer, each row's m * scale + log(max(l, 1e-30)) in f32
+//            (natural log, (B, Hq, Tq); -1e30 for a row whose keys are all
+//            hidden), which the training slice's backward reads.
 //
 // Why P has three terms: the Pallas kernel computes in f32 (it upcasts q, k
 // and v, kernel.py:59-61) and the port holds bf16 outputs to one bf16 ulp of
@@ -287,11 +296,11 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // The online softmax of one S tile in the accumulator layout (sc[4 j + 2 hh
-// + e] is row hh of the lane's pair, key kbase + 8 j + e), in the log2
-// domain: x = s * scale * log2(e), hidden -> NEG_INF, m_new = max(m, max x),
-// alpha = 2^(m - m_new), p = 2^(x - m_new) zeroed where hidden,
-// l = alpha l + sum p.  Row max and sum over the quad by shuffles (every lane
-// ends with the same bits).  sc is overwritten with p.
+// + e] is row hh of the lane's pair, key kbase + 8 j + e), with m in raw
+// score units: hidden -> NEG_INF, m_new = max(m, max s),
+// alpha = 2^((m - m_new) * scale_log2), p = 2^((s - m_new) * scale_log2)
+// zeroed where hidden, l = alpha l + sum p.  Row max and sum over the quad by
+// shuffles (every lane ends with the same bits).  sc is overwritten with p.
 template <bool kMasked>
 __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], const Masks& mk, int qa0,
@@ -306,7 +315,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * j + 2 * hh + e;
-        float x = __fmul_rn(sc[i], scale_log2);
+        float x = sc[i];
         if (kMasked && !visible(mk, qa, kbase + 8 * j + e)) {
           x = kNegInf;
           hidden |= 1u << (2 * j + e);
@@ -318,14 +327,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
     mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
     mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
     const float m_new = fmaxf(m[hh], mc);
-    alpha[hh] = ex2(__fsub_rn(m[hh], m_new));
+    alpha[hh] = ex2(__fmul_rn(__fsub_rn(m[hh], m_new), scale_log2));
     float rs = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * j + 2 * hh + e;
-        float p = ex2(__fsub_rn(sc[i], m_new));
+        float p = ex2(__fmul_rn(__fsub_rn(sc[i], m_new), scale_log2));
         if (kMasked && ((hidden >> (2 * j + e)) & 1u)) p = 0.f;
         sc[i] = p;
         rs = __fadd_rn(rs, p);
@@ -345,7 +354,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
                                  const __grid_constant__ CUtensorMap v_map,
-                                 __nv_bfloat16* __restrict__ out, int nb, int hq, int hkv,
+                                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                 int nb, int hq, int hkv,
                                  int tq, long long osb, long long osh, long long ost, Masks mk,
                                  float scale) {
   using S = Smem<D>;
@@ -522,6 +532,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = q0 + r0 + 8 * hh;
     if (t >= tq) continue;
     const float denom = fmaxf(l[hh], 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0) {  // the quad's four lanes hold the same m, l
+      const float m_nat = m[hh] == kNegInf ? kNegInf : __fmul_rn(m[hh], scale);
+      lse[(static_cast<long long>(bi) * hq + h) * tq + t] = __fadd_rn(m_nat, logf(denom));
+    }
     __nv_bfloat16* orow = out + bi * osb + h * osh + t * ost;
 #pragma unroll
     for (int jd = 0; jd < D / 8; ++jd) {
@@ -577,8 +591,9 @@ int make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d, int t
 }
 
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, int b, int hq, int hkv,
-             int tq, int tk, const long long* st, Masks mk, float scale, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* out, float* lse, int b, int hq,
+             int hkv, int tq, int tk, const long long* st, Masks mk, float scale,
+             cudaStream_t stream) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncode;
   CUtensorMap qm, km, vm;
@@ -593,8 +608,8 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int b, int 
   const unsigned blocks = static_cast<unsigned>((tq + kBQ - 1) / kBQ) *
                           static_cast<unsigned>(b) * static_cast<unsigned>(hq);
   kernel<<<blocks, kThreads, Smem<D>::kAlloc, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), b, hq, hkv, tq, st[9], st[10], st[11], mk,
-      scale);
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), lse, b, hq, hkv, tq, st[9], st[10], st[11],
+      mk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,10 +618,12 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int b, int 
 // bf16 q, k, v, out; d 64 or 128.  strides: twelve element strides, (batch,
 // head, time) of q, k, v and out; the feature axis is contiguous in each, and
 // the q, k, v strides and pointers are 16-byte multiples (kernel.py checks).
+// lse: null, or a contiguous (B, Hq, Tq) f32 buffer for each row's logsumexp.
 // Returns a cudaError_t, or kErrEncode + CUresult when a tensor map is
 // refused, or kErrNoEncode when cuTensorMapEncodeTiled cannot be found.
 extern "C" int flash_attention_wgmma_launch(int device, int d, const void* q, const void* k,
-                                            const void* v, void* out, int b, int hq, int hkv,
+                                            const void* v, void* out, void* lse, int b, int hq,
+                                            int hkv,
                                             int tq, int tk, const long long* strides,
                                             int causal, int has_window, int window,
                                             int prefix_len, int kv_offset, float scale,
@@ -615,8 +632,12 @@ extern "C" int flash_attention_wgmma_launch(int device, int d, const void* q, co
   const Masks mk{causal, has_window, window, prefix_len, kv_offset, tk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch_d<64>(q, k, v, out, b, hq, hkv, tq, tk, strides, mk, scale, s);
-    case 128: return launch_d<128>(q, k, v, out, b, hq, hkv, tq, tk, strides, mk, scale, s);
+    case 64:
+      return launch_d<64>(q, k, v, out, static_cast<float*>(lse), b, hq, hkv, tq, tk, strides,
+                          mk, scale, s);
+    case 128:
+      return launch_d<128>(q, k, v, out, static_cast<float*>(lse), b, hq, hkv, tq, tk, strides,
+                           mk, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

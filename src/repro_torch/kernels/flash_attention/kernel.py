@@ -13,17 +13,24 @@ feature axis must be contiguous, the other three axes may have any strides,
 so the ``(B, T, H, D)`` projections of the model go in without a copy (the
 tensor-core kernel's TMA copies also need 16-byte aligned pointers and
 strides that are multiples of 8 values).  The output is allocated with
-``q``'s strides.  A launch that fails raises.
+``q``'s strides.  With ``return_lse=True`` a kernel also writes each query
+row's logsumexp, ``m + log(max(l, 1e-30))`` in natural-log units, ``(B, Hq,
+Tq)`` f32 (-1e30 for a row whose keys are all hidden): the Pallas kernel's
+``m`` and ``l`` outputs as the reference's backward forms them
+(``chunked_vjp.py:118``).  Serving passes no buffer and writes nothing
+more.  A launch that fails raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from .. import _build
+from .ref import NEG_INF
 
 launches = 0          # csrc/flash_attention.cu (SIMT)
 launches_tc = 0       # csrc/flash_attention_wgmma.cu (tensor cores)
@@ -45,7 +52,7 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_launch.argtypes = [
-            _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _P,
+            _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _P,
         ]
         lib.flash_attention_launch.restype = _I
         lib._typed = True
@@ -56,11 +63,15 @@ def _lib_tc():
     lib = _build.load("flash_attention_wgmma")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_wgmma_launch.argtypes = [
-            _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _P,
+            _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _P,
         ]
         lib.flash_attention_wgmma_launch.restype = _I
         lib._typed = True
     return lib
+
+
+def _lse_ptr(lse: Optional[torch.Tensor]):
+    return None if lse is None else _build.ptr(lse)
 
 
 def _tma_strides(name: str, t: torch.Tensor) -> list:
@@ -107,56 +118,73 @@ def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return b, hq, hkv, tq, tk, d
 
 
+def _outputs(q, b, hq, tq, return_lse):
+    """The output (``q``'s strides when q is dense, else contiguous) and,
+    when asked for, the ``(B, Hq, Tq)`` f32 lse buffer."""
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, tq), dtype=torch.float32, device=q.device) if return_lse
+           else None)
+    return out, lse
+
+
+def _empty_result(out, lse, tk):
+    """The result without a launch: no query rows, or no keys (output 0 and
+    lse -1e30 + log(1e-30), as the reference forms it for a hidden row)."""
+    if tk == 0:
+        out.zero_()
+        if lse is not None:
+            lse.fill_(NEG_INF + math.log(1e-30))
+    return (out, lse) if lse is not None else out
+
+
 def flash_attention_simt_cuda(q, k, v, *, causal=True, window=None, prefix_len=0,
-                              kv_offset=0, scale=None) -> torch.Tensor:
-    """``csrc/flash_attention.cu`` on any supported dtype and head dim."""
+                              kv_offset=0, scale=None, return_lse=False):
+    """``csrc/flash_attention.cu`` on any supported dtype and head dim;
+    ``(out, lse)`` with ``return_lse``."""
     global launches
     b, hq, hkv, tq, tk, d = _checked(q, k, v)
-    out = torch.empty_like(q)       # q's strides when q is dense, else contiguous
-    if q.numel() == 0:
-        return out
-    if tk == 0:
-        return out.zero_()
+    out, lse = _outputs(q, b, hq, tq, return_lse)
+    if q.numel() == 0 or tk == 0:
+        return _empty_result(out, lse, tk)
     scale_v = (d ** -0.5) if scale is None else scale
     strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out) for i in range(3)])
     _build.check(
         _lib().flash_attention_launch(
             q.device.index, DTYPES[q.dtype], d, _build.ptr(q), _build.ptr(k), _build.ptr(v),
-            _build.ptr(out), b, hq, hkv, tq, tk, ctypes.cast(strides, _P), int(causal),
-            int(window is not None), int(window or 0), int(prefix_len), int(kv_offset),
-            float(scale_v), _build.stream_of(q)),
+            _build.ptr(out), _lse_ptr(lse), b, hq, hkv, tq, tk, ctypes.cast(strides, _P),
+            int(causal), int(window is not None), int(window or 0), int(prefix_len),
+            int(kv_offset), float(scale_v), _build.stream_of(q)),
         "flash_attention",
     )
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, prefix_len=0,
-                               kv_offset=0, scale=None) -> torch.Tensor:
-    """``csrc/flash_attention_wgmma.cu``: bf16 at head dim 64 or 128 only."""
+                               kv_offset=0, scale=None, return_lse=False):
+    """``csrc/flash_attention_wgmma.cu``: bf16 at head dim 64 or 128 only;
+    ``(out, lse)`` with ``return_lse``."""
     global launches_tc
     b, hq, hkv, tq, tk, d = _checked(q, k, v)
     if not uses_tensor_cores(q.dtype, d):
         raise ValueError(f"flash_attention: the tensor-core kernel takes bf16 at head_dim "
                          f"{TC_HEAD_DIMS}, got {q.dtype} at {d}")
-    out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
-    if tk == 0:
-        return out.zero_()
+    out, lse = _outputs(q, b, hq, tq, return_lse)
+    if q.numel() == 0 or tk == 0:
+        return _empty_result(out, lse, tk)
     scale_v = (d ** -0.5) if scale is None else scale
     st = [s for name, t in (("q", q), ("k", k), ("v", v)) for s in _tma_strides(name, t)]
     strides = (ctypes.c_longlong * 12)(*st, *[out.stride(i) for i in range(3)])
     _build.check(
         _lib_tc().flash_attention_wgmma_launch(
             q.device.index, d, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-            b, hq, hkv, tq, tk, ctypes.cast(strides, _P), int(causal),
+            _lse_ptr(lse), b, hq, hkv, tq, tk, ctypes.cast(strides, _P), int(causal),
             int(window is not None), int(window or 0), int(prefix_len), int(kv_offset),
             float(scale_v), _build.stream_of(q)),
         "flash_attention (tensor cores)",
     )
     launches_tc += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_cuda(
@@ -169,10 +197,12 @@ def flash_attention_cuda(
     prefix_len: int = 0,
     kv_offset: int = 0,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention output ``(B, Hq, Tq, D)`` in ``q.dtype`` (f32 or bf16), f32
-    arithmetic inside; the kernel is chosen by ``uses_tensor_cores``."""
+    arithmetic inside, and with ``return_lse`` the rows' logsumexp ``(B, Hq,
+    Tq)`` f32; the kernel is chosen by ``uses_tensor_cores``."""
     tc = q.ndim == 4 and uses_tensor_cores(q.dtype, q.shape[3])
     kernel = flash_attention_wgmma_cuda if tc else flash_attention_simt_cuda
     return kernel(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
-                  kv_offset=kv_offset, scale=scale)
+                  kv_offset=kv_offset, scale=scale, return_lse=return_lse)

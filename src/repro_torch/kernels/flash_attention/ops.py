@@ -6,8 +6,14 @@
                 reference's "pallas".
   "reference" — the O(T²) oracle (ref.py);
   "chunked"   — the plain online softmax over KV blocks, the Pallas kernel's
-                arithmetic in PyTorch ops.  Forward only: the reference's
-                custom VJP (``chunked_vjp.py``) belongs to the training slice.
+                arithmetic in PyTorch ops.
+
+Whenever autograd records (grad mode on and q, k or v requiring grad),
+"cuda" and "chunked" run through ``chunked_vjp.FlashAttention``: the same
+forward, which also keeps each row's logsumexp, and the reference's
+FlashAttention backward (``chunked_vjp.py``), blockwise over KV blocks.  The
+no-grad serving path calls the forward directly.  "reference" is
+differentiated by autograd through its plain ops, as the reference's is.
 
 Layouts are the reference's, ``(B, H, T, D)``.  ``block_q`` is accepted for
 the reference's signature and does not change the result (every query row is
@@ -56,11 +62,15 @@ def chunked_attention(
     kv_offset: int = 0,
     scale: Optional[float] = None,
     block_k: int = DEFAULT_BLOCK_K,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Online softmax over KV blocks in f32, as the Pallas kernel computes it
     (``kernel.py:59-100``): NEG_INF sentinel, ``p`` zeroed where hidden, the
     final ``max(l, 1e-30)``.  Query heads are grouped over their KV head, so
-    K/V are never repeated."""
+    K/V are never repeated.  With ``return_lse``, ``(out, lse)``: each row's
+    ``m + log(max(l, 1e-30))`` ``(B, Hq, Tq)`` f32, as the reference's
+    ``chunked_vjp.py:118`` forms it (-1e30 for a row whose keys are all
+    hidden)."""
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
     group = hq // hkv
@@ -90,8 +100,11 @@ def chunked_attention(
         l = alpha * l + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.matmul(p, vb)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, hq, tq, d).to(q.dtype)
+    denom = torch.clamp(l, min=1e-30)
+    out = (acc / denom[..., None]).reshape(b, hq, tq, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(denom)).reshape(b, hq, tq)
+    return out
 
 
 def flash_attention(
@@ -110,6 +123,12 @@ def flash_attention(
     """Attention output ``(B, Hq, Tq, D)`` in ``q.dtype``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown flash_attention impl {impl!r}; expected {IMPLS}")
+    if impl != "reference" and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        from .chunked_vjp import FlashAttention
+
+        return FlashAttention.apply(q, k, v, causal, window, prefix_len, kv_offset, scale,
+                                    impl, block_k)
     if impl == "reference":
         return attention_ref(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
                              kv_offset=kv_offset, scale=scale)

@@ -72,11 +72,12 @@ def wgmma_arithmetic_ref(
     """The tensor-core kernel's arithmetic (``csrc/flash_attention_wgmma.cu``)
     in plain PyTorch, for the tests only: S = Q Kᵀ of the bf16 values in f32,
     the online softmax over ``block_k``-key tiles as the Pallas kernel does it
-    (NEG_INF sentinel, p zeroed where hidden, final ``max(l, 1e-30)``) but in
-    the log2 domain (x = s · scale · log2 e, p = 2^(x − m)), and P
-    split into three bf16 terms hi = bf16(p), mid = bf16(p − hi),
-    lo = bf16(p − hi − mid), each multiplied by V in f32, summed per tile and
-    added to the rescaled accumulator.  The output is rounded once to bf16."""
+    (NEG_INF sentinel, p zeroed where hidden, final ``max(l, 1e-30)``) but
+    with the running max m in raw-score units and p = 2^((s − m) · scale ·
+    log2 e), and P split into three bf16 terms hi = bf16(p), mid = bf16(p −
+    hi), lo = bf16(p − hi − mid), each multiplied by V in f32, summed per tile
+    and added to the rescaled accumulator.  The output is rounded once to
+    bf16."""
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
     group = hq // hkv
@@ -85,6 +86,7 @@ def wgmma_arithmetic_ref(
                                                                           dtype=torch.float32)
     dev = q.device
     bf = torch.bfloat16
+    sl2 = scale_log2.to(dev)
     qg = q.to(bf).float().reshape(b, hkv, group * tq, d)
     q_pos = torch.arange(tq, device=dev).repeat(group) + kv_offset
     m = torch.full((b, hkv, group * tq), NEG_INF, dtype=torch.float32, device=dev)
@@ -94,13 +96,13 @@ def wgmma_arithmetic_ref(
         k1 = min(k0 + block_k, tk)
         kb = k[:, :, k0:k1].to(bf).float()
         vb = v[:, :, k0:k1].to(bf).float()
-        s = torch.matmul(qg, kb.transpose(-1, -2)) * scale_log2.to(dev)
+        s = torch.matmul(qg, kb.transpose(-1, -2))
         mask = visible(q_pos[:, None], torch.arange(k0, k1, device=dev)[None, :],
                        causal, window, prefix_len)
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp2(m - m_new)
-        p = torch.where(mask, torch.exp2(s - m_new[..., None]), 0.0)
+        alpha = torch.exp2((m - m_new) * sl2)
+        p = torch.where(mask, torch.exp2((s - m_new[..., None]) * sl2), 0.0)
         l = alpha * l + p.sum(dim=-1)
         hi = p.to(bf).float()
         mid = (p - hi).to(bf).float()

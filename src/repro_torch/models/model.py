@@ -1,4 +1,5 @@
-"""Model assembly: config → init / backbone / forward / cache / decode_step.
+"""Model assembly: config → init / backbone / forward / loss / cache /
+decode_step.
 
 Port of ``repro/models/model.py`` for every family of ``configs/archs.py``:
 
@@ -12,9 +13,15 @@ Port of ``repro/models/model.py`` for every family of ``configs/archs.py``:
                    tower is a stub: the batch supplies ``patches``).
 
 The reference's ``lax.scan`` over the stacked layer parameters is a Python
-loop over the leading layer axis; ``remat`` and the sharding hooks have no
-counterpart.  ``loss`` (training) is not ported yet (ROADMAP queue 1, item
-15.5).
+loop over the leading layer axis, whose stacks are unbound once a call
+(``params.unstack``); the sharding hooks have no counterpart.  With
+``cfg.remat`` and autograd recording, each layer (and each encoder layer and
+loss chunk) runs under ``torch.utils.checkpoint`` (non-reentrant): its
+activations are recomputed in the backward, the reference's
+``jax.checkpoint``.  ``remat_policy="dots"`` saves the outputs of the
+products without batch dimensions (``mm``, ``addmm``) and recomputes the
+rest, the reference's ``dots_with_no_batch_dims_saveable``.  ``loss`` is the
+reference's masked cross-entropy over token chunks (``model.py:334-388``).
 
 Two quirks of the reference are kept, so that the port's decode equals its
 decode (ROADMAP §3):
@@ -29,9 +36,12 @@ decode (ROADMAP §3):
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -41,11 +51,13 @@ from . import layers as ll
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
-from .params import stack_layers, tree_leaves, tree_map
+from .params import stack_layers, tree_leaves, tree_map, unstack
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _ATTN_KINDS = ("attn", "local_attn")
-ITEM = "ROADMAP queue 1, item 15.5"
+REMAT_POLICIES = ("full", "dots")
+# The products ``remat_policy="dots"`` saves: those without batch dimensions.
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
 # Decode routes one token a row: a capacity of 4 slots an expert drops none
 # (``model.py:486``).
 DECODE_CAPACITY_FACTOR = 4.0
@@ -66,6 +78,10 @@ def _hold(tree: Dict[str, Any], dtype: torch.dtype, f32_dtype: torch.dtype) -> D
             else v.to(f32_dtype if k in F32_LEAVES else dtype) for k, v in tree.items()}
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _copy_into(dst, src) -> None:
     """Write a new recurrent state into the cache's tensors, in place."""
     for d, s in zip(tree_leaves(dst), tree_leaves(src)):
@@ -79,6 +95,9 @@ class Model:
         if config.attention_impl not in ("cuda", "chunked", "reference"):
             raise ValueError(f"unknown attention_impl {config.attention_impl!r}; expected "
                              f"'cuda' (the reference's 'pallas'), 'chunked' or 'reference'")
+        if config.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {config.remat_policy!r}; expected "
+                             f"{REMAT_POLICIES}")
         self.cfg = config
         self.compute_dtype = _dtype(config.dtype)
         self.param_dtype = _dtype(config.param_dtype)
@@ -184,6 +203,17 @@ class Model:
 
     # ---------------------------------------------------------- forward
 
+    def _remat(self, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+        is set and autograd records."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return fn(*args)
+        kw = {}
+        if self.cfg.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _dots_saveable)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
     def _attention(self, p, h: torch.Tensor, **kw) -> torch.Tensor:
         cfg = self.cfg
         return attn.attention_apply(
@@ -250,13 +280,15 @@ class Model:
         ep = params["encoder"]
         cd = self.compute_dtype
         x = frames.to(cd) + ep["pos_embed"][None, :frames.shape[1]].to(cd)
-        for e in range(cfg.n_encoder_layers):
-            lp = tree_map(lambda a: a[e], ep["layers"])
-            x = x + self._attention(lp["attn"], ll.norm_apply(lp["ln1"], x, cfg.norm),
-                                    causal=False)
-            x = x + ll.glu_mlp_apply(lp["mlp"], ll.norm_apply(lp["ln2"], x, cfg.norm),
-                                     cfg.activation, cd)
+        for lp in unstack(ep["layers"], cfg.n_encoder_layers):
+            x = self._remat(self._encoder_layer, lp, x)
         return ll.norm_apply(ep["ln_f"], x, cfg.norm)
+
+    def _encoder_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = x + self._attention(lp["attn"], ll.norm_apply(lp["ln1"], x, cfg.norm), causal=False)
+        return x + ll.glu_mlp_apply(lp["mlp"], ll.norm_apply(lp["ln2"], x, cfg.norm),
+                                    cfg.activation, self.compute_dtype)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         x = ll.embed_apply(params["embed"], tokens, self.compute_dtype)
@@ -264,14 +296,22 @@ class Model:
         # (model.py:277, :501): √3072 = 55.43 is 55.5 in bf16.
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.compute_dtype)
 
-    def _layers(self, tree):
+    def _layers(self, tree, unbind: bool = False):
         """Each layer's slice of ``tree`` (the parameters or the cache) in
         depth order with its kind: the stacked groups, then the tail layers.
-        Slices of stacked tensors are views, so writes reach the stack."""
+        Slices of stacked tensors are views, so writes reach the stack.
+        ``unbind``: the stacks are unbound once (``params.unstack``, for
+        parameters that autograd differentiates); else each slice indexes its
+        stack (the decode cache, written in place)."""
+        stacks = {}
+        if unbind and self.n_groups:
+            stacks = {j: unstack(tree["layers"][f"b{j}"], self.n_groups)
+                      for j in range(self.group_size)}
         for g in range(self.n_groups):
             for j in range(self.group_size):
-                yield (tree_map(lambda a: a[g], tree["layers"][f"b{j}"]),
-                       self.cfg.block_pattern[j])
+                lp = (stacks[j][g] if unbind
+                      else tree_map(lambda a: a[g], tree["layers"][f"b{j}"]))
+                yield lp, self.cfg.block_pattern[j]
         for j, kind in enumerate(self.tail_kinds):
             yield tree[f"tail{j}"], kind
 
@@ -288,8 +328,8 @@ class Model:
             prefix_len = cfg.prefix_tokens
         enc_out = self.encode(params, batch["frames"]) if cfg.is_encoder_decoder else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp, kind in self._layers(params):
-            x, a = self._block_forward(lp, kind, x, enc_out, prefix_len)
+        for lp, kind in self._layers(params, unbind=True):
+            x, a = self._remat(self._block_forward, lp, kind, x, enc_out, prefix_len)
             if a is not None:
                 aux = aux + a
         x = ll.norm_apply(params["ln_f"], x, cfg.norm)
@@ -307,8 +347,50 @@ class Model:
         x, aux = self.backbone(params, batch)
         return self.logits(params, x), aux
 
-    def loss(self, params, batch):
-        raise NotImplementedError(f"Model.loss belongs to the training slice ({ITEM})")
+    # ------------------------------------------------------------- loss
+
+    LOSS_CHUNK = 8192  # tokens per logits chunk
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]):
+        """Masked softmax cross-entropy + 1e-4 z-loss + 1e-2 MoE aux, and the
+        metrics ``ce``, ``aux``, ``zloss``, ``tokens`` (0-d f32 tensors).
+        ``batch["targets"]`` (B, T) holds -1 where no token is predicted.
+
+        The (tokens, vocab) logits are never whole: the vocabulary product
+        and the log-softmax run over chunks of ``LOSS_CHUNK`` tokens (under
+        ``torch.utils.checkpoint`` with ``cfg.remat``), their sums added in
+        chunk order as the reference's scan carries them.  The last chunk is
+        shorter where the reference pads it with masked rows, which add
+        nothing."""
+        x, aux = self.backbone(params, batch)
+        b, t, d = x.shape
+        n = b * t
+        xf = x.reshape(n, d)
+        tf = batch["targets"].reshape(n).long()
+        if self.cfg.tie_embeddings:
+            w = params["embed"]["table"].to(self.compute_dtype).t()
+        else:
+            w = params["logits"]["w"].to(self.compute_dtype)
+        chunk = min(self.LOSS_CHUNK, n)
+        ce_sum = z_sum = tok = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, n, chunk):
+            ce_c, z_c, tok_c = self._remat(self._chunk_loss, xf[c0:c0 + chunk],
+                                           tf[c0:c0 + chunk], w)
+            ce_sum, z_sum, tok = ce_sum + ce_c, z_sum + z_c, tok + tok_c
+        denom = torch.clamp(tok, min=1.0)
+        ce = ce_sum / denom
+        zl = 1e-4 * z_sum / denom
+        total = ce + zl + 1e-2 * aux
+        return total, {"ce": ce, "aux": aux, "zloss": zl, "tokens": tok}
+
+    def _chunk_loss(self, xch: torch.Tensor, tch: torch.Tensor, w: torch.Tensor):
+        """One chunk's (Σ nll, Σ lse², tokens) over its masked rows."""
+        logits = torch.matmul(xch.to(self.compute_dtype), w).float()
+        mask = (tch >= 0).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, 1, torch.clamp(tch, min=0)[:, None])[:, 0]
+        nll = lse - picked
+        return (nll * mask).sum(), (torch.square(lse) * mask).sum(), mask.sum()
 
     # ------------------------------------------------------------ decode
 

@@ -59,6 +59,21 @@ def stack_layers(make: Callable[[], Any], n: int) -> Any:
     return stacked
 
 
+def unstack(tree: Any, n: int) -> list:
+    """The ``n`` per-layer trees of a tree stacked along a leading layer axis,
+    by one ``unbind`` a leaf.  Its views' gradients are stacked once by
+    ``unbind``'s backward, where indexing layer by layer (``a[g]``) would
+    write each layer's gradient into a zero tensor of the whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [unstack(v, n) for v in tree]
+        make = (lambda items: type(tree)(*items)) if hasattr(tree, "_fields") else tuple
+        return [make([p[i] for p in parts]) for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -74,6 +89,15 @@ def tree_leaves(tree: Any) -> list:
     if isinstance(tree, tuple):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_leaves_sorted(tree: Any) -> list:
+    """Leaves with each dict's keys in sorted order (``jax.tree.leaves``'s
+    order), so that a walk does not depend on insertion order: a restored
+    checkpoint's dicts come back sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves_sorted(tree[k])]
+    return tree_leaves(tree)
 
 
 def tree_size(values: Any) -> int:

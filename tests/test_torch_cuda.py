@@ -13,7 +13,9 @@ the card (the kernel keeps its sum order and rounding) and ``rtol=atol=1e-6``
 against it on the CPU; RMSNorm and flash attention f32 ``rtol=1e-5,
 atol=2e-6`` and ``atol=2e-5``, bf16 one bf16 ulp (``rtol=2**-7``: the f32
 results, summed in other orders, round once to bf16); the tensor-core flash
-kernel's sharp-softmax cases one bf16 ulp of a float64 oracle.
+kernel's sharp-softmax cases one bf16 ulp of a float64 oracle.  The training
+slice's tests (flash lse, gradients through the kernels' forwards, the
+RMSNorm Function, train steps card against CPU) state theirs.
 """
 
 import dataclasses
@@ -611,6 +613,133 @@ def test_flash_attention_tensor_cores_ragged_and_sharp(card, case, q_scale):
     if q_scale == 1.0:
         want = fa_ops.flash_attention(q, k, v, impl="chunked", block_k=64, **kw)
         np.testing.assert_allclose(got, want.float().numpy(), **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_lse_matches_plain(card, case, dtype):
+    """Both kernels' row logsumexp (``return_lse``) against the plain
+    version's on the same inputs: ``rtol=1e-5, atol=1e-5`` (f32 sums of
+    exp in other orders, ``logf``); -1e30 exactly where a row's keys are
+    all hidden; the output equals the launch without lse bit for bit."""
+    (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
+    g = torch.Generator().manual_seed(sorted(FLASH_CASES).index(case))
+    q, k, v = (torch.randn(s, generator=g).to(dtype).to(card)
+               for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    plain_out, plain_lse = fa_ops.chunked_attention(q, k, v, block_k=64, return_lse=True, **kw)
+    assert lse.shape == (b, hq, tq) and lse.dtype == torch.float32
+    assert torch.equal(out, fa_kernel.flash_attention_cuda(q, k, v, **kw))
+    np.testing.assert_allclose(lse.cpu().numpy(), plain_lse.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    hidden = plain_lse == -1e30
+    assert torch.equal(lse == -1e30, hidden)
+    if case == "masked_rows_d64":
+        assert bool(hidden.all())
+
+
+# (FLASH_CASES case, dtype): the tensor-core kernel at D 128 and 64 (bf16),
+# the SIMT kernel at D 256 (f32).
+FLASH_GRAD_CASES = [("causal_g3_d128", torch.bfloat16), ("window_g4_d64", torch.bfloat16),
+                    ("prefix_g8_d256", torch.float32), ("kv_offset_d256", torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", FLASH_GRAD_CASES)
+def test_flash_attention_kernel_gradients_match_plain(card, case, dtype):
+    """Autograd through the kernel's forward (``chunked_vjp.FlashAttention``
+    with ``impl="cuda"``: one kernel launch) against the plain forward's
+    (``impl="chunked"``) on the card, the same backward after each:
+    relative L2 of dq, dk, dv ≤ 1e-4 in f32 (the forwards' out and lse agree
+    to 2e-5) and ≤ 2e-2 in bf16 (out differs by a bf16 ulp and the
+    gradients round to bf16)."""
+    (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
+    g = torch.Generator().manual_seed(50 + sorted(FLASH_CASES).index(case))
+    base = [torch.randn(s, generator=g).to(dtype).to(card)
+            for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
+    dout = torch.randn((b, hq, tq, d), generator=g).to(dtype).to(card)
+    grads = {}
+    for impl in ("cuda", "chunked"):
+        ts = [t.clone().requires_grad_() for t in base]
+        before = (fa_kernel.launches, fa_kernel.launches_tc)
+        out = fa_ops.flash_attention(*ts, impl=impl, block_k=64, **kw)
+        grads[impl] = torch.autograd.grad(out, ts, dout)
+        torch.cuda.synchronize()
+        launched = (fa_kernel.launches - before[0]) + (fa_kernel.launches_tc - before[1])
+        assert launched == (impl == "cuda")
+    bound = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, w in zip(("dq", "dk", "dv"), grads["cuda"], grads["chunked"]):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
+        rel = float(torch.linalg.norm((a - w).float()) / torch.linalg.norm(w.float()))
+        assert rel <= bound, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_function_gradient_matches_plain_autograd(card, dtype):
+    """``rms_ops.rmsnorm`` under autograd (the ``RMSNorm`` Function: the
+    kernel forward, one launch; the written-out backward) against autograd
+    through the plain version on the card: dx in f32 ``rtol=1e-5,
+    atol=1e-6``, in bf16 one bf16 ulp; dscale (f32) ``rtol=1e-4,
+    atol=1e-4``."""
+    g = torch.Generator().manual_seed(9)
+    x0 = (2 * torch.randn((300, 3072), generator=g)).to(dtype).to(card)
+    s0 = (1 + 0.2 * torch.randn((3072,), generator=g)).to(card)
+    dy = torch.randn((300, 3072), generator=g).to(dtype).to(card)
+    out = {}
+    for impl in ("cuda", "reference"):
+        x, s = x0.clone().requires_grad_(), s0.clone().requires_grad_()
+        before = rms_kernel.launches
+        y = rms_ops.rmsnorm(x, s, 1e-6, impl=impl)
+        out[impl] = torch.autograd.grad(y, (x, s), dy)
+        torch.cuda.synchronize()
+        assert rms_kernel.launches - before == (impl == "cuda")
+    (dx, ds), (dx_w, ds_w) = out["cuda"], out["reference"]
+    tol = RMS_TOL[dtype] if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-6)
+    np.testing.assert_allclose(dx.float().cpu().numpy(), dx_w.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(ds.cpu().numpy(), ds_w.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_match_cpu(card):
+    """Reduced phi4-mini (f32, ``remat=True``): 3 ``make_train_step`` steps
+    on the card (the SIMT flash kernel and rmsnorm, each in the forward and
+    in the recomputed forward) against the CPU from one set of weights:
+    losses and grad norms ``rtol=1e-5``, every parameter ``atol=1e-5``
+    (AdamW with eps 1e-3, so a gradient within round-off of 0 moves its
+    parameter by about lr·g/eps, not by ±lr)."""
+    from repro_torch import training
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(reduced_config("phi4-mini-3.8b"), attention_impl="cuda",
+                              remat=True)
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    opt = adamw.AdamWConfig(learning_rate=3e-3, warmup_steps=2, total_steps=10, eps=1e-3)
+    start = training.init_train_state(model, 0, CPU)
+    data = DataConfig(seed=0, batch=2, seq_len=40)
+    out = {}
+    for dev in (card, CPU):
+        state = tree_map(lambda t: t.to(dev, copy=True), start)
+        step = training.make_train_step(model, opt)
+        counts = (fa_kernel.launches, rms_kernel.launches)
+        mets = []
+        for i in range(3):
+            state, m = step(state, device_batch(data, cfg, i, dev))
+            mets.append([float(m["loss"]), float(m["grad_norm"])])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            n = cfg.n_layers
+            assert (fa_kernel.launches - counts[0], rms_kernel.launches - counts[1]) == (
+                3 * 2 * n, 3 * (4 * n + 1))
+        out[dev.type] = (np.array(mets), [t.cpu() for t in tree_leaves(state.params)])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

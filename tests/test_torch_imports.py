@@ -13,7 +13,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_slice.py",
-    ROOT / "scripts" / "flash_sharp_softmax.py"]
+    ROOT / "scripts" / "flash_sharp_softmax.py", ROOT / "scripts" / "time_flash_trees.py"]
 
 
 def _imported_modules(path):
@@ -47,6 +47,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.slots, repro_torch.checkpoint\n"
         "import repro_torch.core.distributed, repro_torch.core.delta\n"
         "import repro_torch.launch.mesh, repro_torch.optim.pso\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.compression\n"
+        "import repro_torch.data, repro_torch.launch.train\n"
+        "import repro_torch.kernels.flash_attention.chunked_vjp\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )

@@ -284,9 +284,21 @@ def test_serve_reduced_flag_is_switchable(monkeypatch, flag, want_layers):
 
 
 def test_loss_raises_and_configs_are_the_reference_copies():
-    mt = build_model(reduced_config("phi4-mini-3.8b"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        mt.loss({}, {})
+    """(The name is kept from the slice that had no ``Model.loss``, when the
+    port's raised.)  ``Model.loss`` runs and equals the reference's on
+    reduced phi4-mini (f32, carried weights; loss and metrics ``rtol=1e-6``,
+    ``tokens`` exact); the configs are copies of the reference's."""
+    mj, pj, mt, pt = _pair(jax_impl="reference")
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, mj.cfg.vocab_size, (2, 21)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    want, met_w = mj.loss(pj, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got, met = mt.loss(pt, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    for k in ("ce", "zloss", "aux"):
+        np.testing.assert_allclose(float(met[k]), float(met_w[k]), rtol=1e-6, atol=1e-12)
+    assert float(met["tokens"]) == float(met_w["tokens"]) == 40.0
     from repro.configs import ARCHS as JAX_ARCHS
 
     assert sorted(ARCHS) == sorted(JAX_ARCHS)
