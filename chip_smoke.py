@@ -221,6 +221,26 @@ printing one JSON line; any failure raises and exits non-zero:
                   them and ``scaled_dot_product_attention`` with the same
                   boolean mask / ``rms_norm``; the flash bound also over the
                   64 x 64 tiles holding a visible pair.
+  dryrun_grid     ``python -m repro_torch.launch.dryrun --arch A --mesh both``
+                  for every arch of ``configs/archs.py`` and ``teraagent``
+                  (every shape, both production meshes: 82 cells), one CLI
+                  process an arch, ``DRYRUN_JOBS`` at a time, with no card
+                  visible to them; every cell ``ok`` but the reference's
+                  skips (``long_500k`` on full-attention archs); per cell its
+                  status, per-device argument bytes and host seconds.
+  dryrun          the dry-run's plans held against the card, on a one-device
+                  meta mesh: ``train``'s configuration (phi4-mini, 16 layers,
+                  2 x 2,048, f32 + AdamW, remat, the flash kernel) planned,
+                  then built on the card: argument bytes (state + batch)
+                  exact, one step's FlopCounterMode count + the flash
+                  formula a launch equal to the plan's, the measured peak of
+                  two steps no more than 10% above the plan's
+                  ``peak_estimate_bytes``; ``lm_prefill``'s (4 x 2,048, bf16)
+                  argument bytes and FLOPs exact, its peak against the plan's
+                  (printed); ``lm_serve``'s parameters and cache bytes
+                  exact; the TeraAgent cell's per-device state (one rank's
+                  ``DistState``, 1M agents) built on the card, bytes exact on
+                  both meshes.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; the ``kernels`` line gives each kernel's count from the path
@@ -238,11 +258,14 @@ cell_list_force and cell_window_force calls and of the pairwise_force call
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3526,6 +3549,190 @@ def train_kernel_rows(store, launches, cfg):
         emit("kernel", **r)
     return rows
 
+# ----------------------------------------------------------------- dry-run
+
+DRYRUN_JOBS = 8                  # dry-run CLI processes at a time (the host has 8 cores)
+TRAIN_PEAK_SLACK = 1.10          # measured train peak / the plan's estimate, at most
+
+
+def phase_dryrun_grid():
+    """Every cell of the dry-run's grid through its CLI, one process an arch
+    (``DRYRUN_JOBS`` at a time, ``CUDA_VISIBLE_DEVICES`` empty), records
+    under ``build/dryrun_smoke``; fails on a failed cell, a missing cell or a
+    skip other than the reference's."""
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    from repro_torch.launch import dryrun
+
+    out = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    archs = sorted({a for a, _ in dryrun.grid_cells()})
+
+    def run(arch):
+        return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                               "--mesh", "both", "--out", str(out)],
+                              env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(DRYRUN_JOBS) as pool:
+        runs = dict(zip(archs, pool.map(run, archs)))
+    wall = time.perf_counter() - t0
+    failed = {a: (r.stdout[-1500:], r.stderr[-1500:]) for a, r in runs.items() if r.returncode}
+    records = {(r["mesh"], r["arch"], r["shape"]): r
+               for r in (json.loads(p.read_text()) for p in sorted(out.glob("*.json")))}
+    want = [(m, a, s) for m in ("single", "multi") for a, s in dryrun.grid_cells()]
+    skip = {c for c in want if c[1] != "teraagent"
+            and not shape_applicable(get_config(c[1]), SHAPES[c[2]])[0]}
+    wrong = [c for c in want if c not in records
+             or records[c]["status"] != ("skipped" if c in skip else "ok")]
+    if failed or wrong or len(records) != len(want):
+        raise AssertionError(f"dryrun_grid: failed processes {failed}, cells missing or with "
+                             f"another status {wrong}, {len(records)} records for {len(want)}")
+    cells = [[*c, records[c]["status"], records[c].get("memory", {}).get("argument_bytes"),
+              records[c].get("lower_s", 0) + records[c].get("compile_s", 0)] for c in want]
+    emit("dryrun_grid", wall_s=wall, jobs=DRYRUN_JOBS, cells_total=len(want),
+         ok=len(want) - len(skip), skipped=len(skip),
+         host_s_total=sum(c[5] for c in cells),
+         columns=["mesh", "arch", "shape", "status", "argument_bytes", "host_s"], cells=cells)
+
+
+def tree_nbytes(*trees) -> int:
+    """Bytes of the tensors of ``trees`` (dicts, tuples and dataclasses)."""
+    from repro_torch.launch.dryrun import tree_tensors
+
+    return sum(t.numel() * t.element_size() for t in tree_tensors(trees))
+
+
+def counted_flops(step, *args):
+    """``(step(*args), FlopCounterMode's count over it, flash launches
+    during it)`` on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    return out, fc.get_total_flops(), read_counts()["flash_attention"]
+
+
+def phase_dryrun():
+    """The dry-run's one-device plans of ``train``, ``lm_prefill`` and
+    ``lm_serve`` and the TeraAgent state, held against the same steps and
+    state built on the card."""
+    from repro_torch import training
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.optim import adamw
+
+    smi = nvidia_smi_line()
+    mesh = make_mesh((1, 1), ("data", "model"), devices="meta")
+    out = {}
+
+    # train: phase_train's model, state and batches
+    model = train_model(reduced=False)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    plan = dryrun.run_cell(LM_ARCH, ShapeSpec("train", TRAIN_LEN, TRAIN_BATCH, "train"), "one",
+                           None, verbose=False, mesh=mesh, cfg=cfg)
+    plan_s = time.perf_counter() - t0
+    state = training.init_train_state(model, 0, "cuda")
+    data = DataConfig(seed=0, batch=TRAIN_BATCH, seq_len=TRAIN_LEN)
+    batches = [device_batch(data, cfg, i, "cuda") for i in range(2)]
+    held = tree_nbytes(state, batches[0])
+    step = training.make_train_step(model, adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, batches[0])
+    (state, _), flops, flash = counted_flops(step, state, batches[1])
+    peak = torch.cuda.max_memory_allocated()
+    b, t = TRAIN_BATCH, TRAIN_LEN
+    per_call = dryrun.flash_attention_flops((b, cfg.n_heads, t, cfg.head_dim),
+                                            (b, cfg.n_kv_heads, t, cfg.head_dim), True, None, 0)
+    tiles_here = visible_tiles(t, t, True, None, 0, "cuda")
+    card_flops = flops + flash * per_call
+    mem = plan["memory"]
+    ratio = peak / mem["peak_estimate_bytes"]
+    out["train"] = dict(
+        plan_s=plan_s, argument_bytes_plan=mem["argument_bytes"], argument_bytes_card=held,
+        flops_plan=plan["flops_per_device"], flops_card=card_flops,
+        flops_counter_card=flops, flash_launches=flash, flash_flops_per_launch=per_call,
+        flash_tiles=dryrun.visible_tiles(t, t, True, None, 0), flash_tiles_chip_smoke=tiles_here,
+        peak_estimate_bytes=mem["peak_estimate_bytes"], temp_bytes=mem["temp_bytes"],
+        peak_memory_bytes=peak, peak_over_estimate=ratio)
+    del state, batches, step
+    torch.cuda.empty_cache()
+    bad = []
+    if held != mem["argument_bytes"]:
+        bad.append("train argument bytes")
+    if card_flops != plan["flops_per_device"] or tiles_here != out["train"]["flash_tiles"]:
+        bad.append("train FLOPs")
+    if not ratio <= TRAIN_PEAK_SLACK:
+        bad.append(f"train peak {peak} over {TRAIN_PEAK_SLACK} x the estimate")
+
+    # lm_prefill and lm_serve: phi4-mini at full depth, bf16 weights
+    model = lm_model(reduced=False)
+    cfg = dataclasses.replace(model.cfg, param_dtype="bfloat16")
+    plan = dryrun.run_cell(LM_ARCH, ShapeSpec("prefill", LM_PREFILL_LEN, LM_BATCH, "prefill"),
+                           "one", None, verbose=False, mesh=mesh, cfg=cfg)
+    params = model.init(0, device="cuda", dtype=model.compute_dtype)
+    toks = lm_tokens(LM_BATCH, LM_PREFILL_LEN, cfg.vocab_size, 1).cuda()
+    held = tree_nbytes(params, toks)
+    prefill = training.make_prefill_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, flops, flash = counted_flops(prefill, params, {"tokens": toks})
+    peak = torch.cuda.max_memory_allocated()
+    per_call = dryrun.flash_attention_flops((LM_BATCH, cfg.n_heads, LM_PREFILL_LEN, cfg.head_dim),
+                                            (LM_BATCH, cfg.n_kv_heads, LM_PREFILL_LEN,
+                                             cfg.head_dim), True, None, 0)
+    mem = plan["memory"]
+    out["lm_prefill"] = dict(
+        argument_bytes_plan=mem["argument_bytes"], argument_bytes_card=held,
+        flops_plan=plan["flops_per_device"], flops_card=flops + flash * per_call,
+        flash_launches=flash, peak_estimate_bytes=mem["peak_estimate_bytes"],
+        peak_memory_bytes=peak, peak_over_estimate=peak / mem["peak_estimate_bytes"])
+    if held != mem["argument_bytes"]:
+        bad.append("lm_prefill argument bytes")
+    if out["lm_prefill"]["flops_card"] != plan["flops_per_device"]:
+        bad.append("lm_prefill FLOPs")
+
+    seq = LM_SERVE_PROMPT + LM_SERVE_GEN
+    serve_plan = dryrun.lower_cell(LM_ARCH, ShapeSpec("serve", seq, LM_BATCH, "decode"), mesh,
+                                   cfg=cfg)
+    cache = model.init_cache(LM_BATCH, seq, "cuda")
+    out["lm_serve"] = dict(
+        param_bytes_plan=dryrun.spec_bytes(serve_plan.specs_in[0]),
+        param_bytes_card=tree_nbytes(params),
+        cache_bytes_plan=dryrun.spec_bytes(serve_plan.specs_in[1]),
+        cache_bytes_card=tree_nbytes(cache))
+    if out["lm_serve"]["param_bytes_plan"] != out["lm_serve"]["param_bytes_card"] or \
+            out["lm_serve"]["cache_bytes_plan"] != out["lm_serve"]["cache_bytes_card"]:
+        bad.append("lm_serve parameter or cache bytes")
+    del params, cache, toks
+    torch.cuda.empty_cache()
+
+    # TeraAgent: one rank's state at the cell's capacities, on the card
+    out["teraagent"] = {}
+    for kind in ("single", "multi"):
+        prod = make_production_mesh(multi_pod=kind == "multi")
+        plan = dryrun.lower_teraagent(prod)
+        dcfg, capacity = dryrun.teraagent_config(prod)
+        one_rank = dataclasses.replace(dcfg, axis_sizes=(1,) * dcfg.n_decomposed)
+        card = tree_nbytes(dryrun.teraagent_state(one_rank, capacity, device="cuda"))
+        torch.cuda.empty_cache()
+        out["teraagent"][kind] = dict(state_bytes_plan=dryrun.spec_bytes(plan.specs_in),
+                                      state_bytes_card=card, capacity=capacity)
+        if card != out["teraagent"][kind]["state_bytes_plan"]:
+            bad.append(f"teraagent {kind} state bytes")
+    emit("dryrun", nvidia_smi=smi, peak_slack=TRAIN_PEAK_SLACK, **out)
+    if bad:
+        raise AssertionError(f"dryrun: the plan disagrees with the card: {bad}")
+
+
 # ---------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3642,6 +3849,10 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += phase_families()
     seconds["families"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_dryrun_grid()
+    phase_dryrun()
+    seconds["dryrun"] = time.perf_counter() - t0
     emit("wall", seconds=seconds)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,11 +1,13 @@
-"""Architecture registry (``--arch <id>``), copied from ``repro.configs``.
+"""Architecture registry (``--arch <id>``) and the dry-run's input shapes,
+copied from ``repro.configs``.
 
-The reference's ``configs/shapes.py`` builds ``jax.ShapeDtypeStruct`` inputs
-for the dry-run; it has no counterpart here yet (ROADMAP queue 1, item 15.6).
+``configs/shapes.py`` gives the dry-run's shapes and its inputs as meta
+tensors, where the reference's are ``jax.ShapeDtypeStruct``s.
 """
 
 from .archs import ARCHS
 from .base import ModelConfig
+from .shapes import SHAPES, ShapeSpec, cache_specs, input_specs, shape_applicable
 
 
 def get_config(name: str) -> ModelConfig:

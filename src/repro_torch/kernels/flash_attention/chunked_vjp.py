@@ -95,13 +95,17 @@ class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, causal, window, prefix_len, kv_offset,
     scale, impl, block_k)``: the output ``(B, Hq, Tq, D)`` in ``q.dtype``,
     differentiable in q, k and v.  ``impl="cuda"`` launches the kernel for
-    CUDA tensors; ``"chunked"``, or CPU tensors, run the plain version."""
+    CUDA tensors (on meta tensors it stands in for the kernel with empty
+    outputs, and the backward runs on meta); ``"chunked"``, or CPU tensors,
+    run the plain version."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, prefix_len, kv_offset, scale, impl, block_k):
         kw = dict(causal=causal, window=window, prefix_len=prefix_len, kv_offset=kv_offset,
                   scale=scale, return_lse=True)
-        if impl == "cuda" and q.device.type != "cpu":
+        if impl == "cuda" and q.device.type == "meta":
+            out, lse = _kernel.flash_attention_meta(q, k, v, **kw)
+        elif impl == "cuda" and q.device.type != "cpu":
             out, lse = _kernel.flash_attention_cuda(q, k, v, **kw)
         else:
             from .ops import chunked_attention

@@ -90,8 +90,9 @@ def _tma_strides(name: str, t: torch.Tensor) -> list:
     return out
 
 
-def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Shapes ``(b, hq, hkv, tq, tk, d)`` after the checks both kernels share."""
+def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Shapes ``(b, hq, hkv, tq, tk, d)`` after the shape, dtype and layout
+    checks both kernels share."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} must be (B, Hq, Tq, D) and (B, Hkv, Tk, D)")
@@ -108,6 +109,13 @@ def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: the feature axis of {name} must be contiguous")
+    return b, hq, hkv, tq, tk, d
+
+
+def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Shapes ``(b, hq, hkv, tq, tk, d)`` after ``_shapes``' checks and the
+    device checks both kernels share."""
+    b, hq, hkv, tq, tk, d = _shapes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention: expects CUDA tensors, {name} is on {t.device}")
@@ -184,6 +192,25 @@ def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, prefix_len=
         "flash_attention (tensor cores)",
     )
     launches_tc += 1
+    return (out, lse) if return_lse else out
+
+
+# Told of every call that ``flash_attention_meta`` stands in for a launch, as
+# ``fn(q_shape, k_shape, causal, window, prefix_len, kv_offset)``: the
+# dry-run (``launch/dryrun.py``) adds the kernel's FLOPs there.
+meta_observers: list = []
+
+
+def flash_attention_meta(q, k, v, *, causal=True, window=None, prefix_len=0, kv_offset=0,
+                         scale=None, return_lse=False):
+    """The kernel's outputs on meta tensors (the dry-run): ``out`` (and
+    ``lse``) as ``flash_attention_cuda`` allocates them, after its shape,
+    dtype and layout checks.  It launches and computes nothing and counts
+    no launch."""
+    b, hq, hkv, tq, tk, d = _shapes(q, k, v)
+    out, lse = _outputs(q, b, hq, tq, return_lse)
+    for fn in meta_observers:
+        fn(tuple(q.shape), tuple(k.shape), causal, window, prefix_len, kv_offset)
     return (out, lse) if return_lse else out
 
 

@@ -15,6 +15,10 @@ FlashAttention backward (``chunked_vjp.py``), blockwise over KV blocks.  The
 no-grad serving path calls the forward directly.  "reference" is
 differentiated by autograd through its plain ops, as the reference's is.
 
+On meta tensors (the dry-run) "cuda" returns the kernel's outputs as meta
+tensors (``kernel.flash_attention_meta``) and launches nothing; the plain
+versions run there as they are.
+
 Layouts are the reference's, ``(B, H, T, D)``.  ``block_q`` is accepted for
 the reference's signature and does not change the result (every query row is
 independent); ``block_k`` sets the plain version's KV block.  The CUDA kernel
@@ -132,6 +136,10 @@ def flash_attention(
     if impl == "reference":
         return attention_ref(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
                              kv_offset=kv_offset, scale=scale)
+    if impl == "cuda" and q.device.type == "meta":
+        return _kernel.flash_attention_meta(q, k, v, causal=causal, window=window,
+                                            prefix_len=prefix_len, kv_offset=kv_offset,
+                                            scale=scale)
     if impl == "cuda" and q.device.type != "cpu":
         return _kernel.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                             prefix_len=prefix_len, kv_offset=kv_offset,

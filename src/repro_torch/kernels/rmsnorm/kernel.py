@@ -29,16 +29,27 @@ def _lib():
     return lib
 
 
-def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """``x (N, D)`` f32 / bf16, ``scale (D,)`` f32 / bf16 →
-    ``(N, D)`` in ``x.dtype``."""
-    global launches
+def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
     if x.ndim != 2 or scale.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm: x {tuple(x.shape)} / scale {tuple(scale.shape)} "
                          f"must be (N, D) / (D,)")
     for name, t in (("x", x), ("scale", scale)):
         if t.dtype not in DTYPES:
             raise ValueError(f"rmsnorm: {name} must be float32 or bfloat16, got {t.dtype}")
+
+
+def rmsnorm_meta(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The kernel's output on meta tensors (the dry-run), after its checks:
+    launches and counts nothing."""
+    _check(x, scale)
+    return torch.empty_like(x)
+
+
+def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x (N, D)`` f32 / bf16, ``scale (D,)`` f32 / bf16 →
+    ``(N, D)`` in ``x.dtype``."""
+    global launches
+    _check(x, scale)
     _build.require_cuda("rmsnorm", x, scale)
     n, d = x.shape
     out = torch.empty_like(x)

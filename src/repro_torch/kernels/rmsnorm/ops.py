@@ -23,7 +23,12 @@ IMPLS = ("cuda", "reference")
 
 
 def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """The kernel on the card, the plain version on CPU tensors."""
+    """The kernel on the card, the plain version on CPU tensors, the
+    kernel's output shape on meta tensors (the dry-run)."""
+    if x.device.type == "meta":
+        shape = x.shape
+        return _kernel.rmsnorm_meta(x.reshape(-1, shape[-1]).contiguous(),
+                                    scale.contiguous(), eps).reshape(shape)
     if x.device.type != "cpu":
         shape = x.shape
         y = _kernel.rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),

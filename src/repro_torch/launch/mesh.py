@@ -13,6 +13,10 @@ Ranks are numbered x-major over the axes in the mesh's order:
 ``DomainConfig.device_coords``.  :meth:`Mesh.ordered` gives the same ranks
 numbered over another order of the axes (the distributed engine numbers
 them in ``DomainConfig.mesh_axes`` order).
+
+``make_production_mesh`` gives the reference's deployment meshes, (16, 16)
+and (2, 16, 16), on the meta device: the dry-run (``launch/dryrun.py``)
+plans them and reads only their ``shape``.
 """
 
 from __future__ import annotations
@@ -128,7 +132,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], devices=None) -> Mesh:
 
     ``devices``: ``None`` / ``"cuda"`` spreads the ranks over the cards
     (rank i on ``cuda:i % n``; raises without a card), ``"cpu"`` puts them
-    all on the host, a sequence gives one device a rank."""
+    all on the host, ``"meta"`` on the meta device (the dry-run's plans: no
+    storage), a sequence gives one device a rank."""
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     size = math.prod(shape)
     if devices is None or isinstance(devices, (str, torch.device)):
@@ -141,3 +146,13 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], devices=None) -> Mesh:
     else:
         devs = tuple(resolve_device(d) for d in devices)
     return Mesh(axis_names=axes, axis_sizes=shape, devices=devs)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's deployment meshes on the meta device (the dry-run
+    plans them; nothing runs there): one pod, (16, 16) ``("data",
+    "model")`` = 256 devices, or two, (2, 16, 16) ``("pod", "data",
+    "model")`` = 512, whose leading axis crosses the inter-pod links."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices="meta")

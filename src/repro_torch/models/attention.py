@@ -32,10 +32,10 @@ NEG_INF = -1e30
 def attention_init(gen, d: int, n_heads: int, n_kv: int, head_dim: int,
                    dtype=torch.float32):
     return {
-        "wq": normal(gen, (d, n_heads, head_dim), 1.0, dtype),
-        "wk": normal(gen, (d, n_kv, head_dim), 1.0, dtype),
-        "wv": normal(gen, (d, n_kv, head_dim), 1.0, dtype),
-        "wo": normal(gen, (n_heads, head_dim, d), 1.0, dtype),
+        "wq": normal(gen, (d, n_heads, head_dim), 1.0, dtype, ("embed", "heads", "head_dim")),
+        "wk": normal(gen, (d, n_kv, head_dim), 1.0, dtype, ("embed", "kv", "head_dim")),
+        "wv": normal(gen, (d, n_kv, head_dim), 1.0, dtype, ("embed", "kv", "head_dim")),
+        "wo": normal(gen, (n_heads, head_dim, d), 1.0, dtype, ("heads", "head_dim", "embed")),
     }
 
 

@@ -1,7 +1,8 @@
 """Shared neural layers: norms, projections, GLU MLPs, RoPE, embeddings.
 
-Port of ``repro/models/layers.py``: init/apply pairs over plain dicts of
-tensors.  Every product casts to the compute dtype (bf16 by default) with
+Port of ``repro/models/layers.py``: init functions build ``Param`` trees
+with the reference's logical axes (``params.py``), apply functions take the
+value trees.  Every product casts to the compute dtype (bf16 by default) with
 f32 normalisation statistics, as the reference.  Products are
 ``torch.matmul``; the reference leaves them to XLA.
 
@@ -26,8 +27,9 @@ from .params import normal, ones, zeros
 
 def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32, device="cpu"):
     if kind == "layernorm":
-        return {"scale": ones((d,), dtype, device), "bias": zeros((d,), dtype, device)}
-    return {"scale": ones((d,), dtype, device)}
+        return {"scale": ones((d,), dtype, device, ("embed",)),
+                "bias": zeros((d,), dtype, device, ("embed",))}
+    return {"scale": ones((d,), dtype, device, ("embed",))}
 
 
 def norm_apply(p, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-6) -> torch.Tensor:
@@ -43,8 +45,8 @@ def norm_apply(p, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-6) -> 
 
 # ------------------------------------------------------------------ linear
 
-def linear_init(gen, din: int, dout: int, dtype=torch.float32, scale=1.0):
-    return {"w": normal(gen, (din, dout), scale, dtype)}
+def linear_init(gen, din: int, dout: int, axes, dtype=torch.float32, scale=1.0):
+    return {"w": normal(gen, (din, dout), scale, dtype, axes)}
 
 
 def linear_apply(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -56,10 +58,10 @@ def linear_apply(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tens
 def glu_mlp_init(gen, d: int, f: int, dtype=torch.float32, activation: str = "swiglu"):
     # The reference splits its key three ways (gate, up, out); the port draws
     # in that order from one generator.
-    gate = normal(gen, (d, f), 1.0, dtype)
+    gate = normal(gen, (d, f), 1.0, dtype, ("embed", "mlp"))
     p = {
-        "wi_up": normal(gen, (d, f), 1.0, dtype),
-        "wo": normal(gen, (f, d), 1.0, dtype),
+        "wi_up": normal(gen, (d, f), 1.0, dtype, ("embed", "mlp")),
+        "wo": normal(gen, (f, d), 1.0, dtype, ("mlp", "embed")),
     }
     if activation in ("swiglu", "geglu"):
         p["wi_gate"] = gate
@@ -99,7 +101,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
 
 def embedding_init(gen, vocab: int, d: int, dtype=torch.float32):
     # std = 1/√d: the √d multiplier at the input restores unit variance.
-    return {"table": normal(gen, (vocab, d), (vocab / d) ** 0.5, dtype)}
+    return {"table": normal(gen, (vocab, d), (vocab / d) ** 0.5, dtype, ("vocab", "embed"))}
 
 
 def embed_apply(p, tokens: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -109,7 +111,7 @@ def embed_apply(p, tokens: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.
 
 
 def logits_init(gen, d: int, vocab: int, dtype=torch.float32):
-    return {"w": normal(gen, (d, vocab), 1.0, dtype)}
+    return {"w": normal(gen, (d, vocab), 1.0, dtype, ("embed", "vocab"))}
 
 
 def logits_apply(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:

@@ -14,9 +14,11 @@ Port of ``repro/models/model.py`` for every family of ``configs/archs.py``:
 
 The reference's ``lax.scan`` over the stacked layer parameters is a Python
 loop over the leading layer axis, whose stacks are unbound once a call
-(``params.unstack``); the sharding hooks have no counterpart.  With
-``cfg.remat`` and autograd recording, each layer (and each encoder layer and
-loss chunk) runs under ``torch.utils.checkpoint`` (non-reentrant): its
+(``params.unstack``).  The reference's sharding hooks (the residual,
+expert and context shardings) have no counterpart: eager PyTorch has no
+partitioner, and the dry-run keeps them in its plan (``launch/dryrun.py``).
+With ``cfg.remat`` and autograd recording, each layer (and each encoder
+layer and loss chunk) runs under ``torch.utils.checkpoint`` (non-reentrant): its
 activations are recomputed in the backward, the reference's
 ``jax.checkpoint``.  ``remat_policy="dots"`` saves the outputs of the
 products without batch dimensions (``mm``, ``addmm``) and recomputes the
@@ -51,7 +53,8 @@ from . import layers as ll
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
-from .params import stack_layers, tree_leaves, tree_map, unstack
+from .params import (SHAPE_ONLY, Param, randn, stack_layers, tree_leaves, tree_map, unstack,
+                     unzip)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _ATTN_KINDS = ("attn", "local_attn")
@@ -73,9 +76,11 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _hold(tree: Dict[str, Any], dtype: torch.dtype, f32_dtype: torch.dtype) -> Dict[str, Any]:
-    """``tree`` cast to ``dtype``, its ``F32_LEAVES`` to ``f32_dtype``."""
+    """The ``Param`` tree ``tree`` cast to ``dtype``, its ``F32_LEAVES`` to
+    ``f32_dtype``."""
     return {k: _hold(v, dtype, f32_dtype) if isinstance(v, dict)
-            else v.to(f32_dtype if k in F32_LEAVES else dtype) for k, v in tree.items()}
+            else Param(v.value.to(f32_dtype if k in F32_LEAVES else dtype), v.axes)
+            for k, v in tree.items()}
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -150,8 +155,15 @@ class Model:
     def init(self, gen: Union[int, torch.Generator] = 0,
              device: Union[str, torch.device, None] = None,
              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-        """The parameter value tree, as the reference's ``unzip(init)[0]``:
-        ``embed/table``, ``ln_f/scale``, ``logits/w`` (untied),
+        """The parameter value tree, ``unzip(init_params(...))[0]``, as the
+        reference's ``unzip(init)[0]``."""
+        return unzip(self.init_params(gen, device, dtype))[0]
+
+    def init_params(self, gen: Union[int, torch.Generator] = 0,
+                    device: Union[str, torch.device, None] = None,
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """The ``Param`` tree (values and logical axes), the reference's
+        ``init``: ``embed/table``, ``ln_f/scale``, ``logits/w`` (untied),
         ``layers/b{j}/...`` stacked along a leading layer axis (``ln1``,
         ``attn`` / ``tmix`` / ``rec``, ``ln2``, ``mlp`` / ``moe`` / ``cmix``,
         and ``ln_cross`` / ``cross`` in an encoder–decoder), ``tail{j}`` for
@@ -167,9 +179,13 @@ class Model:
         dtype gives the values the reference's casts at every use give
         (``layers.py:48, 111``, ``attention.py:49-51``); the leaves it reads
         in f32 (``F32_LEAVES``) stay in the param dtype; the norm scales are
-        ones, exact in bf16."""
+        ones, exact in bf16.  On the meta device (``device="meta"``, the
+        dry-run) ``gen`` is ignored: the tree holds shapes, dtypes and axes,
+        no storage and no draws."""
         dev = resolve_device(device)
-        if isinstance(gen, int):
+        if dev.type == "meta":
+            gen = SHAPE_ONLY
+        elif isinstance(gen, int):
             gen = torch.Generator(device=dev).manual_seed(gen)
         cfg = self.cfg
         dt = self.param_dtype if dtype is None else dtype
@@ -195,11 +211,11 @@ class Model:
             tree["encoder"] = hold({
                 "layers": stack_layers(lambda: self._encoder_layer_init(gen),
                                        cfg.n_encoder_layers),
-                "pos_embed": torch.randn((cfg.encoder_seq, cfg.d_model), generator=gen,
-                                         device=gdev) * 0.02,
+                "pos_embed": Param(randn(gen, (cfg.encoder_seq, cfg.d_model)) * 0.02,
+                                   (None, "embed")),
                 "ln_f": ll.norm_init(cfg.d_model, cfg.norm, self.param_dtype, gdev),
             })
-        return tree_map(lambda t: t.to(dev), tree)
+        return tree_map(lambda p: Param(p.value.to(dev), p.axes), tree)
 
     # ---------------------------------------------------------- forward
 

@@ -42,10 +42,10 @@ def moe_init(gen, d: int, f: int, n_experts: int, dtype=torch.float32):
     # The reference splits its key four ways (router, gate, up, out); the
     # port draws in that order from one generator.
     return {
-        "router": normal(gen, (d, n_experts), 1.0, dtype),
-        "wi_gate": normal(gen, (n_experts, d, f), 1.0, dtype),
-        "wi_up": normal(gen, (n_experts, d, f), 1.0, dtype),
-        "wo": normal(gen, (n_experts, f, d), 1.0, dtype),
+        "router": normal(gen, (d, n_experts), 1.0, dtype, ("embed", None)),
+        "wi_gate": normal(gen, (n_experts, d, f), 1.0, dtype, ("experts", "embed", "mlp")),
+        "wi_up": normal(gen, (n_experts, d, f), 1.0, dtype, ("experts", "embed", "mlp")),
+        "wo": normal(gen, (n_experts, f, d), 1.0, dtype, ("experts", "mlp", "embed")),
     }
 
 

@@ -23,7 +23,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .params import normal, zeros
+from .params import const, normal, zeros
 
 _C_EXPONENT = 8.0
 
@@ -39,15 +39,15 @@ def rglru_init(gen, d: int, width: int, conv_width: int = 4, dtype=torch.float32
     # Λ so that a ∈ (0.9, 0.999), as in the paper.
     lam = torch.log(torch.exp(torch.linspace(4.0, 9.0, w, device=dev)) - 1.0) / _C_EXPONENT
     return {
-        "w_in": normal(gen, (d, w), 1.0, dtype),
-        "w_gate": normal(gen, (d, w), 1.0, dtype),
-        "w_out": normal(gen, (w, d), 1.0, dtype),
-        "conv_w": normal(gen, (conv_width, w), 1.0, dtype),
-        "wa": normal(gen, (w, w), 1.0, dtype),
-        "ba": zeros((w,), dtype, dev),
-        "wx": normal(gen, (w, w), 1.0, dtype),
-        "bx": zeros((w,), dtype, dev),
-        "lam": lam.to(dtype),
+        "w_in": normal(gen, (d, w), 1.0, dtype, ("embed", "mlp")),
+        "w_gate": normal(gen, (d, w), 1.0, dtype, ("embed", "mlp")),
+        "w_out": normal(gen, (w, d), 1.0, dtype, ("mlp", "embed")),
+        "conv_w": normal(gen, (conv_width, w), 1.0, dtype, (None, "mlp")),
+        "wa": normal(gen, (w, w), 1.0, dtype, ("mlp", "mlp_out")),
+        "ba": zeros((w,), dtype, dev, ("mlp",)),
+        "wx": normal(gen, (w, w), 1.0, dtype, ("mlp", "mlp_out")),
+        "bx": zeros((w,), dtype, dev, ("mlp",)),
+        "lam": const(lam.to(dtype), ("mlp",)),
     }
 
 

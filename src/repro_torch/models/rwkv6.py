@@ -51,16 +51,16 @@ def rwkv6_init(gen, d: int, n_heads: int, head_dim: int, lora_rank: int = 64,
     assert h * dh == d, (h, dh, d)
     dev = gen.device
     return {
-        "mu": zeros((5, d), dtype, dev),               # token-shift mixes r, k, v, g, w
-        "wr": normal(gen, (d, d), 1.0, dtype),
-        "wk": normal(gen, (d, d), 1.0, dtype),
-        "wv": normal(gen, (d, d), 1.0, dtype),
-        "wg": normal(gen, (d, d), 1.0, dtype),
-        "wo": normal(gen, (d, d), 1.0, dtype),
-        "w0": zeros((d,), dtype, dev),                 # base log-log decay
-        "w_lora_a": normal(gen, (d, lora_rank), 1.0, dtype),
-        "w_lora_b": zeros((lora_rank, d), dtype, dev),
-        "u": zeros((h, dh), dtype, dev),               # bonus
+        "mu": zeros((5, d), dtype, dev, (None, "embed")),  # token-shift mixes r, k, v, g, w
+        "wr": normal(gen, (d, d), 1.0, dtype, ("embed", "heads_flat")),
+        "wk": normal(gen, (d, d), 1.0, dtype, ("embed", "heads_flat")),
+        "wv": normal(gen, (d, d), 1.0, dtype, ("embed", "heads_flat")),
+        "wg": normal(gen, (d, d), 1.0, dtype, ("embed", "heads_flat")),
+        "wo": normal(gen, (d, d), 1.0, dtype, ("heads_flat", "embed")),
+        "w0": zeros((d,), dtype, dev, ("embed",)),          # base log-log decay
+        "w_lora_a": normal(gen, (d, lora_rank), 1.0, dtype, ("embed", None)),
+        "w_lora_b": zeros((lora_rank, d), dtype, dev, (None, "embed")),
+        "u": zeros((h, dh), dtype, dev, ("heads", "head_dim")),  # bonus
         "ln_x": norm_init(d, "layernorm", dtype, dev),
     }
 
@@ -190,10 +190,10 @@ def rwkv6_decode_step(p, x, state, n_heads, head_dim, compute_dtype=torch.bfloat
 def rwkv6_channel_init(gen, d: int, f: int, dtype=torch.float32):
     dev = gen.device
     return {
-        "mu": zeros((2, d), dtype, dev),
-        "wk": normal(gen, (d, f), 1.0, dtype),
-        "wv": normal(gen, (f, d), 1.0, dtype),
-        "wr": zeros((d, d), dtype, dev),
+        "mu": zeros((2, d), dtype, dev, (None, "embed")),
+        "wk": normal(gen, (d, f), 1.0, dtype, ("embed", "mlp")),
+        "wv": normal(gen, (f, d), 1.0, dtype, ("mlp", "embed")),
+        "wr": zeros((d, d), dtype, dev, ("embed", "embed_out")),
     }
 
 

@@ -5,19 +5,23 @@
 step ``(state, batch) → (state', metrics)``: the loss and its gradient by
 autograd, then ``adamw.apply``, which updates the parameters and moments in
 place (the reference donates its state to the jitted step).  The dry-run's
-helpers (``eval_params``, ``eval_train_state``, ``state_shardings``,
-``attach_shardings``) wait for ROADMAP queue 1, item 15.6.
+helpers build the same trees on the meta device (``eval_params``,
+``eval_train_state``: shapes, dtypes and logical axes, no storage), their
+shardings from ``repro_torch.sharding``'s logical-axis rules
+(``state_shardings``), and ``TensorSpec`` trees that carry them
+(``attach_shardings``), the reference's ``ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Union
+from typing import Any, Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from . import sharding as sh
 from .device import resolve_device
 from .models.model import Model
-from .models.params import tree_leaves, tree_map
+from .models.params import tree_leaves, tree_map, unzip
 from .optim import adamw
 
 
@@ -35,6 +39,38 @@ def init_train_state(model: Model, gen: Union[int, torch.Generator] = 0,
     dev = tree_leaves(params)[0].device
     return TrainState(params=params, opt=adamw.init(params),
                       step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def eval_params(model: Model) -> Tuple[Any, Any]:
+    """(params, logical axes): the parameter tree as meta tensors (no
+    storage, no draws) and its axes tree."""
+    return unzip(model.init_params(device="meta"))
+
+
+def eval_train_state(model: Model) -> Tuple[TrainState, Any]:
+    """(TrainState, axes) on the meta device: the parameters, AdamW's moments
+    by ``adamw.init`` and the step."""
+    params, axes = eval_params(model)
+    state = TrainState(params=params, opt=adamw.init(params),
+                       step=torch.empty((), dtype=torch.int32, device="meta"))
+    return state, axes
+
+
+def state_shardings(mesh, state: TrainState, axes) -> TrainState:
+    """NamedSharding tree mirroring TrainState (opt moments follow params)."""
+    p_sh = sh.param_shardings(mesh, state.params, axes)
+    return TrainState(
+        params=p_sh,
+        opt=adamw.AdamWState(step=sh.NamedSharding(mesh, sh.P()), mu=p_sh, nu=p_sh),
+        step=sh.NamedSharding(mesh, sh.P()),
+    )
+
+
+def attach_shardings(tree, shardings):
+    """``TensorSpec`` trees (shape, dtype, sharding) of ``tree``'s tensors
+    with the matching leaves of ``shardings``."""
+    return sh.tree_map2(lambda t, s: sh.TensorSpec(tuple(t.shape), t.dtype, s), tree,
+                        shardings)
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig):

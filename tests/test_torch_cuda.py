@@ -837,9 +837,10 @@ def test_moe_combine_on_card_is_deterministic(card):
     """bf16 MoE at olmoe's routing (64 experts, top 8) twice on the card:
     bit for bit equal, and within a relative L2 of 2e-2 of the CPU."""
     from repro_torch.models import moe
+    from repro_torch.models.params import unzip
 
     g = torch.Generator().manual_seed(0)
-    p = moe.moe_init(g, 256, 128, 64)
+    p = unzip(moe.moe_init(g, 256, 128, 64))[0]
     x = torch.randn((2, 512, 256), generator=g)
     kw = dict(top_k=8, n_experts=64, capacity_factor=1.25, compute_dtype=torch.bfloat16)
     pc = {k: v.to(card) for k, v in p.items()}
