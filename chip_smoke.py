@@ -9,8 +9,9 @@ It imports nothing of JAX and nothing of the JAX package.  Phases, each
 printing one JSON line; any failure raises and exits non-zero:
 
   device          the card's name, capability, power limit.
-  build           the eight CUDA sources of the seven ported kernels (flash
-                  attention has a tensor-core and a SIMT kernel) compiled from
+  build           the nine CUDA sources of the seven ported kernels (flash
+                  attention has two tensor-core kernels, D 64 / 128 and D 256,
+                  and a SIMT kernel) compiled from
                   ``kernels/*/csrc/*.cu``
                   (one nvcc each, all started together); build time and the
                   ptxas register / shared-memory report.
@@ -170,8 +171,9 @@ printing one JSON line; any failure raises and exits non-zero:
                   of each in lm_prefill, against their plain versions (one
                   bf16 ulp), timed beside the plain versions,
                   ``scaled_dot_product_attention`` / ``rms_norm`` and (flash)
-                  the SIMT kernel on the same inputs; then both flash kernels
-                  on every mask variant at small shapes.
+                  the SIMT kernel on the same inputs; then the flash kernels
+                  on every mask variant at small shapes (the tensor-core ones
+                  at D 64, 128 and 256).
   train_small     reduced phi4-mini (f32, ``remat=True``), one set of weights
                   from a CPU generator, 3 ``make_train_step`` steps over the
                   data pipeline's batches on the card and on the CPU (AdamW
@@ -215,12 +217,13 @@ printing one JSON line; any failure raises and exits non-zero:
                   layer list implies, finite logits.  phi3.5-moe-42b-a6.6b
                   (83.8 GB in bf16) does not fit one card.
   kernels (LM families)
-                  flash_attention (the SIMT kernel at D 256) and rmsnorm on
-                  the first calls' inputs of the vlm and hybrid prefills,
+                  flash_attention (the D 256 tensor-core kernel) and rmsnorm
+                  on the first calls' inputs of the vlm and hybrid prefills,
                   against their plain versions (one bf16 ulp), timed beside
-                  them and ``scaled_dot_product_attention`` with the same
-                  boolean mask / ``rms_norm``; the flash bound also over the
-                  64 x 64 tiles holding a visible pair.
+                  them, the SIMT kernel on the same inputs (``simt_ms``) and
+                  ``scaled_dot_product_attention`` with the same boolean mask
+                  / ``rms_norm``; the flash bound also over the 64 x 64 tiles
+                  holding a visible pair.
   dryrun_grid     ``python -m repro_torch.launch.dryrun --arch A --mesh both``
                   for every arch of ``configs/archs.py`` and ``teraagent``
                   (every shape, both production meshes: 82 cells), one CLI
@@ -2911,10 +2914,9 @@ FLASH_VARIANTS = {
 
 
 def phase_flash_variants():
-    """Every mask variant through both flash kernels: the SIMT kernel in f32
-    and bf16 at the variant's head dim, the tensor-core kernel in bf16 at
-    that head dim where it takes it (64, 128), else at 64 (D 16) or 128
-    (D 256)."""
+    """Every mask variant through the flash kernels: the SIMT kernel in f32
+    and bf16 at the variant's head dim, the tensor-core kernels in bf16 at
+    that head dim (64, 128, 256), and a D 16 variant at 64 and at 256."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -2924,9 +2926,9 @@ def phase_flash_variants():
             for name, (shape, kw) in FLASH_VARIANTS.items()
             for dtype in (torch.float32, torch.bfloat16)]
     for name, (shape, kw) in FLASH_VARIANTS.items():
-        d = shape[-1] if shape[-1] in fa_k.TC_HEAD_DIMS else min(max(shape[-1], 64), 128)
-        runs.append((name, shape[:-1] + (d,), kw, torch.bfloat16,
-                     fa_k.flash_attention_wgmma_cuda, "tc"))
+        for d in (shape[-1],) if shape[-1] in fa_k.TC_KERNELS else (64, 256):
+            runs.append((name, shape[:-1] + (d,), kw, torch.bfloat16,
+                         fa_k.flash_attention_wgmma_cuda, "tc"))
     for name, (b, hq, hkv, tq, tk, d), kw, dtype, kernel, which in runs:
         q, k, v = (torch.randn(s, generator=g, device="cuda").to(dtype)
                    for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
@@ -3210,6 +3212,16 @@ def visible_tiles(tq, tk, causal, window, prefix, device) -> int:
     return int(tiles.sum())
 
 
+def flash_source(dtype, d) -> str:
+    """The source of the flash kernel that ``flash_attention_cuda`` runs on
+    ``dtype`` at head dim ``d``, relative to the checkout."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+
+    name = fa_k.TC_KERNELS[d][0] if fa_k.uses_tensor_cores(dtype, d) else "flash_attention"
+    return str(_build.SOURCES[name].relative_to(ROOT))
+
+
 def family_kernel_rows(tag, store, launches):
     """flash_attention and rmsnorm on the inputs of their first calls in a
     family's prefill (layer 0), against their plain versions (one bf16
@@ -3232,6 +3244,10 @@ def family_kernel_rows(tag, store, launches):
                    torch.arange(tk, device=q.device)[None, :], causal, window, prefix)
     kernel = lambda: fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                                prefix_len=prefix)
+    # The SIMT kernel on the same inputs: the kernel this path ran before
+    # the D 256 tensor-core kernel, timed in the same run.
+    simt = lambda: fa_k.flash_attention_simt_cuda(q, k, v, causal=causal, window=window,
+                                                  prefix_len=prefix)
     plain = lambda: fa_ops.chunked_attention(q, k, v, causal=causal, window=window,
                                              prefix_len=prefix, block_k=128)
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
@@ -3239,20 +3255,25 @@ def family_kernel_rows(tag, store, launches):
     counter = "flash_attention" if tc else "flash_attention_simt"
     want, plain_ms = warm_timed(plain)
     err = bf16_ulp_check(f"flash_attention[{tag}]", kernel(), want)
+    simt_err = bf16_ulp_check(f"flash_attention[{tag}] (SIMT)", simt(), want)
     lib_err = float((sdpa().float() - want.float()).abs().max())
     pairs = int(mask.sum()) * b * hq
     tiles = visible_tiles(tq, tk, causal, window, prefix, q.device) * b * hq
     flash_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    csrc = "src/repro_torch/kernels/flash_attention/csrc/"
+    blocks_ms = 4 * d * tiles * FLASH_TILE ** 2 / BF16_TENSOR_OPS_PER_S * 1e3
     rows = [dict(
-        name=f"flash_attention[{tag}]", route="cuda",
-        source=csrc + ("flash_attention_wgmma.cu" if tc else "flash_attention.cu"),
+        name=f"flash_attention[{tag}]", route="cuda", source=flash_source(q.dtype, d),
         replaces="src/repro/kernels/flash_attention/kernel.py:150",
         launches=launches[counter], max_abs_err=err, counter=counter,
         ms=cuda_ms(kernel, 5), plain_ms=plain_ms, library_ms=cuda_ms(sdpa, 5),
+        simt_ms=cuda_ms(simt, 3), simt_max_abs_err=simt_err,
+        simt_source=flash_source(torch.float32, d),
         **bound(flash_bytes, 4 * d * pairs, BF16_TENSOR_OPS_PER_S),
-        blocks_bound_ms=4 * d * tiles * FLASH_TILE ** 2 / BF16_TENSOR_OPS_PER_S * 1e3,
-        visible_pairs=pairs, visible_tiles=tiles, library_max_abs_err=lib_err,
+        blocks_bound_ms=blocks_ms,
+        # The D 256 kernel's five products a visible tile (S in each of its
+        # two warpgroups, three P V terms over half of D in each).
+        design_bound_ms=2.5 * blocks_ms if tc and d == 256 else None,
+        nvidia_smi=nvidia_smi_line(), visible_pairs=pairs, visible_tiles=tiles, library_max_abs_err=lib_err,
         mask={"causal": causal, "window": window, "prefix_len": prefix},
         shape={"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
     )]
@@ -3323,8 +3344,10 @@ def train_launches(cfg, steps: int) -> dict:
     """Launches of ``steps`` train steps: the flash kernel once a layer in
     the forward and once in its recomputed forward; rmsnorm twice a layer in
     each and once more for the final norm (outside the layers' remat)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+
     want = {k: 0 for k in kernel_counters()}
-    tc = cfg.dtype == "bfloat16" and cfg.head_dim in (64, 128)
+    tc = fa_k.uses_tensor_cores(getattr(torch, cfg.dtype), cfg.head_dim)
     want["flash_attention" if tc else "flash_attention_simt"] = steps * 2 * cfg.n_layers
     want["rmsnorm"] = steps * (4 * cfg.n_layers + 1)
     return want

@@ -44,6 +44,7 @@ SOURCES = {
     "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "flash_attention_wgmma": _PKG / "flash_attention" / "csrc" / "flash_attention_wgmma.cu",
+    "flash_attention_wgmma_d256": _PKG / "flash_attention" / "csrc" / "flash_attention_wgmma_d256.cu",
 }
 
 

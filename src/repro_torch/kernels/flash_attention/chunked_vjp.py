@@ -3,7 +3,7 @@ forward kernels.
 
 Port of ``repro/kernels/flash_attention/chunked_vjp.py``.  The forward is the
 port's forward: on the card the CUDA kernel (``kernel.flash_attention_cuda``,
-the tensor-core kernel for bf16 at D 64 / 128, else the SIMT one), on CPU
+a tensor-core kernel for bf16 at D 64 / 128 / 256, else the SIMT one), on CPU
 tensors the plain ``ops.chunked_attention``; either writes each query row's
 logsumexp.  It saves ``(q, k, v, out, lse)`` and nothing else.  The backward
 re-forms each KV block's probabilities from the saved logsumexp and

@@ -1,17 +1,22 @@
-"""ctypes wrappers of the two flash-attention kernels (both replace the
-Pallas ``flash_attention_flat``; the design notes are in the sources).
+"""ctypes wrappers of the flash-attention kernels (all replace the Pallas
+``flash_attention_flat``; the design notes are in the sources).
 
 Which kernel runs is a fixed rule on dtype and head dim, not a fallback:
 
   bf16, D 64 or 128     ``csrc/flash_attention_wgmma.cu``: wgmma products fed
-                        by TMA (``launches_tc`` counts its launches);
-  f32, or D 16 or 256   ``csrc/flash_attention.cu``: f32 FMAs on the SIMT
-                        cores (``launches``).
+                        by TMA, two warpgroups of 64 query rows;
+  bf16, D 256           ``csrc/flash_attention_wgmma_d256.cu``: wgmma fed by
+                        TMA, the head dim split over two warpgroups, warp
+                        specialised (``launches_tc`` counts the launches of
+                        both tensor-core kernels);
+  f32, or D 16          ``csrc/flash_attention.cu``: f32 FMAs on the SIMT
+                        cores (``launches``); it also takes bf16 at D 256
+                        when called as ``flash_attention_simt_cuda``.
 
-Both take the reference's ``(B, H, T, D)`` layout as strided views: the
+All take the reference's ``(B, H, T, D)`` layout as strided views: the
 feature axis must be contiguous, the other three axes may have any strides,
 so the ``(B, T, H, D)`` projections of the model go in without a copy (the
-tensor-core kernel's TMA copies also need 16-byte aligned pointers and
+tensor-core kernels' TMA copies also need 16-byte aligned pointers and
 strides that are multiples of 8 values).  The output is allocated with
 ``q``'s strides.  With ``return_lse=True`` a kernel also writes each query
 row's logsumexp, ``m + log(max(l, 1e-30))`` in natural-log units, ``(B, Hq,
@@ -33,19 +38,22 @@ from .. import _build
 from .ref import NEG_INF
 
 launches = 0          # csrc/flash_attention.cu (SIMT)
-launches_tc = 0       # csrc/flash_attention_wgmma.cu (tensor cores)
+launches_tc = 0       # csrc/flash_attention_wgmma{,_d256}.cu (tensor cores)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # dtype codes shared with the launcher in csrc/flash_attention.cu
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
-TC_HEAD_DIMS = (64, 128)
+# head dim -> (library, launcher) of the tensor-core kernel that takes it
+TC_KERNELS = {64: ("flash_attention_wgmma", "flash_attention_wgmma_launch"),
+              128: ("flash_attention_wgmma", "flash_attention_wgmma_launch"),
+              256: ("flash_attention_wgmma_d256", "flash_attention_wgmma_d256_launch")}
 
 
 def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """The dispatch rule: bf16 at D 64 or 128 runs the wgmma kernel."""
-    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+    """The dispatch rule: bf16 at D 64, 128 or 256 runs a wgmma kernel."""
+    return dtype == torch.bfloat16 and head_dim in TC_KERNELS
 
 
 def _lib():
@@ -59,15 +67,19 @@ def _lib():
     return lib
 
 
-def _lib_tc():
-    lib = _build.load("flash_attention_wgmma")
+def _launcher_tc(d: int):
+    """The launcher of the tensor-core kernel for head dim ``d`` (both take
+    the same arguments)."""
+    name, fn_name = TC_KERNELS[d]
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if not getattr(lib, "_typed", False):
-        lib.flash_attention_wgmma_launch.argtypes = [
+        fn.argtypes = [
             _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _P,
         ]
-        lib.flash_attention_wgmma_launch.restype = _I
+        fn.restype = _I
         lib._typed = True
-    return lib
+    return fn
 
 
 def _lse_ptr(lse: Optional[torch.Tensor]):
@@ -92,7 +104,7 @@ def _tma_strides(name: str, t: torch.Tensor) -> list:
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Shapes ``(b, hq, hkv, tq, tk, d)`` after the shape, dtype and layout
-    checks both kernels share."""
+    checks all kernels share."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} must be (B, Hq, Tq, D) and (B, Hkv, Tk, D)")
@@ -114,7 +126,7 @@ def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Shapes ``(b, hq, hkv, tq, tk, d)`` after ``_shapes``' checks and the
-    device checks both kernels share."""
+    device checks all kernels share."""
     b, hq, hkv, tq, tk, d = _shapes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -170,13 +182,14 @@ def flash_attention_simt_cuda(q, k, v, *, causal=True, window=None, prefix_len=0
 
 def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, prefix_len=0,
                                kv_offset=0, scale=None, return_lse=False):
-    """``csrc/flash_attention_wgmma.cu``: bf16 at head dim 64 or 128 only;
-    ``(out, lse)`` with ``return_lse``."""
+    """``csrc/flash_attention_wgmma.cu`` (bf16 at head dim 64 or 128) or
+    ``csrc/flash_attention_wgmma_d256.cu`` (bf16 at 256); ``(out, lse)``
+    with ``return_lse``."""
     global launches_tc
     b, hq, hkv, tq, tk, d = _checked(q, k, v)
     if not uses_tensor_cores(q.dtype, d):
         raise ValueError(f"flash_attention: the tensor-core kernel takes bf16 at head_dim "
-                         f"{TC_HEAD_DIMS}, got {q.dtype} at {d}")
+                         f"{tuple(TC_KERNELS)}, got {q.dtype} at {d}")
     out, lse = _outputs(q, b, hq, tq, return_lse)
     if q.numel() == 0 or tk == 0:
         return _empty_result(out, lse, tk)
@@ -184,7 +197,7 @@ def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, prefix_len=
     st = [s for name, t in (("q", q), ("k", k), ("v", v)) for s in _tma_strides(name, t)]
     strides = (ctypes.c_longlong * 12)(*st, *[out.stride(i) for i in range(3)])
     _build.check(
-        _lib_tc().flash_attention_wgmma_launch(
+        _launcher_tc(d)(
             q.device.index, d, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _lse_ptr(lse), b, hq, hkv, tq, tk, ctypes.cast(strides, _P), int(causal),
             int(window is not None), int(window or 0), int(prefix_len), int(kv_offset),

@@ -69,8 +69,11 @@ def wgmma_arithmetic_ref(
     scale: Optional[float] = None,
     block_k: int = 64,
 ) -> torch.Tensor:
-    """The tensor-core kernel's arithmetic (``csrc/flash_attention_wgmma.cu``)
-    in plain PyTorch, for the tests only: S = Q Kᵀ of the bf16 values in f32,
+    """The tensor-core kernels' arithmetic (``csrc/flash_attention_wgmma.cu``
+    at D 64 / 128, ``csrc/flash_attention_wgmma_d256.cu`` at D 256: the
+    latter splits only the columns of O and P V over its warpgroups, each of
+    which sums the whole of S in the same order) in plain PyTorch, for the
+    tests only: S = Q Kᵀ of the bf16 values in f32,
     the online softmax over ``block_k``-key tiles as the Pallas kernel does it
     (NEG_INF sentinel, p zeroed where hidden, final ``max(l, 1e-30)``) but
     with the running max m in raw-score units and p = 2^((s − m) · scale ·

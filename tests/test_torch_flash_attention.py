@@ -93,23 +93,38 @@ def test_block_visible_is_exact(q_lo, q_hi, k_lo, k_hi, kw, want):
     assert port_fa.block_visible(q_lo, q_hi, k_lo, k_hi, **kw) == want
 
 
-@pytest.mark.parametrize("q_scale", [1.0, 8.0])
-def test_wgmma_arithmetic_matches_jax_pallas(q_scale):
-    """The tensor-core kernel's arithmetic (P in three bf16 terms, f32
+# name: ((B, Hq, Hkv, T, D), mask kwargs) of the tensor-core kernels'
+# arithmetic: the D 128 kernel's causal GQA 3, and D 256 at small T with
+# paligemma's prefix-LM mask and MQA group 8 and recurrentgemma's window with
+# group 16 (the D 256 kernel sums S as the D 128 one does, so one reference
+# serves both).
+WGMMA_CASES = {
+    "causal_g3_d128": ((1, 6, 2, 130, 128), dict(causal=True)),
+    "prefix_g8_d256": ((1, 8, 1, 100, 256), dict(causal=True, prefix_len=20)),
+    "window_g16_d256": ((1, 16, 1, 130, 256), dict(causal=True, window=40)),
+}
+
+
+@pytest.mark.parametrize("case,q_scale", [
+    pytest.param(case, q_scale,
+                 id=str(q_scale) if case == "causal_g3_d128" else f"{case}-{q_scale}")
+    for case in WGMMA_CASES for q_scale in (1.0, 8.0)])
+def test_wgmma_arithmetic_matches_jax_pallas(case, q_scale):
+    """The tensor-core kernels' arithmetic (P in three bf16 terms, f32
     accumulation; ``ref.wgmma_arithmetic_ref``) against the Pallas kernel in
-    interpret mode: bf16, D 128, GQA 3, causal, T 130, q at unit scale and
-    scaled by 8 (a sharp softmax); one bf16 ulp."""
+    interpret mode, bf16, q at unit scale and scaled by 8 (a sharp softmax);
+    one bf16 ulp."""
     from repro_torch.kernels.flash_attention.ref import wgmma_arithmetic_ref
 
-    b, hq, hkv, t, d = 1, 6, 2, 130, 128
-    rng = np.random.default_rng(7)
+    (b, hq, hkv, t, d), kw = WGMMA_CASES[case]
+    rng = np.random.default_rng(7 + sorted(WGMMA_CASES).index(case))
     arrs = [rng.normal(0, 1, s).astype(np.float32)
             for s in ((b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d))]
     arrs[0] *= q_scale
     js = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
     want = to_np(fa_ops.flash_attention(*js, impl="pallas", block_q=64, block_k=64,
-                                        causal=True).astype(jnp.float32))
+                                        **kw).astype(jnp.float32))
     q, k, v = (torch.from_numpy(to_np(j.astype(jnp.float32))).bfloat16() for j in js)
-    got = wgmma_arithmetic_ref(q, k, v, causal=True)
+    got = wgmma_arithmetic_ref(q, k, v, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     np.testing.assert_allclose(got.float().numpy(), want, **TOL["bfloat16"])

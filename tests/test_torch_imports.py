@@ -13,7 +13,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_slice.py",
-    ROOT / "scripts" / "flash_sharp_softmax.py", ROOT / "scripts" / "time_flash_trees.py"]
+    ROOT / "scripts" / "flash_sharp_softmax.py", ROOT / "scripts" / "time_flash_trees.py",
+    ROOT / "scripts" / "ablate_flash_d256.py"]
 
 
 def _imported_modules(path):
