@@ -32,6 +32,22 @@ printing one JSON line; any failure raises and exits non-zero:
                   cell_window_force at the covering half-window W (+25%), 20
                   steps; then ``spheroid_dense``: the same start with the dense
                   pairwise_force kernel, 4 steps.
+  slice_jit, spheroid_jit, spheroid_dense_jit, sir_jit
+                  the compiled run (``BuiltSimulation.run_jit``, the step
+                  replayed from CUDA graphs, core/runner.py) of path 1's and
+                  path 2's models (no per-step clock) and of the SIR model of
+                  examples/epidemiology_sir.py (2,000 agents, 300 steps): the
+                  model run eagerly, then twice through one runner from the
+                  same start (the first run captures, the second replays);
+                  every state leaf and observable row bit-identical to the
+                  eager run, the launches equal to its; ``run_s`` and
+                  ``step_ms`` (``run_s / steps`` around one synchronize()) of
+                  each beside the eager run's, graphs, replays, eager steps,
+                  rollbacks, capture seconds, peak memory.  Then
+                  ``jit_divergence``: the spheroid at spheroid_small's size
+                  with 97 cells stacked in one box at step 5, so the Morton
+                  gate fails from step 6: at least one rollback, both force
+                  kernels launched, bit-identical to the eager run.
   kernels         each kernel at its path's shapes (taken from the final state
                   of that path's run) against its plain PyTorch version on the
                   same card: cell_rank exact (plus a stable-sort oracle, one
@@ -347,6 +363,7 @@ CAL_BOUNDS = [(1.0, 6.0), (0.05, 0.6), (1.0, 8.0)]
 CAL_PARTICLES, CAL_ITERS, CAL_SEED = 4, 1, 1
 CAL_FULL_RUNS = 8 * (8 + 1)      # the example's n_particles=8, n_iters=8
 SIR_FAST = ((3.24, 0.36, 6.2), 400, 8, 55.0, 300)   # params, agents, infected, space, steps
+SIR_FULL = (3.24, 0.285, 5.79)     # the example's triple calibrated at 2,000 agents
 SERVE_AGENTS = 20_000
 SERVE_SPACE = 320.0            # 32^3 boxes
 SERVE_RES = 64
@@ -450,29 +467,16 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_counters():
-    """Each kernel's launch counter: ``name -> (module, attribute)``."""
-    from repro_torch.kernels.cell_force import kernel as cf_k
-    from repro_torch.kernels.cell_rank import kernel as cr_k
-    from repro_torch.kernels.diffusion3d import kernel as d3_k
-    from repro_torch.kernels.flash_attention import kernel as fa_k
-    from repro_torch.kernels.pairwise_force import kernel as pf_k
-    from repro_torch.kernels.rmsnorm import kernel as rms_k
-
-    return {"cell_rank": (cr_k, "launches"), "cell_list_force": (cf_k, "launches"),
-            "cell_window_force": (cf_k, "window_launches"),
-            "pairwise_force": (pf_k, "launches"), "diffusion3d": (d3_k, "launches"),
-            "flash_attention": (fa_k, "launches_tc"),
-            "flash_attention_simt": (fa_k, "launches"), "rmsnorm": (rms_k, "launches")}
-
-
 def reset_counts() -> None:
-    for module, attr in kernel_counters().values():
-        setattr(module, attr, 0)
+    from repro_torch import kernels
+
+    kernels.add_launches({k: -n for k, n in kernels.read_launches().items()})
 
 
 def read_counts() -> dict:
-    return {name: getattr(m, a) for name, (m, a) in kernel_counters().items()}
+    from repro_torch import kernels
+
+    return kernels.read_launches()
 
 
 # --------------------------------------------------------------------- model
@@ -613,7 +617,7 @@ def phase_slice():
          step_ms=[1e3 * t for t in step_s],
          peak_memory_bytes=peak, launches=launches,
          cell_list_force_crowded_tiles=crowded, exposure_mean=float(exposure.mean()))
-    return built, final, launches, crowded
+    return built, final, launches, crowded, 1e3 * statistics.median(step_s)
 
 
 # ------------------------------------------------------------------ spheroid
@@ -830,7 +834,122 @@ def phase_spheroid():
     if dstats["launches"] != want:
         raise AssertionError(f"spheroid_dense: launches {dstats['launches']}, want {want}")
     emit("spheroid_dense", **dstats)
-    return built, final, window, stats["launches"], dstats["launches"]
+    return (built, final, window, stats["launches"], dstats["launches"],
+            (stats["median_step_ms"], dstats["median_step_ms"]))
+
+
+# ------------------------------------------------------------ compiled runs
+
+JIT_RUNS = 2                  # run_jit runs a phase: the first captures
+
+
+def jit_phase(name, built, steps, state=None, eager_median_ms=None):
+    """``steps`` steps of ``built`` eagerly, then ``JIT_RUNS`` times through
+    its runner (``run_jit``) from the same start, each bit-identical to the
+    eager run (every state leaf and observable row) with the eager run's
+    launches; emits the times and the runner's counts.  A replay allocates
+    nothing, so a run's peak counts the graph pool only when the run
+    captures; ``reserved_bytes`` (the allocator's, pool included) is printed
+    beside it.  Returns the launches of the run_jit runs, summed."""
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, read_counts(), torch.cuda.max_memory_allocated()
+
+    (efinal, eobs), eager_s, eager_launches, eager_peak = timed(
+        lambda: built.run(steps, state=state))
+    runner = built._jitted
+    runs, total = [], {k: 0 for k in eager_launches}
+    for i in range(JIT_RUNS):
+        before = dict(runner.stats)
+        (final, obs), run_s, launches, peak = timed(lambda: built.run_jit(steps, state=state))
+        bad = differing_leaves(efinal, final)
+        bad += [k for k in eobs if eobs[k].dtype != obs[k].dtype
+                or eobs[k].shape != obs[k].shape or not torch.equal(eobs[k], obs[k])]
+        if bad or set(obs) != set(eobs):
+            raise AssertionError(f"{name}: run_jit run {i} differs from the eager run in {bad}")
+        if launches != eager_launches:
+            raise AssertionError(f"{name}: run_jit launched {launches}, eager {eager_launches}")
+        counts = {k: runner.stats[k] - before[k] for k in runner.stats}
+        if counts["rollbacks"] or counts["replays"] < steps - counts["eager_steps"]:
+            raise AssertionError(f"{name}: run_jit run {i}: {counts}")
+        total = {k: total[k] + launches[k] for k in total}
+        runs.append(dict(run_s=run_s, step_ms=1e3 * run_s / steps, peak_memory_bytes=peak,
+                         reserved_bytes=torch.cuda.memory_reserved(), **counts))
+    emit(name, steps=steps, eager_run_s=eager_s, eager_step_ms=1e3 * eager_s / steps,
+         eager_median_step_ms=eager_median_ms, eager_peak_memory_bytes=eager_peak,
+         run_s=runs[-1]["run_s"], step_ms=runs[-1]["step_ms"], runs=runs,
+         launches=eager_launches, nvidia_smi=nvidia_smi_line())
+    return total
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a[k] + b.get(k, 0) for k in a}
+
+
+def phase_slice_jit(eager_median_ms):
+    sim = soma_model(N_AGENTS, SPACE, RESOLUTION, 0, "cuda")
+    built = sim.observe_kinds(frequency=STEPS // 4).build()
+    return jit_phase("slice_jit", built, STEPS, eager_median_ms=eager_median_ms)
+
+
+def phase_spheroid_jit(eager_median_ms):
+    """The Morton spheroid and the dense one, from path 2's start."""
+    morton, dense, state, _, _ = spheroid_setup()
+    launches = jit_phase("spheroid_jit", morton.build(), SPH_STEPS, state=state,
+                         eager_median_ms=eager_median_ms[0])
+    dense_launches = jit_phase("spheroid_dense_jit", dense.build(), SPH_DENSE_STEPS,
+                               state=state, eager_median_ms=eager_median_ms[1])
+    return launches, dense_launches
+
+
+def phase_jit_divergence(cells=2000, capacity=4096, space=(-200.0, 200.0)):
+    """spheroid_small's model and start with 97 cells stacked at the centre
+    on every step from step 5 on: the box overflows, the Morton gate fails
+    from step 6, and the runner's speculated window branch rolls back."""
+    steps, at = 10, 5
+    pos, diam, age = spheroid_start(cells, space, lattice=20.0)
+
+    def crowd(ctx, state):
+        p = state.pool.position
+        head = torch.where(state.step >= at, (space[0] + space[1]) / 2.0, p[:97])
+        return dataclasses.replace(state, pool=state.pool.replace(
+            position=torch.cat([head, p[97:]])))
+
+    built = (spheroid_model(pos, diam, space, capacity, "cuda", impl="fused",
+                            tile_order="morton", morton_window=capacity // SPH_BLOCK - 1,
+                            overflow_fallback=False)
+             .op(crowd, name="crowd", phase="agent").observe_kinds(n_kinds=1).build())
+    state = with_ages(built, age)
+    reset_counts()
+    efinal, eobs = built.run(steps, state=state)
+    torch.cuda.synchronize()
+    eager = read_counts()
+    reset_counts()
+    final, obs = built.run_jit(steps, state=state)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    stats = built._jitted.stats
+    bad = differing_leaves(efinal, final)
+    if bad or not torch.equal(eobs["kind_counts"], obs["kind_counts"]):
+        raise AssertionError(f"jit_divergence: run_jit differs from the eager run in {bad}")
+    if stats["rollbacks"] < 1 or not (launches["cell_window_force"] and
+                                      launches["cell_list_force"]):
+        raise AssertionError(f"jit_divergence: {stats}, launches {launches}")
+    emit("jit_divergence", cells=cells, capacity=capacity, steps=steps, crowd_at=at,
+         eager_launches=eager, launches=launches, **stats)
+
+
+def phase_sir_jit():
+    """The SIR model of examples/epidemiology_sir.py at its full population
+    (2,000 agents, 20 infected, space 100) with the triple it was
+    calibrated at there, 300 steps."""
+    built = sir_model(SIR_FULL, CAL_AGENTS, CAL_INFECTED, CAL_SPACE)
+    return jit_phase("sir_jit", built, CAL_STEPS)
 
 
 # --------------------------------------------------------------- checkpoints
@@ -1709,10 +1828,10 @@ def analytical_sir(n, i0, beta, gamma, steps):
     return np.stack(out)
 
 
-def sir_counts(params, n, i0, space, steps, seed=0):
+def sir_model(params, n, i0, space, seed=0):
     """The agent-based SIR model of examples/epidemiology_sir.py (random
     movement, infection, recovery, the infectious-time op, toroidal space)
-    run ``steps`` steps on the card: the S/I/R counts a step, (steps, 3)."""
+    on the card, built, its S/I/R counts observed every step."""
     from repro_torch import Simulation
     from repro_torch.core import (INFECTED, SUSCEPTIBLE, prng, random_movement,
                                   sir_infection, sir_recovery)
@@ -1735,7 +1854,13 @@ def sir_counts(params, n, i0, space, steps, seed=0):
         .observe_kinds("counts", n_kinds=3)
         .build()
     )
-    final, obs = built.run(steps)
+    return built
+
+
+def sir_counts(params, n, i0, space, steps, seed=0):
+    """:func:`sir_model` run ``steps`` steps: the S/I/R counts a step,
+    (steps, 3), and the final state."""
+    final, obs = sir_model(params, n, i0, space, seed).run(steps)
     counts = obs["counts"].cpu().numpy()
     if counts.shape != (steps, 3) or not (counts.sum(axis=1) == n).all():
         raise AssertionError(f"calibrate: counts {counts.shape} do not sum to {n} a step")
@@ -2980,7 +3105,7 @@ def family_launches(cfg, prefill_calls: int, decode_steps: int, dtype) -> dict:
     call or step where the config norms by RMS."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
 
-    want = {k: 0 for k in kernel_counters()}
+    want = {k: 0 for k in read_counts()}
     attn = sum(k in ("attn", "local_attn") for k in cfg.layer_kinds())
     flash = attn * (2 if cfg.is_encoder_decoder else 1) + cfg.n_encoder_layers
     tc = fa_k.uses_tensor_cores(dtype, cfg.head_dim)
@@ -3346,7 +3471,7 @@ def train_launches(cfg, steps: int) -> dict:
     each and once more for the final norm (outside the layers' remat)."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
 
-    want = {k: 0 for k in kernel_counters()}
+    want = {k: 0 for k in read_counts()}
     tc = fa_k.uses_tensor_cores(getattr(torch, cfg.dtype), cfg.head_dim)
     want["flash_attention" if tc else "flash_attention_simt"] = steps * 2 * cfg.n_layers
     want["rmsnorm"] = steps * (4 * cfg.n_layers + 1)
@@ -3795,15 +3920,24 @@ def main() -> int:
     seconds = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
     phase_small()
-    built, final, launches, crowded = phase_slice()
+    built, final, launches, crowded, median = phase_slice()
+    t1 = time.perf_counter()
+    launches = add_counts(launches, phase_slice_jit(median))
+    seconds["slice_jit"] = time.perf_counter() - t1
     rows = phase_kernels(built, final, launches, crowded, force_inputs)
     del built, final
     seconds["path 1"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_spheroid_small()
-    sph = phase_spheroid()
-    rows += spheroid_kernel_rows(*sph, force_inputs=force_inputs)
-    del sph
+    built, final, window, launches, dense_launches, medians = phase_spheroid()
+    t1 = time.perf_counter()
+    jit_launches, jit_dense_launches = phase_spheroid_jit(medians)
+    phase_jit_divergence()
+    seconds["spheroid_jit"] = time.perf_counter() - t1
+    rows += spheroid_kernel_rows(built, final, window, add_counts(launches, jit_launches),
+                                 add_counts(dense_launches, jit_dense_launches),
+                                 force_inputs=force_inputs)
+    del built, final
     if save_to:
         torch.save(force_inputs, save_to)
         force_inputs.clear()
@@ -3845,6 +3979,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_calibrate()
     seconds["calibrate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_sir_jit()
+    seconds["sir_jit"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
     phase_dist_small()

@@ -83,10 +83,10 @@ def save_inputs() -> None:
     import chip_smoke as cs
     from repro_torch.core.grid import build_index, sort_agents
 
-    built, final, _, _ = cs.phase_slice()
+    built, final, *_ = cs.phase_slice()
     spec, pool = built.config.spec, final.pool
     index = build_index(spec, pool)
-    sbuilt, sfinal, window, _, _ = cs.phase_spheroid()
+    sbuilt, sfinal, window, *_ = cs.phase_spheroid()
     sspec = sbuilt.config.spec
     spool = sort_agents(sspec, sfinal.pool)
     sindex = build_index(sspec, spool, assume_sorted=True)

@@ -120,7 +120,7 @@ def dense_inputs(cs):
     """The spheroid's final state, sorted, and its dense candidates."""
     from repro_torch.core.grid import build_index, candidate_neighbors_arrays, sort_agents
 
-    built, final, _, _, _ = cs.phase_spheroid()
+    built, final, *_ = cs.phase_spheroid()
     spec = built.config.spec
     pool = sort_agents(spec, final.pool)
     index = build_index(spec, pool, assume_sorted=True)

@@ -11,7 +11,8 @@ Layer map (same module names as the reference):
   prng         threefry keys and draws, bit for bit as jax.random
   behaviors    the behaviours of App. D
   schedule     Algorithm 8 as data: Operation / Scheduler
-  engine       the default schedule stepped eagerly
+  engine       the default schedule stepped eagerly, or replayed (run_jit)
+  runner       the compiled run: the step captured in CUDA graphs
   slots        the slot axis of a batch of sessions (flat view, selects)
   batch        the many-session engine: BatchState, BatchedSimulation
 """
@@ -57,6 +58,7 @@ from .engine import (
     SimulationState,
     count_kinds,
     init_state,
+    jitted_runner,
     run,
     run_jit,
     simulation_step,
@@ -82,8 +84,8 @@ __all__ = [
     "secretion", "sir_infection", "sir_recovery",
     "DiffusionGrid", "analytical_point_source", "concentration_at", "diffuse",
     "gradient_at", "increase_concentration", "make_grid",
-    "EngineConfig", "SimulationState", "count_kinds", "init_state", "run",
-    "run_jit", "simulation_step",
+    "EngineConfig", "SimulationState", "count_kinds", "init_state", "jitted_runner",
+    "run", "run_jit", "simulation_step",
     "ForceParams", "mechanical_forces", "pair_force",
     "update_static_flags", "update_static_flags_celllist",
     "GridIndex", "GridSpec", "build_index", "candidate_neighbors", "sort_agents",

@@ -275,7 +275,10 @@ def add_agents(
     target = torch.where(fits, local, rows).reshape(-1).long()
 
     def put(dst: torch.Tensor, src) -> torch.Tensor:
-        src = torch.as_tensor(src, dtype=dst.dtype, device=dst.device)
+        if isinstance(src, (bool, int, float)):   # a fill, not a host-to-device copy
+            src = torch.full((), src, dtype=dst.dtype, device=dst.device)
+        else:
+            src = torch.as_tensor(src, dtype=dst.dtype, device=dst.device)
         out = torch.cat([dst, dst[:1]], dim=0)
         out[target] = src.expand_as(dst)
         return out[:rows]

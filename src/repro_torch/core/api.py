@@ -392,7 +392,8 @@ class Simulation:
         return self.build(seed=seed).run(n_steps, **run_kwargs)
 
     def run_jit(self, n_steps: int, seed: Optional[int] = None, **run_kwargs):
-        """:meth:`run` (the port runs eagerly; there is nothing to compile)."""
+        """Build and run through the compiled runner (:meth:`BuiltSimulation.
+        run_jit`): :meth:`run`'s results, bit for bit."""
         return self.build(seed=seed).run_jit(n_steps, **run_kwargs)
 
     def run_batch(self, n_steps: int, params: Optional[Dict[str, Any]] = None, *,
@@ -691,13 +692,25 @@ class BuiltSimulation:
     state: SimulationState
     observables: Tuple[Observable, ...] = ()
 
-    def _execute(self, n_steps: int, state: Optional[SimulationState]):
+    @property
+    def _jitted(self):
+        """The compiled runner (``core/runner.py``), one for the model's
+        lifetime, so chunked runs replay the graphs it captured."""
+        cache = self._runner_cache
+        if ("solo",) not in cache:
+            cache[("solo",)] = _engine.jitted_runner(self.config, self.scheduler)
+        return cache[("solo",)]
+
+    def _execute(self, n_steps: int, state: Optional[SimulationState], jit: bool = False):
         state = self.state if state is None else state
         start = int(state.step)
         triples = tuple((o.name, o.fn, o.frequency) for o in self.observables
                         if o.frequency > 0)
-        final, ys = _engine.run(self.config, state, n_steps, scheduler=self.scheduler,
-                                observables=triples or None)
+        if jit:
+            final, ys = self._jitted(state, n_steps, observables=triples or None)
+        else:
+            final, ys = _engine.run(self.config, state, n_steps, scheduler=self.scheduler,
+                                    observables=triples or None)
         obs = _slice_observed(self.observables, ys, start, n_steps) if triples else {}
         return final, obs
 
@@ -705,7 +718,7 @@ class BuiltSimulation:
             checkpoint_dir: Optional[str] = None,
             checkpoint_every: Optional[int] = None, keep: int = 3,
             on_chunk: Optional[Callable[[Any], None]] = None):
-        """Run ``n_steps`` → ``(final_state, {name: rows})``.
+        """Run ``n_steps`` eagerly → ``(final_state, {name: rows})``.
 
         With ``checkpoint_dir=`` the run goes in ``checkpoint_every``-step
         chunks, persisting the full run (state + observable rows so far)
@@ -714,16 +727,27 @@ class BuiltSimulation:
         """
         if checkpoint_dir is None:
             return self._execute(n_steps, state)
-        return self._run_checkpointed(n_steps, state, checkpoint_dir, checkpoint_every,
-                                      keep, on_chunk)
+        return self._run_checkpointed(n_steps, state, False, checkpoint_dir,
+                                      checkpoint_every, keep, on_chunk)
 
-    run_jit = run
+    def run_jit(self, n_steps: int, state: Optional[SimulationState] = None, *,
+                checkpoint_dir: Optional[str] = None,
+                checkpoint_every: Optional[int] = None, keep: int = 3,
+                on_chunk: Optional[Callable[[Any], None]] = None):
+        """The compiled run → :meth:`run`'s ``(final_state, {name: rows})``,
+        bit for bit: the step replayed from CUDA graphs by the model's
+        runner.  Checkpointing as in :meth:`run`; the chunks reuse the
+        runner's graphs."""
+        if checkpoint_dir is None:
+            return self._execute(n_steps, state, jit=True)
+        return self._run_checkpointed(n_steps, state, True, checkpoint_dir,
+                                      checkpoint_every, keep, on_chunk)
 
-    def _run_checkpointed(self, n_steps, state, checkpoint_dir, checkpoint_every, keep,
-                          on_chunk, obs_acc=None, target_step=None):
+    def _run_checkpointed(self, n_steps, state, jit, checkpoint_dir, checkpoint_every,
+                          keep, on_chunk, obs_acc=None, target_step=None):
         state = self.state if state is None else state
         return _checkpointed_loop(
-            self._execute, state, n_steps, engine="single",
+            lambda k, st: self._execute(k, st, jit=jit), state, n_steps, engine="single",
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
             keep=keep, on_chunk=on_chunk, obs_acc=obs_acc, target_step=target_step,
         )
@@ -736,22 +760,22 @@ class BuiltSimulation:
         Restores the latest valid checkpoint (validated against this model's
         built state, :func:`_resume_payload`) onto the built state's device,
         then runs the remaining ``target_step − restored_step`` steps under
-        the recorded interval.  ``jit`` is accepted for the reference's
-        signature; the port runs eagerly either way.
+        the recorded interval, through :meth:`run_jit` (``jit=True``) or
+        :meth:`run`.
         """
         step, state, acc, target, every = _resume_payload(
             checkpoint_dir, "single", self.state, self.observables
         )
         if target - step <= 0:
             return state, _obs_tensors(acc, state.pool.device)
-        return self._run_checkpointed(target - step, state, checkpoint_dir, every, keep,
-                                      on_chunk, obs_acc=acc, target_step=target)
+        return self._run_checkpointed(target - step, state, jit, checkpoint_dir, every,
+                                      keep, on_chunk, obs_acc=acc, target_step=target)
 
     @functools.cached_property
     def _runner_cache(self) -> Dict[tuple, Any]:
         # One runner per execution signature, for the BuiltSimulation's
-        # lifetime: ``("batch",)`` holds the BatchedSimulation.  The solo
-        # run needs none (the port runs eagerly).
+        # lifetime: ``("solo",)`` holds the compiled runner (chunked runs
+        # replay its graphs), ``("batch",)`` the BatchedSimulation.
         return {}
 
     def batched(self):

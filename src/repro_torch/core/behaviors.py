@@ -216,6 +216,41 @@ def apoptosis(death_probability: float, min_age: float = 0.0,
 SUSCEPTIBLE, INFECTED, RECOVERED = 0, 1, 2
 
 
+def infected_nearby(position, cand, cand_mask, src_position, src_kind,
+                    infection_radius: float) -> torch.Tensor:
+    """(N,) bool: has the agent an infected candidate within the radius?
+    Over the masked-in candidate slots only (most slots are empty)."""
+    rows, cols = cand_mask.nonzero(as_tuple=True)
+    src = cand[rows, cols].long()
+    dist2 = ((position[rows] - src_position[src]) ** 2).sum(dim=-1)
+    close_infected = (src_kind[src] == INFECTED) & (dist2 <= infection_radius**2)
+    exposed = torch.zeros(cand.shape[:1], dtype=torch.bool, device=cand.device)
+    exposed[rows[close_infected]] = True
+    return exposed
+
+
+def infected_nearby_masked(position, cand, cand_mask, src_position, src_kind,
+                           infection_radius: float) -> torch.Tensor:
+    """:func:`infected_nearby` over every slot, in row tiles, for a step
+    captured in a CUDA graph.  Each distance is summed over the same (·, 3)
+    rows as there, so each decision is the same."""
+    from .forces import masked_row_tile
+
+    n, k = cand.shape
+    tile = masked_row_tile(n, k)
+    outs = []
+    for i in range(0, n, tile):
+        mask = cand_mask[i:i + tile]
+        src = torch.where(mask, cand[i:i + tile], 0).long()
+        d = position[i:i + tile, None, :] - src_position[src]
+        dist2 = (d ** 2).reshape(-1, 3).sum(dim=-1).reshape(src.shape)
+        close = mask & (src_kind[src] == INFECTED) & (dist2 <= infection_radius**2)
+        outs.append(close.any(dim=1))
+    if not outs:
+        return torch.zeros((0,), dtype=torch.bool, device=cand.device)
+    return torch.cat(outs)
+
+
 def sir_infection(infection_radius: float, infection_probability: float) -> Behavior:
     """Algorithm 3, pull formulation (§2.1.1): a susceptible agent infects
     itself when an infected agent is within the infection radius."""
@@ -223,13 +258,13 @@ def sir_infection(infection_radius: float, infection_probability: float) -> Beha
     def run(ctx: StepContext, pool: AgentPool):
         ctx, key = ctx.next_rng()
         u = prng.uniform(key, (pool.capacity,))
-        # Over the masked-in candidate slots only (most slots are empty).
-        rows, cols = ctx.cand_mask.nonzero(as_tuple=True)
-        src = ctx.cand[rows, cols].long()
-        dist2 = ((pool.position[rows] - ctx.src_position[src]) ** 2).sum(dim=-1)
-        close_infected = (ctx.src_kind[src] == INFECTED) & (dist2 <= infection_radius**2)
-        exposed = torch.zeros_like(pool.alive)
-        exposed[rows[close_infected]] = True
+        if ctx.neighbors.masked:
+            exposed = infected_nearby_masked(pool.position, ctx.cand, ctx.cand_mask,
+                                             ctx.src_position, ctx.src_kind,
+                                             infection_radius)
+        else:
+            exposed = infected_nearby(pool.position, ctx.cand, ctx.cand_mask,
+                                      ctx.src_position, ctx.src_kind, infection_radius)
         becomes = (pool.alive & (pool.kind == SUSCEPTIBLE) & exposed
                    & (u < infection_probability))
         return ctx, pool.replace(kind=torch.where(becomes, INFECTED, pool.kind))

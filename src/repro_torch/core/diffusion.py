@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .grid import fdiv
+from .grid import device_constant, fdiv
 from .slots import row_slot
 
 IMPLS = ("reference", "cuda")
@@ -119,7 +119,8 @@ def diffuse(grid: DiffusionGrid, dt: float, impl: str = "reference") -> Diffusio
 # ---------------------------------------------------------------- coupling
 
 def _grid_coords(grid: DiffusionGrid, position: torch.Tensor) -> torch.Tensor:
-    origin = torch.tensor(grid.origin, dtype=torch.float32, device=position.device)
+    origin = device_constant(("origin", grid.origin), position.device,
+                             lambda: torch.tensor(grid.origin, dtype=torch.float32))
     rel = position - origin
     if grid.frame_shift is not None:
         rel = rel - grid.frame_shift
@@ -130,7 +131,8 @@ def _effective_resolution(grid: DiffusionGrid, device: torch.device) -> torch.Te
     """(3,) i32 — the valid voxel count when padded, else the resolution."""
     if grid.n_valid is not None:
         return grid.n_valid.to(device=device, dtype=torch.int32)
-    return torch.tensor(grid.resolution, dtype=torch.int32, device=device)
+    return device_constant(("dims", grid.resolution), device,
+                           lambda: torch.tensor(grid.resolution, dtype=torch.int32))
 
 
 def _nearest_voxel(grid: DiffusionGrid, position: torch.Tensor) -> torch.Tensor:
@@ -160,7 +162,10 @@ def increase_concentration(
     one scatter over all sessions sums each voxel as the session's solo
     scatter does."""
     ijk = _nearest_voxel(grid, position)
-    amount = torch.as_tensor(amount, dtype=torch.float32, device=position.device)
+    if isinstance(amount, (int, float)):   # a fill, not a host-to-device copy
+        amount = torch.full((), amount, dtype=torch.float32, device=position.device)
+    else:
+        amount = torch.as_tensor(amount, dtype=torch.float32, device=position.device)
     amount = amount.expand(position.shape[:-1])
     if mask is not None:
         amount = torch.where(mask, amount, 0.0)
@@ -183,7 +188,8 @@ def gradient_at(grid: DiffusionGrid, position: torch.Tensor, normalized: bool = 
     conc = grid.concentration.reshape(-1)
 
     def sample(off: Tuple[int, int, int]) -> torch.Tensor:
-        o = torch.tensor(off, dtype=torch.int32, device=position.device)
+        o = device_constant(("offset", off), position.device,
+                            lambda: torch.tensor(off, dtype=torch.int32))
         q = torch.minimum(torch.clamp(ijk + o, min=0), res - 1)
         return conc[_flat(grid, q)].reshape(position.shape[:-1])
 

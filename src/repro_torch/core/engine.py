@@ -1,9 +1,11 @@
-"""The simulation engine: Algorithm 8 stepped eagerly.
+"""The simulation engine: Algorithm 8 stepped eagerly or replayed.
 
 Port of ``repro.core.engine``.  :func:`simulation_step` is
 ``Scheduler.default(config).step``; :func:`run` loops it in Python (the
-reference's ``lax.scan``) and records observables.  There is no jit, so
-:func:`run_jit` is :func:`run`.
+reference's ``lax.scan``) and records observables.  :func:`run_jit` is the
+counterpart of the reference's ``jax.jit(run)``: the step captured in CUDA
+graphs and replayed by a :class:`~repro_torch.core.runner.Runner`
+(``core/runner.py``), bit for bit :func:`run`'s results.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from . import diffusion as dgrid
 from . import prng
+from . import runner as _runner
 from .agents import AgentPool
 from .behaviors import Behavior
 from .forces import ForceParams, check_impl
@@ -169,11 +172,36 @@ def run(
     return state, outs
 
 
-run_jit = run
+def jitted_runner(config: EngineConfig, scheduler: Optional[Scheduler] = None
+                  ) -> _runner.Runner:
+    """A reusable compiled runner for one (config, scheduler), holding its
+    CUDA graphs: ``runner(state, n_steps, collect=, observables=)``.
+
+    Each :func:`run_jit` call makes a fresh one (its graphs die with it —
+    the right lifetime for one-shot runs); callers that drive an evolving
+    state in chunks hold one instead, as ``BuiltSimulation.run_jit`` does.
+    """
+    return _runner.Runner(config, scheduler)
+
+
+def run_jit(config: EngineConfig, state: SimulationState, n_steps: int,
+            collect=None, scheduler: Optional[Scheduler] = None, observables=None):
+    """:func:`run` through a fresh :func:`jitted_runner`: the same
+    ``(final_state, outs)``, bit for bit, with the step replayed from CUDA
+    graphs on the card."""
+    return jitted_runner(config, scheduler)(state, n_steps, collect=collect,
+                                            observables=observables)
 
 
 def derive_n_kinds(kind: torch.Tensor) -> int:
-    """``max(kind) + 1`` — the derivation used by kind-count observables."""
+    """``max(kind) + 1`` — the derivation used by kind-count observables.
+    Raises inside a compiled run (on either device), as the reference raises
+    under a trace: the count sizes an output, and reading it would read the
+    device inside the captured step."""
+    if _runner.running():
+        raise ValueError(
+            "deriving n_kinds under run_jit is impossible (the output shape must be "
+            "static) — pass n_kinds= explicitly")
     return int(kind.max()) + 1 if kind.numel() else 1
 
 

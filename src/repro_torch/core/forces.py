@@ -13,8 +13,15 @@ kernel's plain version.
 The reference's data-dependent ``lax.cond``s — the fused path's fallback
 when a cell overflowed, the Morton window's coverage gate and the §5.5
 compaction's fallback when the active set overflowed — are host-side
-``if``s on a device scalar here: one synchronisation each, taken on every
-call that reaches them.
+``if``s on device predicates here, read in one synchronisation a call.
+Under the compiled run (``core/runner.py``) a :class:`Branches` stands in
+for that read: the runner's eager steps record which branch each predicate
+gave, and its captured steps assume those branches, read nothing, and set a
+device ``diverged`` flag wherever a predicate disagrees (the runner then
+rolls the steps back and runs them eagerly).  A captured step evaluates the
+dense candidates as masked row tiles (:func:`forces_from_candidates`'s
+``masked``), whose shapes do not depend on the data; they sum each row in
+the order of the eager form, so the bits agree.
 
 Over the flat view of a batch (``core/slots.py``) each session takes its own
 branch: the predicates of every session are read in one device-to-host
@@ -40,7 +47,7 @@ from typing import Optional
 import torch
 
 from .agents import AgentPool, compact_indices
-from .grid import NEIGHBOR_OFFSETS, GridIndex, GridSpec, neighbor_cell_ids
+from .grid import GridIndex, GridSpec, grid_dims, neighbor_cell_ids, neighbor_offsets
 from .neighbors import NeighborContext
 from .slots import row_slot
 
@@ -55,6 +62,70 @@ def check_impl(impl: str, tile_order: str = "linear") -> None:
         raise ValueError(f"unknown force impl {impl!r}{hint}; expected {IMPLS}")
     if tile_order not in TILE_ORDERS:
         raise ValueError(f"unknown tile_order {tile_order!r}; expected {TILE_ORDERS}")
+
+
+# Candidate slots a masked evaluation takes at a time (rows × 27·M).
+MASKED_TILE_SLOTS = 1 << 22
+
+
+class Branches:
+    """The data-dependent branches of one step of the compiled run
+    (``core/runner.py``), the counterpart of the reference's ``lax.cond``s.
+
+    Recording (``assumed=None``): a predicate is read to the host, as the
+    eager step reads it, and the branch it gives is taken and recorded in
+    ``taken``.  Assuming (``assumed``: the ``taken`` of an earlier step,
+    ``diverged``: a () bool device tensor): nothing is read; each predicate
+    takes its assumed branch, and where its device value differs,
+    ``diverged`` is set on the device.  Only the predicates a step consults
+    are recorded or checked.  Solo steps only (one value a predicate)."""
+
+    def __init__(self, assumed: Optional[dict] = None,
+                 diverged: Optional[torch.Tensor] = None):
+        self.assumed = None if assumed is None else dict(assumed)
+        self.diverged = diverged
+        self.taken: dict = {}
+
+    @property
+    def assuming(self) -> bool:
+        return self.assumed is not None
+
+    def key(self) -> tuple:
+        """The branches taken, as a hashable key."""
+        return tuple(sorted(self.taken.items()))
+
+    def assume(self, name: str, pred: torch.Tensor) -> bool:
+        """The assumed value of ``name``; ``diverged`` is set where the
+        device's ``pred`` (a () bool) differs from it."""
+        value = self.assumed[name]
+        self.diverged.logical_or_(pred.reshape(()) != value)
+        self.taken[name] = value
+        return value
+
+
+class _Flags:
+    """The branch predicates of one force pass: ``flags[name]`` is a list
+    of bools, one a session (one for a () predicate).  Without branches, or
+    recording, every predicate is read in one device-to-host read; assuming,
+    none is."""
+
+    def __init__(self, tensors: dict, branches: Optional[Branches]):
+        self._tensors = tensors
+        self._branches = branches
+        assuming = branches is not None and branches.assuming
+        self._values = None if assuming else _read_flags(tensors)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._tensors
+
+    def __getitem__(self, name: str) -> list:
+        br = self._branches
+        if br is not None and br.assuming:
+            return [br.assume(name, self._tensors[name])]
+        value = self._values[name]
+        if br is not None:
+            br.taken[name] = value[0]
+        return value
 
 
 def _read_flags(flags: dict) -> dict:
@@ -104,8 +175,8 @@ def _window_need(spec: GridSpec, index: GridIndex, block: int) -> torch.Tensor:
     rmax = torch.full((b * (n_cells + 1),), -1, dtype=torch.int32, device=dev)
     rmax = rmax.scatter_reduce(0, ci, rows, "amax")
     ijk = torch.stack([cid // (ny * nz), (cid // nz) % ny, cid % nz], dim=-1)
-    nbr = ijk[:, None, :] + NEIGHBOR_OFFSETS.to(dev)[None]              # (C, 27, 3)
-    dims = torch.tensor(spec.dims, dtype=torch.int32, device=dev)
+    nbr = ijk[:, None, :] + neighbor_offsets(dev)[None]                 # (C, 27, 3)
+    dims = grid_dims(spec, dev)
     in_range = ((nbr >= 0) & (nbr < dims)).all(dim=-1)
     ncid = torch.clamp((nbr[..., 0] * ny + nbr[..., 1]) * nz + nbr[..., 2], 0, n_cells - 1)
     ncid = base[:, None] + ncid.long()
@@ -194,11 +265,20 @@ def forces_from_candidates(
     params: ForceParams,
     all_position: Optional[torch.Tensor] = None,
     all_radius: Optional[torch.Tensor] = None,
+    masked: bool = False,
 ) -> torch.Tensor:
     """Sum Eq-4.1 forces over each agent's candidate set: ``cand (N, K)``
-    indices into the source arrays (default: the query arrays)."""
+    indices into the source arrays (default: the query arrays).
+
+    ``masked``: evaluate every slot, in tiles of rows of at most
+    ``MASKED_TILE_SLOTS`` slots, and zero the masked-out ones, instead of
+    gathering the masked-in slots (whose count is data: ``nonzero`` reads it
+    back).  Each row sums the same values in the same order, so the two
+    forms agree bit for bit."""
     src_pos = position if all_position is None else all_position
     src_rad = radius if all_radius is None else all_radius
+    if masked:
+        return _masked_forces(position, radius, cand, cand_mask, params, src_pos, src_rad)
     # Pair forces of the masked-in slots only (most slots are empty), placed
     # into zeros: the same (N, K, 3) values as masking a full evaluation.
     rows, cols = cand_mask.nonzero(as_tuple=True)
@@ -209,15 +289,37 @@ def forces_from_candidates(
     return _tree_sum(f)
 
 
+def masked_row_tile(n: int, k: int) -> int:
+    """Rows a masked evaluation of ``(n, k)`` candidates takes at a time."""
+    return max(1, min(n, MASKED_TILE_SLOTS // max(k, 1)))
+
+
+def _masked_forces(position, radius, cand, cand_mask, params, src_pos, src_rad):
+    """:func:`forces_from_candidates` over every slot, in row tiles."""
+    n, k = cand.shape
+    tile = masked_row_tile(n, k)
+    outs = []
+    for i in range(0, n, tile):
+        mask = cand_mask[i:i + tile]
+        src = torch.where(mask, cand[i:i + tile], 0).long()
+        f = pair_force(position[i:i + tile, None, :] - src_pos[src],
+                       radius[i:i + tile, None], src_rad[src], params)
+        outs.append(_tree_sum(torch.where(mask[..., None], f, 0.0)))
+    if not outs:
+        return torch.zeros((0, 3), dtype=position.dtype, device=position.device)
+    return torch.cat(outs, dim=0)
+
+
 def forces_from_candidates_tiled(
-    position, radius, cand, cand_mask, params, all_position, all_radius, tile: int
+    position, radius, cand, cand_mask, params, all_position, all_radius, tile: int,
+    masked: bool = False,
 ) -> torch.Tensor:
     """Tile-wise :func:`forces_from_candidates`, bounding the (tile, K, 3)
     working set."""
     outs = [
         forces_from_candidates(
             position[i:i + tile], radius[i:i + tile], cand[i:i + tile],
-            cand_mask[i:i + tile], params, all_position, all_radius,
+            cand_mask[i:i + tile], params, all_position, all_radius, masked=masked,
         )
         for i in range(0, position.shape[0], tile)
     ]
@@ -242,6 +344,7 @@ def mechanical_forces(
     morton_window: Optional[int] = None,
     morton_fallback: bool = True,
     live=None,
+    branches: Optional[Branches] = None,
 ) -> torch.Tensor:
     """Net mechanical force per agent, (C, 3).
 
@@ -261,8 +364,14 @@ def mechanical_forces(
     Over a batch's flat view (``index.slots``) ``live`` (a bool a session)
     names the sessions whose branches count; the others' rows are computed
     on whichever branch is evaluated (their step is rolled back).
+    ``branches``: the compiled run's :class:`Branches` (solo only); with it a
+    negative cell id is checked whenever the Morton kernel is configured,
+    and an assuming pass evaluates dense candidates in masked tiles.
     """
     check_impl(impl, tile_order)
+    if branches is not None and index.slots is not None:
+        raise ValueError("mechanical_forces: branches are for solo steps only")
+    masked = branches is not None and branches.assuming
     if neighbors is None:
         neighbors = NeighborContext.for_pool(spec, index, pool)
     radius = pool.radius()
@@ -293,13 +402,15 @@ def mechanical_forces(
         flags["overflowed"] = index.overflowed
     if active_capacity is not None:
         flags["crowded"] = pool.slot_sum(pool.alive & ~pool.static) > int(active_capacity)
+    ids_checked = morton and (morton_fallback or branches is not None)
     if morton and morton_fallback:
-        from repro_torch.kernels.cell_force import ops as cf_ops
-
         flags["window"] = (_morton_window_ok(spec, index, morton_block, morton_window)
                            & ~index.overflowed)
+    if ids_checked:
+        from repro_torch.kernels.cell_force import ops as cf_ops
+
         flags["negative"] = cf_ops.negative_ids(index.cell_of_agent)
-    flags = _read_flags(flags)
+    flags = _Flags(flags, branches)
     if "negative" in flags:
         cf_ops.reject_negative_ids(flags["negative"][0])
 
@@ -308,9 +419,11 @@ def mechanical_forces(
         if tile:
             return forces_from_candidates_tiled(
                 pool.position, radius, cand, mask, params, src_pos, src_rad, tile,
+                masked=masked,
             )
         return forces_from_candidates(pool.position, radius, cand, mask, params,
-                                      all_position=src_pos, all_radius=src_rad)
+                                      all_position=src_pos, all_radius=src_rad,
+                                      masked=masked)
 
     def fused(use) -> torch.Tensor:
         """The fused kernels' rows; ``use`` (a bool a session) names the
@@ -330,7 +443,7 @@ def mechanical_forces(
             pool.position, radius, index.cell_of_agent, spec.dims,
             k=params.repulsion_k, gamma=params.attraction_gamma,
             block=morton_block, window=morton_window, impl="cuda",
-            ids_checked=morton_fallback, slots=slots,
+            ids_checked=ids_checked, slots=slots,
         )
         ok = flags["window"] if morton_fallback else [True] * b
         if not any(u and not w for u, w in zip(use, ok)):
@@ -378,7 +491,7 @@ def mechanical_forces(
     ids = act_ids.long()
     sub_force = forces_from_candidates(
         pool.position[ids], radius[ids], cand, mask & act_valid[:, None], params,
-        all_position=src_pos, all_radius=src_rad,
+        all_position=src_pos, all_radius=src_rad, masked=masked,
     )
     force = torch.zeros((c, 3), dtype=sub_force.dtype, device=pool.device)
     force.index_put_((ids,), torch.where(act_valid[:, None], sub_force, 0.0),

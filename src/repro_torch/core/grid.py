@@ -6,6 +6,13 @@ id is scattered into a dense ``(n_cells, max_per_cell)`` cell list.  The
 §5.4.2 layout sort (:func:`sort_agents`) is a counting sort over Z-ordered
 cells built from the same primitive.  Neighbor queries gather the 27-box
 stencil.
+
+Nothing here reads the device or copies a host value to it once its
+constants exist: the grid's origin and dims, the Z-order tables and the
+27-box offsets are made once per (device, grid) by :func:`device_constant`
+and kept, and the per-cell counts are a scatter-add (``torch.bincount``
+reads the largest id back to size its output).  So a step's grid build and
+layout sort can be captured in a CUDA graph (``core/runner.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +27,30 @@ from .agents import AgentPool, permute, permute_to
 from .slots import row_slot
 
 RANK_IMPLS = ("tiled", "cuda", "reference")
+
+# Constant tensors by (name, parameters, device); see device_constant.
+_CONSTANTS: dict = {}
+
+
+def device_constant(key: tuple, device: torch.device, make) -> torch.Tensor:
+    """The constant ``make()`` (a CPU tensor) on ``device``, made and copied
+    there at its first use and kept for later ones.  A host-to-device copy
+    synchronises, and under a CUDA graph capture it fails: every constant a
+    captured step needs is made by the eager step that precedes its capture.
+    Callers must not write to the tensor."""
+    device = torch.device(device)
+    k = key + (device,)
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = _CONSTANTS[k] = make().to(device)
+    return t
+
+
+def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int32: how many of ``ids`` (values in ``[0, n)``) equal each
+    value; ``torch.bincount`` without its device reads."""
+    counts = torch.zeros((n,), dtype=torch.int32, device=ids.device)
+    return counts.index_add_(0, ids.long(), torch.ones_like(ids, dtype=torch.int32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,11 +119,18 @@ def fdiv(x: torch.Tensor, d: float) -> torch.Tensor:
 
 def cell_coords(spec: GridSpec, position: torch.Tensor) -> torch.Tensor:
     """(N,3) float positions → (N,3) int32 cell coordinates, clipped to grid."""
-    origin = torch.tensor(spec.origin, dtype=torch.float32, device=position.device)
+    dev = position.device
+    origin = device_constant(("origin", spec.origin), dev,
+                             lambda: torch.tensor(spec.origin, dtype=torch.float32))
     rel = fdiv(position - origin, spec.box_size)
     ijk = torch.floor(rel).to(torch.int32)
-    dims = torch.tensor(spec.dims, dtype=torch.int32, device=position.device)
-    return torch.minimum(torch.clamp(ijk, min=0), dims - 1)
+    return torch.minimum(torch.clamp(ijk, min=0), grid_dims(spec, dev) - 1)
+
+
+def grid_dims(spec: GridSpec, device: torch.device) -> torch.Tensor:
+    """(3,) int32 ``spec.dims`` on ``device`` (a kept constant)."""
+    return device_constant(("dims", spec.dims), device,
+                           lambda: torch.tensor(spec.dims, dtype=torch.int32))
 
 
 def linear_cell_id(spec: GridSpec, ijk: torch.Tensor) -> torch.Tensor:
@@ -109,12 +147,15 @@ def sort_key(spec: GridSpec, ijk: torch.Tensor) -> torch.Tensor:
 
 def layout_rank_table(spec: GridSpec, device: torch.device) -> torch.Tensor:
     """(n_cells + 1,) int32: linear cell id → rank in layout (Z-)order; slot
-    ``n_cells`` is the dead-agent bin and ranks last."""
-    zrank = morton.cell_zrank(spec.dims, spec.use_morton)
-    table = torch.empty((spec.n_cells + 1,), dtype=torch.int32)
-    table[:-1] = torch.from_numpy(zrank)
-    table[-1] = spec.n_cells
-    return table.to(device)
+    ``n_cells`` is the dead-agent bin and ranks last (a kept constant)."""
+
+    def make():
+        table = torch.empty((spec.n_cells + 1,), dtype=torch.int32)
+        table[:-1] = torch.from_numpy(morton.cell_zrank(spec.dims, spec.use_morton))
+        table[-1] = spec.n_cells
+        return table
+
+    return device_constant(("zrank", spec.dims, spec.use_morton), device, make)
 
 
 def _live_cell_ids(spec: GridSpec, position: torch.Tensor, alive: torch.Tensor):
@@ -158,8 +199,7 @@ def sort_agents(spec: GridSpec, pool: AgentPool, rank_tile: int | None = None
     zid = _slot_keys(layout_rank_table(spec, pool.device)[cid.long()], slots, n_cells + 1)
     rank = cr_ops.cell_rank(zid, n_cells=b * (n_cells + 1) - 1, impl=spec.rank_impl,
                             tile=rank_tile)
-    counts = torch.bincount(zid.long(), minlength=b * (n_cells + 1)).to(torch.int32)
-    counts = counts.reshape(b, n_cells + 1)
+    counts = count_ids(zid, b * (n_cells + 1)).reshape(b, n_cells + 1)
     offsets = torch.cumsum(counts, 1, dtype=torch.int32) - counts
     dest = offsets.reshape(-1)[zid.long()] + rank
     dest = _slot_keys(dest, slots, rows // b)
@@ -169,9 +209,9 @@ def sort_agents(spec: GridSpec, pool: AgentPool, rank_tile: int | None = None
 def cell_starts_sorted(spec: GridSpec, cell_count: torch.Tensor):
     """Per-cell ``[start, end)`` row ranges of a layout-sorted pool (within
     each session for a ``(B, n_cells)`` count)."""
-    order = torch.from_numpy(
-        morton.zorder_cells(spec.dims, spec.use_morton)
-    ).to(cell_count.device).long()
+    order = device_constant(
+        ("zorder", spec.dims, spec.use_morton), cell_count.device,
+        lambda: torch.from_numpy(morton.zorder_cells(spec.dims, spec.use_morton)).long())
     zcounts = cell_count[..., order]
     zstarts = torch.cumsum(zcounts, -1, dtype=torch.int32) - zcounts
     start = torch.zeros_like(cell_count)
@@ -203,7 +243,7 @@ def build_index_arrays(
     cid = _live_cell_ids(spec, position, alive)
     key = _slot_keys(cid, slots, n_cells + 1)
 
-    counts = torch.bincount(key.long(), minlength=b * (n_cells + 1)).to(torch.int32)
+    counts = count_ids(key, b * (n_cells + 1))
     cell_count = counts.reshape(b, n_cells + 1)[:, :n_cells]
 
     local = torch.arange(rows, dtype=torch.int32, device=dev)
@@ -251,12 +291,17 @@ NEIGHBOR_OFFSETS = torch.tensor(
 )  # (27, 3)
 
 
+def neighbor_offsets(device: torch.device) -> torch.Tensor:
+    """``NEIGHBOR_OFFSETS`` on ``device`` (a kept constant)."""
+    return device_constant(("neighbor_offsets",), device, NEIGHBOR_OFFSETS.clone)
+
+
 def neighbor_cell_ids(spec: GridSpec, position: torch.Tensor):
     """27-box stencil cells per query: ``(nbr_cid, in_range)``, both (N, 27);
     ids are clipped into the grid — consult ``in_range`` before trusting one."""
     dev = position.device
-    dims = torch.tensor(spec.dims, dtype=torch.int32, device=dev)
-    nbr = cell_coords(spec, position)[:, None, :] + NEIGHBOR_OFFSETS.to(dev)[None]
+    dims = grid_dims(spec, dev)
+    nbr = cell_coords(spec, position)[:, None, :] + neighbor_offsets(dev)[None]
     in_range = ((nbr >= 0) & (nbr < dims)).all(dim=-1)
     nbr_cid = linear_cell_id(spec, torch.minimum(torch.clamp(nbr, min=0), dims - 1))
     return nbr_cid, in_range

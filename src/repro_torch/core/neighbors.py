@@ -27,6 +27,10 @@ class NeighborContext:
     index is the batch's and the candidate ids are rows of the flat view,
     each query's within its own session.  In the distributed engine the
     sources are the ghost-extended rows (:meth:`for_sources`).
+
+    ``masked``: the step is being captured for the compiled run
+    (``core/runner.py``), so consumers evaluate candidate sets as masked
+    dense tiles, never through ``nonzero`` (whose output size is data).
     """
 
     spec: GridSpec
@@ -38,6 +42,7 @@ class NeighborContext:
     query_position: torch.Tensor        # (N, 3) — positions the index was built from
     query_alive: torch.Tensor           # (N,)
     query_ids: Optional[torch.Tensor] = None
+    masked: bool = False
     _cand: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default=None, repr=False
     )

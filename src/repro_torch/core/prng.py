@@ -80,9 +80,15 @@ def PRNGKey(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for ``data`` a python int or a
     uint32/int32 tensor; a (B, 2) key batch takes one datum or (B,) of them,
-    and a (2,) key with (B,) data gives a (B, 2) batch."""
+    and a (2,) key with (B,) data gives a (B, 2) batch.  A non-negative
+    int32 tensor folds to the bits of the same python int, so the compiled
+    run (``core/runner.py``) folds the device step counter itself; an int is
+    filled on the device, not copied from the host."""
     k = _as_u64(key)
-    d = _as_u64(torch.as_tensor(data, device=key.device))
+    if torch.is_tensor(data):
+        d = _as_u64(data.to(key.device))
+    else:
+        d = torch.full((), int(data), dtype=torch.int64, device=key.device) & _MASK
     zero = torch.zeros_like(d)
     return _as_key(*threefry2x32(k, zero, d))
 

@@ -8,6 +8,11 @@ the phase partition in order.
 
 Eager execution replaces the reference's tracing: the step counter is read
 to the host once per step, and a frequency gate is a plain ``if`` on it.
+The compiled run (``core/runner.py``) steps with :meth:`Scheduler.step_at`
+instead: the runner keeps the counter on the host, the gates read that
+count, and the ops see ``OpContext.step`` as the device counter (as the
+reference's traced step does), with the force pass's branches behind a
+``forces.Branches``.
 :meth:`Scheduler.step_slots` is the step of a batch of sessions, over the
 flat view of its storage (``core/slots.py``): each session keeps its own
 counter, an op runs when any live session fires, and each session keeps the
@@ -24,6 +29,7 @@ PyTorch runs each op on its own and contracts nothing across ops.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -32,7 +38,7 @@ import torch
 from . import diffusion as dgrid
 from . import prng
 from .behaviors import StepContext
-from .forces import mechanical_forces, update_static_flags_celllist
+from .forces import Branches, mechanical_forces, update_static_flags_celllist
 from .grid import GridIndex, build_index, sort_agents
 from .neighbors import NeighborContext
 from .slots import select, slot_of, to_flat, to_slots, tree_map
@@ -91,7 +97,8 @@ class OpContext:
 
     config:        the EngineConfig the schedule was built from.
     step:          this iteration's counter (pre-increment), on the host
-                   (a tuple, one a session, in a batch's step).
+                   (a tuple, one a session, in a batch's step); under the
+                   compiled run the () int32 device counter ``state.step``.
     rng:           this iteration's folded key, (2,) uint32 ((B, 2) in a
                    batch's step).
     index:         the GridIndex built by ``env_build``.
@@ -101,6 +108,7 @@ class OpContext:
     extras:        free-form scratch for custom ops.
     live:          a batch's step only: a bool a session, the sessions this
                    step advances (the others are rolled back after it).
+    branches:      the compiled run's ``forces.Branches`` (None eagerly).
     """
 
     config: Any
@@ -112,6 +120,7 @@ class OpContext:
     pre_positions: Optional[torch.Tensor] = None
     extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
     live: Optional[Tuple[bool, ...]] = None
+    branches: Optional[Branches] = None
 
     def slot(self, b: int, rows: int) -> "OpContext":
         """Session ``b``'s context in a batch's step: views of its rows
@@ -180,11 +189,12 @@ class Operation:
             raise ValueError(f"frequency must be >= 0, got {self.frequency}")
 
 
-def run_op(op: Operation, ctx: OpContext, state):
-    """Execute one op with its frequency gate applied."""
+def run_op(op: Operation, ctx: OpContext, state, step: Optional[int] = None):
+    """Execute one op with its frequency gate applied, on ``step`` (the
+    host count; default ``ctx.step``)."""
     if op.frequency == 0:
         return state
-    fires = ctx.step % op.frequency == 0
+    fires = (ctx.step if step is None else step) % op.frequency == 0
     if op.gate == "cond" and not fires:
         return state
     new = op.fn(ctx, state)
@@ -235,13 +245,26 @@ class Scheduler:
 
     def step(self, state):
         """One iteration of Algorithm 8 over this schedule."""
-        step = int(state.step)
-        ctx = OpContext(config=self.config, step=step, rng=self.fold_rng(state, step))
+        return self.step_at(state, int(state.step))
+
+    def step_at(self, state, step: int, branches: Optional[Branches] = None):
+        """One iteration at the host count ``step``, which must equal
+        ``state.step`` (it is not read).  With ``branches`` (the compiled
+        run, ``core/runner.py``) the ops see ``OpContext.step`` as the
+        device counter, the key is folded from it, and the force pass takes
+        its branches through ``branches``; an op, or ``fold_rng``, that
+        reads the device while the step is captured in a CUDA graph raises
+        ``ValueError`` naming it."""
+        counter = step if branches is None else state.step
+        with _naming("fold_rng"):
+            rng = self.fold_rng(state, counter)
+        ctx = OpContext(config=self.config, step=counter, rng=rng, branches=branches)
         for op in self.ordered_ops():
             if op.collective:
                 raise ValueError(f"op {op.name!r} is collective: it runs in the "
                                  f"distributed executor only")
-            state = run_op(op, ctx, state)
+            with _naming(f"op {op.name!r}"):
+                state = run_op(op, ctx, state, step)
         return dataclasses.replace(state, step=state.step + 1)
 
     def step_slots(self, state, live, steps):
@@ -309,6 +332,27 @@ class Scheduler:
     def remove_op(self, name: str) -> "Scheduler":
         i = self._index_of(name)
         return dataclasses.replace(self, ops=self.ops[:i] + self.ops[i + 1:])
+
+
+@contextlib.contextmanager
+def _naming(what: str):
+    """Turn an error raised while a CUDA graph is being captured into a
+    ``CaptureError`` (a ``ValueError``) naming ``what``: a device read is not
+    allowed there."""
+    try:
+        yield
+    except RuntimeError as err:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise CaptureError(
+                f"{what} failed while the step was captured in a CUDA graph ({err}); "
+                f"under run_jit a step must not read the device (.item(), int(), "
+                f"bool(), .tolist(), nonzero) or copy host values to it") from err
+        raise
+
+
+class CaptureError(ValueError):
+    """A step could not be captured in a CUDA graph; names the op, the
+    observable or ``fold_rng`` that read the device."""
 
 
 def _run_per_slot(op: Operation, ctx: OpContext, state, fires):
@@ -379,6 +423,7 @@ def env_build_op(config) -> Operation:
                             assume_sorted=config.sort_frequency == 1)
         ctx.index = index
         ctx.neighbors = NeighborContext.for_pool(config.spec, index, state.pool)
+        ctx.neighbors.masked = ctx.branches is not None and ctx.branches.assuming
         ctx.pre_positions = state.pool.position
         ctx.sctx = StepContext(
             rng=ctx.rng,
@@ -430,6 +475,7 @@ def force_pass(config, ctx: OpContext, state, *, index=None, neighbors=None,
         morton_window=config.morton_window,
         morton_fallback=config.morton_window_fallback,
         live=ctx.live,
+        branches=ctx.branches,
     )
 
 

@@ -201,8 +201,9 @@ def run_elastic(
     padded into the bigger pool (:func:`grow_state`), and the chunk
     replays.  Returns ``(final_state, {name: rows}, n_regrows)``; raises
     ``RuntimeError`` on a halt action or when ``max_regrows`` is exhausted.
-    ``jit`` is accepted for the reference's signature; the port runs
-    eagerly either way.  The step counter and the health report are each
+    ``jit`` runs each chunk through ``BuiltSimulation.run_jit`` (the
+    compiled runner, whose graphs every chunk of one capacity replays),
+    else through ``run``.  The step counter and the health report are each
     read from the device once a chunk.
     """
     from repro_torch import checkpoint as ckpt
@@ -223,7 +224,8 @@ def run_elastic(
 
     save(state, step)
     while step < target:
-        new_state, obs = built.run(min(every, target - step), state=state)
+        runner = built.run_jit if jit else built.run
+        new_state, obs = runner(min(every, target - step), state=state)
         action = check_abm_state(new_state.health, grow_factor)
         if action.kind == "halt":
             raise RuntimeError(

@@ -1344,3 +1344,115 @@ def test_cell_list_rows_stop_at_first_sentinel(case):
         occupied, np.arange(spec.max_per_cell)[None, :] < filled[:, None])
     if case == "full_row":
         assert occupied.all() and not bool(index.overflowed)
+
+
+# ------------------------------------------------------------------- run_jit
+# The compiled run (core/runner.py) against the eager run on the card, bit
+# for bit: every state leaf and every observable row.
+
+def _jit_and_eager(built, steps, state=None, runs=2):
+    """``(eager, [run_jit results], eager counts, [run_jit counts])``, the
+    launch counters zeroed before and read after each run; the run_jit
+    runs share the model's runner (the second replays the first's graphs)."""
+    from repro_torch import kernels
+    import torch_jit_cases as J
+
+    def counted(fn):
+        kernels.add_launches({k: -n for k, n in kernels.read_launches().items()})
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kernels.read_launches()
+
+    eager, eager_counts = counted(lambda: built.run(steps, state=state))
+    jit = [counted(lambda: built.run_jit(steps, state=state)) for _ in range(runs)]
+    for result, _ in jit:
+        J.assert_runs_bit_equal(eager, result)
+    return eager, [r for r, _ in jit], eager_counts, [c for _, c in jit]
+
+
+@pytest.mark.cuda
+def test_run_jit_soma_fused_equals_eager_on_card(card):
+    import torch_jit_cases as J
+
+    built = J.soma(card, n=4000, space=200.0, res=40).build()
+    _, _, eager, jit = _jit_and_eager(built, 20)
+    stats = built._jitted.stats
+    assert stats["graphs"] >= 2 and stats["replays"] >= 2 * 16 and stats["rollbacks"] == 0
+    assert eager["cell_list_force"] == 20 and eager["diffusion3d"] == 40
+    assert jit == [eager, eager]
+
+
+@pytest.mark.cuda
+def test_run_jit_launch_counters_after_replay_equal_eager(card):
+    """Each graph's launches are counted at each replay, not at capture:
+    the counters after a run_jit equal the eager run's, kernel by kernel."""
+    import torch_jit_cases as J
+
+    built = J.soma(card, n=1000, space=100.0, res=20, sort_frequency=4).build()
+    _, _, eager, jit = _jit_and_eager(built, 9, runs=1)
+    assert built._jitted.stats["replays"] >= 5
+    assert eager["cell_rank"] == 9 + 3 and jit == [eager]
+
+
+@pytest.mark.cuda
+def test_run_jit_morton_spheroid_rolls_back_on_card(card):
+    """A Morton spheroid whose window covers it until 97 rows are stacked in
+    one box in step 5: from step 6 the coverage gate fails, the chunk rolls
+    back, and the run takes the window kernel before and the linear kernel
+    after, bit for bit the eager run."""
+    import torch_jit_cases as J
+
+    built, state = J.spheroid(card, crowd_at=5, impl="fused", tile_order="morton",
+                              morton_window=4096 // 128 - 1, overflow_fallback=False)
+    _, _, eager, jit = _jit_and_eager(built, 10, state=state)
+    assert built._jitted.stats["rollbacks"] >= 1
+    assert eager["cell_window_force"] == 6 and eager["cell_list_force"] == 4
+    for counts in jit:
+        assert counts["cell_window_force"] >= 6 and counts["cell_list_force"] >= 4
+
+
+@pytest.mark.cuda
+def test_run_jit_spheroid_dense_equals_eager_on_card(card):
+    import torch_jit_cases as J
+
+    built, state = J.spheroid(card, impl="cuda")
+    _, _, eager, jit = _jit_and_eager(built, 6, state=state)
+    assert eager["pairwise_force"] == 6 and jit == [eager, eager]
+
+
+@pytest.mark.cuda
+def test_run_jit_raises_when_an_op_reads_the_card(card):
+    """A custom op that reads the device cannot be captured: run_jit raises
+    a ValueError naming it instead of freezing the value it read."""
+    import torch_jit_cases as J
+
+    def reads(ctx, state):
+        if int(state.pool.alive.sum()) < 0:
+            raise AssertionError
+        return state
+
+    built = J.soma(card).op(reads, name="reads", phase="post").build()
+    built.run(2)
+    with pytest.raises(ValueError, match="op 'reads'"):
+        built.run_jit(3)
+    torch.cuda.synchronize()
+    built.run(2)              # the card is still usable
+
+
+@pytest.mark.cuda
+def test_kernels_stay_in_bounds_on_a_thrown_away_state(card):
+    """A captured step after a divergence is computed and thrown away; the
+    kernels on its path must not fault on what it feeds them: an overflowed
+    cell list, an uncovered Morton window, cell ids below 0 and at or above
+    n_cells."""
+    pos, rad, index, spec, _ = _force_inputs("overflowed")
+    assert bool(index.overflowed)
+    out = cf_ops.cell_list_force(pos.to(card), rad.to(card), index.cell_list.to(card),
+                                 spec.dims, impl="cuda")
+    cid = index.cell_of_agent.clone()
+    cid[::7] = -5
+    cid[1::7] = spec.n_cells + 3
+    win = cf_kernel.cell_window_force_cuda(pos.to(card), rad.to(card), cid.to(card),
+                                           spec.dims, block=16, half_window=0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(win).all())

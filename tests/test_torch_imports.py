@@ -52,7 +52,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.data, repro_torch.launch.train\n"
         "import repro_torch.kernels.flash_attention.chunked_vjp\n"
         "import repro_torch.sharding, repro_torch.configs.shapes\n"
-        "import repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.dryrun, repro_torch.core.runner\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
