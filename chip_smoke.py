@@ -907,11 +907,11 @@ def phase_spheroid_jit(eager_median_ms):
     return launches, dense_launches
 
 
-def phase_jit_divergence(cells=2000, capacity=4096, space=(-200.0, 200.0)):
-    """spheroid_small's model and start with 97 cells stacked at the centre
-    on every step from step 5 on: the box overflows, the Morton gate fails
-    from step 6, and the runner's speculated window branch rolls back."""
-    steps, at = 10, 5
+def crowd_model(cells=2000, capacity=4096, space=(-200.0, 200.0), at=5):
+    """spheroid_small's model and start (a Morton window over all but one
+    block, no overflow fallback) with 97 cells stacked at the centre on every
+    step from step ``at`` on: the box overflows and the Morton gate fails
+    from the next step.  Returns the built model, its start and the op."""
     pos, diam, age = spheroid_start(cells, space, lattice=20.0)
 
     def crowd(ctx, state):
@@ -924,7 +924,14 @@ def phase_jit_divergence(cells=2000, capacity=4096, space=(-200.0, 200.0)):
                             tile_order="morton", morton_window=capacity // SPH_BLOCK - 1,
                             overflow_fallback=False)
              .op(crowd, name="crowd", phase="agent").observe_kinds(n_kinds=1).build())
-    state = with_ages(built, age)
+    return built, with_ages(built, age), crowd
+
+
+def phase_jit_divergence(cells=2000, capacity=4096, space=(-200.0, 200.0)):
+    """crowd_model's run: the runner's speculated window branch rolls
+    back."""
+    steps, at = 10, 5
+    built, state, _ = crowd_model(cells, capacity, space, at)
     reset_counts()
     efinal, eobs = built.run(steps, state=state)
     torch.cuda.synchronize()
@@ -1203,16 +1210,19 @@ def dtoh_reads(run) -> float:
     """Device-to-host copies a step of ``run(n)`` (n steps from one state),
     from profiled runs of 3 steps and of 1: the difference over 2, so the
     reads a run makes once (its budgets, its start counter) drop out."""
+    counts = [dtoh_in(lambda: run(n)) for n in (1, 3)]
+    return (counts[1] - counts[0]) / 2
+
+
+def dtoh_in(fn) -> int:
+    """Device-to-host copies ``fn()`` makes, from one profiled call."""
     from torch.profiler import ProfilerActivity, profile
 
-    counts = []
-    for n in (1, 3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(n)
-            torch.cuda.synchronize()
-        counts.append(sum(1 for e in prof.events() if "DtoH" in e.name))
-    return (counts[1] - counts[0]) / 2
+    return sum(1 for e in prof.events() if "DtoH" in e.name)
 
 
 def _with_impl(fn, impl, /, *args, **kwargs):
@@ -1389,18 +1399,24 @@ def phase_batch_sweep():
     return built, final, launches
 
 
-def spheroid_batch(steps, name, **mechanics):
-    """4 slots of the spheroid (25,000 cells, capacity 32,768 each, ages set,
-    a seed a slot), sorted every step, ``steps`` steps batched, then each
-    slot's solo card run: every slot bit-identical.  ``solo_launches``: the
-    four solo runs' launches."""
+def spheroid_batch_setup(**mechanics):
+    """The spheroid batch's model and its 4 slots' starts (25,000 cells,
+    capacity 32,768 each, ages set, a seed a slot)."""
     from repro_torch.core import prng
 
     pos, diam, age = spheroid_start(SPHB_CELLS, SPHB_SPACE, lattice=12.0)
     built = spheroid_model(pos, diam, SPHB_SPACE, SPHB_CAPACITY, "cuda", **mechanics).build()
     start = with_ages(built, age)
-    starts = [dataclasses.replace(start, rng=prng.PRNGKey(200 + b, device=start.rng.device))
-              for b in range(SPHB_SLOTS)]
+    return built, [dataclasses.replace(start, rng=prng.PRNGKey(200 + b, device=start.rng.device))
+                   for b in range(SPHB_SLOTS)]
+
+
+def spheroid_batch(steps, name, **mechanics):
+    """4 slots of the spheroid (25,000 cells, capacity 32,768 each, ages set,
+    a seed a slot), sorted every step, ``steps`` steps batched, then each
+    slot's solo card run: every slot bit-identical.  ``solo_launches``: the
+    four solo runs' launches."""
+    built, starts = spheroid_batch_setup(**mechanics)
     eng = built.batched()
     torch.cuda.synchronize()
     reset_counts()
@@ -1524,6 +1540,8 @@ def phase_abm_serve():
     reqs = [SessionRequest(name=f"s{i}", n_steps=21 if i == 3 else 24, seed=300 + i,
                            params=params[i]) for i in range(10)]
     lines = []
+    runner = eng._jitted
+    before = dict(runner.stats)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1531,6 +1549,22 @@ def phase_abm_serve():
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = read_counts()
+    stats = {k: runner.stats[k] - before[k] for k in runner.stats}
+    # The same requests served eagerly (BatchedSimulation.run in place of
+    # run_jit): every session's series must be the compiled serve's.
+    eng.run_jit = eng.run
+    try:
+        t0 = time.perf_counter()
+        eager = {r.name: r for r in serve(built, reqs, slots=4, chunk=8, log=None)}
+        torch.cuda.synchronize()
+        eager_serve_s = time.perf_counter() - t0
+    finally:
+        del eng.run_jit
+    differ = [n for n in results if _series_sha(results[n].obs) != _series_sha(eager[n].obs)
+              or results[n].status != eager[n].status or results[n].steps != eager[n].steps]
+    if differ or set(results) != set(eager):
+        raise AssertionError(f"abm_serve: the compiled serve differs from the eager serve "
+                             f"in {differ}")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_serve_") as d:
         first = results["s3"]
@@ -1564,10 +1598,132 @@ def phase_abm_serve():
     if len(set(shas.values())) != len(shas):
         raise AssertionError(f"abm_serve: sessions with equal series {shas}")
     emit("abm_serve", sessions=10, slots=4, chunk=8, agents_a_session=SERVE_AGENTS,
-         serve_s=serve_s, evicted=sick.name, evicted_at_step=sick.steps,
-         resumed_from_step=first.steps, series_sha=shas, launches=launches,
+         serve_s=serve_s, eager_serve_s=eager_serve_s, runner=stats,
+         series_sha_equal_to_the_eager_serve=True, evicted=sick.name,
+         evicted_at_step=sick.steps, resumed_from_step=first.steps, series_sha=shas,
+         launches=launches, nvidia_smi=nvidia_smi_line(),
          chunks=[ln for ln in lines if ln.startswith("chunk")],
          summary=[ln for ln in lines if ln.startswith("served")])
+
+
+# ------------------------------------------------------ compiled batch runs
+
+def batch_differences(a, b) -> list:
+    """Keys of the leaves of two ``(bstate, obs, counts)`` results that are
+    not bit-identical."""
+    names = ("state", "obs", "counts")
+    return differing_leaves(dict(zip(names, a)), dict(zip(names, b)))
+
+
+def batch_jit_phase(name, eng, bstate, steps, **fields):
+    """``steps`` steps of a batch eagerly (``BatchedSimulation.run``), then
+    ``JIT_RUNS`` times through ``run_jit`` from the same start: each run
+    bit-identical to the eager run (every leaf of every slot, every
+    observable row and count) with its launches and no rollback, and the
+    last run with no eager step (it starts warm and replays every step).
+    Emits the times, the runner's counts, peak and reserved memory and the
+    device-to-host reads of a run both ways.  Returns the launches of the
+    run_jit runs, summed."""
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, read_counts(), torch.cuda.max_memory_allocated()
+
+    eager, eager_s, eager_launches, eager_peak = timed(lambda: eng.run(bstate, steps))
+    runner = eng._jitted
+    runs, total = [], {k: 0 for k in eager_launches}
+    for i in range(JIT_RUNS):
+        before = dict(runner.stats)
+        out, run_s, launches, peak = timed(lambda: eng.run_jit(bstate, steps))
+        bad = batch_differences(eager, out)
+        if bad:
+            raise AssertionError(f"{name}: run_jit run {i} differs from the eager run in {bad}")
+        if launches != eager_launches:
+            raise AssertionError(f"{name}: run_jit launched {launches}, eager {eager_launches}")
+        counts = {k: runner.stats[k] - before[k] for k in runner.stats}
+        if counts["rollbacks"] or (i == JIT_RUNS - 1 and counts["eager_steps"]):
+            raise AssertionError(f"{name}: run_jit run {i}: {counts}")
+        total = add_counts(total, launches)
+        runs.append(dict(run_s=run_s, step_ms=1e3 * run_s / steps, peak_memory_bytes=peak,
+                         reserved_bytes=torch.cuda.memory_reserved(), **counts))
+        del out
+    emit(name, slots=bstate.batch_size, steps=steps, eager_run_s=eager_s,
+         eager_step_ms=1e3 * eager_s / steps, eager_peak_memory_bytes=eager_peak,
+         run_s=runs[-1]["run_s"], step_ms=runs[-1]["step_ms"], runs=runs,
+         launches=eager_launches, bit_identical_to_eager=True,
+         dtoh_reads_a_run=dtoh_in(lambda: eng.run_jit(bstate, steps)),
+         eager_dtoh_reads_a_run=dtoh_in(lambda: eng.run(bstate, steps)),
+         nvidia_smi=nvidia_smi_line(), **fields)
+    return total
+
+
+def phase_batch_sweep_jit():
+    """batch_sweep's sweep (8 slots x 75,000 soma agents, 20 steps) without
+    its per-step clock op (which synchronises), eagerly and through
+    ``run_jit``."""
+    built = sweep_model().observe_kinds(frequency=SWEEP_STEPS // 4).observe(
+        "exposure_sum", lambda s: s.pool.get("exposure").sum()).build()
+    eng = built.batched()
+    params = {"substance:substance_1": np.linspace(0.0, 3.5, SWEEP_SLOTS).astype(np.float32)}
+    bstate = eng.sweep_state(seeds=[100 + b for b in range(SWEEP_SLOTS)], params=params)
+    return batch_jit_phase("batch_sweep_jit", eng, bstate, SWEEP_STEPS,
+                           agents_a_slot=SWEEP_AGENTS)
+
+
+def phase_batch_spheroid_morton_jit(window):
+    """batch_spheroid_morton's 4 slots (window ``window``), eagerly and
+    through ``run_jit``: every step of both takes the window kernel."""
+    built, starts = spheroid_batch_setup(impl="fused", tile_order="morton",
+                                         morton_block=SPH_BLOCK, morton_window=window)
+    eng = built.batched()
+    launches = batch_jit_phase("batch_spheroid_morton_jit", eng, eng.stack(starts),
+                               SPHB_STEPS, cells_a_slot=SPHB_CELLS, half_window=window)
+    want = {"cell_window_force": JIT_RUNS * SPHB_STEPS, "cell_list_force": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"batch_spheroid_morton_jit: launches {launches}, want {want}")
+    return launches
+
+
+def phase_batch_jit_divergence():
+    """crowd_model's model as a batch of two sessions: session 0 from its
+    start, crowded from step 5 (its Morton gate fails from step 6), session
+    1 from the same start at step 100 with the crowd applied, so the linear
+    kernel from its first step.  The runner speculates session 0's window
+    branch, rolls back, and gives the eager batch's bits; its launches less
+    those of the replays it threw away are the eager batch's, and both
+    kernels run."""
+    steps = 10
+    built, state, crowd = crowd_model()
+    ahead = crowd(None, dataclasses.replace(state, step=torch.full_like(state.step, 100)))
+    eng = built.batched()
+    bstate = eng.stack([state, ahead])
+    reset_counts()
+    eager = eng.run(bstate, steps)
+    torch.cuda.synchronize()
+    eager_launches = read_counts()
+    reset_counts()
+    out = eng.run_jit(bstate, steps)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    stats = eng._jitted.stats
+    thrown = eng._jitted.rolled_back_launches
+    kept = {k: v - thrown[k] for k, v in launches.items()}
+    bad = batch_differences(eager, out)
+    if bad or kept != eager_launches:
+        raise AssertionError(f"batch_jit_divergence: run_jit differs from the eager run in "
+                             f"{bad}, launches {launches} less {dict(thrown)} rolled back "
+                             f"(eager {eager_launches})")
+    if stats["rollbacks"] < 1 or not (launches["cell_window_force"]
+                                      and launches["cell_list_force"]):
+        raise AssertionError(f"batch_jit_divergence: {stats}, launches {launches}")
+    branches = sorted({dict(k[1])["window"] for k in eng._jitted._graphs})
+    emit("batch_jit_divergence", slots=2, steps=steps, crowd_at=5, launches=launches,
+         rolled_back_launches=dict(thrown), eager_launches=eager_launches,
+         window_branches=branches, bit_identical_to_eager=True, **stats)
 
 
 def batch_kernel_rows(sweep, dense):
@@ -3963,10 +4119,21 @@ def main() -> int:
     lap("batch_small")
     sweep = phase_batch_sweep()
     lap("batch_sweep")
+    built, final, launches = sweep
+    sweep = (built, final, add_counts(launches, phase_batch_sweep_jit()))
+    del built, final
+    lap("batch_sweep_jit")
     dense = phase_batch_spheroid()
     lap("batch_spheroid")
     morton = phase_batch_spheroid_morton()
     lap("batch_spheroid_morton")
+    built, final, launches, window = morton
+    morton = (built, final, add_counts(launches, phase_batch_spheroid_morton_jit(window)),
+              window)
+    del built, final
+    lap("batch_spheroid_morton_jit")
+    phase_batch_jit_divergence()
+    lap("batch_jit_divergence")
     phase_abm_serve()
     lap("abm_serve")
     rows += batch_kernel_rows(sweep, dense)

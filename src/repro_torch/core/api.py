@@ -806,11 +806,12 @@ class BuiltSimulation:
 
         Returns ``(finals, obs)``: the stacked final states (every leaf with
         a leading B axis) and ``obs[name]`` of shape ``(B, rows, ...)``.
-        Slot b equals a solo run of that variant, bit for bit.
+        Slot b equals a solo run of that variant, bit for bit.  The batch
+        runs through the compiled run (``BatchedSimulation.run_jit``).
         """
         eng = self.batched()
         bstate = eng.sweep_state(batch=batch, seeds=seeds, params=params)
-        bstate, obs, counts = eng.run(bstate, n_steps)
+        bstate, obs, counts = eng.run_jit(bstate, n_steps)
         # Sweep slots share the built start step, so every slot fired the
         # same rows: trim the buffers by slot 0's count.
         if obs:

@@ -14,7 +14,9 @@ and the host's dispatch, the cost of an eager step, is paid once.
     slots that were not live are rolled back by a select, so finished and
     empty slots are bit-frozen (counter, key and health included).
   * :func:`batched_run` — the step loop, recording observables per slot by
-    each slot's own counter into ``⌈n/k⌉``-row buffers plus counts.
+    each slot's own counter into ``⌈n/k⌉``-row buffers plus counts;
+    :func:`jitted_batched_runner` — the same run with the step replayed
+    from CUDA graphs (``core/runner.py``), bit for bit.
   * :class:`BatchedSimulation` — the lifecycle surface: sweep states
     (per-slot keys and overrides), checkpoint-grade injection into a free
     slot, eviction, all validated against the built template.
@@ -42,6 +44,7 @@ import torch
 
 from . import engine as _engine
 from . import prng
+from . import runner as _runner
 from .agents import as_tensor
 from .engine import SimulationState
 from .schedule import Scheduler
@@ -155,7 +158,7 @@ def batched_run(
             break
         stepped = to_slots(sched.step_slots(to_flat(states), live, pre))
         if not all(live):
-            stepped = select(torch.tensor(live, device=dev), stepped, states)
+            stepped = select(bstate.active & (states.step < bstate.stop_step), stepped, states)
         states = stepped
         for name, fn, k in live_obs:
             firing = [b for b in range(batch) if live[b] and pre[b] % k == 0]
@@ -181,11 +184,15 @@ def batched_run(
     return dataclasses.replace(bstate, states=states), out, counts
 
 
-def jitted_batched_runner(config, scheduler: Optional[Scheduler] = None):
-    """The reference's jit wrapper of :func:`batched_run`.  The port runs
-    eagerly, so there is nothing to compile: the runner is
-    :func:`batched_run` with the model bound."""
-    return functools.partial(batched_run, config, scheduler=scheduler)
+def jitted_batched_runner(config, scheduler: Optional[Scheduler] = None) -> _runner.Runner:
+    """A reusable compiled runner for :func:`batched_run` (the batch analog
+    of :func:`~repro_torch.core.engine.jitted_runner`): ``runner(bstate,
+    n_steps, observables=)`` returns :func:`batched_run`'s ``(bstate', obs,
+    counts)`` bit for bit, the step replayed from CUDA graphs keyed by the
+    live sessions, each session's firings and its branches.  It keeps its
+    graphs per batch width, so a serving loop driving chunks of one width
+    captures each key once and replays it in every later chunk."""
+    return _runner.Runner(config, scheduler, batched=True)
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +340,8 @@ class BatchedSimulation:
         self.observables = tuple(observables)
         self.n_registered = int(template.pool.alive.sum())
         self.device = template.pool.device
-        self._runner = jitted_batched_runner(config, scheduler)
+        self._runner = functools.partial(batched_run, config, scheduler=scheduler)
+        self._jitted = jitted_batched_runner(config, scheduler)
 
     def _obs_triples(self):
         return tuple(
@@ -506,8 +514,13 @@ class BatchedSimulation:
     # -- execution ----------------------------------------------------------
 
     def run(self, bstate: BatchState, n_steps: int):
-        """Batched run → ``(bstate', obs, counts)``."""
+        """Eager batched run → ``(bstate', obs, counts)``."""
         return self._runner(bstate, n_steps, observables=self._obs_triples() or None)
 
-    #: :meth:`run` (the port runs eagerly; there is nothing to compile).
-    run_jit = run
+    def run_jit(self, bstate: BatchState, n_steps: int):
+        """Compiled batched run → :meth:`run`'s ``(bstate', obs, counts)``,
+        bit for bit: the step replayed from CUDA graphs by one runner for
+        this ``BatchedSimulation``'s lifetime, whose graphs are kept per
+        batch width (so widths coexist without evicting each other or the
+        solo runner)."""
+        return self._jitted(bstate, n_steps, observables=self._obs_triples() or None)

@@ -30,7 +30,11 @@ batch, and each session keeps its own branch's rows, as ``vmap`` lowers the
 reference's ``lax.cond`` to a select.  So with ``tile_order="morton"`` a
 session whose window covers it takes the window kernel and one whose
 window does not the linear kernel, each kernel launched at most once a step
-for every session.
+for every session.  A session that is not live takes each predicate's
+False branch (its step is rolled back), so only the live sessions' values
+choose the kernels.  Under the compiled run a batch's branches are one bool
+a session for each predicate, and a captured step sets ``diverged`` where a
+live session's predicate differs from its assumed value.
 
 Ghost-extended sources (the distributed engine, ``NeighborContext.
 for_sources``): the index and the cell list cover the local pool's C rows
@@ -47,7 +51,8 @@ from typing import Optional
 import torch
 
 from .agents import AgentPool, compact_indices
-from .grid import GridIndex, GridSpec, grid_dims, neighbor_cell_ids, neighbor_offsets
+from .grid import (GridIndex, GridSpec, bool_mask, grid_dims, neighbor_cell_ids,
+                   neighbor_offsets)
 from .neighbors import NeighborContext
 from .slots import row_slot
 
@@ -78,7 +83,9 @@ class Branches:
     ``diverged``: a () bool device tensor): nothing is read; each predicate
     takes its assumed branch, and where its device value differs,
     ``diverged`` is set on the device.  Only the predicates a step consults
-    are recorded or checked.  Solo steps only (one value a predicate)."""
+    are recorded or checked.  A value is a bool in a solo step and a tuple
+    of bools, one a session, in a batch's; there ``diverged`` is set only
+    where a live session's predicate differs from its assumed value."""
 
     def __init__(self, assumed: Optional[dict] = None,
                  diverged: Optional[torch.Tensor] = None):
@@ -94,11 +101,17 @@ class Branches:
         """The branches taken, as a hashable key."""
         return tuple(sorted(self.taken.items()))
 
-    def assume(self, name: str, pred: torch.Tensor) -> bool:
+    def assume(self, name: str, pred: torch.Tensor, live=None):
         """The assumed value of ``name``; ``diverged`` is set where the
-        device's ``pred`` (a () bool) differs from it."""
+        device's ``pred`` (a () bool, or (B,) with ``live`` a bool a session)
+        differs from it.  A batch's masks are kept constants
+        (``grid.bool_mask``), which the runner makes before the capture."""
         value = self.assumed[name]
-        self.diverged.logical_or_(pred.reshape(()) != value)
+        if live is None:
+            self.diverged.logical_or_(pred.reshape(()) != value)
+        else:
+            differs = (pred != bool_mask(value, pred.device)) & bool_mask(live, pred.device)
+            self.diverged.logical_or_(differs.any())
         self.taken[name] = value
         return value
 
@@ -107,13 +120,18 @@ class _Flags:
     """The branch predicates of one force pass: ``flags[name]`` is a list
     of bools, one a session (one for a () predicate).  Without branches, or
     recording, every predicate is read in one device-to-host read; assuming,
-    none is."""
+    none is.  ``live`` (a batch's: a bool a session, None solo): a session
+    that is not live reads False."""
 
-    def __init__(self, tensors: dict, branches: Optional[Branches]):
+    def __init__(self, tensors: dict, branches: Optional[Branches], live=None):
         self._tensors = tensors
         self._branches = branches
+        self._live = live
         assuming = branches is not None and branches.assuming
         self._values = None if assuming else _read_flags(tensors)
+        if self._values is not None and live is not None:
+            self._values = {n: [bool(v) and l for v, l in zip(vals, live)]
+                            for n, vals in self._values.items()}
 
     def __contains__(self, name: str) -> bool:
         return name in self._tensors
@@ -121,10 +139,11 @@ class _Flags:
     def __getitem__(self, name: str) -> list:
         br = self._branches
         if br is not None and br.assuming:
-            return [br.assume(name, self._tensors[name])]
+            value = br.assume(name, self._tensors[name], self._live)
+            return [value] if self._live is None else list(value)
         value = self._values[name]
         if br is not None:
-            br.taken[name] = value[0]
+            br.taken[name] = value[0] if self._live is None else tuple(value)
         return value
 
 
@@ -144,13 +163,15 @@ def _read_flags(flags: dict) -> dict:
 
 def _per_session(pick, a, b, c: int) -> torch.Tensor:
     """Rows of ``a`` for the sessions where ``pick`` (a bool a session) is
-    set, of ``b`` elsewhere; each session is ``c`` rows."""
+    set, of ``b`` elsewhere; each session is ``c`` rows.  The mask is a kept
+    constant (``grid.bool_mask``): no host-to-device copy."""
     if all(pick):
         return a
     if not any(pick):
         return b
-    rows = torch.tensor(pick, device=a.device).repeat_interleave(c)
-    return torch.where(rows[:, None], a, b)
+    n = len(pick)
+    keep = bool_mask(pick, a.device).reshape(n, 1, 1)
+    return torch.where(keep, a.reshape(n, c, -1), b.reshape(n, c, -1)).reshape(a.shape)
 
 
 def _window_need(spec: GridSpec, index: GridIndex, block: int) -> torch.Tensor:
@@ -362,15 +383,14 @@ def mechanical_forces(
     evaluation.  ``tile``: evaluate the dense path in agent tiles.
     ``row_mask``: rows outside it get zero force (output masking only).
     Over a batch's flat view (``index.slots``) ``live`` (a bool a session)
-    names the sessions whose branches count; the others' rows are computed
-    on whichever branch is evaluated (their step is rolled back).
-    ``branches``: the compiled run's :class:`Branches` (solo only); with it a
-    negative cell id is checked whenever the Morton kernel is configured,
-    and an assuming pass evaluates dense candidates in masked tiles.
+    names the sessions whose branches count; the others take each
+    predicate's False branch (their step is rolled back), and a negative
+    cell id is refused in a live session only.
+    ``branches``: the compiled run's :class:`Branches`; with it a negative
+    cell id is checked whenever the Morton kernel is configured, and an
+    assuming pass evaluates dense candidates in masked tiles.
     """
     check_impl(impl, tile_order)
-    if branches is not None and index.slots is not None:
-        raise ValueError("mechanical_forces: branches are for solo steps only")
     masked = branches is not None and branches.assuming
     if neighbors is None:
         neighbors = NeighborContext.for_pool(spec, index, pool)
@@ -380,7 +400,7 @@ def mechanical_forces(
     slots = index.slots
     b = slots or 1
     per = c // b
-    live = [True] * b if live is None else list(live)
+    live = (True,) * b if live is None else tuple(bool(x) for x in live)
     if neighbors.src_position.shape[0] == c:
         # The sources ARE the pool: use its current arrays (behaviors may
         # have moved agents since the context was built).
@@ -409,10 +429,11 @@ def mechanical_forces(
     if ids_checked:
         from repro_torch.kernels.cell_force import ops as cf_ops
 
-        flags["negative"] = cf_ops.negative_ids(index.cell_of_agent)
-    flags = _Flags(flags, branches)
+        flags["negative"] = (cf_ops.negative_ids(index.cell_of_agent) if slots is None
+                             else (index.cell_of_agent.reshape(b, per) < 0).any(dim=1))
+    flags = _Flags(flags, branches, None if slots is None else live)
     if "negative" in flags:
-        cf_ops.reject_negative_ids(flags["negative"][0])
+        cf_ops.reject_negative_ids(any(flags["negative"]))
 
     def dense_eval(cache: bool) -> torch.Tensor:
         cand, mask = neighbors.candidates(cache=cache)

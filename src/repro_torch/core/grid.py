@@ -46,6 +46,15 @@ def device_constant(key: tuple, device: torch.device, make) -> torch.Tensor:
     return t
 
 
+def bool_mask(values, device: torch.device) -> torch.Tensor:
+    """``values`` (bools, one a session) as a kept (B,) bool tensor on
+    ``device``: a :func:`device_constant` keyed by the tuple, so a captured
+    step reads the mask its eager warm-up made."""
+    values = tuple(bool(v) for v in values)
+    return device_constant(("bools", values), device,
+                           lambda: torch.tensor(values, dtype=torch.bool))
+
+
 def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
     """(n,) int32: how many of ``ids`` (values in ``[0, n)``) equal each
     value; ``torch.bincount`` without its device reads."""

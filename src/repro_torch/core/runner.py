@@ -1,60 +1,86 @@
-"""Compiled execution: the engine step replayed from CUDA graphs.
+"""Compiled execution: the engine's step replayed from CUDA graphs.
 
 The counterpart of the reference's ``jax.jit`` over the ``lax.scan`` of the
-step (``repro.core.engine.run_jit``): a :class:`Runner` captures the step of
-one (config, scheduler) in ``torch.cuda.CUDAGraph``s and replays them, and
-its results are the eager :func:`~repro_torch.core.engine.run`'s bit for
-bit, whichever branches the run takes.  The rules:
+step (``repro.core.engine.run_jit``, and the batch engine's
+``repro.core.batch.jitted_batched_runner``): a :class:`Runner` captures the
+step of one (config, scheduler) in ``torch.cuda.CUDAGraph``s and replays
+them — the solo step (``Scheduler.step_at``), or with ``batched=True`` the
+step of a batch of sessions (``Scheduler.step_slots`` over a
+``batch.BatchState``) — and its results are the eager run's
+(:func:`~repro_torch.core.engine.run`, :func:`~repro_torch.core.batch.
+batched_run`) bit for bit, whichever branches the run takes.  The rules:
 
-* **The host count.**  ``state.step`` is read once, at the start of a run;
-  the runner advances the count on the host.  The frequency gates read it
-  (``Scheduler.step_at``); the ops see the device counter.
-* **Firing patterns.**  A pattern is which ops of frequency > 1 (sort,
-  diffusion, health, custom ops) and which gated observables (k > 1) fire
-  at a count.  A graph is keyed by (pattern, branches) and captured after an
-  eager step that had that pattern and took those branches: that step is
-  its warm-up (it builds the kernels, creates their lazy scratch and the
-  grid's constants), run on the runner's stream.  All graphs share one
-  memory pool; each ends by copying every state leaf, in the checkpoint's
-  order, into the runner's static buffers, so nothing stays live in the
-  pool between replays.
+* **The host count.**  The counters are read once, at the start of a run
+  (``state.step``; a batch's (B,) counters, ``active`` and ``stop_step`` in
+  one read), and the runner advances them on the host, so it knows each
+  step's live sessions and firings without a device read.  The frequency
+  gates read that count; the ops see the device counter.  A batch's run
+  stops once no session is live, as the eager loop does.
+* **Keys.**  A step's key is its firing pattern — which ops of frequency
+  > 1 (sort, diffusion, health, custom ops) and which gated observables
+  (k > 1) fire; in a batch, the tuple of live sessions and each op's and
+  observable's firing a session — and its branches.  A graph is captured
+  after an eager step with that key: that step is its warm-up (it builds
+  the kernels, creates their lazy scratch and the kept constants: the
+  grid's and a batch's masks), run on the runner's stream.
+* **Layouts.**  A runner keeps its graphs, static buffers and observable
+  buffers per layout of the state (its leaves' shapes and dtypes: a batch's
+  width is one), up to :data:`LAYOUTS` of them, so batches of different
+  widths reuse their own graphs without evicting each other.  The graphs of
+  a layout share one memory pool; each ends by copying every state leaf, in
+  the checkpoint's order, into the layout's static buffers, so nothing
+  stays live in the pool between replays.
 * **Speculation with rollback** (the counterpart of ``lax.cond``).  A
-  replay takes the branches of the last eager step (``forces.Branches``):
-  it computes the force pass's predicates on the device and sets a device
-  ``diverged`` flag where one differs from its assumed branch.  The runner
-  copies the state aside at the start of each chunk of at most
-  :data:`CHUNK` replays and reads ``diverged`` once at its end; if it is
-  set, the runner restores the copy and runs the chunk eagerly, each step
-  reading its predicates itself (and raising the eager ``ValueError`` on a
-  negative cell id at the same step).  Later steps replay the graphs keyed
-  by the last eager step's branches.  A step after a divergence is thrown
-  away; every kernel on the path stays in bounds on such a state.
-* **Observables** are written inside the graph: frequency-1 ones and
-  ``collect`` at row ``step − start`` of an ``(n_steps, …)`` buffer, gated
-  ones at their firing's row of a ``⌈n/k⌉`` buffer, both device indices.
+  replay takes the branches of the last eager step (``forces.Branches``: a
+  bool a predicate, in a batch one a session): it computes the force pass's
+  predicates on the device and sets a device ``diverged`` flag where one
+  (of a live session) differs from its assumed branch.  The runner copies
+  the state aside at the start of each chunk of at most :data:`CHUNK`
+  replays and reads ``diverged`` once at its end; if it is set, the runner
+  restores the copy and runs the chunk eagerly, each step reading its
+  predicates itself (and raising the eager ``ValueError`` on a negative cell
+  id at the same step).  Later steps replay the graphs keyed by the last
+  eager step's branches.  A step after a divergence is thrown away; every
+  kernel on the path stays in bounds on such a state.
+* **Warm starts.**  A run whose first step's key has a graph, under the
+  branches its layout's last run ended with, starts with a replay (the
+  rollback covers a wrong guess); its observable buffers are reused when
+  they hold the run's rows.  So the chunks of a serving loop or of a
+  checkpointed run replay from their first step.
+* **Observables** are written inside the graph at device rows:
+  frequency-1 ones and ``collect`` at row ``step − start`` of an
+  ``(n_steps, …)`` buffer, gated ones at their firing's row of a ``⌈n/k⌉``
+  buffer.  A batch's buffers are ``(B, rows, …)``: each firing session
+  writes its own row, from its own counter and start, so misaligned
+  sessions stay exact, and the ``counts`` come from the host's tally.
 * **No hidden fallback.**  On the card a failed capture raises: an op, an
   observable or ``fold_rng`` that reads the device while the step is
   captured raises ``ValueError`` naming it (``schedule.CaptureError``).  The
-  only eager steps are the first of each run, the warm-up of each new key
-  and the rolled-back chunks; :attr:`Runner.stats` counts them.
+  only eager steps are the warm-up of each new key, the rolled-back chunks
+  and the first step of a run that cannot start warm; :attr:`Runner.stats`
+  counts them.
 * **Launch counters.**  A kernel wrapper counts its launch when its Python
   runs, which for a captured kernel is at the capture: the runner takes
   each graph's count back after capture and adds it again at each replay.
+  The replays a rollback throws away did launch their kernels: their
+  launches are also kept in :attr:`Runner.rolled_back_launches`, so the
+  counters less those equal the eager run's.
 * **On the CPU** there is no graph: the caller asked for the CPU, and the
   same runner calls each captured body as a plain function, so the host
-  count, the patterns, the flags, the speculation and the rollback run (and
+  count, the keys, the flags, the speculation and the rollback run (and
   are tested) there too.
 
-Limits: the solo engine only (a batch's and the distributed executor's
-steps run eagerly); the state's tree, shapes and static fields must not
-change over a run; custom ops and observables must not read the device or
-copy host values to it (a ``torch.tensor(...)`` on the card inside the step
-is such a copy).
+Limits: the distributed executor's step runs eagerly; the state's tree,
+shapes and static fields must not change over a run; custom ops and
+observables must not read the device or copy host values to it (a
+``torch.tensor(...)`` on the card inside the step is such a copy).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -62,12 +88,18 @@ import torch
 
 from ..checkpoint.checkpoint import _leaves_with_paths, _map_with_paths
 from .forces import Branches
+from .grid import bool_mask, device_constant
 from .schedule import Scheduler, _naming
+from .slots import select, to_flat, to_slots
 
 # Replays between two reads of the divergence flag: the most steps a
 # divergence rolls back and runs eagerly, and one device-to-host read (and
 # one copy of the state) every CHUNK steps.
 CHUNK = 32
+
+# Layouts of the state a runner keeps graphs and buffers for (the least
+# recently run is dropped beyond it).
+LAYOUTS = 4
 
 # Runs in progress (``engine.derive_n_kinds`` refuses to derive inside one).
 _running = 0
@@ -78,15 +110,16 @@ def running() -> bool:
     return _running > 0
 
 
-def _skeleton(tree):
-    """The tree with each leaf replaced by its shape and dtype: what the
-    static buffers and the captured graphs were made for."""
-    def leaf(path, x):
+def _skeleton(tree) -> tuple:
+    """The tree's leaves as ``(path, shape, dtype)``: what the static
+    buffers and the captured graphs were made for."""
+    out = []
+    for path, x in _leaves_with_paths(tree):
         if not torch.is_tensor(x):
             raise TypeError(f"run_jit: state leaf {path} is a {type(x).__name__}, "
                             f"not a tensor")
-        return tuple(x.shape), x.dtype
-    return _map_with_paths(tree, leaf)
+        out.append((path, tuple(x.shape), x.dtype))
+    return tuple(out)
 
 
 def _tensors(tree):
@@ -106,178 +139,322 @@ def _rebuild(tree, leaves):
     return put(tree)
 
 
+def _multiples(lo: int, hi: int, k: int) -> int:
+    """How many counts in ``[lo, hi)`` are ≡ 0 (mod k)."""
+    return (hi - 1) // k - (lo - 1) // k
+
+
+class _Layout:
+    """What a runner keeps for one layout of the state: its static buffers
+    (the state the graphs read and write), the chunk's saved copy, the
+    device flag and run starts, the graphs and their pool, the observable
+    buffers, and the branches its last run ended with."""
+
+    def __init__(self, key: tuple, state, counter: torch.Tensor):
+        device = counter.device
+        self.key, self.device = key, device
+        self.static = _map_with_paths(
+            state, lambda p, x: torch.empty(x.shape, dtype=x.dtype, device=device))
+        self.leaves = [x for _, x in _leaves_with_paths(self.static)]
+        self.saved = [torch.empty_like(x) for x in self.leaves]
+        self.ptrs = {x.untyped_storage().data_ptr() for x in self.leaves}
+        self.diverged = torch.zeros((), dtype=torch.bool, device=device)
+        self.start = torch.zeros(counter.shape, dtype=torch.int32, device=device)
+        self.graphs: Dict[tuple, object] = {}
+        self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self.obs_sig = None
+        self.bufs: Dict[str, object] = {}
+        self.protos: Optional[Dict[str, object]] = None
+        self.branches: Optional[tuple] = None
+
+    def drop_graphs(self):
+        self.graphs = {}
+        if self.pool is not None:
+            self.pool = torch.cuda.graph_pool_handle()
+
+
 class Runner:
     """A reusable compiled runner for one (config, scheduler): holds its
-    graphs, static buffers and memory pool.  ``runner(state, n_steps,
-    collect=None, observables=None)`` returns what
-    ``engine.run(config, state, n_steps, ...)`` returns."""
+    graphs, static buffers and memory pools, per layout of the state.
+    ``runner(state, n_steps, collect=None, observables=None)`` returns what
+    ``engine.run(config, state, n_steps, ...)`` returns; with
+    ``batched=True``, ``runner(bstate, n_steps, observables=None)`` returns
+    what ``batch.batched_run(config, bstate, n_steps, ...)`` returns."""
 
-    def __init__(self, config, scheduler: Optional[Scheduler] = None):
+    def __init__(self, config, scheduler: Optional[Scheduler] = None,
+                 batched: bool = False):
         self.config = config
         self.scheduler = scheduler or Scheduler.default(config)
-        self.stats = {"graphs": 0, "replays": 0, "eager_steps": 0, "rollbacks": 0,
-                      "rolled_back_steps": 0, "capture_s": 0.0}
+        self.batched = batched
+        self.stats = {"runs": 0, "warm_starts": 0, "graphs": 0, "replays": 0,
+                      "eager_steps": 0, "rollbacks": 0, "rolled_back_steps": 0,
+                      "capture_s": 0.0}
         self._gates = tuple(op for op in self.scheduler.ordered_ops() if op.frequency > 1)
-        self._graphs: Dict[tuple, object] = {}
-        self._layout = None
-        self._obs_sig = None
-        self._bufs: Dict[str, object] = {}
-        self._device = None
+        # Launches of the replays thrown away by rollbacks, by kernel: the
+        # launch counters less these are the eager run's.
+        self.rolled_back_launches: collections.Counter = collections.Counter()
+        self._layouts: "collections.OrderedDict[tuple, _Layout]" = collections.OrderedDict()
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    @property
+    def _graphs(self) -> dict:
+        """Every kept layout's graphs, by key."""
+        return {k: g for lay in self._layouts.values() for k, g in lay.graphs.items()}
+
+    # -- the host count ---------------------------------------------------------
+
+    def _counter(self, state) -> torch.Tensor:
+        return state.states.step if self.batched else state.step
+
+    def _read(self, state):
+        """The host count: ``state.step`` (a batch's counters, with its
+        ``active`` and ``stop_step`` kept for :meth:`_live`), in one read."""
+        if not self.batched:
+            return int(state.step)
+        steps, active, stop = torch.stack([
+            state.states.step.to(torch.int64), state.active.to(torch.int64),
+            state.stop_step.to(torch.int64)]).tolist()
+        self._active, self._stop = tuple(bool(a) for a in active), tuple(stop)
+        return tuple(steps)
+
+    def _live(self, host):
+        """A batch's live sessions at the host count (None solo)."""
+        if not self.batched:
+            return None
+        return tuple(a and s < t for a, s, t in zip(self._active, host, self._stop))
+
+    def _any_live(self, host) -> bool:
+        return not self.batched or any(self._live(host))
+
+    def _advance(self, host):
+        if not self.batched:
+            return host + 1
+        return tuple(s + 1 if l else s for s, l in zip(host, self._live(host)))
+
+    def _firing(self, host, live, k: int):
+        """Do observables of frequency ``k`` fire: a bool (solo), or the
+        tuple of firing sessions."""
+        if live is None:
+            return host % k == 0
+        return tuple(b for b, (l, s) in enumerate(zip(live, host)) if l and s % k == 0)
+
+    def _pattern(self, host) -> tuple:
+        live = self._live(host)
+        if live is None:
+            return (tuple(host % op.frequency == 0 for op in self._gates)
+                    + tuple(host % k == 0 for _, _, k in self._gated))
+        fires = lambda f: tuple(l and s % f == 0 for l, s in zip(live, host))
+        return ((live,) + tuple(fires(op.frequency) for op in self._gates)
+                + tuple(fires(k) for _, _, k in self._gated))
 
     # -- set-up ---------------------------------------------------------------
 
-    def _reset_graphs(self):
-        self._graphs = {}
-        if self._device is not None and self._device.type == "cuda":
-            self._pool = torch.cuda.graph_pool_handle()
-
-    def _prepare(self, state, obs_sig):
-        """Static buffers for ``state``'s layout (made anew, and the graphs
-        dropped, when it changed), the state copied in."""
-        device = state.step.device
-        layout = _skeleton(state)
-        if device != self._device or layout != self._layout:
-            self._device = device
-            self._layout = layout
-            self._bufs = {}
-            self._reset_graphs()
-            self._static = _map_with_paths(
-                state, lambda p, x: torch.empty(x.shape, dtype=x.dtype, device=device))
-            self._leaves = [x for _, x in _leaves_with_paths(self._static)]
-            self._saved = [torch.empty_like(x) for x in self._leaves]
-            self._ptrs = {x.untyped_storage().data_ptr() for x in self._leaves}
-            self._diverged = torch.zeros((), dtype=torch.bool, device=device)
-            self._start = torch.zeros((), dtype=torch.int32, device=device)
-            self._offsets: Dict[int, torch.Tensor] = {}
-            self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-        if obs_sig != self._obs_sig:
-            self._obs_sig = obs_sig
-            self._bufs = {}
-            self._reset_graphs()
-        for dst, (_, src) in zip(self._leaves, _leaves_with_paths(state)):
+    def _layout(self, state) -> _Layout:
+        """The layout's buffers and graphs (made at its first run; the least
+        recently run of more than :data:`LAYOUTS` dropped), the state copied
+        in."""
+        counter = self._counter(state)
+        key = (counter.device, _skeleton(state))
+        lay = self._layouts.get(key)
+        if lay is None:
+            lay = self._layouts[key] = _Layout(key, state, counter)
+            while len(self._layouts) > LAYOUTS:
+                self._layouts.popitem(last=False)
+        self._layouts.move_to_end(key)
+        if lay.device.type == "cuda" and lay.device not in self._streams:
+            self._streams[lay.device] = torch.cuda.Stream(lay.device)
+        for dst, (_, src) in zip(lay.leaves, _leaves_with_paths(state)):
             dst.copy_(src)
+        return lay
 
     @contextlib.contextmanager
-    def _on_stream(self):
+    def _on_stream(self, lay: _Layout):
         """Run on the runner's stream, after the caller's work and before
         the caller's next."""
-        if self._stream is None:
+        stream = self._streams.get(lay.device)
+        if stream is None:
             yield
             return
-        caller = torch.cuda.current_stream(self._device)
-        self._stream.wait_stream(caller)
+        caller = torch.cuda.current_stream(lay.device)
+        stream.wait_stream(caller)
         try:
-            with torch.cuda.stream(self._stream):
+            with torch.cuda.stream(stream):
                 yield
         finally:
-            caller.wait_stream(self._stream)
+            caller.wait_stream(stream)
 
-    def _ensure_buffers(self, protos: Dict[str, object], rows: Dict[str, int]):
-        """The observable buffers, zeroed: ``rows[name]`` rows of each
+    def _lead(self, rows: int) -> tuple:
+        return (rows,) if not self.batched else (self._width, rows)
+
+    def _ensure_buffers(self, lay: _Layout, protos: Dict[str, object]):
+        """The observable buffers, zeroed: ``self._rows[name]`` rows of each
         proto's shape and dtype (made anew, and the graphs dropped, when one
         does not fit)."""
-        fits = set(self._bufs) == set(protos) and all(
-            [(tuple(b.shape[1:]), b.dtype) for b in _tensors(self._bufs[n])]
+        rows, d = self._rows, len(self._lead(0)) - 1
+        fits = set(lay.bufs) == set(protos) and all(
+            [(tuple(b.shape[d + 1:]), b.dtype) for b in _tensors(lay.bufs[n])]
             == [(tuple(p.shape), p.dtype) for p in _tensors(protos[n])]
-            and _tensors(self._bufs[n])[0].shape[0] >= rows[n]
+            and _tensors(lay.bufs[n])[0].shape[d] >= rows[n]
             for n in protos)
         if not fits:
-            self._reset_graphs()
-            self._bufs = {
-                n: _rebuild(p, [torch.empty((rows[n],) + tuple(t.shape), dtype=t.dtype,
-                                            device=self._device) for t in _tensors(p)])
+            lay.drop_graphs()
+            lay.bufs = {
+                n: _rebuild(p, [torch.empty(self._lead(rows[n]) + tuple(t.shape),
+                                            dtype=t.dtype, device=lay.device)
+                                for t in _tensors(p)])
                 for n, p in protos.items()}
-        for b in self._bufs.values():
+            lay.protos = {n: _rebuild(p, [t.to("meta") for t in _tensors(p)])
+                          for n, p in protos.items()}
+        for b in lay.bufs.values():
             for t in _tensors(b):
                 t.zero_()
 
+    def _ready(self, lay: _Layout, sig) -> bool:
+        """Are the observable buffers known for this run (so its first step
+        may be a replay)?  Sizes them from the layout's last run's protos."""
+        if sig != lay.obs_sig:
+            lay.obs_sig, lay.bufs, lay.protos = sig, {}, None
+            lay.drop_graphs()
+        if not self._rows:
+            return True
+        if lay.protos is None:
+            return False
+        self._ensure_buffers(lay, lay.protos)
+        return True
+
+    def _fill_start(self, lay: _Layout, host):
+        """The run's start counters, on the device."""
+        if self.batched:
+            lay.start.copy_(lay.static.states.step)
+        else:
+            lay.start.fill_(host)
+
     # -- one step -------------------------------------------------------------
 
-    def _pattern(self, host: int) -> tuple:
-        return (tuple(host % op.frequency == 0 for op in self._gates)
-                + tuple(host % k == 0 for _, _, k in self._gated))
+    def _values(self, new, host, live, protos: bool = False):
+        """The rows this step records, by name, and with ``protos`` every
+        observable's value (for the buffers' shapes).  A batch's record is
+        ``(sessions, stacked values)`` of its firing sessions."""
+        record, every = {}, {}
+        if live is not None:
+            from .batch import _observe
 
-    def _values(self, new, host: int, protos: bool = False) -> Dict[str, object]:
-        """The observables this step records, by name (``protos``: the
-        gated ones that do not fire too, for their shapes)."""
-        out = {}
+            for name, fn, k in self._obs:
+                slots = self._firing(host, live, k)
+                if not slots and not protos:
+                    continue
+                with _naming(f"observable {name!r}"):
+                    rows = _observe(fn, new.states, slots or (0,))
+                value = torch.stack([rows[b] for b in slots or (0,)])
+                every[name] = value[0]
+                if slots:
+                    record[name] = (slots, value)
+            return record, every
         if self._collect is not None:
             with _naming("collect"):
-                out["collect"] = self._collect(new)
-        for name, fn in self._streamed:
-            with _naming(f"observable {name!r}"):
-                out[name] = fn(new)
-        for name, fn, k in self._gated:
+                record["collect"] = self._collect(new)
+        for name, fn, k in self._obs:
             if protos or host % k == 0:
                 with _naming(f"observable {name!r}"):
-                    out[name] = fn(new)
-        return out
+                    every[name] = fn(new)
+                if host % k == 0:
+                    record[name] = every[name]
+        every.update(record)
+        return record, every
 
-    def _record(self, values: Dict[str, object]):
+    def _record(self, lay: _Layout, values: Dict[str, object]):
         """Write this step's rows: device indices from the pre-step counter
         (the static one, not yet overwritten)."""
         if not values:
             return
-        i = self._static.step - self._start
+        i = self._counter(lay.static) - lay.start
         for name, value in values.items():
             k = self._every.get(name, 1)
-            row = i if k == 1 else torch.div(i - self._offsets[k], k, rounding_mode="floor")
+            # At a firing, i = o + j·k with o = (−start) mod k < k: the row j is ⌊i/k⌋.
+            row = i if k == 1 else torch.div(i, k, rounding_mode="floor")
+            if self.batched:
+                slots, value = value
+                idx = device_constant(("sessions", slots), lay.device,
+                                      lambda: torch.tensor(slots, dtype=torch.long))
+                buf = lay.bufs[name]
+                buf.index_put_((idx, row.index_select(0, idx).long()), value.to(buf.dtype))
+                continue
             row = row.reshape(1).long()
-            for buf, v in zip(_tensors(self._bufs[name]), _tensors(value)):
+            for buf, v in zip(_tensors(lay.bufs[name]), _tensors(value)):
                 buf.index_copy_(0, row, v.reshape((1,) + tuple(v.shape)).to(buf.dtype))
 
-    def _commit(self, new):
-        """Copy the new state's leaves into the static buffers (a leaf that
-        shares memory with a buffer is copied aside first)."""
-        if _skeleton(new) != self._layout:
+    def _commit(self, lay: _Layout, new):
+        """Copy the new state's leaves into the static buffers.  A leaf that
+        is the buffer itself, or a view of all of it, is left; one that
+        shares memory with a buffer otherwise is copied aside first."""
+        if _skeleton(new) != lay.key[1]:
             raise ValueError("run_jit: the step changed the state's tree, shapes, "
                              "dtypes or static fields; the compiled run needs them fixed")
         leaves = [x for _, x in _leaves_with_paths(new)]
-        srcs = [None if s is d else
-                s.clone() if s.untyped_storage().data_ptr() in self._ptrs else s
-                for s, d in zip(leaves, self._leaves)]
-        for s, d in zip(srcs, self._leaves):
+        same = lambda s, d: s is d or (s.data_ptr() == d.data_ptr()
+                                       and s.stride() == d.stride())
+        srcs = [None if same(s, d) else
+                s.clone() if s.untyped_storage().data_ptr() in lay.ptrs else s
+                for s, d in zip(leaves, lay.leaves)]
+        for s, d in zip(srcs, lay.leaves):
             if s is not None:
                 d.copy_(s)
 
-    def _step(self, host: int, branches: Branches):
-        new = self.scheduler.step_at(self._static, host, branches=branches)
-        self._record(self._values(new, host))
-        self._commit(new)
+    def _body(self, lay: _Layout, host, live, branches: Branches, protos: bool = False):
+        """One step from the static buffers: the new state, and the rows it
+        records (:meth:`_values`)."""
+        static = lay.static
+        if live is None:
+            new = self.scheduler.step_at(static, host, branches=branches)
+            return new, self._values(new, host, None, protos)
+        stepped = to_slots(self.scheduler.step_slots(to_flat(static.states), live, host,
+                                                     branches=branches))
+        if not all(live):
+            stepped = select(static.live(), stepped, static.states)
+        new = dataclasses.replace(static, states=stepped)
+        return new, self._values(new, host, live, protos)
 
-    def _eager(self, host: int, first: bool = False) -> tuple:
-        """One eager step (recording its branches); captures the graph of
-        its key if there is none yet.  Returns the branches taken."""
+    def _step(self, lay: _Layout, host, live, branches: Branches):
+        new, (record, _) = self._body(lay, host, live, branches)
+        self._record(lay, record)
+        self._commit(lay, new)
+
+    def _eager(self, lay: _Layout, host, first: bool = False) -> tuple:
+        """One eager step (recording its branches; with ``first``, making
+        the observable buffers from its values); captures the graph of its
+        key if there is none yet.  Returns the branches taken."""
         branches = Branches()
-        new = self.scheduler.step_at(self._static, host, branches=branches)
-        values = self._values(new, host, protos=first)
+        live = self._live(host)
+        new, (record, every) = self._body(lay, host, live, branches, protos=first)
         if first:
-            self._ensure_buffers(values, self._rows)
-            values = {n: v for n, v in values.items()
-                      if self._every.get(n, 1) == 1 or host % self._every[n] == 0}
-        self._record(values)
-        self._commit(new)
+            self._ensure_buffers(lay, every)
+        self._record(lay, record)
+        self._commit(lay, new)
         self.stats["eager_steps"] += 1
         key = (self._pattern(host), branches.key())
-        if key not in self._graphs:
-            self._capture(key, host)
+        if key not in lay.graphs:
+            self._capture(lay, key, host, live)
         return branches.key()
 
     # -- graphs ---------------------------------------------------------------
 
-    def _capture(self, key: tuple, host: int):
+    def _capture(self, lay: _Layout, key: tuple, host, live):
         assumed = dict(key[1])
-        body = lambda: self._step(host, Branches(assumed, self._diverged))
+        body = lambda: self._step(lay, host, live, Branches(assumed, lay.diverged))
         self.stats["graphs"] += 1
-        if self._stream is None:
-            self._graphs[key] = body
+        if lay.pool is None:
+            lay.graphs[key] = body
             return
         from repro_torch import kernels
 
+        if live is not None:
+            # The masks an assuming batch step compares its predicates with.
+            for values in (live,) + tuple(assumed.values()):
+                bool_mask(values, lay.device)
         t0 = time.perf_counter()
         before = kernels.read_launches()
         graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(pool=self._pool)
+        graph.capture_begin(pool=lay.pool)
         try:
             body()
         except BaseException:
@@ -287,108 +464,129 @@ class Runner:
         graph.capture_end()
         after = kernels.read_launches()
         kernels.add_launches({n: before[n] - after[n] for n in after})
-        self._graphs[key] = (graph, {n: after[n] - before[n] for n in after})
+        lay.graphs[key] = (graph, {n: after[n] - before[n] for n in after})
         self.stats["capture_s"] += time.perf_counter() - t0
 
-    def _replay(self, entry):
-        if self._stream is None:
-            entry()
-        else:
-            from repro_torch import kernels
+    def _replay(self, entry) -> dict:
+        """Replay a graph; returns its launches, by kernel."""
+        from repro_torch import kernels
 
+        if callable(entry):
+            before = kernels.read_launches()
+            entry()
+            after = kernels.read_launches()
+            launches = {n: after[n] - before[n] for n in after}
+        else:
             graph, launches = entry
             graph.replay()
             kernels.add_launches(launches)
         self.stats["replays"] += 1
+        return launches
 
     # -- the run --------------------------------------------------------------
 
     def __call__(self, state, n_steps: int, collect: Optional[Callable] = None,
                  observables: Optional[Tuple[Tuple[str, Callable, int], ...]] = None):
         global _running
-        if collect is not None and observables:
-            raise ValueError("pass either collect= or observables=, not both")
+        if collect is not None and (observables or self.batched):
+            raise ValueError("pass either collect= or observables=, not both"
+                             if observables else "a batch's run takes observables=")
         obs = tuple(observables or ())
         names = [n for n, _, _ in obs]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate observable names in {names}")
         n = int(n_steps)
         self._collect = collect
-        self._streamed = tuple((name, f) for name, f, k in obs if k == 1)
-        self._gated = tuple((name, f, k) for name, f, k in obs if k > 1)
-        self._every = {name: k for name, _, k in self._gated}
-        self._rows = {name: n for name, _ in self._streamed}
-        self._rows.update({name: -(-n // k) for name, _, k in self._gated})
+        self._obs = tuple((name, f, k) for name, f, k in obs if k > 0)
+        self._gated = tuple((name, f, k) for name, f, k in self._obs if k > 1)
+        self._every = {name: k for name, _, k in self._obs}
+        self._rows = {name: -(-max(n, 0) // k) for name, _, k in self._obs}
         if collect is not None:
             self._rows["collect"] = n
         _running += 1
         try:
-            if n <= 0:
+            host = self._read(state)
+            if self.batched:
+                self._width = len(host)
+            if n <= 0 or not self._any_live(host):
                 return self._empty(state, n)
-            start = int(state.step)
-            self._prepare(state, (collect, self._streamed, self._gated))
-            with self._on_stream():
-                self._start.fill_(start)
-                for _, _, k in self._gated:
-                    if k not in self._offsets:
-                        self._offsets[k] = torch.zeros((), dtype=torch.int32,
-                                                       device=self._device)
-                    self._offsets[k].fill_((-start) % k)
-                self._drive(start, n)
-            final = _map_with_paths(self._static, lambda p, x: x.clone())
-            return final, self._outs(n, state)
+            self.stats["runs"] += 1
+            lay = self._layout(state)
+            with self._on_stream(lay):
+                self._fill_start(lay, host)
+                end = self._drive(lay, host, n)
+            final = _map_with_paths(lay.static, lambda p, x: x.clone())
+            return self._outs(lay, final, n, host, end)
         finally:
             _running -= 1
 
-    def _drive(self, start: int, n: int):
-        host, end = start, start + n
-        branches = self._eager(host, first=True)
-        host += 1
-        while host < end:
-            first = host
-            missing = False
-            while host < end and host - first < CHUNK:
-                entry = self._graphs.get((self._pattern(host), branches))
+    def _drive(self, lay: _Layout, host, n: int):
+        """``n`` steps from the host count ``host`` (fewer once no session
+        is live); returns the host count at the end."""
+        sig = (self._collect, self._obs)
+        branches, i = lay.branches, 0
+        if (self._ready(lay, sig) and branches is not None
+                and (self._pattern(host), branches) in lay.graphs):
+            self.stats["warm_starts"] += 1
+        else:
+            branches = self._eager(lay, host, first=True)
+            host, i = self._advance(host), 1
+        while i < n and self._any_live(host):
+            first, first_host = i, host
+            missing, launched = False, collections.Counter()
+            while i < n and self._any_live(host) and i - first < CHUNK:
+                entry = lay.graphs.get((self._pattern(host), branches))
                 if entry is None:
                     missing = True
                     break
-                if host == first:
-                    for s, d in zip(self._leaves, self._saved):
+                if i == first:
+                    for s, d in zip(lay.leaves, lay.saved):
                         d.copy_(s)
-                    self._diverged.zero_()
-                self._replay(entry)
-                host += 1
-            if host > first and bool(self._diverged):
-                for s, d in zip(self._saved, self._leaves):
+                    lay.diverged.zero_()
+                launched.update(self._replay(entry))
+                host, i = self._advance(host), i + 1
+            if i > first and bool(lay.diverged):
+                for s, d in zip(lay.saved, lay.leaves):
                     d.copy_(s)
                 self.stats["rollbacks"] += 1
-                self.stats["rolled_back_steps"] += host - first
-                for h in range(first, host):
-                    branches = self._eager(h)
+                self.stats["rolled_back_steps"] += i - first
+                self.rolled_back_launches.update(launched)
+                host = first_host
+                for _ in range(first, i):
+                    branches = self._eager(lay, host)
+                    host = self._advance(host)
                 continue
             if missing:
-                branches = self._eager(host)
-                host += 1
+                branches = self._eager(lay, host)
+                host, i = self._advance(host), i + 1
+        lay.branches = branches
+        return host
 
-    def _outs(self, n: int, state):
+    def _outs(self, lay: _Layout, final, n: int, start, end):
+        bufs = lay.bufs
+        if self.batched:
+            dev = lay.device
+            obs = {name: bufs[name][:, :rows].clone() for name, rows in self._rows.items()}
+            counts = {name: torch.tensor([_multiples(a, b, k) for a, b in zip(start, end)],
+                                         dtype=torch.int32, device=dev)
+                      for name, _, k in self._obs}
+            return final, obs, counts
         if self._collect is not None:
-            buf = self._bufs["collect"]
-            return _rebuild(buf, [t[:n].clone() for t in _tensors(buf)])
+            buf = bufs["collect"]
+            return final, _rebuild(buf, [t[:n].clone() for t in _tensors(buf)])
         if not self._rows:
-            return torch.zeros((n,), dtype=torch.int32, device=state.pool.device)
-        return {name: self._bufs[name][:rows].clone() for name, rows in self._rows.items()}
+            return final, torch.zeros((n,), dtype=torch.int32, device=final.pool.device)
+        return final, {name: bufs[name][:rows].clone() for name, rows in self._rows.items()}
 
     def _empty(self, state, n: int):
-        """A run of no steps: what ``engine.run`` returns."""
-        if self._collect is not None:
-            return state, {}
-        if not self._rows:
-            return state, torch.zeros((0,), dtype=torch.int32, device=state.pool.device)
-        fns = dict(self._streamed)
-        fns.update({name: f for name, f, _ in self._gated})
-        outs = {}
-        for name in self._rows:
-            proto = fns[name](state)
-            outs[name] = torch.zeros((0,) + tuple(proto.shape), dtype=proto.dtype,
-                                     device=proto.device)
-        return state, outs
+        """A run of no steps (or, in a batch, with no live session): the
+        eager run's result, which steps nothing either."""
+        if self.batched:
+            from .batch import batched_run
+
+            return batched_run(self.config, state, n, self.scheduler,
+                               observables=self._obs or None)
+        from .engine import run
+
+        return run(self.config, state, max(n, 0), collect=self._collect,
+                   scheduler=self.scheduler, observables=self._obs or None)

@@ -9,10 +9,10 @@ the phase partition in order.
 Eager execution replaces the reference's tracing: the step counter is read
 to the host once per step, and a frequency gate is a plain ``if`` on it.
 The compiled run (``core/runner.py``) steps with :meth:`Scheduler.step_at`
-instead: the runner keeps the counter on the host, the gates read that
-count, and the ops see ``OpContext.step`` as the device counter (as the
-reference's traced step does), with the force pass's branches behind a
-``forces.Branches``.
+(or a batch's :meth:`Scheduler.step_slots`) with ``branches``: the runner
+keeps the counters on the host, the gates read that count, and the ops see
+``OpContext.step`` as the device counter (as the reference's traced step
+does), with the force pass's branches behind a ``forces.Branches``.
 :meth:`Scheduler.step_slots` is the step of a batch of sessions, over the
 flat view of its storage (``core/slots.py``): each session keeps its own
 counter, an op runs when any live session fires, and each session keeps the
@@ -39,7 +39,7 @@ from . import diffusion as dgrid
 from . import prng
 from .behaviors import StepContext
 from .forces import Branches, mechanical_forces, update_static_flags_celllist
-from .grid import GridIndex, build_index, sort_agents
+from .grid import GridIndex, bool_mask, build_index, sort_agents
 from .neighbors import NeighborContext
 from .slots import select, slot_of, to_flat, to_slots, tree_map
 
@@ -98,7 +98,9 @@ class OpContext:
     config:        the EngineConfig the schedule was built from.
     step:          this iteration's counter (pre-increment), on the host
                    (a tuple, one a session, in a batch's step); under the
-                   compiled run the () int32 device counter ``state.step``.
+                   compiled run the device counter ``state.step``, () int32
+                   ((B,) in a batch's step, and a session's context
+                   (:meth:`slot`) its () element).
     rng:           this iteration's folded key, (2,) uint32 ((B, 2) in a
                    batch's step).
     index:         the GridIndex built by ``env_build``.
@@ -267,28 +269,36 @@ class Scheduler:
                 state = run_op(op, ctx, state, step)
         return dataclasses.replace(state, step=state.step + 1)
 
-    def step_slots(self, state, live, steps):
+    def step_slots(self, state, live, steps, branches: Optional[Branches] = None):
         """One iteration of Algorithm 8 over the flat view of a batch of
         sessions (``core/slots.py``).  ``live`` and ``steps`` are a bool and
-        the pre-increment counter a session, on the host.  Every counter
-        advances; the caller rolls the sessions that are not live back."""
+        the pre-increment counter a session, on the host (not read from the
+        device).  Every counter advances; the caller rolls the sessions that
+        are not live back.  With ``branches`` (the compiled run) the ops see
+        ``OpContext.step`` as the (B,) device counter and the force pass
+        takes its branches through ``branches``, as in :meth:`step_at`; an
+        op or ``fold_rng`` that reads the device during a capture raises
+        ``CaptureError`` naming it."""
         live, steps = tuple(bool(x) for x in live), tuple(int(x) for x in steps)
-        ctx = OpContext(config=self.config, step=steps,
-                        rng=self.fold_rng(state, state.step), live=live)
+        with _naming("fold_rng"):
+            rng = self.fold_rng(state, state.step)
+        ctx = OpContext(config=self.config, step=steps if branches is None else state.step,
+                        rng=rng, live=live, branches=branches)
         for op in self.ordered_ops():
             if op.frequency == 0:
                 continue
             fires = tuple(l and s % op.frequency == 0 for l, s in zip(live, steps))
             if op.gate == "cond" and not any(fires):
                 continue
-            if op.batched:
-                new = op.fn(ctx, state)
-                if any(l and not f for l, f in zip(live, fires)):
-                    keep = torch.tensor(fires, device=state.step.device)
-                    new = to_flat(select(keep, to_slots(new), to_slots(state)))
-                state = new
-            else:
-                state = _run_per_slot(op, ctx, state, fires)
+            with _naming(f"op {op.name!r}"):
+                if op.batched:
+                    new = op.fn(ctx, state)
+                    if any(l and not f for l, f in zip(live, fires)):
+                        keep = bool_mask(fires, state.step.device)
+                        new = to_flat(select(keep, to_slots(new), to_slots(state)))
+                    state = new
+                else:
+                    state = _run_per_slot(op, ctx, state, fires)
         return dataclasses.replace(state, step=state.step + 1)
 
     # -- composition --------------------------------------------------------

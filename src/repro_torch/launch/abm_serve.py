@@ -23,9 +23,13 @@ handled host-side *between* chunks:
     independent, so the NaN cannot leak across them; eviction is about not
     wasting the slot).
 
-The port adds ``--device`` (default: the card).  Per-chunk telemetry
-(occupancy, admits/retires/evictions, steps/sec) goes to stdout; ``serve()``
-is the programmatic surface.  ``launch/serve.py`` is the LM-side sibling.
+Each chunk runs through the compiled batched run
+(:meth:`~repro_torch.core.batch.BatchedSimulation.run_jit`): the step
+replayed from CUDA graphs, and a chunk whose first step's key has a graph
+starts with a replay.  The port adds ``--device`` (default: the card).
+Per-chunk telemetry (occupancy, admits/retires/evictions, steps/sec) goes
+to stdout; ``serve()`` is the programmatic surface.  ``launch/serve.py`` is
+the LM-side sibling.
 """
 
 from __future__ import annotations
@@ -251,7 +255,7 @@ def main(argv=None):
     # bit-identical to a solo run of the same seed.
     eng = built.batched()
     for r in sorted(results, key=lambda r: r.name):
-        _, solo_obs = built.run(
+        _, solo_obs = built.run_jit(
             args.steps, state=eng.session_state(seed=int(r.name[4:]) + 100))
         solo_sha = _series_sha(solo_obs)
         sha = _series_sha(r.obs)

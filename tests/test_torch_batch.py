@@ -208,7 +208,7 @@ def test_run_batch_rejects_bad_override_keys_and_widths():
 
 
 def test_solo_and_batched_runners_coexist_without_retracing():
-    # The port compiles nothing: ``batched()`` is built once and cached,
+    # ``batched()`` is built once and cached (its compiled runner with it),
     # and solo runs before and after batched ones are unaffected by them.
     calls = {"n": 0}
 

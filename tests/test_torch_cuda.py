@@ -1456,3 +1456,90 @@ def test_kernels_stay_in_bounds_on_a_thrown_away_state(card):
                                            spec.dims, block=16, half_window=0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(win).all())
+
+
+# ------------------------------------------------------------- batch run_jit
+# The batch engine's compiled run (BatchedSimulation.run_jit) against its
+# eager run on the card, bit for bit: every leaf of every slot, every
+# observable row and count, and the launches.
+
+def _batch_jit_and_eager(eng, bstate, steps, runs=2):
+    """``(eager counts, [run_jit counts])`` of an eager batched run and
+    ``runs`` run_jit runs from ``bstate``, each bit-identical to the eager
+    run; the run_jit runs share the batch's runner."""
+    from repro_torch import kernels
+    import torch_jit_cases as J
+
+    def counted(fn):
+        kernels.add_launches({k: -n for k, n in kernels.read_launches().items()})
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kernels.read_launches()
+
+    (ef, eo, ec), eager_counts = counted(lambda: eng.run(bstate, steps))
+    jit = [counted(lambda: eng.run_jit(bstate, steps)) for _ in range(runs)]
+    for (f, o, c), _ in jit:
+        J.assert_runs_bit_equal((ef, eo), (f, o))
+        assert {k: v.tolist() for k, v in c.items()} == {k: v.tolist() for k, v in ec.items()}
+    return eager_counts, [c for _, c in jit]
+
+
+@pytest.mark.cuda
+def test_batch_run_jit_sweep_equals_eager_on_card(card):
+    """3 soma sessions (a custom op and two observables run once a session,
+    kind counts batched, a per-slot field), 12 steps: the compiled run's
+    launches are the eager run's, and its second run starts warm."""
+    import torch_jit_cases as J
+
+    built = J.soma(card, n=4000, space=200.0, res=40).build()
+    eng = built.batched()
+    bstate = eng.sweep_state(seeds=[1, 2, 3], params={
+        "substance:substance_1": np.array([0.0, 1.0, 2.0], np.float32)})
+    eager, jit = _batch_jit_and_eager(eng, bstate, 12)
+    stats = eng._jitted.stats
+    assert stats["rollbacks"] == 0 and stats["warm_starts"] == 1
+    assert stats["replays"] + stats["eager_steps"] == 24 and stats["replays"] >= 12 + 8
+    assert eager["cell_list_force"] == 12 and eager["diffusion3d"] == 24
+    assert jit == [eager, eager]
+
+
+@pytest.mark.cuda
+def test_batch_run_jit_one_slot_rolls_back_on_card(card):
+    """A Morton spheroid batch: session 0 crowded from step 5 (its gate
+    fails from step 6), session 1 crowded from its first step.  The window
+    branch speculated for session 0 rolls back; bit-identical to the eager
+    batch, and the launches less the thrown-away replays' are its."""
+    import torch_jit_cases as J
+
+    built, state = J.spheroid(card, crowd_at=5, impl="fused", tile_order="morton",
+                              morton_window=4096 // 128 - 1, overflow_fallback=False)
+    ahead = J.crowd_op(97, 5, 0.0)(None, dataclasses.replace(
+        state, step=torch.full_like(state.step, 100)))
+    eng = built.batched()
+    eager, (jit,) = _batch_jit_and_eager(eng, eng.stack([state, ahead]), 10, runs=1)
+    runner = eng._jitted
+    assert runner.stats["rollbacks"] >= 1
+    assert eager["cell_window_force"] == 6 and eager["cell_list_force"] == 10
+    assert {k: v - runner.rolled_back_launches[k] for k, v in jit.items()} == eager
+
+
+@pytest.mark.cuda
+def test_batch_run_jit_raises_when_an_op_reads_the_card(card):
+    """A custom op that reads the device cannot be captured in a batch's
+    step either: run_jit raises CaptureError naming it."""
+    import torch_jit_cases as J
+    from repro_torch.core.schedule import CaptureError
+
+    def reads(ctx, state):
+        if int(state.pool.alive.sum()) < 0:
+            raise AssertionError
+        return state
+
+    built = J.soma(card).op(reads, name="reads", phase="post").build()
+    eng = built.batched()
+    bstate = eng.sweep_state(seeds=[1, 2])
+    eng.run(bstate, 2)
+    with pytest.raises(CaptureError, match="op 'reads'"):
+        eng.run_jit(bstate, 3)
+    torch.cuda.synchronize()
+    eng.run(bstate, 2)              # the card is still usable
