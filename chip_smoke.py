@@ -843,11 +843,14 @@ def phase_spheroid():
 JIT_RUNS = 2                  # run_jit runs a phase: the first captures
 
 
-def jit_phase(name, built, steps, state=None, eager_median_ms=None):
-    """``steps`` steps of ``built`` eagerly, then ``JIT_RUNS`` times through
-    its runner (``run_jit``) from the same start, each bit-identical to the
-    eager run (every state leaf and observable row) with the eager run's
-    launches; emits the times and the runner's counts.  A replay allocates
+def jit_phase(name, built, steps, state=None, eager_median_ms=None, warm=False,
+              extra=None):
+    """``steps`` steps of ``built`` (a built or a distributed simulation)
+    eagerly, then ``JIT_RUNS`` times through its runner (``run_jit``) from
+    the same start, each bit-identical to the eager run (every state leaf and
+    observable row) with the eager run's launches; emits the times and the
+    runner's counts.  ``warm``: the last run must make no eager step.
+    ``extra()``: more fields, measured after the runs.  A replay allocates
     nothing, so a run's peak counts the graph pool only when the run
     captures; ``reserved_bytes`` (the allocator's, pool included) is printed
     beside it.  Returns the launches of the run_jit runs, summed."""
@@ -880,10 +883,12 @@ def jit_phase(name, built, steps, state=None, eager_median_ms=None):
         total = {k: total[k] + launches[k] for k in total}
         runs.append(dict(run_s=run_s, step_ms=1e3 * run_s / steps, peak_memory_bytes=peak,
                          reserved_bytes=torch.cuda.memory_reserved(), **counts))
+    if warm and runs[-1]["eager_steps"]:
+        raise AssertionError(f"{name}: the last run_jit run made eager steps: {runs[-1]}")
     emit(name, steps=steps, eager_run_s=eager_s, eager_step_ms=1e3 * eager_s / steps,
          eager_median_step_ms=eager_median_ms, eager_peak_memory_bytes=eager_peak,
          run_s=runs[-1]["run_s"], step_ms=runs[-1]["step_ms"], runs=runs,
-         launches=eager_launches, nvidia_smi=nvidia_smi_line())
+         launches=eager_launches, **(extra() if extra else {}), nvidia_smi=nvidia_smi_line())
     return total
 
 
@@ -2409,6 +2414,100 @@ def phase_distributed():
                                           f"int16_after_{DIST_OVERLAP_STEPS}": dist_at4},
          overlap_bit_identical_steps=DIST_OVERLAP_STEPS, second_run_bit_identical=True)
     return dsim, final, launches
+
+
+DIST_CROWD = 100              # agents stacked in one 10 um box of 64 ...
+DIST_CROWD_AT = 5             # ... from this step on, in rank 0's box only
+DIST_CROWD_STEPS = 10
+
+
+def phase_distributed_jit():
+    """Path 1's soma model on the 2x2 mesh (``dist_soma``, without the
+    step clock) through ``DistributedSimulation.run_jit``: bit-identical to
+    its eager run, with its launches, no rollback, and a second run that
+    replays from its first step.  Prints the device-to-host reads of an
+    eager step and of a run_jit run."""
+    dsim = dist_soma()
+
+    def reads():
+        return dict(dtoh_reads_a_step_eager=dtoh_reads(lambda n: dsim.run(n)),
+                    dtoh_reads_a_run_jit_run=dtoh_in(lambda: dsim.run_jit(STEPS)))
+
+    return jit_phase("distributed_jit", dsim, STEPS, warm=True, extra=reads)
+
+
+def phase_distributed_jit_variants():
+    """The int8 codec (its two-scale path) and the overlapped schedule (two
+    force passes a rank, each keying its own branches) through run_jit, a
+    few steps each, bit-identical to their own eager runs."""
+    launches = jit_phase("distributed_jit_int8", dist_soma(codec="int8"),
+                         DIST_OVERLAP_STEPS)
+    return add_counts(launches, jit_phase("distributed_jit_overlap", dist_soma(overlap=True),
+                                          DIST_OVERLAP_STEPS))
+
+
+def dist_crowd_model():
+    """``dist_soma`` with the ``gid``s renumbered so that the agents deep in
+    rank 0's box (100-400 um of its 500 on both decomposed axes;
+    soma_model's positions, drawn again from its seed) come first, and an op
+    that stacks the first DIST_CROWD of them at the box's centre from
+    DIST_CROWD_AT on: rank 0's box overflows (the fused pass falls back to
+    its dense candidates there) and no other rank's does."""
+    from repro_torch.core.distributed import DomainConfig
+    from repro_torch.launch.mesh import make_mesh
+
+    pos = np.random.default_rng(0).uniform(10, SPACE - 10, (N_AGENTS, 3))
+    inner = ((pos[:, :2] > 0.1 * SPACE) & (pos[:, :2] < 0.4 * SPACE)).all(1)
+    gid = np.empty(N_AGENTS, np.int32)
+    gid[np.argsort(~inner, kind="stable")] = np.arange(N_AGENTS, dtype=np.int32)
+
+    def crowd(ctx, state):
+        pool = state.pool
+        hit = (pool.get("gid") < DIST_CROWD) & pool.alive & (state.step >= DIST_CROWD_AT)
+        return dataclasses.replace(state, pool=pool.replace(
+            position=torch.where(hit[:, None], SPACE / 4, pool.position)))
+
+    sim = (soma_model(N_AGENTS, SPACE, RESOLUTION, 0, "cuda", gid=gid)
+           .op(crowd, name="crowd", phase="agent")
+           .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
+    dcfg = DomainConfig(mesh_axes=("x", "y"), axis_sizes=DIST_MESH, extent=SPACE / 2,
+                        halo_width=DIST_HALO, halo_capacity=DIST_HALO_CAPACITY,
+                        migrate_capacity=DIST_MIGRATE_CAPACITY, depth=SPACE)
+    return sim.distribute(make_mesh(DIST_MESH, ("x", "y"), devices="cuda"), dcfg,
+                          capacity=DIST_CAPACITY)
+
+
+def phase_dist_jit_divergence():
+    """dist_crowd_model's run: rank 0's speculated ``overflowed`` branch
+    rolls back; the run stays bit-identical to the eager run, the other
+    ranks keep their branch, and the launches less the thrown-away replays'
+    are the eager run's."""
+    dsim = dist_crowd_model()
+    reset_counts()
+    efinal, eobs = dsim.run(DIST_CROWD_STEPS)
+    torch.cuda.synchronize()
+    eager = read_counts()
+    reset_counts()
+    final, obs = dsim.run_jit(DIST_CROWD_STEPS)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    runner = dsim._jitted
+    bad = differing_leaves(efinal, final)
+    if bad or not torch.equal(eobs["pop"], obs["pop"]):
+        raise AssertionError(f"dist_jit_divergence: run_jit differs from the eager run in "
+                             f"{bad or ['pop']}")
+    kept = {k: v - runner.rolled_back_launches[k] for k, v in launches.items()}
+    keys = [dict(key[1]) for key in runner._graphs]
+    flips = {r: sorted({key[f"rank{r}/overflowed"] for key in keys}) for r in range(4)}
+    if (runner.stats["rollbacks"] < 1 or kept != eager or flips[0] != [False, True]
+            or any(flips[r] != [False] for r in (1, 2, 3))):
+        raise AssertionError(f"dist_jit_divergence: {runner.stats}, launches {launches} less "
+                             f"{dict(runner.rolled_back_launches)} vs eager {eager}, "
+                             f"branches {flips}")
+    emit("dist_jit_divergence", agents=N_AGENTS, crowd=DIST_CROWD, crowd_at=DIST_CROWD_AT,
+         steps=DIST_CROWD_STEPS, eager_launches=eager, launches=launches,
+         rolled_back_launches=dict(runner.rolled_back_launches),
+         overflowed_branches=flips, **runner.stats)
 
 
 def dist_kernel_rows(dsim, final, launches):
@@ -4152,9 +4251,18 @@ def main() -> int:
     t0 = time.perf_counter()
 
     phase_dist_small()
-    dist = phase_distributed()
-    rows += dist_kernel_rows(*dist)
-    del dist
+    dsim, final, launches = phase_distributed()
+    seconds["distributed_eager"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    launches = add_counts(launches, phase_distributed_jit())
+    torch.cuda.empty_cache()
+    launches = add_counts(launches, phase_distributed_jit_variants())
+    torch.cuda.empty_cache()
+    phase_dist_jit_divergence()
+    torch.cuda.empty_cache()
+    seconds["distributed_jit"] = time.perf_counter() - t1
+    rows += dist_kernel_rows(dsim, final, launches)
+    del dsim, final
     torch.cuda.empty_cache()
     seconds["distributed"] = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -830,6 +830,8 @@ class DistributedSimulation:
     axis; custom observables that index pool arrays see a leading rank
     axis).  Between observable firings the loop keeps one state a rank and
     stacks only when an observable fires and at the end of a chunk.
+    ``run_jit`` returns the same, bit for bit, with the lock-step step of
+    every rank replayed from CUDA graphs (``core/runner.py``).
     """
 
     mesh: Any
@@ -847,14 +849,44 @@ class DistributedSimulation:
         ``checkpoint_dir=`` persists the stacked state and the observable
         rows every ``checkpoint_every`` steps, as ``BuiltSimulation.run``
         does; :meth:`resume` finishes a killed run bit for bit."""
+        return self._run(n_steps, state, self._run_chunk, checkpoint_dir, checkpoint_every,
+                         keep, on_chunk)
+
+    def run_jit(self, n_steps: int, state=None, *, checkpoint_dir: Optional[str] = None,
+                checkpoint_every: Optional[int] = None, keep: int = 3,
+                on_chunk: Optional[Callable[[Any], None]] = None):
+        """The compiled run → :meth:`run`'s ``(final_state, {name: rows})``,
+        bit for bit: the lock-step step of every rank replayed from CUDA
+        graphs by the deployment's runner
+        (:func:`~repro_torch.core.distributed.jitted_distributed_runner`),
+        kept for the object's lifetime, so checkpointed chunks reuse its
+        graphs.  Every rank must live on one device."""
+        return self._run(n_steps, state, self._jit_chunk, checkpoint_dir, checkpoint_every,
+                         keep, on_chunk)
+
+    def _run(self, n_steps, state, run_chunk, checkpoint_dir, checkpoint_every, keep,
+             on_chunk):
         state = self.state if state is None else state
         if checkpoint_dir is None:
-            return self._run_chunk(n_steps, state)
+            return run_chunk(n_steps, state)
         return _checkpointed_loop(
-            self._run_chunk, state, n_steps, engine="dist",
+            run_chunk, state, n_steps, engine="dist",
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
             keep=keep, on_chunk=on_chunk,
         )
+
+    @functools.cached_property
+    def _jitted(self):
+        """The compiled runner, one for the deployment's lifetime."""
+        from . import distributed as dist
+
+        return dist.jitted_distributed_runner(self.mesh, self.dcfg, self.config,
+                                              self.scheduler)
+
+    def _jit_chunk(self, n_steps: int, state):
+        triples = tuple((o.name, o.fn, o.frequency) for o in self.observables
+                        if o.frequency > 0)
+        return self._jitted(state, n_steps, observables=triples or None)
 
     def _run_chunk(self, n_steps: int, state):
         live = [o for o in self.observables if o.frequency > 0]
@@ -881,9 +913,10 @@ class DistributedSimulation:
                                           device=proto.device)
         return state, obs
 
-    def resume(self, checkpoint_dir: str, *, keep: int = 3,
+    def resume(self, checkpoint_dir: str, *, jit: bool = False, keep: int = 3,
                on_chunk: Optional[Callable[[Any], None]] = None):
-        """Finish an interrupted distributed checkpointed run.  The
+        """Finish an interrupted distributed checkpointed run, its chunks
+        through :meth:`run_jit` (``jit=True``) or :meth:`run`.  The
         checkpoint's per-rank shapes are checked against this deployment's
         state, so a different mesh shape or capacity fails loudly."""
         step, state, acc, target, every = _resume_payload(
@@ -891,7 +924,7 @@ class DistributedSimulation:
         if target - step <= 0:
             return state, _obs_tensors(acc, state.pool.device)
         return _checkpointed_loop(
-            self._run_chunk, state, target - step, engine="dist",
+            self._jit_chunk if jit else self._run_chunk, state, target - step, engine="dist",
             checkpoint_dir=checkpoint_dir, checkpoint_every=every, keep=keep,
             on_chunk=on_chunk, obs_acc=acc, target_step=target,
         )

@@ -42,6 +42,14 @@ and stacks them when an observable fires and at the end of a chunk.
 All shapes are static: halo and migration buffers have fixed capacities
 and overflow *counters*.  Coordinates are rank-local, and the decomposed
 dims live on the rank torus.
+
+The compiled run (:func:`jitted_distributed_runner`, the reference's
+``jax.jit`` of the step) replays the lock-step step of every rank from CUDA
+graphs (``core/runner.py``): ``step_ranks`` with ``branches`` hands each
+rank's ops its device counter, and each rank's force passes their branches
+under its own scope.  So the step makes no host read and no host-to-device
+copy: scalars are filled on the device, the interior cell tables are kept
+device constants, and the grids' ``n_valid`` is a state leaf.
 """
 
 from __future__ import annotations
@@ -60,13 +68,15 @@ from . import prng
 from .agents import AgentPool, compact_indices, free_slot_table, make_pool, remove_agents
 from .behaviors import StepContext
 from .engine import EngineConfig, count_kinds
-from .grid import GridSpec, build_index_arrays, cell_coords, fdiv
+from .forces import Branches
+from .grid import GridSpec, build_index_arrays, cell_coords, device_constant, fdiv
 from .neighbors import NeighborContext
 from .schedule import (
     HealthReport,
     Operation,
     OpContext,
     Scheduler,
+    _naming,
     apply_boundary,
     apply_force,
     empty_health,
@@ -261,8 +271,12 @@ def _select(mask: torch.Tensor, capacity: int):
 
 def _put(dst: torch.Tensor, target: torch.Tensor, src) -> torch.Tensor:
     """``dst.at[target].set(src, mode="drop")`` with ``target`` = C for a
-    dropped write (a spare row, cut off)."""
-    src = torch.as_tensor(src, dtype=dst.dtype, device=dst.device)
+    dropped write (a spare row, cut off).  A Python scalar ``src`` is filled
+    on the device, not copied from the host."""
+    if isinstance(src, (bool, int, float)):
+        src = torch.full((), src, dtype=dst.dtype, device=dst.device)
+    else:
+        src = torch.as_tensor(src, dtype=dst.dtype, device=dst.device)
     out = torch.cat([dst, dst[:1]], dim=0)
     out[target] = src.expand((target.shape[0],) + tuple(dst.shape[1:]))
     return out[: dst.shape[0]]
@@ -335,11 +349,12 @@ def migrate(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool]
             # Rebase into the receiving rank's frame (torus).
             rec_e["position"] = _rebase(rec_e["position"], d, -ext)
             rec_w["position"] = _rebase(rec_w["position"], d, ext)
-            # Remove exactly the packed agents.
+            # Remove exactly the packed agents (index_fill_: a scalar written
+            # through an index tensor would be copied from the host).
             c = pool.capacity
             sent = torch.zeros((c + 1,), dtype=torch.bool, device=pool.device)
-            sent[torch.where(val_e, ids_e, c).long()] = True
-            sent[torch.where(val_w, ids_w, c).long()] = True
+            sent.index_fill_(0, torch.where(val_e, ids_e, c).long(), True)
+            sent.index_fill_(0, torch.where(val_w, ids_w, c).long(), True)
             pools[r] = remove_agents(pool, sent[:c])
             east_recs.append(rec_e)
             east_valid.append(val_e)
@@ -366,13 +381,13 @@ def _slot_scales(dcfg: DomainConfig, codec: HaloCodecState, fresh: torch.Tensor,
     """Two-scale coding: stale slots use the fine scale, fresh slots (new
     occupant, ref reset to 0) a coarse scale whose int range spans the whole
     halo-extended domain.  int16's fine scale already spans it, so only int8
-    needs the coarse escape."""
+    needs the coarse escape.  Both scales are filled on the device."""
     if wire_dtype == torch.int16:
         return codec.scale
     dev = fresh.device
-    coarse = torch.tensor((dcfg.extent + 2.0 * dcfg.halo_width) / 127.0,
-                          dtype=torch.float32, device=dev)
-    fine = torch.tensor(dcfg.halo_width / 127.0, dtype=torch.float32, device=dev)
+    coarse = torch.full((), (dcfg.extent + 2.0 * dcfg.halo_width) / 127.0,
+                        dtype=torch.float32, device=dev)
+    fine = torch.full((), dcfg.halo_width / 127.0, dtype=torch.float32, device=dev)
     return torch.where(fresh[:, None], coarse, fine)
 
 
@@ -640,6 +655,7 @@ def dist_env_build_op(dcfg: DomainConfig, ecfg: EngineConfig,
         ctx.index = index
         ctx.neighbors = NeighborContext.for_sources(ecfg.spec, index, pool, g_pos, g_rad,
                                                     g_kind, g_alive)
+        ctx.neighbors.masked = ctx.branches is not None and ctx.branches.assuming
         ctx.pre_positions = pool.position
         ctx.sctx = StepContext(
             rng=ctx.rng,
@@ -684,11 +700,15 @@ def _interior_cell_tables(dcfg: DomainConfig, spec: GridSpec) -> List[np.ndarray
 def interior_shell_masks(dcfg: DomainConfig, spec: GridSpec, position: torch.Tensor,
                          alive: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(interior, shell) row masks over the local pool — an exact partition
-    of the live rows, from the cell coordinates the grid build bins by."""
+    of the live rows, from the cell coordinates the grid build bins by.  The
+    cell tables are kept constants (``grid.device_constant``)."""
     coords = cell_coords(spec, position).long()
     ok = torch.ones(position.shape[:1], dtype=torch.bool, device=position.device)
-    for d, table in enumerate(_interior_cell_tables(dcfg, spec)):
-        ok = ok & torch.from_numpy(table).to(position.device)[coords[:, d]]
+    for d in range(dcfg.n_decomposed):
+        table = device_constant(
+            ("interior_cells", dcfg, spec, d), position.device,
+            lambda d=d: torch.from_numpy(_interior_cell_tables(dcfg, spec)[d]))
+        ok = ok & table[coords[:, d]]
     return alive & ok, alive & ~ok
 
 
@@ -702,7 +722,9 @@ def interior_env_build_op(dcfg: DomainConfig, ecfg: EngineConfig) -> Operation:
         index = build_index_arrays(ecfg.spec, pool.position, pool.alive)
         interior, shell = interior_shell_masks(dcfg, ecfg.spec, pool.position, pool.alive)
         ctx.extras["interior_index"] = index
-        ctx.extras["interior_neighbors"] = NeighborContext.for_pool(ecfg.spec, index, pool)
+        neighbors = NeighborContext.for_pool(ecfg.spec, index, pool)
+        neighbors.masked = ctx.branches is not None and ctx.branches.assuming
+        ctx.extras["interior_neighbors"] = neighbors
         ctx.extras["interior_mask"] = interior
         ctx.extras["shell_mask"] = shell
         return state
@@ -720,7 +742,7 @@ def interior_forces_op(dcfg: DomainConfig, ecfg: EngineConfig) -> Operation:
         ctx.extras["interior_force"] = force_pass(
             ecfg, ctx, state, index=ctx.extras["interior_index"],
             neighbors=ctx.extras["interior_neighbors"],
-            row_mask=ctx.extras["interior_mask"])
+            row_mask=ctx.extras["interior_mask"], scope="interior")
         return state
 
     return Operation("interior_forces", fn, phase="agent")
@@ -731,7 +753,8 @@ def shell_forces_op(dcfg: DomainConfig, ecfg: EngineConfig) -> Operation:
     the interior pass (exactly one pass a row) and applied."""
 
     def fn(ctx: OpContext, state: DistState) -> DistState:
-        shell_force = force_pass(ecfg, ctx, state, row_mask=ctx.extras["shell_mask"])
+        shell_force = force_pass(ecfg, ctx, state, row_mask=ctx.extras["shell_mask"],
+                                 scope="shell")
         force = torch.where(ctx.extras["interior_mask"][:, None],
                             ctx.extras["interior_force"], shell_force)
         return dataclasses.replace(state, pool=apply_force(state.pool, force, ecfg.dt))
@@ -803,29 +826,42 @@ def distributed_scheduler(dcfg: DomainConfig, ecfg: EngineConfig) -> Scheduler:
 # ---------------------------------------------------------------------------
 
 
-def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: int
-               ) -> List[DistState]:
+def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: int,
+               branches: Optional[Branches] = None) -> List[DistState]:
     """One iteration of every rank, op by op in lock-step.  ``step`` is the
-    ranks' common pre-increment counter, on the host.
+    ranks' common pre-increment counter, on the host; the frequency gates
+    read it.
 
     Each rank's key is folded with its linear rank index for the step and
     restored after it, as the reference's per-device body does.  A
     collective op takes the lists of every rank's context and state; any
-    other op runs once a rank.  Nothing of the caller's states is changed."""
+    other op runs once a rank.  Nothing of the caller's states is changed.
+
+    With ``branches`` (the compiled run, ``core/runner.py``) the ops see
+    each rank's device counter as ``OpContext.step``, the key is folded from
+    it, and rank r's force passes take their branches under the scope
+    ``"rank{r}"``; an op, or ``fold_rng``, that reads the device while the
+    step is captured in a CUDA graph raises ``CaptureError`` naming it."""
     keys = [s.rng for s in states]
     states = [dataclasses.replace(s, rng=prng.fold_in(s.rng, r)) for r, s in enumerate(states)]
-    ctxs = [OpContext(config=scheduler.config, step=step, rng=scheduler.fold_rng(s, step))
-            for s in states]
+    ctxs = []
+    for r, s in enumerate(states):
+        counter = step if branches is None else s.step
+        with _naming("fold_rng"):
+            rng = scheduler.fold_rng(s, counter)
+        ctxs.append(OpContext(config=scheduler.config, step=counter, rng=rng,
+                              branches=None if branches is None else branches.scoped(f"rank{r}")))
     for op in scheduler.ordered_ops():
         if op.frequency == 0:
             continue
         fires = step % op.frequency == 0
         if op.gate == "cond" and not fires:
             continue
-        if op.collective:
-            new = op.fn(mesh, ctxs, states)
-        else:
-            new = [op.fn(ctx, s) for ctx, s in zip(ctxs, states)]
+        with _naming(f"op {op.name!r}"):
+            if op.collective:
+                new = op.fn(mesh, ctxs, states)
+            else:
+                new = [op.fn(ctx, s) for ctx, s in zip(ctxs, states)]
         if fires:
             states = new
     return [dataclasses.replace(s, rng=k, step=s.step + 1) for s, k in zip(states, keys)]
@@ -857,6 +893,29 @@ class DistributedStep:
 
     def __call__(self, state: DistState) -> DistState:
         return self.stack(self.step_ranks(self.unstack(state), _host_step(state)))
+
+
+def jitted_distributed_runner(mesh, dcfg: DomainConfig, ecfg: EngineConfig,
+                              scheduler: Optional[Scheduler] = None):
+    """A reusable compiled runner for the distributed step (the counterpart
+    of the reference's ``jax.jit`` in :func:`make_distributed_step`):
+    ``runner(state, n_steps, observables=)`` returns the eager lock-step
+    run's ``(final_state, {name: rows})`` bit for bit (``api.
+    DistributedSimulation.run``), the step of every rank replayed from CUDA
+    graphs keyed by the firing pattern and every rank's branches
+    (``core/runner.py``).
+
+    Every rank must live on one device (one card, or the CPU): a mesh over
+    several devices raises ``ValueError``, since its ring shifts copy across
+    cards; running such a mesh is ROADMAP item 17."""
+    from .runner import Runner
+
+    mesh = _check_mesh(mesh, dcfg)
+    devices = sorted({str(d) for d in mesh.devices})
+    if len(devices) > 1:
+        raise ValueError(f"run_jit needs every rank on one device; the mesh spans "
+                         f"{devices} (a multi-card distributed run is ROADMAP item 17)")
+    return Runner(ecfg, scheduler or distributed_scheduler(dcfg, ecfg), mesh=mesh)
 
 
 def _check_mesh(mesh, dcfg: DomainConfig):

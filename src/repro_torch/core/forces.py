@@ -85,13 +85,20 @@ class Branches:
     ``diverged`` is set on the device.  Only the predicates a step consults
     are recorded or checked.  A value is a bool in a solo step and a tuple
     of bools, one a session, in a batch's; there ``diverged`` is set only
-    where a live session's predicate differs from its assumed value."""
+    where a live session's predicate differs from its assumed value.
+
+    :meth:`scoped` gives a view whose names carry a prefix and which shares
+    the assumed values, the record and ``diverged``: the distributed step
+    gives each rank its own scope (``"rank1/"``), and the overlapped
+    schedule each of a rank's two force passes (``"rank1/interior/"``), so
+    every pass keys and checks its own predicates."""
 
     def __init__(self, assumed: Optional[dict] = None,
                  diverged: Optional[torch.Tensor] = None):
         self.assumed = None if assumed is None else dict(assumed)
         self.diverged = diverged
         self.taken: dict = {}
+        self.scope = ""
 
     @property
     def assuming(self) -> bool:
@@ -101,18 +108,28 @@ class Branches:
         """The branches taken, as a hashable key."""
         return tuple(sorted(self.taken.items()))
 
+    def scoped(self, name: str) -> "Branches":
+        """A view of these branches whose names are prefixed by ``name/``."""
+        out = Branches.__new__(Branches)
+        out.assumed, out.diverged, out.taken = self.assumed, self.diverged, self.taken
+        out.scope = f"{self.scope}{name}/"
+        return out
+
+    def record(self, name: str, value):
+        self.taken[self.scope + name] = value
+
     def assume(self, name: str, pred: torch.Tensor, live=None):
         """The assumed value of ``name``; ``diverged`` is set where the
         device's ``pred`` (a () bool, or (B,) with ``live`` a bool a session)
         differs from it.  A batch's masks are kept constants
         (``grid.bool_mask``), which the runner makes before the capture."""
-        value = self.assumed[name]
+        value = self.assumed[self.scope + name]
         if live is None:
             self.diverged.logical_or_(pred.reshape(()) != value)
         else:
             differs = (pred != bool_mask(value, pred.device)) & bool_mask(live, pred.device)
             self.diverged.logical_or_(differs.any())
-        self.taken[name] = value
+        self.record(name, value)
         return value
 
 
@@ -143,7 +160,7 @@ class _Flags:
             return [value] if self._live is None else list(value)
         value = self._values[name]
         if br is not None:
-            br.taken[name] = value[0] if self._live is None else tuple(value)
+            br.record(name, value[0] if self._live is None else tuple(value))
         return value
 
 

@@ -1,35 +1,47 @@
 """Compiled execution: the engine's step replayed from CUDA graphs.
 
 The counterpart of the reference's ``jax.jit`` over the ``lax.scan`` of the
-step (``repro.core.engine.run_jit``, and the batch engine's
-``repro.core.batch.jitted_batched_runner``): a :class:`Runner` captures the
-step of one (config, scheduler) in ``torch.cuda.CUDAGraph``s and replays
-them — the solo step (``Scheduler.step_at``), or with ``batched=True`` the
-step of a batch of sessions (``Scheduler.step_slots`` over a
-``batch.BatchState``) — and its results are the eager run's
-(:func:`~repro_torch.core.engine.run`, :func:`~repro_torch.core.batch.
-batched_run`) bit for bit, whichever branches the run takes.  The rules:
+step (``repro.core.engine.run_jit``, the batch engine's
+``repro.core.batch.jitted_batched_runner`` and the distributed engine's
+``jit(shard_map(step))``, ``repro.core.distributed.make_distributed_step``):
+a :class:`Runner` captures the step of one (config, scheduler) in
+``torch.cuda.CUDAGraph``s and replays them — the solo step
+(``Scheduler.step_at``), with ``batched=True`` the step of a batch of
+sessions (``Scheduler.step_slots`` over a ``batch.BatchState``), or with a
+``mesh`` the lock-step step of every rank of the distributed engine
+(``distributed.step_ranks`` over the stacked ``DistState``) — and its
+results are the eager run's (:func:`~repro_torch.core.engine.run`,
+:func:`~repro_torch.core.batch.batched_run`, ``DistributedSimulation.run``)
+bit for bit, whichever branches the run takes.  The rules:
 
 * **The host count.**  The counters are read once, at the start of a run
   (``state.step``; a batch's (B,) counters, ``active`` and ``stop_step`` in
-  one read), and the runner advances them on the host, so it knows each
-  step's live sessions and firings without a device read.  The frequency
-  gates read that count; the ops see the device counter.  A batch's run
-  stops once no session is live, as the eager loop does.
+  one read; the ranks' common counter), and the runner advances them on
+  the host, so it knows each step's live sessions and firings without a
+  device read.  The frequency gates read that count; the ops see the device
+  counter (each rank its own).  A batch's run stops once no session is
+  live, as the eager loop does.
 * **Keys.**  A step's key is its firing pattern — which ops of frequency
   > 1 (sort, diffusion, health, custom ops) and which gated observables
   (k > 1) fire; in a batch, the tuple of live sessions and each op's and
-  observable's firing a session — and its branches.  A graph is captured
-  after an eager step with that key: that step is its warm-up (it builds
-  the kernels, creates their lazy scratch and the kept constants: the
-  grid's and a batch's masks), run on the runner's stream.
+  observable's firing a session — and its branches (a distributed step's:
+  every rank's, each under its ``rank{r}/`` scope, and the overlapped
+  schedule's two force passes a rank each under its own).  A graph is
+  captured after an eager step with that key: that step is its warm-up (it
+  builds the kernels, creates their lazy scratch and the kept constants:
+  the grid's and a batch's masks), run on the runner's stream.
 * **Layouts.**  A runner keeps its graphs, static buffers and observable
   buffers per layout of the state (its leaves' shapes and dtypes: a batch's
   width is one), up to :data:`LAYOUTS` of them, so batches of different
   widths reuse their own graphs without evicting each other.  The graphs of
   a layout share one memory pool; each ends by copying every state leaf, in
   the checkpoint's order, into the layout's static buffers, so nothing
-  stays live in the pool between replays.
+  stays live in the pool between replays.  A distributed run's buffers are
+  the stacked ``DistState`` (the checkpoint's layout); each rank steps on
+  views of its rows, and the new state is committed by one ``stack`` a
+  leaf into them (a leaf every rank left as its view is skipped; a source
+  that shares memory with a buffer is copied aside first).  One graph holds
+  the step of every rank.
 * **Speculation with rollback** (the counterpart of ``lax.cond``).  A
   replay takes the branches of the last eager step (``forces.Branches``: a
   bool a predicate, in a batch one a session): it computes the force pass's
@@ -50,9 +62,11 @@ batched_run`) bit for bit, whichever branches the run takes.  The rules:
 * **Observables** are written inside the graph at device rows:
   frequency-1 ones and ``collect`` at row ``step − start`` of an
   ``(n_steps, …)`` buffer, gated ones at their firing's row of a ``⌈n/k⌉``
-  buffer.  A batch's buffers are ``(B, rows, …)``: each firing session
-  writes its own row, from its own counter and start, so misaligned
-  sessions stay exact, and the ``counts`` come from the host's tally.
+  buffer (a distributed run's from the committed stacked state, and only
+  the firings returned, as the eager lock-step loop returns them).  A
+  batch's buffers are ``(B, rows, …)``: each firing session writes its own
+  row, from its own counter and start, so misaligned sessions stay exact,
+  and the ``counts`` come from the host's tally.
 * **No hidden fallback.**  On the card a failed capture raises: an op, an
   observable or ``fold_rng`` that reads the device while the step is
   captured raises ``ValueError`` naming it (``schedule.CaptureError``).  The
@@ -70,10 +84,13 @@ batched_run`) bit for bit, whichever branches the run takes.  The rules:
   count, the keys, the flags, the speculation and the rollback run (and
   are tested) there too.
 
-Limits: the distributed executor's step runs eagerly; the state's tree,
-shapes and static fields must not change over a run; custom ops and
-observables must not read the device or copy host values to it (a
-``torch.tensor(...)`` on the card inside the step is such a copy).
+Limits: the state's tree, shapes and static fields must not change over a
+run; custom ops and observables must not read the device or copy host
+values to it (a ``torch.tensor(...)`` on the card inside the step is such
+a copy, and so is a Python scalar written through an index tensor,
+``x[idx] = True``: ``index_fill_`` fills on the device); a distributed run
+needs every rank on one device (a mesh over several cards raises
+``ValueError``; ROADMAP item 17).
 """
 
 from __future__ import annotations
@@ -146,16 +163,23 @@ def _multiples(lo: int, hi: int, k: int) -> int:
 
 class _Layout:
     """What a runner keeps for one layout of the state: its static buffers
-    (the state the graphs read and write), the chunk's saved copy, the
-    device flag and run starts, the graphs and their pool, the observable
-    buffers, and the branches its last run ended with."""
+    (the state the graphs read and write; a distributed run's are the
+    stacked state, with ``ranks`` the views of each rank's rows), the
+    chunk's saved copy, the device flag and run starts, the graphs and their
+    pool, the observable buffers, and the branches its last run ended
+    with."""
 
-    def __init__(self, key: tuple, state, counter: torch.Tensor):
+    def __init__(self, key: tuple, state, counter: torch.Tensor, mesh=None):
         device = counter.device
         self.key, self.device = key, device
         self.static = _map_with_paths(
             state, lambda p, x: torch.empty(x.shape, dtype=x.dtype, device=device))
         self.leaves = [x for _, x in _leaves_with_paths(self.static)]
+        if mesh is not None:
+            from .distributed import unstack_state
+
+            self.ranks = unstack_state(self.static, mesh.devices)
+            self.rank_key = _skeleton(self.ranks[0])
         self.saved = [torch.empty_like(x) for x in self.leaves]
         self.ptrs = {x.untyped_storage().data_ptr() for x in self.leaves}
         self.diverged = torch.zeros((), dtype=torch.bool, device=device)
@@ -179,13 +203,19 @@ class Runner:
     ``runner(state, n_steps, collect=None, observables=None)`` returns what
     ``engine.run(config, state, n_steps, ...)`` returns; with
     ``batched=True``, ``runner(bstate, n_steps, observables=None)`` returns
-    what ``batch.batched_run(config, bstate, n_steps, ...)`` returns."""
+    what ``batch.batched_run(config, bstate, n_steps, ...)`` returns; with
+    a ``mesh`` (the distributed step's scheduler, every rank on one device),
+    ``runner(state, n_steps, observables=None)`` steps the stacked
+    ``DistState`` and returns what ``DistributedSimulation.run`` returns."""
 
     def __init__(self, config, scheduler: Optional[Scheduler] = None,
-                 batched: bool = False):
+                 batched: bool = False, mesh=None):
+        if batched and mesh is not None:
+            raise ValueError("a runner is batched or distributed, not both")
         self.config = config
         self.scheduler = scheduler or Scheduler.default(config)
         self.batched = batched
+        self.mesh = mesh
         self.stats = {"runs": 0, "warm_starts": 0, "graphs": 0, "replays": 0,
                       "eager_steps": 0, "rollbacks": 0, "rolled_back_steps": 0,
                       "capture_s": 0.0}
@@ -207,8 +237,11 @@ class Runner:
         return state.states.step if self.batched else state.step
 
     def _read(self, state):
-        """The host count: ``state.step`` (a batch's counters, with its
-        ``active`` and ``stop_step`` kept for :meth:`_live`), in one read."""
+        """The host count: ``state.step`` (the ranks' common counter; a
+        batch's counters, with its ``active`` and ``stop_step`` kept for
+        :meth:`_live`), in one read."""
+        if self.mesh is not None:
+            return int(state.step.reshape(-1)[0])
         if not self.batched:
             return int(state.step)
         steps, active, stop = torch.stack([
@@ -254,10 +287,13 @@ class Runner:
         recently run of more than :data:`LAYOUTS` dropped), the state copied
         in."""
         counter = self._counter(state)
+        if self.mesh is not None and counter.device != self.mesh.devices[0]:
+            raise ValueError(f"run_jit: the state lies on {counter.device}, the mesh's "
+                             f"ranks on {self.mesh.devices[0]}")
         key = (counter.device, _skeleton(state))
         lay = self._layouts.get(key)
         if lay is None:
-            lay = self._layouts[key] = _Layout(key, state, counter)
+            lay = self._layouts[key] = _Layout(key, state, counter, self.mesh)
             while len(self._layouts) > LAYOUTS:
                 self._layouts.popitem(last=False)
         self._layouts.move_to_end(key)
@@ -362,12 +398,14 @@ class Runner:
         every.update(record)
         return record, every
 
-    def _record(self, lay: _Layout, values: Dict[str, object]):
+    def _record(self, lay: _Layout, values: Dict[str, object], i=None):
         """Write this step's rows: device indices from the pre-step counter
-        (the static one, not yet overwritten)."""
+        (the static one, not yet overwritten, unless ``i`` gives its offset
+        from the start)."""
         if not values:
             return
-        i = self._counter(lay.static) - lay.start
+        if i is None:
+            i = self._counter(lay.static) - lay.start
         for name, value in values.items():
             k = self._every.get(name, 1)
             # At a firing, i = o + j·k with o = (−start) mod k < k: the row j is ⌊i/k⌋.
@@ -400,6 +438,43 @@ class Runner:
             if s is not None:
                 d.copy_(s)
 
+    def _commit_ranks(self, lay: _Layout, ranks):
+        """Write each rank's new state into its rows of the stacked static
+        buffers, one stack a leaf.  A leaf every rank left as its own view is
+        left; a source that shares memory with a buffer is copied aside
+        first."""
+        news = []
+        for new in ranks:
+            if _skeleton(new) != lay.rank_key:
+                raise ValueError("run_jit: the step changed a rank's tree, shapes, dtypes "
+                                 "or static fields; the compiled run needs them fixed")
+            news.append([x for _, x in _leaves_with_paths(new)])
+        olds = [[x for _, x in _leaves_with_paths(view)] for view in lay.ranks]
+        same = lambda s, d: s is d or (s.data_ptr() == d.data_ptr()
+                                       and s.stride() == d.stride())
+        writes = []
+        for j, buf in enumerate(lay.leaves):
+            srcs = [new[j] for new in news]
+            if all(same(s, old[j]) for s, old in zip(srcs, olds)):
+                continue
+            writes.append((buf, [s.clone() if s.untyped_storage().data_ptr() in lay.ptrs
+                                 else s for s in srcs]))
+        for buf, srcs in writes:
+            torch.stack(srcs, out=buf)
+
+    def _dist_step(self, lay: _Layout, host, branches: Branches, protos: bool = False):
+        """One lock-step step of every rank from the stacked static buffers,
+        committed into them; returns the rows it records (observed on the
+        committed stacked state), every observable's value with ``protos``,
+        and the rows' offset from the start (taken before the commit)."""
+        from .distributed import step_ranks
+
+        i = lay.static.step[:1] - lay.start[:1] if self._rows else None
+        self._commit_ranks(lay, step_ranks(self.mesh, self.scheduler, lay.ranks, host,
+                                           branches=branches))
+        record, every = self._values(lay.static, host, None, protos)
+        return record, every, i
+
     def _body(self, lay: _Layout, host, live, branches: Branches, protos: bool = False):
         """One step from the static buffers: the new state, and the rows it
         records (:meth:`_values`)."""
@@ -414,10 +489,20 @@ class Runner:
         new = dataclasses.replace(static, states=stepped)
         return new, self._values(new, host, live, protos)
 
-    def _step(self, lay: _Layout, host, live, branches: Branches):
-        new, (record, _) = self._body(lay, host, live, branches)
-        self._record(lay, record)
-        self._commit(lay, new)
+    def _step(self, lay: _Layout, host, live, branches: Branches, first: bool = False):
+        """One step from the static buffers: its rows recorded, its new state
+        committed; with ``first`` the observable buffers are made from its
+        values first."""
+        i = None
+        if self.mesh is not None:
+            record, every, i = self._dist_step(lay, host, branches, protos=first)
+        else:
+            new, (record, every) = self._body(lay, host, live, branches, protos=first)
+        if first:
+            self._ensure_buffers(lay, every)
+        self._record(lay, record, i)
+        if self.mesh is None:
+            self._commit(lay, new)
 
     def _eager(self, lay: _Layout, host, first: bool = False) -> tuple:
         """One eager step (recording its branches; with ``first``, making
@@ -425,11 +510,7 @@ class Runner:
         key if there is none yet.  Returns the branches taken."""
         branches = Branches()
         live = self._live(host)
-        new, (record, every) = self._body(lay, host, live, branches, protos=first)
-        if first:
-            self._ensure_buffers(lay, every)
-        self._record(lay, record)
-        self._commit(lay, new)
+        self._step(lay, host, live, branches, first)
         self.stats["eager_steps"] += 1
         key = (self._pattern(host), branches.key())
         if key not in lay.graphs:
@@ -488,9 +569,10 @@ class Runner:
     def __call__(self, state, n_steps: int, collect: Optional[Callable] = None,
                  observables: Optional[Tuple[Tuple[str, Callable, int], ...]] = None):
         global _running
-        if collect is not None and (observables or self.batched):
+        if collect is not None and (observables or self.batched or self.mesh is not None):
             raise ValueError("pass either collect= or observables=, not both"
-                             if observables else "a batch's run takes observables=")
+                             if observables else "a batch's or a distributed run takes "
+                             "observables=")
         obs = tuple(observables or ())
         names = [n for n, _, _ in obs]
         if len(set(names)) != len(names):
@@ -564,6 +646,10 @@ class Runner:
 
     def _outs(self, lay: _Layout, final, n: int, start, end):
         bufs = lay.bufs
+        if self.mesh is not None:
+            # The eager lock-step run's rows: each observable's firings only.
+            return final, {name: bufs[name][:_multiples(start, end, k)].clone()
+                           for name, _, k in self._obs}
         if self.batched:
             dev = lay.device
             obs = {name: bufs[name][:, :rows].clone() for name, rows in self._rows.items()}
@@ -586,6 +672,10 @@ class Runner:
 
             return batched_run(self.config, state, n, self.scheduler,
                                observables=self._obs or None)
+        if self.mesh is not None:
+            protos = {name: fn(state) for name, fn, _ in self._obs}
+            return state, {name: torch.zeros((0,) + tuple(p.shape), dtype=p.dtype,
+                                             device=p.device) for name, p in protos.items()}
         from .engine import run
 
         return run(self.config, state, max(n, 0), collect=self._collect,

@@ -12,7 +12,9 @@ The compiled run (``core/runner.py``) steps with :meth:`Scheduler.step_at`
 (or a batch's :meth:`Scheduler.step_slots`) with ``branches``: the runner
 keeps the counters on the host, the gates read that count, and the ops see
 ``OpContext.step`` as the device counter (as the reference's traced step
-does), with the force pass's branches behind a ``forces.Branches``.
+does), with the force pass's branches behind a ``forces.Branches``; the
+distributed executor's ``distributed.step_ranks`` does the same for every
+rank, each rank's branches under its own scope.
 :meth:`Scheduler.step_slots` is the step of a batch of sessions, over the
 flat view of its storage (``core/slots.py``): each session keeps its own
 counter, an op runs when any live session fires, and each session keeps the
@@ -464,11 +466,15 @@ def behaviors_op(config) -> Operation:
 
 
 def force_pass(config, ctx: OpContext, state, *, index=None, neighbors=None,
-               row_mask=None) -> torch.Tensor:
+               row_mask=None, scope: Optional[str] = None) -> torch.Tensor:
     """One ``mechanical_forces`` dispatch with the config's knobs applied,
     over the step's index and context unless ``index`` / ``neighbors`` are
     given (the distributed overlapped schedule runs an interior pass over a
-    local-only index and a shell pass over the ghost-extended one)."""
+    local-only index and a shell pass over the ghost-extended one, each
+    under its own ``scope`` of the compiled run's branches)."""
+    branches = ctx.branches
+    if branches is not None and scope is not None:
+        branches = branches.scoped(scope)
     return mechanical_forces(
         config.spec,
         ctx.index if index is None else index,
@@ -485,7 +491,7 @@ def force_pass(config, ctx: OpContext, state, *, index=None, neighbors=None,
         morton_window=config.morton_window,
         morton_fallback=config.morton_window_fallback,
         live=ctx.live,
-        branches=ctx.branches,
+        branches=branches,
     )
 
 

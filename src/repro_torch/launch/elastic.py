@@ -263,6 +263,7 @@ def run_elastic_distributed(
     seed: Optional[int] = None,
     keep: int = 3,
     capacity: Optional[int] = None,
+    jit: bool = False,
 ):
     """Distributed counterpart of :func:`run_elastic`.
 
@@ -270,7 +271,9 @@ def run_elastic_distributed(
     bounds (``halo_capacity`` / ``migrate_capacity``) by ``grow_factor``,
     re-deploys through ``sim.distribute`` on the grown ``DomainConfig``, and
     pads the restored state into the new shapes (:func:`grow_dist_state`).
-    Returns ``(final_state, {name: rows}, n_regrows)``.
+    ``jit=True`` runs each chunk through ``DistributedSimulation.run_jit``
+    (the deployment's runner, so the chunks between regrows replay its
+    graphs).  Returns ``(final_state, {name: rows}, n_regrows)``.
     """
     from repro_torch import checkpoint as ckpt
     from repro_torch.core.api import _concat_obs, _obs_tensors, _step_of
@@ -290,7 +293,8 @@ def run_elastic_distributed(
 
     save(state, step)
     while step < target:
-        new_state, obs = dsim.run(min(every, target - step), state=state)
+        run = dsim.run_jit if jit else dsim.run
+        new_state, obs = run(min(every, target - step), state=state)
         action = check_abm_state(new_state.health, grow_factor)
         if action.kind == "halt":
             raise RuntimeError(

@@ -1543,3 +1543,89 @@ def test_batch_run_jit_raises_when_an_op_reads_the_card(card):
         eng.run_jit(bstate, 3)
     torch.cuda.synchronize()
     eng.run(bstate, 2)              # the card is still usable
+
+
+# ------------------------------------------------------- distributed run_jit
+# The distributed engine's compiled run (DistributedSimulation.run_jit): the
+# lock-step step of the 4 ranks of a 2x2 mesh on the card, replayed from CUDA
+# graphs, against the eager run: every leaf of the stacked state, every
+# observable row and the launches.
+
+def _dist_jit_and_eager(dsim, steps, runs=2):
+    """``(eager counts, [run_jit counts])`` of an eager distributed run and
+    ``runs`` run_jit runs from the built state, each bit-identical to the
+    eager run; the run_jit runs share the deployment's runner."""
+    from repro_torch import kernels
+    import torch_jit_cases as J
+
+    def counted(fn):
+        kernels.add_launches({k: -n for k, n in kernels.read_launches().items()})
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kernels.read_launches()
+
+    eager, eager_counts = counted(lambda: dsim.run(steps))
+    jit = [counted(lambda: dsim.run_jit(steps)) for _ in range(runs)]
+    for result, _ in jit:
+        J.assert_runs_bit_equal(eager, result)
+    return eager_counts, [c for _, c in jit]
+
+
+@pytest.mark.cuda
+def test_dist_run_jit_soma_equals_eager_on_card(card):
+    """The soma model (cell_rank, the fused force over ghost-extended
+    sources, diffusion) on 4 ranks, 10 steps: the replayed run's state,
+    series and launches are the eager run's, and its second run starts
+    warm."""
+    import torch_jit_cases as J
+
+    dsim = J.dist_soma(card)
+    eager, jit = _dist_jit_and_eager(dsim, 10)
+    stats = dsim._jitted.stats
+    assert stats["rollbacks"] == 0 and stats["warm_starts"] == 1
+    assert stats["replays"] + stats["eager_steps"] == 20 and stats["replays"] >= 10 + 6
+    assert eager["cell_list_force"] == 40 and eager["cell_rank"] >= 40
+    assert jit == [eager, eager]
+
+
+@pytest.mark.cuda
+def test_dist_run_jit_one_rank_rolls_back_on_card(card):
+    """Rank 0's cell overflows from step 4 (torch_jit_cases.dist_crowd): the
+    speculated branch rolls back, the run stays bit-identical, and the
+    launches less the thrown-away replays' are the eager run's."""
+    import torch_jit_cases as J
+
+    dsim = J.dist_crowd(card)
+    eager, (jit,) = _dist_jit_and_eager(dsim, 10, runs=1)
+    runner = dsim._jitted
+    assert runner.stats["rollbacks"] >= 1
+    assert {k: v - runner.rolled_back_launches[k] for k, v in jit.items()} == eager
+    keys = [dict(key[1]) for key in runner._graphs]
+    assert {key["rank0/overflowed"] for key in keys} == {False, True}
+    assert all(not key[f"rank{r}/overflowed"] for key in keys for r in (1, 2, 3))
+
+
+@pytest.mark.cuda
+def test_dist_run_jit_raises_when_an_op_reads_the_card(card):
+    """A custom op of a distributed model that reads the card cannot be
+    captured: run_jit raises CaptureError naming it."""
+    import torch_jit_cases as J
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.schedule import CaptureError
+    from repro_torch.launch.mesh import make_mesh
+
+    def reads(ctx, state):
+        if int(state.pool.alive.sum()) < 0:
+            raise AssertionError
+        return state
+
+    sim = J.soma(card, n=1000, space=100.0, res=20).op(reads, name="reads", phase="post")
+    dcfg = dist.DomainConfig(mesh_axes=("x", "y"), axis_sizes=(2, 2), extent=50.0,
+                             halo_width=10.0, halo_capacity=512, migrate_capacity=256,
+                             depth=100.0)
+    dsim = sim.distribute(make_mesh((2, 2), ("x", "y"), devices=card), dcfg)
+    dsim.run(2)
+    with pytest.raises(CaptureError, match="op 'reads'"):
+        dsim.run_jit(3)
+    torch.cuda.synchronize()
+    dsim.run(2)              # the card is still usable

@@ -162,9 +162,26 @@ def test_distributed_diffuse_uneven_split_matches_reference(ref, boundary):
     np.testing.assert_allclose(got, ref[f"diffuse/{boundary}"], rtol=0, atol=1e-6)
 
 
-def test_facade_soma_model_matches_reference(ref):
-    """Simulation.distribute of a soma model on a 2×2 mesh: the initial
-    state exactly, then 4 steps (series exact)."""
+@pytest.mark.parametrize("codec", R.FORCE_CODECS)
+def test_force_relaxation_run_jit_matches_reference(ref, codec):
+    """The same relaxation through the compiled run
+    (``jitted_distributed_runner``): 1 step, then 4 more from it, each held
+    to the reference's state at that step."""
+    domain, engine, _ = R.force_setup()
+    dcfg = dist.DomainConfig(**domain, halo_codec=codec)
+    ecfg = EngineConfig(spec=dcfg.grid_spec(box_size=2.0, max_per_cell=32),
+                        force_params=ForceParams(), **engine)
+    runner = dist.jitted_distributed_runner(_mesh(domain), dcfg, ecfg)
+    state, done = _state(ref, f"force/{codec}/0"), 0
+    for i in R.FORCE_STEPS:
+        state, _ = runner(state, i - done)
+        done = i
+        _assert_matches(dist_state_to_numpy(state), R.unflatten(ref, f"force/{codec}/{i}"),
+                        _float_tol(i, domain), f"{codec} run_jit step {i}")
+    assert runner.stats["replays"] > 0
+
+
+def _soma_model():
     from repro_torch.core import chemotaxis, concentration_at, secretion
 
     domain, space, res, pos, kind, fields = R.soma_setup()
@@ -191,13 +208,30 @@ def test_facade_soma_model_matches_reference(ref):
             .mechanics(ForceParams())
             .op(exposure_op, name="exposure", phase="post")
             .observe_kinds("kinds", n_kinds=2))
-    dsim = soma.distribute(_mesh(domain), dist.DomainConfig(**domain), capacity=128)
+    return domain, soma.distribute(_mesh(domain), dist.DomainConfig(**domain), capacity=128)
+
+
+def test_facade_soma_model_matches_reference(ref):
+    """Simulation.distribute of a soma model on a 2×2 mesh: the initial
+    state exactly, then 4 steps (series exact)."""
+    domain, dsim = _soma_model()
     assert dsim.config.spec.rank_impl == "tiled"
     _assert_matches(dist_state_to_numpy(dsim.state), R.unflatten(ref, "soma/0"), 0.0, "init")
     final, obs = dsim.run(R.SOMA_STEPS)
     np.testing.assert_array_equal(obs["kinds"].numpy(), ref["soma/obs/kinds"])
     _assert_matches(dist_state_to_numpy(final), R.unflatten(ref, "soma/final"),
                     _float_tol(R.SOMA_STEPS, domain), "soma")
+
+
+def test_facade_soma_model_run_jit_matches_reference(ref):
+    """The same soma model through ``DistributedSimulation.run_jit``: the
+    reference's series exactly and its final state at the same tolerances."""
+    domain, dsim = _soma_model()
+    final, obs = dsim.run_jit(R.SOMA_STEPS)
+    assert dsim._jitted.stats["replays"] > 0
+    np.testing.assert_array_equal(obs["kinds"].numpy(), ref["soma/obs/kinds"])
+    _assert_matches(dist_state_to_numpy(final), R.unflatten(ref, "soma/final"),
+                    _float_tol(R.SOMA_STEPS, domain), "soma run_jit")
 
 
 def test_port_resumes_a_reference_checkpoint(ref):
@@ -222,6 +256,15 @@ def test_reference_resumes_a_port_checkpoint(ref):
 
 def test_run_elastic_distributed_matches_reference(ref, tmp_path):
     """Regrows, the population series and every integer leaf exact."""
+    _check_elastic(ref, tmp_path, jit=False)
+
+
+def test_run_elastic_distributed_jit_matches_reference(ref, tmp_path):
+    """The same with each chunk through ``run_jit``."""
+    _check_elastic(ref, tmp_path, jit=True)
+
+
+def _check_elastic(ref, tmp_path, jit):
     from repro_torch.core import cell_division
     from repro_torch.launch import elastic
 
@@ -233,7 +276,7 @@ def test_run_elastic_distributed_matches_reference(ref, tmp_path):
             .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
     final, obs, grows = elastic.run_elastic_distributed(
         grow, _mesh(domain), dist.DomainConfig(**domain), R.ELASTIC_STEPS, str(tmp_path),
-        checkpoint_every=R.ELASTIC_EVERY, capacity=32, max_regrows=4)
+        checkpoint_every=R.ELASTIC_EVERY, capacity=32, max_regrows=4, jit=jit)
     assert grows == int(ref["elastic/grows"]) >= 1
     np.testing.assert_array_equal(obs["pop"].numpy(), ref["elastic/obs/pop"])
     _assert_matches(dist_state_to_numpy(final), R.unflatten(ref, "elastic/final"),

@@ -14,7 +14,14 @@ mid-run, deterministically, with a custom op that acts from a given step on
   sort and the Morton window stops covering them;
 * :func:`nudge_op` moves the first rows a little every step, so they are
   active next step (``crowded`` past ``active_capacity``);
-* :func:`negative_id_op` gives the index a negative cell id.
+* :func:`negative_id_op` gives the index a negative cell id;
+* :func:`crowd_gid_op` stacks the agents whose ``gid`` attribute is below
+  k at one point: in a distributed model whose first k agents start in rank
+  0's box (:func:`dist_crowd`), only rank 0's cell overflows.
+
+:func:`dist_soma` and :func:`dist_crowd` deploy models on a 2x2 mesh of
+ranks on one device for the distributed engine's compiled run
+(``tests/test_torch_dist_jit.py``, the card tests).
 """
 
 import dataclasses
@@ -70,6 +77,20 @@ def nudge_op(rows: int, at_step: int, dx: float):
             state, pool=state.pool.replace(position=torch.cat([head, pos[rows:]])))
 
     return nudge
+
+
+def crowd_gid_op(k: int, at_step: int, point: float):
+    """The live agents whose ``gid`` is below ``k`` moved to ``(point,
+    point, point)`` (rank-local in a distributed model) on every step from
+    ``at_step`` on."""
+
+    def crowd(ctx, state):
+        pool = state.pool
+        hit = (pool.get("gid") < k) & pool.alive & (state.step >= at_step)
+        pos = torch.where(hit[:, None], point, pool.position)
+        return dataclasses.replace(state, pool=pool.replace(position=pos))
+
+    return crowd
 
 
 def negative_id_op(at_step: int):
@@ -186,3 +207,42 @@ def assert_runs_bit_equal(a, b):
         assert x.dtype == y.dtype and x.shape == y.shape, name
         assert x.detach().cpu().numpy().tobytes() == y.detach().cpu().numpy().tobytes(), \
             f"observable {name!r} differs"
+
+
+def dist_soma(device, n=4000, space=200.0, res=40, codec="int16", overlap=False):
+    """:func:`soma` deployed on a 2x2 mesh of ranks on ``device`` (halo 10,
+    the interaction radius)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    dcfg = dist.DomainConfig(mesh_axes=("x", "y"), axis_sizes=(2, 2), extent=space / 2,
+                             halo_width=10.0, halo_capacity=1024, migrate_capacity=512,
+                             depth=space, halo_codec=codec, overlap_halo=overlap)
+    return soma(device, n=n, space=space, res=res).distribute(
+        make_mesh((2, 2), ("x", "y"), devices=device), dcfg)
+
+
+def dist_crowd(device, k=12, at_step=4, impl="fused"):
+    """The reference's facade-resume layout (200 agents of two kinds in a
+    32 um cube on a 2x2 mesh, boxes of 2 um holding 8) with ``gid``s, the
+    first ``k`` agents placed inside rank 0's box and stacked at its centre
+    from ``at_step`` on by :func:`crowd_gid_op`: rank 0's ``overflowed``
+    predicate flips, the other ranks' do not."""
+    import torch_dist_reference as R
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    domain, space, pos, kinds = R.resume_setup()
+    rng = np.random.default_rng(2)
+    head = rng.uniform([4.0, 4.0, 8.0], [12.0, 12.0, 24.0], (k, 3)).astype(np.float32)
+    pos = np.concatenate([head, pos[k:]])
+    sim = (Simulation(space=(0.0, space), cell_size=2.0, boundary="open", dt=0.05,
+                      max_per_cell=8, seed=3, sort_frequency=4, capacity=256,
+                      rank_impl="cuda", device=device)
+           .add_agents(position=pos, diameter=1.6, kind=kinds,
+                       gid=np.arange(pos.shape[0], dtype=np.int32))
+           .mechanics(ForceParams(), impl=impl)
+           .op(crowd_gid_op(k, at_step, 8.0), name="crowd", phase="agent")
+           .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
+    mesh = make_mesh(domain["axis_sizes"], domain["mesh_axes"], devices=device)
+    return sim.distribute(mesh, dist.DomainConfig(**domain))
