@@ -240,13 +240,16 @@ printing one JSON line; any failure raises and exits non-zero:
                   ``scaled_dot_product_attention`` with the same boolean mask
                   / ``rms_norm``; the flash bound also over the 64 x 64 tiles
                   holding a visible pair.
-  dryrun_grid     ``python -m repro_torch.launch.dryrun --arch A --mesh both``
+  dryrun_grid     ``python -m repro_torch.launch.dryrun --arch A --mesh M``
                   for every arch of ``configs/archs.py`` and ``teraagent``
                   (every shape, both production meshes: 82 cells), one CLI
-                  process an arch, ``DRYRUN_JOBS`` at a time, with no card
+                  process an arch and mesh, ``DRYRUN_JOBS`` at a time, no card
                   visible to them; every cell ``ok`` but the reference's
-                  skips (``long_500k`` on full-attention archs); per cell its
-                  status, per-device argument bytes and host seconds.
+                  skips (``long_500k`` on full-attention archs), and every
+                  cell of TeraAgent and of ``DRYRUN_PARTITIONED`` (the six
+                  archs the dry-run partitions over DTensor) with collective
+                  bytes; per cell its status, per-device argument, temp and
+                  collective bytes and host seconds.
   dryrun          the dry-run's plans held against the card, on a one-device
                   meta mesh: ``train``'s configuration (phi4-mini, 16 layers,
                   2 x 2,048, f32 + AdamW, remat, the flash kernel) planned,
@@ -259,7 +262,12 @@ printing one JSON line; any failure raises and exits non-zero:
                   (printed); ``lm_serve``'s parameters and cache bytes
                   exact; the TeraAgent cell's per-device state (one rank's
                   ``DistState``, 1M agents) built on the card, bytes exact on
-                  both meshes.
+                  both meshes, and one eager lock-step step of the plan's
+                  (2, 2) / (2, 2, 2) ranks on the card at the cell's
+                  capacities (``DRYRUN_AGENTS`` seeded agents a rank): the
+                  bytes every rank sends through ``Mesh.shift`` equal to the
+                  plan's collective bytes (2,523,136 / 3,784,704), the step's
+                  peak printed beside the plan's estimate.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; the ``kernels`` line gives each kernel's count from the path
@@ -3955,12 +3963,16 @@ def train_kernel_rows(store, launches, cfg):
 # ----------------------------------------------------------------- dry-run
 
 DRYRUN_JOBS = 8                  # dry-run CLI processes at a time (the host has 8 cores)
+# The archs whose cells must run partitioned (collective bytes, temp bytes).
+DRYRUN_PARTITIONED = ("command-r-35b", "gemma-7b", "mistral-nemo-12b", "paligemma-3b",
+                      "phi4-mini-3.8b", "whisper-base")
+DRYRUN_AGENTS = 200_000          # agents a rank of the TeraAgent step on the card
 TRAIN_PEAK_SLACK = 1.10          # measured train peak / the plan's estimate, at most
 
 
 def phase_dryrun_grid():
     """Every cell of the dry-run's grid through its CLI, one process an arch
-    (``DRYRUN_JOBS`` at a time, ``CUDA_VISIBLE_DEVICES`` empty), records
+    and mesh (``DRYRUN_JOBS`` at a time, ``CUDA_VISIBLE_DEVICES`` empty), records
     under ``build/dryrun_smoke``; fails on a failed cell, a missing cell or a
     skip other than the reference's."""
     from repro_torch.configs import SHAPES, get_config, shape_applicable
@@ -3970,16 +3982,19 @@ def phase_dryrun_grid():
     shutil.rmtree(out, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1")
-    archs = sorted({a for a, _ in dryrun.grid_cells()})
+    # One process a (arch, mesh), the multi-pod meshes' (the slower) first.
+    jobs = [(a, m) for m in ("multi", "single") for a in sorted({a for a, _ in
+                                                                dryrun.grid_cells()})]
 
-    def run(arch):
+    def run(job):
+        arch, mesh = job
         return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                               "--mesh", "both", "--out", str(out)],
+                               "--mesh", mesh, "--out", str(out)],
                               env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(DRYRUN_JOBS) as pool:
-        runs = dict(zip(archs, pool.map(run, archs)))
+        runs = dict(zip(jobs, pool.map(run, jobs)))
     wall = time.perf_counter() - t0
     failed = {a: (r.stdout[-1500:], r.stderr[-1500:]) for a, r in runs.items() if r.returncode}
     records = {(r["mesh"], r["arch"], r["shape"]): r
@@ -3992,12 +4007,21 @@ def phase_dryrun_grid():
     if failed or wrong or len(records) != len(want):
         raise AssertionError(f"dryrun_grid: failed processes {failed}, cells missing or with "
                              f"another status {wrong}, {len(records)} records for {len(want)}")
-    cells = [[*c, records[c]["status"], records[c].get("memory", {}).get("argument_bytes"),
-              records[c].get("lower_s", 0) + records[c].get("compile_s", 0)] for c in want]
+    unpartitioned = [c for c in want if c not in skip and records[c].get(
+        "collective_bytes_per_device") is None and c[1] in DRYRUN_PARTITIONED + ("teraagent",)]
+    if unpartitioned:
+        raise AssertionError(f"dryrun_grid: cells without collective bytes: {unpartitioned}")
+    memory = lambda c, k: records[c].get("memory", {}).get(k)
+    total = lambda c: (records[c].get("collective_bytes_per_device") or {}).get("total")
+    cells = [[*c, records[c]["status"], memory(c, "argument_bytes"), memory(c, "temp_bytes"),
+              total(c), records[c].get("lower_s", 0) + records[c].get("compile_s", 0)]
+             for c in want]
     emit("dryrun_grid", wall_s=wall, jobs=DRYRUN_JOBS, cells_total=len(want),
          ok=len(want) - len(skip), skipped=len(skip),
-         host_s_total=sum(c[5] for c in cells),
-         columns=["mesh", "arch", "shape", "status", "argument_bytes", "host_s"], cells=cells)
+         partitioned=sum(total(c) is not None for c in want),
+         host_s_total=sum(c[7] for c in cells),
+         columns=["mesh", "arch", "shape", "status", "argument_bytes", "temp_bytes",
+                  "collective_bytes", "host_s"], cells=cells)
 
 
 def tree_nbytes(*trees) -> int:
@@ -4018,6 +4042,54 @@ def counted_flops(step, *args):
         out = step(*args)
     torch.cuda.synchronize()
     return out, fc.get_total_flops(), read_counts()["flash_attention"]
+
+
+def teraagent_step_on_card(kind: str, capacity: int) -> dict:
+    """One eager lock-step step of the TeraAgent plan's mesh (2 ranks an
+    axis) on ``cuda:0``, at the cell's capacities, with ``DRYRUN_AGENTS``
+    seeded agents a rank: the bytes each rank sends through ``Mesh.shift``,
+    the step's wall, and its peak over the state beside the plan's temp
+    bytes a rank (the record of ``dryrun_grid``, or the dry-run's own run of
+    the cell) and that times the ranks: the ranks run in lock-step on one
+    card and peak at different ops, so one rank's peak is not separable."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import count_shift_bytes, make_mesh, make_production_mesh
+
+    path = ROOT / "build" / "dryrun_smoke" / f"{kind}__teraagent__train_4k.json"
+    rec = (json.loads(path.read_text()) if path.is_file()
+           else dryrun.run_cell("teraagent", "train_4k", kind, None, verbose=False))
+    small = dryrun.stepped_mesh(make_production_mesh(multi_pod=kind == "multi"))
+    dcfg, _ = dryrun.teraagent_config(small)
+    mesh = make_mesh(small.axis_sizes, small.axis_names, devices="cuda:0").ordered(
+        dcfg.mesh_axes)
+    extent = ([dcfg.extent * n for n in dcfg.axis_sizes]
+              + [dcfg.extent] * (3 - dcfg.n_decomposed))
+    pos = np.random.default_rng(0).uniform(0.0, extent, (DRYRUN_AGENTS * mesh.size, 3))
+    state = dist.init_dist_state(dcfg, capacity, pos.astype(np.float32), diameter=1.0,
+                                 device="cuda")
+    ranks = dist.unstack_state(state, mesh.devices)
+    scheduler = dist.distributed_scheduler(dcfg, dryrun.teraagent_engine(dcfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with count_shift_bytes() as sent:
+        stepped = dist.step_ranks(mesh, scheduler, ranks, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    alive = int(sum(int(r.pool.alive.sum()) for r in stepped))
+    del state, ranks, stepped
+    torch.cuda.empty_cache()
+    return dict(stepped_mesh=list(mesh.axis_sizes), agents=DRYRUN_AGENTS * mesh.size,
+                agents_after=alive,
+                collective_bytes_plan=rec["collective_bytes_per_device"]["total"],
+                shift_bytes_card={str(r): n for r, n in sorted(sent.ranks().items())},
+                step_s=wall, step_peak_over_state_bytes_card=peak,
+                peak_estimate_bytes_plan=rec["memory"]["peak_estimate_bytes"],
+                temp_bytes_plan=rec["memory"]["temp_bytes"],
+                temp_bytes_plan_x_ranks=rec["memory"]["temp_bytes"] * mesh.size)
 
 
 def phase_dryrun():
@@ -4118,7 +4190,8 @@ def phase_dryrun():
     del params, cache, toks
     torch.cuda.empty_cache()
 
-    # TeraAgent: one rank's state at the cell's capacities, on the card
+    # TeraAgent: one rank's state at the cell's capacities, and one eager
+    # lock-step step of the plan's mesh on the card against the plan's bytes
     out["teraagent"] = {}
     for kind in ("single", "multi"):
         prod = make_production_mesh(multi_pod=kind == "multi")
@@ -4128,9 +4201,13 @@ def phase_dryrun():
         card = tree_nbytes(dryrun.teraagent_state(one_rank, capacity, device="cuda"))
         torch.cuda.empty_cache()
         out["teraagent"][kind] = dict(state_bytes_plan=dryrun.spec_bytes(plan.specs_in),
-                                      state_bytes_card=card, capacity=capacity)
-        if card != out["teraagent"][kind]["state_bytes_plan"]:
+                                      state_bytes_card=card, capacity=capacity,
+                                      **teraagent_step_on_card(kind, capacity))
+        got = out["teraagent"][kind]
+        if card != got["state_bytes_plan"]:
             bad.append(f"teraagent {kind} state bytes")
+        if set(got["shift_bytes_card"].values()) != {got["collective_bytes_plan"]}:
+            bad.append(f"teraagent {kind} exchange bytes")
     emit("dryrun", nvidia_smi=smi, peak_slack=TRAIN_PEAK_SLACK, **out)
     if bad:
         raise AssertionError(f"dryrun: the plan disagrees with the card: {bad}")

@@ -50,13 +50,19 @@ rank's ops its device counter, and each rank's force passes their branches
 under its own scope.  So the step makes no host read and no host-to-device
 copy: scalars are filled on the device, the interior cell tables are kept
 device constants, and the grids' ``n_valid`` is a state leaf.
+
+Every op that works for one rank runs under ``rank_scope(r)``, a context
+that does nothing unless the dry-run (``launch/dryrun.py``) sets it: there
+it counts the op's FLOPs, bytes and storage for rank r, so one rank's share
+of the lock-step step is known exactly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, ContextManager, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +92,15 @@ from .slots import tree_map
 
 WIRE_DTYPES = {"int16": torch.int16, "int8": torch.int8}
 HALO_CODECS = ("none",) + tuple(WIRE_DTYPES)
+
+
+def _no_scope(rank: int) -> ContextManager:
+    return contextlib.nullcontext()
+
+
+# ``rank_scope(r)``: the context in which rank r's own work runs (see the
+# module docstring); the dry-run swaps in its per-rank counter.
+rank_scope: Callable[[int], ContextManager] = _no_scope
 
 
 # ---------------------------------------------------------------------------
@@ -329,33 +344,44 @@ def _rebase(position: torch.Tensor, d: int, offset: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _pack_outbound(dcfg: DomainConfig, pool: AgentPool, d: int):
+    """One rank's agents that left its box along dim ``d``, packed east- and
+    west-bound (rebased into the receiver's frame) and removed from its pool:
+    ``(pool, east records, east valid, west records, west valid, overflow)``."""
+    ext = dcfg.extent
+    coord = pool.position[:, d]
+    ids_e, val_e, ovf_e = _select(pool.alive & (coord >= ext), dcfg.migrate_capacity)
+    ids_w, val_w, ovf_w = _select(pool.alive & (coord < 0.0), dcfg.migrate_capacity)
+    rec_e = _pack_records(pool, ids_e, val_e)
+    rec_w = _pack_records(pool, ids_w, val_w)
+    # Rebase into the receiving rank's frame (torus).
+    rec_e["position"] = _rebase(rec_e["position"], d, -ext)
+    rec_w["position"] = _rebase(rec_w["position"], d, ext)
+    # Remove exactly the packed agents (index_fill_: a scalar written
+    # through an index tensor would be copied from the host).
+    c = pool.capacity
+    sent = torch.zeros((c + 1,), dtype=torch.bool, device=pool.device)
+    sent.index_fill_(0, torch.where(val_e, ids_e, c).long(), True)
+    sent.index_fill_(0, torch.where(val_w, ids_w, c).long(), True)
+    return remove_agents(pool, sent[:c]), rec_e, val_e, rec_w, val_w, ovf_e + ovf_w
+
+
 def migrate(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool]
             ) -> Tuple[List[AgentPool], List[torch.Tensor]]:
     """Dimension-ordered migration of agents that left the local box, over
     every rank's pool; returns the new pools and each rank's overflow."""
     pools = list(pools)
-    overflow = [torch.zeros((), dtype=torch.int32, device=p.device) for p in pools]
-    ext = dcfg.extent
+    overflow = []
+    for r, pool in enumerate(pools):
+        with rank_scope(r):
+            overflow.append(torch.zeros((), dtype=torch.int32, device=pool.device))
     for d in range(dcfg.n_decomposed):
         axis = dcfg.mesh_axes[d]
         east_recs, east_valid, west_recs, west_valid = [], [], [], []
         for r, pool in enumerate(pools):
-            coord = pool.position[:, d]
-            ids_e, val_e, ovf_e = _select(pool.alive & (coord >= ext), dcfg.migrate_capacity)
-            ids_w, val_w, ovf_w = _select(pool.alive & (coord < 0.0), dcfg.migrate_capacity)
-            overflow[r] = overflow[r] + ovf_e + ovf_w
-            rec_e = _pack_records(pool, ids_e, val_e)
-            rec_w = _pack_records(pool, ids_w, val_w)
-            # Rebase into the receiving rank's frame (torus).
-            rec_e["position"] = _rebase(rec_e["position"], d, -ext)
-            rec_w["position"] = _rebase(rec_w["position"], d, ext)
-            # Remove exactly the packed agents (index_fill_: a scalar written
-            # through an index tensor would be copied from the host).
-            c = pool.capacity
-            sent = torch.zeros((c + 1,), dtype=torch.bool, device=pool.device)
-            sent.index_fill_(0, torch.where(val_e, ids_e, c).long(), True)
-            sent.index_fill_(0, torch.where(val_w, ids_w, c).long(), True)
-            pools[r] = remove_agents(pool, sent[:c])
+            with rank_scope(r):
+                pools[r], rec_e, val_e, rec_w, val_w, ovf = _pack_outbound(dcfg, pool, d)
+                overflow[r] = overflow[r] + ovf
             east_recs.append(rec_e)
             east_valid.append(val_e)
             west_recs.append(rec_w)
@@ -366,8 +392,9 @@ def migrate(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool]
         from_east = mesh.shift(west_recs, axis, -1)
         from_east_valid = mesh.shift(west_valid, axis, -1)
         for r in range(len(pools)):
-            pools[r] = _insert_records(pools[r], from_west[r], from_west_valid[r])
-            pools[r] = _insert_records(pools[r], from_east[r], from_east_valid[r])
+            with rank_scope(r):
+                pools[r] = _insert_records(pools[r], from_west[r], from_west_valid[r])
+                pools[r] = _insert_records(pools[r], from_east[r], from_east_valid[r])
     return pools, overflow
 
 
@@ -449,59 +476,64 @@ def halo_exchange(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool],
     bits = lambda k: (k + 7) // 8   # bitmask wire size, ceil (never 0 bytes)
 
     g_pos = [p.position for p in pools]
-    g_rad = [p.radius() for p in pools]
     g_kind = [p.kind for p in pools]
     g_alive = [p.alive for p in pools]
-    codec = [_Codec.of(c) for c in codecs]
-    overflow = [torch.zeros((), dtype=torch.int32, device=p.device) for p in pools]
+    g_rad, codec, overflow = [], [], []
+    for r, (p, c) in enumerate(zip(pools, codecs)):
+        with rank_scope(r):
+            g_rad.append(p.radius())
+            codec.append(_Codec.of(c))
+            overflow.append(torch.zeros((), dtype=torch.int32, device=p.device))
     ext, hw = dcfg.extent, dcfg.halo_width
 
     for d in range(dcfg.n_decomposed):
         axis = dcfg.mesh_axes[d]
         packs = {0: [], 1: []}
         for r in range(n):
-            coord = g_pos[r][:, d]
-            east_band = g_alive[r] & (coord >= ext - hw) & (coord < ext)
-            west_band = g_alive[r] & (coord >= 0.0) & (coord < hw)
-            for s, (band, sign) in enumerate(((east_band, +1), (west_band, -1))):
-                ids, valid, ovf = _select(band, h)
-                overflow[r] = overflow[r] + ovf
-                i = ids.long()
-                pos = _rebase(g_pos[r][i], d, -sign * ext)
-                pos = torch.where(valid[:, None], pos, 0.0)
-                rad = torch.where(valid, g_rad[r][i], 0.0)
-                knd = torch.where(valid, g_kind[r][i], 0).to(torch.int8)
-                if wire_dtype is not None:
-                    slot_ids = torch.where(valid, ids, -1)
-                    q, fresh = _codec_encode(dcfg, codec[r], d, s, pos, slot_ids, wire_dtype)
-                    payload = dict(q=q, fresh=fresh, rad=rad, kind=knd, valid=valid)
+            with rank_scope(r):
+                coord = g_pos[r][:, d]
+                east_band = g_alive[r] & (coord >= ext - hw) & (coord < ext)
+                west_band = g_alive[r] & (coord >= 0.0) & (coord < hw)
+                for s, (band, sign) in enumerate(((east_band, +1), (west_band, -1))):
+                    ids, valid, ovf = _select(band, h)
+                    overflow[r] = overflow[r] + ovf
+                    i = ids.long()
+                    pos = _rebase(g_pos[r][i], d, -sign * ext)
+                    pos = torch.where(valid[:, None], pos, 0.0)
+                    rad = torch.where(valid, g_rad[r][i], 0.0)
+                    knd = torch.where(valid, g_kind[r][i], 0).to(torch.int8)
+                    if wire_dtype is not None:
+                        slot_ids = torch.where(valid, ids, -1)
+                        q, fresh = _codec_encode(dcfg, codec[r], d, s, pos, slot_ids, wire_dtype)
+                        payload = dict(q=q, fresh=fresh, rad=rad, kind=knd, valid=valid)
+                        if r == 0:
+                            wire["payload_bytes"] += (
+                                q.numel() * q.element_size() + bits(fresh.numel())
+                                + rad.numel() * 4 + knd.numel() + bits(valid.numel()))
+                    else:
+                        payload = dict(pos=pos, rad=rad, kind=knd, valid=valid)
+                        if r == 0:
+                            wire["payload_bytes"] += (pos.numel() * 4 + rad.numel() * 4
+                                                      + knd.numel() + bits(valid.numel()))
                     if r == 0:
-                        wire["payload_bytes"] += (
-                            q.numel() * q.element_size() + bits(fresh.numel())
-                            + rad.numel() * 4 + knd.numel() + bits(valid.numel()))
-                else:
-                    payload = dict(pos=pos, rad=rad, kind=knd, valid=valid)
-                    if r == 0:
-                        wire["payload_bytes"] += (pos.numel() * 4 + rad.numel() * 4
-                                                  + knd.numel() + bits(valid.numel()))
-                if r == 0:
-                    # Baseline: the f32 full-attribute record (pos, rad, kind).
-                    wire["baseline_bytes"] += (pos.numel() * 4 + rad.numel() * 4
-                                               + knd.numel() * 4 + bits(valid.numel()))
-                packs[s].append(payload)
+                        # Baseline: the f32 full-attribute record (pos, rad, kind).
+                        wire["baseline_bytes"] += (pos.numel() * 4 + rad.numel() * 4
+                                                   + knd.numel() * 4 + bits(valid.numel()))
+                    packs[s].append(payload)
 
         for s, sign in ((0, +1), (1, -1)):
             got = mesh.shift(packs[s], axis, sign)
             for r in range(n):
-                g = got[r]
-                if wire_dtype is not None:
-                    pos = _codec_decode(dcfg, codec[r], d, s, g["q"], g["fresh"])
-                else:
-                    pos = g["pos"]
-                g_pos[r] = torch.cat([g_pos[r], pos], dim=0)
-                g_rad[r] = torch.cat([g_rad[r], g["rad"]], dim=0)
-                g_kind[r] = torch.cat([g_kind[r], g["kind"].to(torch.int32)], dim=0)
-                g_alive[r] = torch.cat([g_alive[r], g["valid"]], dim=0)
+                with rank_scope(r):
+                    g = got[r]
+                    if wire_dtype is not None:
+                        pos = _codec_decode(dcfg, codec[r], d, s, g["q"], g["fresh"])
+                    else:
+                        pos = g["pos"]
+                    g_pos[r] = torch.cat([g_pos[r], pos], dim=0)
+                    g_rad[r] = torch.cat([g_rad[r], g["rad"]], dim=0)
+                    g_kind[r] = torch.cat([g_kind[r], g["kind"].to(torch.int32)], dim=0)
+                    g_alive[r] = torch.cat([g_alive[r], g["valid"]], dim=0)
 
     out = [(g_pos[r], g_rad[r], g_kind[r], g_alive[r], codec[r].state(), overflow[r])
            for r in range(n)]
@@ -542,15 +574,16 @@ def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.Diffusio
     (``n_valid``) is masked out of the stencil and pinned to zero.  Plain
     PyTorch, as the reference's is plain XLA: the stencil kernel has no
     ghost faces."""
-    us, masks = [], []
-    for g in grids:
-        u = g.concentration
-        mask = _padding_mask(g)
-        if mask is not None:
-            u = torch.where(mask, u, 0.0)
+    us, masks, padded = [], [], []
+    for r, g in enumerate(grids):
+        with rank_scope(r):
+            u = g.concentration
+            mask = _padding_mask(g)
+            if mask is not None:
+                u = torch.where(mask, u, 0.0)
+            padded.append(F.pad(u, (1, 1, 1, 1, 1, 1)))   # zero halo (open in z)
         us.append(u)
         masks.append(mask)
-    padded = [F.pad(u, (1, 1, 1, 1, 1, 1)) for u in us]   # zero halo (open in z)
     for d in range(dcfg.n_decomposed):
         axis = dcfg.mesh_axes[d]
         size = dcfg.axis_sizes[d]
@@ -559,36 +592,38 @@ def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.Diffusio
         from_west = mesh.shift(hi_faces, axis, +1)   # west neighbour's top slice
         from_east = mesh.shift(lo_faces, axis, -1)   # east neighbour's bottom
         for r, p in enumerate(padded):
-            fw, fe = from_west[r], from_east[r]
-            if boundary != "toroidal":
-                coord = mesh.axis_index(r, axis)
-                if coord == 0:
-                    fw = torch.zeros_like(fw)
-                if coord == size - 1:
-                    fe = torch.zeros_like(fe)
-            idx_lo = [slice(1, -1)] * 3
-            idx_hi = [slice(1, -1)] * 3
-            idx_lo[d] = slice(0, 1)
-            idx_hi[d] = slice(p.shape[d] - 1, p.shape[d])
-            p[tuple(idx_lo)] = fw
-            p[tuple(idx_hi)] = fe
+            with rank_scope(r):
+                fw, fe = from_west[r], from_east[r]
+                if boundary != "toroidal":
+                    coord = mesh.axis_index(r, axis)
+                    if coord == 0:
+                        fw = torch.zeros_like(fw)
+                    if coord == size - 1:
+                        fe = torch.zeros_like(fe)
+                idx_lo = [slice(1, -1)] * 3
+                idx_hi = [slice(1, -1)] * 3
+                idx_lo[d] = slice(0, 1)
+                idx_hi[d] = slice(p.shape[d] - 1, p.shape[d])
+                p[tuple(idx_lo)] = fw
+                p[tuple(idx_hi)] = fe
 
     out = []
-    for g, u, p, mask in zip(grids, us, padded, masks):
-        lap = (
-            p[2:, 1:-1, 1:-1]
-            + p[:-2, 1:-1, 1:-1]
-            + p[1:-1, 2:, 1:-1]
-            + p[1:-1, :-2, 1:-1]
-            + p[1:-1, 1:-1, 2:]
-            + p[1:-1, 1:-1, :-2]
-            - 6.0 * u
-        )
-        lap = fdiv(lap, g.spacing**2)
-        new = u * (1.0 - g.decay_constant * dt) + g.diffusion_coefficient * dt * lap
-        if mask is not None:
-            new = torch.where(mask, new, 0.0)
-        out.append(dataclasses.replace(g, concentration=new))
+    for r, (g, u, p, mask) in enumerate(zip(grids, us, padded, masks)):
+        with rank_scope(r):
+            lap = (
+                p[2:, 1:-1, 1:-1]
+                + p[:-2, 1:-1, 1:-1]
+                + p[1:-1, 2:, 1:-1]
+                + p[1:-1, :-2, 1:-1]
+                + p[1:-1, 1:-1, 2:]
+                + p[1:-1, 1:-1, :-2]
+                - 6.0 * u
+            )
+            lap = fdiv(lap, g.spacing**2)
+            new = u * (1.0 - g.decay_constant * dt) + g.diffusion_coefficient * dt * lap
+            if mask is not None:
+                new = torch.where(mask, new, 0.0)
+            out.append(dataclasses.replace(g, concentration=new))
     return out
 
 
@@ -602,8 +637,12 @@ def migrate_op(dcfg: DomainConfig) -> Operation:
 
     def fn(mesh, ctxs, states):
         pools, ovf = migrate(dcfg, mesh, [s.pool for s in states])
-        return [dataclasses.replace(s, pool=p, migrate_overflow=s.migrate_overflow + o)
-                for s, p, o in zip(states, pools, ovf)]
+        out = []
+        for r, (s, p, o) in enumerate(zip(states, pools, ovf)):
+            with rank_scope(r):
+                out.append(dataclasses.replace(s, pool=p,
+                                               migrate_overflow=s.migrate_overflow + o))
+        return out
 
     return Operation("migrate", fn, phase="pre", collective=True)
 
@@ -618,15 +657,17 @@ def halo_exchange_op(dcfg: DomainConfig) -> Operation:
         per_rank, wire = halo_exchange(dcfg, mesh, [s.pool for s in states],
                                        [s.codec for s in states])
         out = []
-        for ctx, s, (g_pos, g_rad, g_kind, g_alive, codec, ovf) in zip(ctxs, states, per_rank):
+        for r, (ctx, s, (g_pos, g_rad, g_kind, g_alive, codec, ovf)) in enumerate(
+                zip(ctxs, states, per_rank)):
             ctx.extras["halo_sources"] = (g_pos, g_rad, g_kind, g_alive)
             c = s.pool.capacity
             ghost = GhostFrame(position=g_pos[c:], radius=g_rad[c:], kind=g_kind[c:],
                                alive=g_alive[c:])
-            out.append(dataclasses.replace(
-                s, codec=codec, ghost=ghost, halo_overflow=s.halo_overflow + ovf,
-                halo_payload_bytes=s.halo_payload_bytes + wire["payload_bytes"],
-                halo_baseline_bytes=s.halo_baseline_bytes + wire["baseline_bytes"]))
+            with rank_scope(r):
+                out.append(dataclasses.replace(
+                    s, codec=codec, ghost=ghost, halo_overflow=s.halo_overflow + ovf,
+                    halo_payload_bytes=s.halo_payload_bytes + wire["payload_bytes"],
+                    halo_baseline_bytes=s.halo_baseline_bytes + wire["baseline_bytes"]))
         return out
 
     return Operation("halo_exchange", fn, phase="pre", collective=True)
@@ -843,14 +884,17 @@ def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: in
     ``"rank{r}"``; an op, or ``fold_rng``, that reads the device while the
     step is captured in a CUDA graph raises ``CaptureError`` naming it."""
     keys = [s.rng for s in states]
-    states = [dataclasses.replace(s, rng=prng.fold_in(s.rng, r)) for r, s in enumerate(states)]
-    ctxs = []
+    folded, ctxs = [], []
     for r, s in enumerate(states):
-        counter = step if branches is None else s.step
-        with _naming("fold_rng"):
-            rng = scheduler.fold_rng(s, counter)
+        with rank_scope(r):
+            s = dataclasses.replace(s, rng=prng.fold_in(s.rng, r))
+            counter = step if branches is None else s.step
+            with _naming("fold_rng"):
+                rng = scheduler.fold_rng(s, counter)
+        folded.append(s)
         ctxs.append(OpContext(config=scheduler.config, step=counter, rng=rng,
                               branches=None if branches is None else branches.scoped(f"rank{r}")))
+    states = folded
     for op in scheduler.ordered_ops():
         if op.frequency == 0:
             continue
@@ -861,10 +905,17 @@ def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: in
             if op.collective:
                 new = op.fn(mesh, ctxs, states)
             else:
-                new = [op.fn(ctx, s) for ctx, s in zip(ctxs, states)]
+                new = []
+                for r, (ctx, s) in enumerate(zip(ctxs, states)):
+                    with rank_scope(r):
+                        new.append(op.fn(ctx, s))
         if fires:
             states = new
-    return [dataclasses.replace(s, rng=k, step=s.step + 1) for s, k in zip(states, keys)]
+    out = []
+    for r, (s, k) in enumerate(zip(states, keys)):
+        with rank_scope(r):
+            out.append(dataclasses.replace(s, rng=k, step=s.step + 1))
+    return out
 
 
 def _host_step(state: DistState) -> int:

@@ -77,23 +77,9 @@ def crowded_tiles(device: torch.device, reset: bool = False) -> int:
     return n
 
 
-def cell_list_force_cuda(
-    position: torch.Tensor,    # (S, 3) f32; (B·S, 3) with a slot axis
-    radius: torch.Tensor,      # (S,) f32; (B·S,)
-    cell_list: torch.Tensor,   # (n_cells, M) int32, empty slots = S; (B, n_cells, M)
-    dims: tuple,
-    k: float = 2.0,
-    gamma: float = 1.0,
-    num_out: int | None = None,
-) -> torch.Tensor:
-    """Net Eq-4.1 force per agent, ``(num_out, 3)`` f32: every listed agent
-    against the other listed agents of its 27-box.  Rows not listed (dead
-    agents, agents dropped by an overflowed cell) are zero.
-
-    With a slot axis (``cell_list`` (B, n_cells, M) of within-session ids,
-    the B sessions' S rows each stacked in ``position`` / ``radius``) one
-    launch computes every session against its own grid: ``(B·num_out, 3)``."""
-    global launches
+def _check_cell_list(position, radius, cell_list, dims, num_out) -> tuple:
+    """``cell_list_force``'s argument checks; returns (slots, rows a slot,
+    rows out a slot)."""
     nx, ny, nz = (int(d) for d in dims)
     slots = cell_list.shape[0] if cell_list.ndim == 3 else 1
     rows = position.shape[0]
@@ -115,10 +101,41 @@ def cell_list_force_cuda(
         raise ValueError(f"cell_list_force: num_out {out_n} outside [0, {s}]")
     if slots > 65535:
         raise ValueError(f"cell_list_force: {slots} slots; at most 65,535")
+    return slots, s, out_n
+
+
+def cell_list_force_meta(position, radius, cell_list, dims, k=2.0, gamma=1.0,
+                         num_out=None) -> torch.Tensor:
+    """The kernel's output on meta tensors (the dry-run), after its checks:
+    launches and counts nothing."""
+    slots, _, out_n = _check_cell_list(position, radius, cell_list, dims, num_out)
+    return torch.empty((slots * out_n, 3), dtype=torch.float32, device=position.device)
+
+
+def cell_list_force_cuda(
+    position: torch.Tensor,    # (S, 3) f32; (B·S, 3) with a slot axis
+    radius: torch.Tensor,      # (S,) f32; (B·S,)
+    cell_list: torch.Tensor,   # (n_cells, M) int32, empty slots = S; (B, n_cells, M)
+    dims: tuple,
+    k: float = 2.0,
+    gamma: float = 1.0,
+    num_out: int | None = None,
+) -> torch.Tensor:
+    """Net Eq-4.1 force per agent, ``(num_out, 3)`` f32: every listed agent
+    against the other listed agents of its 27-box.  Rows not listed (dead
+    agents, agents dropped by an overflowed cell) are zero.
+
+    With a slot axis (``cell_list`` (B, n_cells, M) of within-session ids,
+    the B sessions' S rows each stacked in ``position`` / ``radius``) one
+    launch computes every session against its own grid: ``(B·num_out, 3)``."""
+    global launches
+    slots, s, out_n = _check_cell_list(position, radius, cell_list, dims, num_out)
     _build.require_cuda("cell_list_force", position, radius, cell_list)
     out = torch.zeros((slots * out_n, 3), dtype=torch.float32, device=position.device)
+    n_cells, m = cell_list.shape[-2:]
     if n_cells == 0 or out_n == 0 or slots == 0:
         return out
+    nx, ny, nz = (int(d) for d in dims)
     tx, ty, tz = TILE
     lib = _lib()
     _build.check(

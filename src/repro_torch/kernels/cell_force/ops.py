@@ -41,6 +41,9 @@ def cell_list_force(
     its own S rows: ``(B·num_out, 3)``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown cell_list_force impl {impl!r}; expected {IMPLS}")
+    if impl == "cuda" and position.device.type == "meta":
+        return _kernel.cell_list_force_meta(position, radius, cell_list, dims, k=k,
+                                            gamma=gamma, num_out=num_out)
     if impl == "cuda" and position.device.type != "cpu":
         return _kernel.cell_list_force_cuda(
             position.contiguous(), radius.contiguous(), cell_list.contiguous(),

@@ -56,16 +56,30 @@ def workspace_bytes(n: int, n_cells: int) -> int:
     return -(-zeroed // 16) * 16 + 4 * ((ROW + 1) * n_cells + tiles_a + 2 * max_chunks(n) + 2 * n)
 
 
-def cell_rank_cuda(cid: torch.Tensor, n_cells: int) -> torch.Tensor:
-    """``rank[i] = #{j < i : cid[j] == cid[i]}`` for ``cid (C,) int32`` with
-    values in ``[0, n_cells]`` (``n_cells`` is the dead-agent bin); an id
-    outside that range gets -1."""
-    global launches
+def _check(cid: torch.Tensor, n_cells: int) -> None:
     if cid.dtype != torch.int32 or cid.ndim != 1:
         raise ValueError(f"cell_rank: cid must be (C,) int32, got {cid.dtype} "
                          f"{tuple(cid.shape)}")
     if not 0 <= n_cells < 2**31 - 1:
         raise ValueError(f"cell_rank: n_cells {n_cells} outside [0, 2**31 - 1)")
+
+
+def cell_rank_meta(cid: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """The kernel's output and scratch on meta tensors (the dry-run), after
+    its checks: launches and counts nothing."""
+    _check(cid, n_cells)
+    n = cid.shape[0]
+    if n:
+        torch.empty((workspace_bytes(n, n_cells),), dtype=torch.uint8, device=cid.device)
+    return torch.empty((n,), dtype=torch.int32, device=cid.device)
+
+
+def cell_rank_cuda(cid: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """``rank[i] = #{j < i : cid[j] == cid[i]}`` for ``cid (C,) int32`` with
+    values in ``[0, n_cells]`` (``n_cells`` is the dead-agent bin); an id
+    outside that range gets -1."""
+    global launches
+    _check(cid, n_cells)
     _build.require_cuda("cell_rank", cid)
     n = cid.shape[0]
     rank = torch.empty((n,), dtype=torch.int32, device=cid.device)

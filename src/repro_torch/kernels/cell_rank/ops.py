@@ -81,6 +81,8 @@ def cell_rank(
     cid = cid.to(torch.int32).contiguous()
     if impl == "reference":
         return cell_rank_ref(cid)
+    if impl == "cuda" and cid.device.type == "meta":
+        return _kernel.cell_rank_meta(cid, n_cells)
     if impl == "cuda" and cid.device.type != "cpu":
         return _kernel.cell_rank_cuda(cid, n_cells)
     return cell_rank_tiled(cid, n_cells, tile)

@@ -10,6 +10,11 @@ autograd records (grad mode on and ``x`` or ``scale`` requiring grad),
 ``"cuda"`` runs through :class:`RMSNorm`: the same forward, and ``dx`` and
 ``dscale`` written out in f32 plain PyTorch.  The reference differentiates
 its plain jnp (``layers.py:28-38``) and has no backward kernel.
+
+Over DTensors (a partitioned step) the op runs on each rank's rows under
+``local_map``, its explicit sharding rule: ``x`` whole along its last dim,
+``scale`` replicated, the output placed as ``x``, and ``scale``'s gradient
+the ranks' partial sums wherever ``x``'s rows are split.
 """
 
 from __future__ import annotations
@@ -76,6 +81,26 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
         raise ValueError(f"unknown rmsnorm impl {impl!r}; expected {IMPLS}")
     if impl == "reference":
         return rmsnorm_ref(x, scale, eps)
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _partitioned(x, scale, eps, impl)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return RMSNorm.apply(x, scale, eps)
     return _forward(x, scale, eps)
+
+
+def _partitioned(x, scale, eps: float, impl: str):
+    """``rmsnorm`` of a DTensor by the rule of the module docstring."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dmesh = x.device_mesh
+    last = x.ndim - 1
+    x_pl = tuple(Replicate() if p.is_partial() or p == Shard(last) else p
+                 for p in x.placements)
+    whole = (Replicate(),) * dmesh.ndim
+    scale_grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in x_pl)
+    return local_map(lambda x, s: rmsnorm(x, s, eps, impl), out_placements=(x_pl,),
+                     in_placements=(x_pl, whole), in_grad_placements=(x_pl, scale_grad),
+                     device_mesh=dmesh, redistribute_inputs=True)(x, scale)

@@ -3,64 +3,86 @@ planned on the meta device, with no card and no storage.
 
 The counterpart of ``repro/launch/dryrun.py``, which lowers and compiles each
 cell against ``ShapeDtypeStruct``s on 512 fake host devices and reads XLA's
-``memory_analysis`` and ``cost_analysis``.  Here, for every cell:
+``memory_analysis``, ``cost_analysis`` and the collectives of its HLO.  Here,
+for every cell:
 
     plan  = lower_cell(arch, shape, mesh)   # the step's arguments as sharded
                                             # TensorSpecs (repro_torch.sharding)
-    costs = the step run on meta tensors under FlopCounterMode and a
-            dispatch mode that counts bytes and live storage
+    costs = one device's program of the step on meta tensors, under
+            FlopCounterMode and a dispatch mode that counts bytes, live
+            storage and collectives
 
-and a JSON record with the reference's fields and units:
+On a one-device mesh the step runs as it is.  On a mesh of more devices the
+LM cells run **partitioned** (``partition``): the process is rank 0 of a
+``"fake"`` process group of the mesh's size (``launch/mesh.fake_group``), the
+arguments are DTensors of their shardings on a ``DeviceMesh`` of the mesh's
+axes (meta local shards), and DTensor partitions the step; the kernels' ops,
+the loss, attention and the sequence-split products run under explicit
+``local_map`` rules, and the reference's sharding constraints are the
+model's hooks (``residual_sharding``, ``expert_sharding``,
+``context_sharding``; ``models/model.py``).  The counters see rank 0's
+local ops and its ``_c10d_functional`` collectives.  TeraAgent's cell steps
+every rank of the lock-step engine (``distributed.step_ranks``) on meta, its
+force passes taking the branches an eager CPU step records, with a mesh of
+the production mesh's axes at 2 ranks an axis (a rank's work and bytes do
+not depend on the axis sizes); each rank's work is counted under its
+``distributed.rank_scope``, and rank 0's is the device's.
+
+The JSON record has the reference's fields and units:
 
   flops_per_device           ``torch.utils.flop_counter.FlopCounterMode``
-                             over one step on meta at the cell's global
-                             shapes, split evenly over the mesh's devices
-                             (eager PyTorch has no SPMD partitioner to say
-                             otherwise).  With ``attention_impl="cuda"`` the
-                             flash kernel is not an aten op: each call adds
-                             ``flash_attention_flops`` (4 · D FLOPs for every
-                             (query, key) pair of each 64 × 64 tile that
-                             holds a visible pair, as ``chip_smoke.py``
+                             over rank 0's ops.  With ``attention_impl=
+                             "cuda"`` the flash kernel is not an aten op: each
+                             call adds ``flash_attention_flops`` (4 · D FLOPs
+                             for every (query, key) pair of each 64 × 64 tile
+                             that holds a visible pair, as ``chip_smoke.py``
                              bounds the kernel); with ``"chunked"`` (the
                              configs' default) the counter sees the plain
-                             version's products.
+                             version's products.  TeraAgent's step has few
+                             products, and the counter counts nothing else.
   bytes_accessed_per_device  every aten op's operand and result bytes, as
                              XLA:CPU's ``bytes accessed`` counts them; view
                              ops move nothing and allocations write nothing,
                              so neither counts, and a kernel's stand-in
                              counts only its outputs' allocation (nothing).
+  collective_bytes_per_device  the operand bytes of rank 0's collectives by
+                             the reference's five kinds and ``total``, as
+                             ``collective_bytes_from_hlo`` counts them:
+                             DTensor's ``_c10d_functional`` ops, and the
+                             bytes a TeraAgent rank sends through
+                             ``Mesh.shift`` (``collective-permute``).
   memory                     ``argument_bytes``, ``output_bytes`` and
                              ``alias_bytes`` (donated arguments the step
                              updates in place) per device, exactly, from the
-                             plan's shard shapes.  ``temp_bytes``: on a
-                             one-device mesh, the most storage bytes alive at
-                             any op of a full-depth meta run (each storage
-                             rounded up to 512 bytes, as the CUDA caching
-                             allocator counts it) less the arguments';
-                             ``peak_estimate_bytes`` = arguments + outputs +
-                             temp − alias.  On a mesh of more devices both
-                             are null: without a partitioner nothing says
-                             what one device holds in flight.
+                             plan's shard shapes.  ``temp_bytes``: the most
+                             storage bytes rank 0 holds at any op of a
+                             full-depth run (each storage rounded up to 512
+                             bytes, as the CUDA caching allocator counts it)
+                             less its arguments'; ``peak_estimate_bytes`` =
+                             arguments + outputs + temp − alias.
   roofline                   ``compute_s`` and ``memory_s`` over the H100
                              SXM's own rates (NVIDIA H100 Tensor Core GPU
                              datasheet: 989e12 FLOP/s dense bf16, 3.35e12 B/s
-                             HBM3); ``memory_s_fused_est`` and
-                             ``collective_s`` are null: they read compiled
-                             HLO (collectives would go over NVLink 4, 450e9
-                             B/s per direction).
+                             HBM3); ``collective_s`` each mesh axis's bytes
+                             over its link (``link_rate``: NVLink 4 within an
+                             8-card node, the DGX H100's 400 Gb/s network
+                             port a card across nodes); ``memory_s_fused_est``
+                             is null: it reads XLA's fusions, and eager
+                             PyTorch has none.
 
 An ``ok`` record's ``reason`` (the reference's key of a skipped cell's
 record) says which of these numbers come otherwise than the reference's:
-the flash kernel's formula, a null ``temp_bytes``, a state without a step.
+the flash kernel's formula, the partitioned run, TeraAgent's stepped mesh
+and branches, or a cell that is not partitioned (``NOT_PARTITIONED``, or an
+op DTensor has no rule for: the error and the port's line are named), whose
+global counts are split evenly and whose temp and collective bytes are null.
 
 ``collective_bytes_from_hlo``, ``fused_bytes_from_hlo`` and
-``_strip_done_ops`` parse XLA HLO and have no counterpart; eager PyTorch
-decides no collectives.  The reference's sharding constraints (the residual
-stream's, the MoE dispatch's, attention's context split) are kept in the
-plan (``Plan.specs``): there is no partitioner to apply them to.  The
+``_strip_done_ops`` parse XLA HLO and have no counterpart.  The
 layer-extrapolated costs (``extrapolated_costs``) keep the reference's g /
-2g-layer difference; eager PyTorch counts every layer it runs, so here the
-difference only saves host time, and it equals a direct full-depth count.
+2g-layer difference, collectives included; eager PyTorch counts every layer
+it runs, so here the difference only saves host time, and it equals a direct
+full-depth count.
 
 Usage (no card needed):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single
@@ -74,8 +96,11 @@ Records go to ``results/dryrun_torch/`` (the reference writes
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -88,6 +113,8 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -106,11 +133,33 @@ from repro_torch.optim import adamw
 # ---------------------------------------------------------------------------
 PEAK_FLOPS = 989e12       # dense bf16 FLOP/s on the tensor cores
 HBM_BW = 3.35e12          # B/s, HBM3
+# Links (collective_s): NVLink 4 between the 8 cards of a node, 900 GB/s a
+# card both ways (H100 datasheet); between nodes the DGX H100's eight 400
+# Gb/s ConnectX-7 ports, one a card (DGX H100 datasheet).  A direction each.
+NODE = 8
+NVLINK_BW = 450e9
+NETWORK_BW = 50e9
 
 FLASH_TILE = 64           # the flash kernels' (query, key) tile
 ALLOC_BLOCK = 512         # the CUDA caching allocator's rounding
 
 OUT_DIR = "results/dryrun_torch"
+
+# Cells not run partitioned, by (family, step kind), with the reason: their
+# products flatten a batch split with another split into one dim, which
+# DTensor tracks as a strided split and plans each redistribution of by a
+# graph search (seconds a product, over a 3-axis mesh).
+_RWKV = ("models/rwkv6.py's time mix: its per-head products and its T/64 chunk scan over the "
+         "flattened (batch, head) rows take DTensor's redistribution planner minutes a cell "
+         "(over 15 for a train cell)")
+_RGLRU_TRAIN = ("models/rglru.py's train step: the backward of its gated recurrence over the "
+                "flattened rows takes DTensor's redistribution planner about 4 minutes on "
+                "the 512-device mesh")
+_MOE = ("models/moe.py: the router's expert counts (`scatter_add_`) and the dispatch's "
+        "`index_put` have no DTensor sharding rule")
+NOT_PARTITIONED = {("ssm", "train"): _RWKV, ("ssm", "prefill"): _RWKV,
+                   ("ssm", "decode"): _RWKV, ("hybrid", "train"): _RGLRU_TRAIN,
+                   ("moe", "train"): _MOE, ("moe", "prefill"): _MOE, ("moe", "decode"): _MOE}
 _ONE_DEVICE = make_mesh((1, 1), ("data", "model"), devices="meta")
 
 _ALLOCATIONS = frozenset({
@@ -149,13 +198,38 @@ class Plan:
     donate: Tuple[int, ...] = ()
     specs: Dict[str, Optional[sh.PartitionSpec]] = dataclasses.field(default_factory=dict)
     out_specs: Optional[Callable] = None
+    model: Any = None
+    dmesh: Any = None
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def mesh_size(self) -> int:
         return math.prod(self.mesh.shape.values())
 
     def run(self):
-        return self.step(*self.args)
+        if self.dmesh is None:
+            return self.step(*self.args)
+        # Plain tensors the step makes (positions, masks, zeros) are the
+        # same on every rank: replicated.
+        with implicit_replication():
+            return self.step(*self.args)
+
+
+def partition(plan: Plan, dmesh) -> Plan:
+    """``plan`` as one rank's program on ``dmesh`` (a ``DeviceMesh`` of the
+    plan's mesh): its arguments distributed by their shardings
+    (``sharding.distribute_tree``: meta local shards for meta arguments),
+    and the model's hooks set from ``plan.specs``.  The reference pins the
+    GQA-folded query blocks ``(B, Hkv, group·nq, block_q, D)`` on dim 2; the
+    port's folded rows ``(B, Hkv, group·T, D)`` take the same split."""
+    hook = lambda spec: None if spec is None else sh.Constraint(dmesh, spec)
+    context = plan.specs.get("context")
+    plan.model.residual_sharding = hook(plan.specs.get("residual"))
+    plan.model.expert_sharding = hook(plan.specs.get("expert"))
+    plan.model.context_sharding = hook(None if context is None else sh.P(*context[:4]))
+    plan.model.weight_gather = sh.gather_weights
+    args = tuple(sh.distribute_tree(a, s, dmesh) for a, s in zip(plan.args, plan.specs_in))
+    return dataclasses.replace(plan, args=args, dmesh=dmesh)
 
 
 def _dp_size(mesh) -> int:
@@ -217,7 +291,7 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh,
         return Plan(
             "train", cfg, mesh, step_fn, (state, batch),
             (state_in, training.attach_shardings(batch, batch_sh)),
-            donate=(0,), specs=specs,
+            donate=(0,), specs=specs, model=model,
             out_specs=lambda out: (state_in, sh.tree_map_with_keys(replicated, out[1])))
 
     params, axes = training.eval_params(model)
@@ -228,7 +302,7 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh,
         step_fn = training.make_prefill_step(model)
         return Plan("prefill", cfg, mesh, step_fn, (params, batch),
                     (params_in, training.attach_shardings(batch, batch_sh)),
-                    specs=specs, out_specs=batch_rule)
+                    specs=specs, out_specs=batch_rule, model=model)
 
     # decode: one token against a seq_len-deep cache, donated
     cache = model.init_cache(shape.global_batch, shape.seq_len, device="meta")
@@ -245,7 +319,7 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh,
         "decode", cfg, mesh, step_fn, (params, cache, tokens, pos),
         (params_in, cache_in, sh.TensorSpec(tuple(tokens.shape), tokens.dtype, tok_sh),
          sh.TensorSpec((), torch.int32, sh.NamedSharding(mesh, sh.P()))),
-        donate=(1,), specs=specs,
+        donate=(1,), specs=specs, model=model,
         out_specs=lambda out: (batch_rule(out[0]), cache_in))
 
 
@@ -273,17 +347,79 @@ def teraagent_state(dcfg, capacity: int, device="meta"):
     return init_dist_state(dcfg, capacity, np.zeros((0, 3), np.float32), device=device)
 
 
+def teraagent_engine(dcfg):
+    """The reference's engine settings (``dryrun.py:367-376``: box 2, 32 a
+    cell, Brownian motion 0.05, mechanics, dt 0.05, sorted every 16 steps)
+    on the port's kernels: the fused cell-list force and the cell-rank
+    kernel (the reference's plan runs its dense force and XLA's rank)."""
+    from repro_torch.core import EngineConfig, ForceParams
+    from repro_torch.core.behaviors import brownian_motion
+
+    return EngineConfig(
+        spec=dcfg.grid_spec(box_size=2.0, max_per_cell=32, rank_impl="cuda"),
+        behaviors=(brownian_motion(0.05),), force_params=ForceParams(), dt=0.05,
+        min_bound=0.0, max_bound=dcfg.extent, sort_frequency=16, force_impl="fused")
+
+
+def stepped_mesh(mesh):
+    """The mesh a TeraAgent plan steps: the same axes, 2 ranks an axis (a
+    rank's bytes and work do not depend on the axis sizes: every buffer has
+    the cell's capacities)."""
+    return make_mesh(tuple(min(n, 2) for n in mesh.shape.values()), tuple(mesh.shape),
+                     devices="meta")
+
+
+def teraagent_branches(dcfg, ecfg, capacity: int = 4096, agents: int = 2000,
+                       seed: int = 0) -> Dict[str, bool]:
+    """The force passes' branches (``forces.Branches``) that one eager CPU
+    step records for this domain and engine: ``agents`` seeded uniformly
+    over the domain in a pool of ``capacity`` a rank."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.forces import Branches
+
+    cpu = make_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices="cpu")
+    extent = [dcfg.extent * n for n in dcfg.axis_sizes] + [dcfg.extent] * (3 - dcfg.n_decomposed)
+    pos = np.random.default_rng(seed).uniform(0.0, extent, (agents, 3)).astype(np.float32)
+    state = dist.init_dist_state(dcfg, capacity, pos, diameter=1.0, seed=seed)
+    branches = Branches()
+    dist.step_ranks(cpu, dist.distributed_scheduler(dcfg, ecfg),
+                    dist.unstack_state(state, cpu.devices), 0, branches=branches)
+    return dict(branches.taken)
+
+
 def lower_teraagent(mesh) -> Plan:
-    """The paper's own workload: one rank's ``DistState`` a device (the
-    stacked state sharded over its leading rank axis).  The agent step syncs
-    with the host on data-dependent sizes, which meta tensors cannot run, so
-    the plan holds the state and no step."""
+    """The paper's own workload: the lock-step step of every rank
+    (``distributed.step_ranks``) on one ``DistState`` a rank, on meta.  The
+    specs are the production mesh's (one rank's state a device); the step
+    runs on :func:`stepped_mesh`, its force passes taking the branches an
+    eager CPU step records (:func:`teraagent_branches`, in ``extras``)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.forces import Branches
+    from repro_torch.core.slots import tree_map
+
     dcfg, capacity = teraagent_config(mesh)
-    state = teraagent_state(dcfg, capacity)
     leading = sh.NamedSharding(mesh, sh.P(dcfg.mesh_axes))
     specs_in = sh.tree_map_with_keys(
-        lambda _, t: sh.TensorSpec(tuple(t.shape), t.dtype, leading), _tensor_tree(state))
-    return Plan("abm_step", None, mesh, None, (state,), (specs_in,))
+        lambda _, t: sh.TensorSpec(tuple(t.shape), t.dtype, leading),
+        _tensor_tree(teraagent_state(dcfg, capacity)))
+
+    small = stepped_mesh(mesh).ordered(dcfg.mesh_axes)
+    sdcfg, _ = teraagent_config(small)
+    ecfg = teraagent_engine(sdcfg)
+    assumed = teraagent_branches(sdcfg, ecfg)
+    scheduler = dist.distributed_scheduler(sdcfg, ecfg)
+    # One state a rank, each with storage of its own (the rank's share).
+    ranks = [tree_map(torch.clone, r)
+             for r in dist.unstack_state(teraagent_state(sdcfg, capacity), small.devices)]
+    diverged = torch.zeros((), dtype=torch.bool, device="meta")
+
+    def step(ranks):
+        return dist.step_ranks(small, scheduler, ranks, 0,
+                               branches=Branches(assumed, diverged))
+
+    return Plan("abm_step", None, mesh, step, (ranks,), (specs_in,),
+                out_specs=lambda out: specs_in,
+                extras={"stepped_mesh": small.axis_sizes, "branches": assumed})
 
 
 def _tensor_tree(tree):
@@ -325,47 +461,202 @@ def _block(n: int) -> int:
     return 0 if n == 0 else -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
 
 
+def _propagating() -> bool:
+    """Whether DTensor's sharding propagation is running: it runs each op on
+    fake tensors of the global shapes, which no device runs."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; any other tensor itself."""
+    return t.to_local() if sh.is_dtensor(t) else t
+
+
+# The ``_c10d_functional`` collectives, by the kinds of the reference's
+# ``collective_bytes_from_hlo``; the other ops of the namespace (waits,
+# autograd wrappers) move nothing.
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_C10D_KINDS = {
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+_C10D_NOOPS = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+def _collective(func) -> Optional[str]:
+    """The kind of a ``_c10d_functional`` op, "" for one that moves nothing,
+    None for any other op; raises on a collective with no kind."""
+    if not func.namespace.startswith("_c10d_functional"):
+        return None
+    name = func._schema.name.split("::")[-1]
+    if name in _C10D_KINDS:
+        return _C10D_KINDS[name]
+    if name in _C10D_NOOPS:
+        return ""
+    raise NotImplementedError(f"no collective kind for {func}")
+
+
+def collective_bytes(counts: Dict[Tuple[str, str], int]) -> Dict[str, int]:
+    """The record's ``collective_bytes_per_device`` from bytes keyed by
+    (kind, axis or group): every kind, and ``total``."""
+    out = {k: 0 for k in COLLECTIVES}
+    for (kind, _), n in counts.items():
+        out[kind] += n
+    out["total"] = sum(out.values())
+    return out
+
+
+def link_rate(mesh, axis: str) -> float:
+    """B/s a device sends along ``axis`` of ``mesh`` (ranks numbered x-major
+    over the axes, ``NODE`` cards a node): NVLink 4 where every group of the
+    axis lies within one node, else the node's network."""
+    names = tuple(mesh.shape)
+    stride = math.prod(list(mesh.shape.values())[names.index(axis) + 1:])
+    span = stride * mesh.shape[axis]
+    return NVLINK_BW if span <= NODE and NODE % span == 0 else NETWORK_BW
+
+
+def collective_seconds(mesh, by_axis: Dict[Tuple[str, str], int]) -> float:
+    """Each axis's collective bytes over its link rate, summed."""
+    return sum(n / link_rate(mesh, axis) for (_, axis), n in by_axis.items())
+
+
+class RankScope:
+    """``distributed.rank_scope`` for the dry-run: ``rank`` is the rank whose
+    work is running (None outside every rank's)."""
+
+    def __init__(self):
+        self.rank: Optional[int] = None
+
+    @contextlib.contextmanager
+    def __call__(self, rank: int):
+        outer, self.rank = self.rank, rank
+        try:
+            yield
+        finally:
+            self.rank = outer
+
+
+class _LocalFlops(FlopCounterMode):
+    """``FlopCounterMode`` over the ops a device runs: not those of DTensor's
+    sharding propagation.  With a ``scope``, ``by_rank`` holds each rank's
+    FLOPs (key None: outside every rank's work)."""
+
+    def __init__(self, scope: Optional[RankScope] = None, **kw):
+        super().__init__(**kw)
+        self.scope = scope
+        self.by_rank: Dict[Optional[int], int] = collections.Counter()
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        if _propagating():
+            return out
+        if self.scope is not None and func_packet in self.flop_registry:
+            self.by_rank[self.scope.rank] += self.flop_registry[func_packet](
+                *args, **kwargs, out_val=out)
+        return super()._count_flops(func_packet, out, args, kwargs)
+
+
 class OpCounter(TorchDispatchMode):
     """Counts, over the aten ops run under it: ``bytes`` read and written
     (operands and results; view ops and bare allocations excluded), and the
     storage bytes alive (each storage in 512-byte blocks, freed when its
     last tensor dies), ``peak`` being the most at any op.  ``args``' storages
-    are alive from the start (``arg_bytes``)."""
+    are alive from the start (``arg_bytes``).
 
-    def __init__(self, args=()):
+    Over DTensors it counts one rank's ops: a DTensor op is handed on to
+    DTensor (``NotImplemented``), whose ops on the local shards and
+    ``_c10d_functional`` collectives then come through here; the ops of its
+    sharding propagation are not counted.  ``collectives`` sums each
+    collective's operand bytes by kind, as ``collective_bytes_from_hlo``
+    does, keyed by (kind, process group name); a collective adds no
+    ``bytes``.  Entered last (innermost), it keeps
+    the modes under it (``_LocalFlops``) from seeing DTensor ops.
+
+    With a ``scope`` (the lock-step ABM step), ``args`` holds one tree a
+    rank and every op and storage also counts for the rank whose work made
+    it: ``ranks[r]`` has its ``bytes``, ``live``, ``peak`` and ``args``
+    (key None: outside every rank's work)."""
+
+    def __init__(self, args=(), scope: Optional[RankScope] = None):
         super().__init__()
         self.bytes = 0
         self.live = 0
-        self._sizes: Dict[int, int] = {}
-        for t in tree_tensors(args):
-            self._track(t)
+        self.collectives: Dict[str, int] = {}
+        self.scope = scope
+        self.ranks: Dict[Optional[int], Dict[str, int]] = {}
+        self._sizes: Dict[int, Tuple[int, Optional[int]]] = {}
+        owned = enumerate(args) if scope is not None else [(None, args)]
+        for rank, tree in owned:
+            for t in tree_tensors(tree):
+                self._track(_local(t), rank)
         self.arg_bytes = self.live
         self.peak = self.live
+        for r in self.ranks.values():
+            r["args"] = r["peak"] = r["live"]
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _rank(self, rank: Optional[int]) -> Dict[str, int]:
+        if rank not in self.ranks:
+            self.ranks[rank] = {"bytes": 0, "live": 0, "peak": 0, "args": 0}
+        return self.ranks[rank]
+
+    def _track(self, t: torch.Tensor, rank: Optional[int]) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self._sizes:
             return
         n = _block(st.nbytes())
-        self._sizes[key] = n
+        self._sizes[key] = (n, rank)
         self.live += n
+        own = self._rank(rank)
+        own["live"] += n
+        own["peak"] = max(own["peak"], own["live"])
         weakref.finalize(st, self._free, key)
 
+    def _alias(self, new: torch.Tensor, old: torch.Tensor) -> None:
+        if type(new) is not torch.Tensor:    # an async wrapper of ``old`` itself
+            return
+        kn, ko = new.untyped_storage()._cdata, old.untyped_storage()._cdata
+        if kn == ko or kn in self._sizes or ko not in self._sizes:
+            return
+        self._sizes[kn] = self._sizes.pop(ko)
+        weakref.finalize(new.untyped_storage(), self._free, kn)
+
     def _free(self, key: int) -> None:
-        self.live -= self._sizes.pop(key, 0)
+        n, rank = self._sizes.pop(key, (0, None))
+        self.live -= n
+        self._rank(rank)["live"] -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         out = func(*args, **kwargs)
-        if func.is_view:                 # no bytes moved, no storage made
+        if func.is_view or _propagating():   # no bytes moved, no storage made
             return out
         results = _flat(out)
-        if func not in _ALLOCATIONS:
-            self.bytes += sum(t.nbytes for t in _flat(args) + _flat(list(kwargs.values()))
-                              + results)
+        rank = None if self.scope is None else self.scope.rank
+        kind = _collective(func)
+        if kind:
+            group = next(a for a in reversed(args) if isinstance(a, str))
+            key = (kind, group)
+            self.collectives[key] = (self.collectives.get(key, 0)
+                                     + sum(t.nbytes for t in _flat(args[:1])))
+        elif kind == "" and func._schema.name.endswith("_wrap_tensor_autograd"):
+            # A wrapper of its input, which its meta kernel copies: the
+            # input's storage is counted once, for as long as the result lives.
+            for new, old in zip(results, _flat(args)):
+                self._alias(new, old)
+            return out
+        elif kind is None and func not in _ALLOCATIONS:
+            moved = sum(t.nbytes for t in _flat(args) + _flat(list(kwargs.values())) + results)
+            self.bytes += moved
+            self._rank(rank)["bytes"] += moved
         for t in results:
-            self._track(t)
+            self._track(t, rank)
         if self.live > self.peak:
             self.peak = self.live
         return out
@@ -408,6 +699,20 @@ def flash_attention_flops(q_shape, k_shape, causal: bool, window: Optional[int],
     return 4 * d * tiles * FLASH_TILE ** 2 * b * hq
 
 
+@contextlib.contextmanager
+def _no_gc():
+    """Python's cycle collector off (after a collection), for the lock-step
+    ABM step: a storage held in a reference cycle then lives to the end of
+    the step on every rank alike, not to wherever a collection happens to
+    run in the middle of one rank's work."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 def step_costs(plan: Plan) -> Dict[str, Any]:
     """One step of ``plan`` on meta under the counters: ``flops`` (the aten
     ops' and the flash kernel's), ``bytes``, ``peak`` and ``arg_live`` (the
@@ -416,46 +721,107 @@ def step_costs(plan: Plan) -> Dict[str, Any]:
     observer = lambda *call: flash.append(flash_attention_flops(*call))
     fa_kernel.meta_observers.append(observer)
     try:
-        with FlopCounterMode(display=False) as fc, OpCounter(plan.args) as ops:
+        with _LocalFlops(display=False) as fc, OpCounter(plan.args) as ops:
             outputs = plan.run()
     finally:
         fa_kernel.meta_observers.remove(observer)
+    axes = {}
+    if plan.dmesh is not None:
+        axes = {plan.dmesh.get_group(i).group_name: a
+                for i, a in enumerate(plan.dmesh.mesh_dim_names)}
+    coll = collections.Counter()
+    for (kind, group), n in ops.collectives.items():
+        coll[kind, axes[group]] += n
     return {"flops": fc.get_total_flops() + sum(flash), "bytes": ops.bytes,
-            "peak": ops.peak, "arg_live": ops.arg_bytes, "outputs": outputs}
+            "peak": ops.peak, "arg_live": ops.arg_bytes, "outputs": outputs,
+            "collectives": dict(coll)}
+
+
+def abm_costs(plan: Plan) -> Dict[str, Any]:
+    """The lock-step ABM step of ``plan`` on meta, rank 0's share: its
+    ``flops``, ``bytes``, ``peak`` and ``arg_live``, and the bytes it sends
+    through ``Mesh.shift`` (``collectives``, by ("collective-permute",
+    axis)).  Raises unless every rank's FLOPs, bytes, arguments and shifted
+    bytes are equal and their peaks within two 512-byte blocks (the lock-step
+    order lets a rank's scalar temporary outlive another's peak).  ``attributed``:
+    whether every op and storage ran as some rank's work.  A first step,
+    not counted, makes the constants the step keeps on its device
+    (``grid.device_constant``), as the compiled run's warm-up step does; one
+    device's ranks share them here, where each card would make its own."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import count_shift_bytes
+
+    plan.run()
+    scope = RankScope()
+    ranks = plan.args[0]
+    outer, dist.rank_scope = dist.rank_scope, scope
+    try:
+        with _no_gc(), count_shift_bytes() as sent, \
+                _LocalFlops(scope=scope, display=False) as fc, OpCounter(ranks, scope=scope) as ops:
+            outputs = plan.run()
+    finally:
+        dist.rank_scope = outer
+    share = {r: (fc.by_rank[r], ops.ranks[r]["bytes"], ops.ranks[r]["args"], sent.on_axes(r))
+             for r in range(len(ranks))}
+    peaks = [ops.ranks[r]["peak"] for r in range(len(ranks))]
+    if any(v != share[0] for v in share.values()) or max(peaks) - min(peaks) > 2 * ALLOC_BLOCK:
+        raise AssertionError(f"the ranks' shares of the step differ: {share}, peaks {peaks}")
+    flops, moved, args, axes = share[0]
+    peak = peaks[0]
+    outside = ops.ranks.get(None, {})
+    return {"flops": flops, "bytes": moved, "peak": peak, "arg_live": args,
+            "collectives": {("collective-permute", a): n for a, n in axes.items()},
+            "outputs": outputs,
+            "attributed": fc.by_rank[None] == 0 and not outside.get("bytes")
+            and not outside.get("peak")}
 
 
 @functools.lru_cache(maxsize=None)
-def global_costs(arch: str, shape: ShapeSpec, cfg: ModelConfig) -> Dict[str, Any]:
-    """``step_costs`` of one step of ``cfg`` at ``shape``.  The counts are
-    global (the mesh changes only the plan's shardings), so each (arch,
-    shape, config) is run once, on a one-device mesh, for every mesh."""
-    return step_costs(lower_cell(arch, shape, _ONE_DEVICE, cfg=cfg))
+def global_costs(arch: str, shape: ShapeSpec, cfg: ModelConfig, mesh=_ONE_DEVICE,
+                 sequence_parallel: bool = True) -> Dict[str, Any]:
+    """``step_costs`` of one step of ``cfg`` at ``shape`` on ``mesh``: on one
+    device the global counts; on more, rank 0's program over a fake process
+    group of the mesh's size (``partition``), the collectives' groups on a
+    ``"cuda"`` device mesh, as a deployment's NCCL ones."""
+    plan = lower_cell(arch, shape, mesh, sequence_parallel=sequence_parallel, cfg=cfg)
+    if math.prod(mesh.shape.values()) == 1:
+        return step_costs(plan)
+    from repro_torch.launch.mesh import device_mesh, fake_group
+
+    with fake_group(math.prod(mesh.shape.values())):
+        return step_costs(partition(plan, device_mesh(mesh, "cuda")))
 
 
 def extrapolated_costs(arch: str, shape_name: Union[str, ShapeSpec],
-                       cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
+                       cfg: Optional[ModelConfig] = None, mesh=_ONE_DEVICE,
+                       sequence_parallel: bool = True) -> Dict[str, Any]:
     """Per-layer cost extrapolation from two shallow variants, as the
     reference's: L = g and L = 2g layers (g = the block pattern's length),
     ``total = A + (L_full − g)/g · (B − A)``, exact (a fraction) where g
     divides L_full.  XLA counts a while-loop body once, so the reference
     needs it; eager PyTorch counts every layer it runs, so here it only saves
-    host time and equals a direct full-depth count.  The counts are global:
-    no mesh changes them."""
+    host time and equals a direct full-depth count.  On a one-device mesh
+    the counts are global; on more, rank 0's (``global_costs``), the
+    collectives' bytes extrapolated kind by kind and axis by axis."""
     cfg0 = get_config(arch) if cfg is None else cfg
     shape = _shape(shape_name)
     g = len(cfg0.block_pattern)
     l_full = cfg0.n_layers
     enc_a = max(1, round(cfg0.n_encoder_layers * g / l_full)) if cfg0.is_encoder_decoder else 0
     a, b = (global_costs(arch, shape, dataclasses.replace(cfg0, n_layers=k * g,
-                                                          n_encoder_layers=k * enc_a))
+                                                          n_encoder_layers=k * enc_a),
+                         mesh, sequence_parallel)
             for k in (1, 2))
     factor = Fraction(l_full - g, g)
 
-    def total(k):
-        v = a[k] + factor * (b[k] - a[k])
+    def total(x, y):
+        v = x + factor * (y - x)
         return int(v) if v.denominator == 1 else float(v)
 
-    return {"flops": total("flops"), "bytes": total("bytes"), "outputs": a["outputs"],
+    coll = {k: total(a["collectives"].get(k, 0), b["collectives"].get(k, 0))
+            for k in set(a["collectives"]) | set(b["collectives"])}
+    return {"flops": total(a["flops"], b["flops"]), "bytes": total(a["bytes"], b["bytes"]),
+            "collectives": coll, "outputs": a["outputs"],
             "shallow_a": {k: a[k] for k in ("flops", "bytes")},
             "shallow_b": {k: b[k] for k in ("flops", "bytes")}}
 
@@ -483,14 +849,13 @@ def plan_memory(plan: Plan, outputs=None, full: Optional[Dict[str, Any]] = None
                 ) -> Dict[str, Any]:
     """The record's ``memory``: per-device argument, output and alias bytes
     from the plan's shard shapes (``outputs``: the step's outputs at any
-    depth); temp and peak from ``full`` (``step_costs`` at full depth) on a
-    one-device mesh, else null."""
+    depth); temp and peak from ``full`` (one device's counts of a full-depth
+    step: ``step_costs`` / ``abm_costs``), else null."""
     args = spec_bytes(plan.specs_in)
     alias = sum(spec_bytes(plan.specs_in[i]) for i in plan.donate)
-    # A plan without a step (the agent state) returns a state of its shapes.
-    out = args if plan.step is None else spec_bytes(plan.out_specs(outputs))
+    out = spec_bytes(plan.out_specs(outputs))
     temp = peak = None
-    if full is not None and plan.mesh_size == 1:
+    if full is not None:
         temp = full["peak"] - full["arg_live"]
         peak = args + out + temp - alias
     return dict(argument_bytes=args, output_bytes=out, temp_bytes=temp, alias_bytes=alias,
@@ -529,26 +894,47 @@ def run_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh_kind: str,
         return record
 
     t_lower = time.time() - t0
-    flops = bytes_acc = None
-    if plan.step is None:
-        record["reason"] = ("the agent step syncs with the host on data-dependent sizes, "
-                            "which meta tensors cannot run: state bytes only")
-        memory = plan_memory(plan)
+    notes = []
+    if plan.kind == "abm_step":
+        costs = abm_costs(plan)
+        full = costs if costs["attributed"] else None
+        notes.append(
+            f"the step runs on a {plan.extras['stepped_mesh']} mesh of the same axes (2 ranks "
+            "an axis): a rank's work and bytes do not depend on the axis sizes; its force "
+            "passes take the branches an eager CPU step records ("
+            + ", ".join(f"{k}={v}" for k, v in sorted(plan.extras["branches"].items()))
+            + "); flops: products only (FlopCounterMode), of which the agent step has few; "
+            "the force and rank kernels' stand-ins count no bytes")
+        if full is None:
+            notes.append("temp_bytes: some of the step's storage is no rank's own work")
     else:
-        full = step_costs(plan) if n_chips == 1 else None
-        costs = extrapolated_costs(arch, shape, cfg=plan.cfg)
-        flops, bytes_acc = _per_device(costs["flops"], n_chips), _per_device(costs["bytes"],
-                                                                              n_chips)
-        memory = plan_memory(plan, costs["outputs"], full)
-        notes = []
         if plan.cfg.attention_impl == "cuda":
             notes.append("flops: the flash kernel is no aten op; its visible-tile formula "
                          "counts its attention")
-        if full is None:
-            notes.append("temp_bytes: no partitioner says what one device of a "
-                         f"{n_chips}-device mesh holds in flight")
-        if notes:
-            record["reason"] = "; ".join(notes)
+        skip = NOT_PARTITIONED.get((plan.cfg.family, plan.kind)) if n_chips > 1 else None
+        try:
+            if skip:
+                raise NotImplementedError(skip)
+            costs = extrapolated_costs(arch, shape, cfg=plan.cfg, mesh=mesh,
+                                       sequence_parallel=sequence_parallel)
+            full = global_costs(arch, shape, plan.cfg, mesh, sequence_parallel)
+            if n_chips > 1:
+                notes.append("rank 0's program over a fake process group of the mesh's "
+                             "size (DTensor): its local ops and collectives")
+        except (NotImplementedError, RuntimeError, AssertionError) as e:
+            # A skipped cell, or an op DTensor has no rule for: the global
+            # counts split evenly, no temp or collectives.
+            notes.append(f"not partitioned: {skip or _failed_op(e)}: the global counts split "
+                         f"evenly over the {n_chips} devices; no temp_bytes or collectives")
+            costs = extrapolated_costs(arch, shape, cfg=plan.cfg)
+            costs = dict(costs, flops=_split(costs["flops"], n_chips),
+                         bytes=_split(costs["bytes"], n_chips), collectives=None)
+            full = None
+    flops, bytes_acc = costs["flops"], costs["bytes"]
+    memory = plan_memory(plan, costs["outputs"], full)
+    coll = costs["collectives"]
+    if notes:
+        record["reason"] = "; ".join(notes)
     t_compile = time.time() - t0 - t_lower
 
     record.update(
@@ -557,18 +943,21 @@ def run_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh_kind: str,
         compile_s=round(t_compile, 2),
         flops_per_device=flops,
         bytes_accessed_per_device=bytes_acc,
-        collective_bytes_per_device=None,
+        collective_bytes_per_device=None if coll is None else collective_bytes(coll),
         memory=memory,
         roofline=dict(
-            compute_s=None if flops is None else flops / PEAK_FLOPS,
-            memory_s=None if bytes_acc is None else bytes_acc / HBM_BW,
+            compute_s=flops / PEAK_FLOPS,
+            memory_s=bytes_acc / HBM_BW,
+            # XLA's fusions, which this reads in the reference, have no
+            # counterpart in eager PyTorch.
             memory_s_fused_est=None,
-            collective_s=None,
+            collective_s=None if coll is None else collective_seconds(mesh, coll),
         ),
     )
     terms = record["roofline"]
-    record["roofline"]["dominant"] = (None if flops is None else max(
-        ("compute_s", "memory_s"), key=lambda k: terms[k]))
+    record["roofline"]["dominant"] = max(
+        (k for k in ("compute_s", "memory_s", "collective_s") if terms[k] is not None),
+        key=lambda k: terms[k])
     if arch != "teraagent":
         tokens = shape.global_batch * (1 if record["kind"] == "decode" else shape.seq_len)
         n_active = plan.cfg.params_active()
@@ -579,18 +968,29 @@ def run_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh_kind: str,
         )
     if verbose:
         r = record["roofline"]
-        if flops is None:
-            print(f"[OK] {arch} × {shape.name} × {mesh_kind}: state only")
-        else:
-            print(f"[OK] {arch} × {shape.name} × {mesh_kind}: plan {record['lower_s']}s, "
-                  f"count {record['compile_s']}s, compute {r['compute_s']*1e3:.2f}ms, "
-                  f"mem {r['memory_s']*1e3:.2f}ms → {r['dominant']}")
+        print(f"[OK] {arch} × {shape.name} × {mesh_kind}: plan {record['lower_s']}s, "
+              f"count {record['compile_s']}s, compute {r['compute_s']*1e3:.2f}ms, "
+              f"mem {r['memory_s']*1e3:.2f}ms, coll {(r['collective_s'] or 0)*1e3:.2f}ms "
+              f"→ {r['dominant']}")
         print(f"     memory: {record['memory']}")
+        print(f"     collectives: {record['collective_bytes_per_device']}")
     _write(out_dir, record)
     return record
 
 
-def _per_device(total, n: int):
+def _failed_op(e: BaseException) -> str:
+    """Where a partitioned step failed: the port's innermost line in the
+    traceback, and the error's first line."""
+    where = ""
+    for frame in traceback.extract_tb(e.__traceback__):
+        if f"{os.sep}repro_torch{os.sep}" in frame.filename:
+            path = frame.filename.split(f"{os.sep}repro_torch{os.sep}")[-1]
+            where = f"{path}:{frame.lineno} `{(frame.line or '').strip()}` "
+    msg = str(e).strip().splitlines()
+    return f"{where}({type(e).__name__}{': ' + msg[0][:200] if msg else ''})"
+
+
+def _split(total, n: int):
     """``total / n``: an int where it divides evenly, else a float."""
     v = Fraction(total) / n
     return int(v) if v.denominator == 1 else float(v)

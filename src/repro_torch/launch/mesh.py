@@ -16,16 +16,31 @@ them in ``DomainConfig.mesh_axes`` order).
 
 ``make_production_mesh`` gives the reference's deployment meshes, (16, 16)
 and (2, 16, 16), on the meta device: the dry-run (``launch/dryrun.py``)
-plans them and reads only their ``shape``.
+plans them.
+
+Two more views of a mesh serve the dry-run:
+
+* ``count_shift_bytes()`` counts the bytes each rank sends through
+  :meth:`Mesh.shift`, the distributed engine's only collective (the
+  reference's ``collective-permute``).
+* ``device_mesh(mesh)`` is a ``torch.distributed`` ``DeviceMesh`` of the
+  mesh's shape and axis names over the default process group, which the
+  caller initialises: ``fake_group(size)`` (the dry-run: the process is
+  rank 0 of ``size``, and every collective only shapes its output), or any
+  real group (gloo, NCCL).  DTensors placed on it carry the LM cells'
+  shardings (``sharding.distribute_tree``).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import math
-from typing import Any, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 
@@ -37,6 +52,54 @@ def _tree_to(tree: Any, device: torch.device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_to(v, device) for v in tree)
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def tree_nbytes(tree: Any) -> int:
+    """Bytes of every tensor of a (dict / list / tensor) tree."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(v) for v in tree)
+    return tree.nbytes if isinstance(tree, torch.Tensor) else 0
+
+
+# ``fn(sender, axis, nbytes)`` for each rank's value ``Mesh.shift`` moves.
+shift_observers: List[Callable[[int, str, int], None]] = []
+
+
+@dataclasses.dataclass
+class ShiftBytes:
+    """Bytes sent through :meth:`Mesh.shift`, ``sent[(rank, axis)]``."""
+
+    sent: Dict[Tuple[int, str], int] = dataclasses.field(
+        default_factory=collections.Counter)
+
+    def ranks(self) -> Dict[int, int]:
+        """``{rank: bytes}`` over every rank that sent."""
+        out: Dict[int, int] = collections.Counter()
+        for (r, _), n in self.sent.items():
+            out[r] += n
+        return dict(out)
+
+    def on_axes(self, rank: int) -> Dict[str, int]:
+        """``{axis: bytes}`` that ``rank`` sent along each axis."""
+        return {a: n for (r, a), n in self.sent.items() if r == rank}
+
+
+@contextlib.contextmanager
+def count_shift_bytes() -> Iterator[ShiftBytes]:
+    """Within the context, the bytes each rank sends through
+    :meth:`Mesh.shift`."""
+    count = ShiftBytes()
+
+    def observe(rank: int, axis: str, nbytes: int) -> None:
+        count.sent[rank, axis] += nbytes
+
+    shift_observers.append(observe)
+    try:
+        yield count
+    finally:
+        shift_observers.remove(observe)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +161,10 @@ class Mesh:
         d = self.axis_names.index(axis)
         out = [None] * self.size
         for rank, value in enumerate(values):
+            if shift_observers:
+                nbytes = tree_nbytes(value)
+                for observe in shift_observers:
+                    observe(rank, axis, nbytes)
             coords = list(self.rank_coords(rank))
             coords[d] += direction
             dest = self.rank_of(coords)
@@ -156,3 +223,36 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, devices="meta")
+
+
+def device_mesh(mesh: Mesh, device_type: str = "cpu"):
+    """``mesh``'s shape and axis names as a ``DeviceMesh`` over the default
+    process group, which must hold ``mesh.size`` ranks (rank i at the
+    coordinates ``mesh.rank_coords(i)``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh: no process group; initialise one first "
+                           "(fake_group for a plan)")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"device_mesh: the process group has {dist.get_world_size()} ranks, "
+                         f"the mesh {mesh.size}")
+    ranks = torch.arange(mesh.size).reshape(mesh.axis_sizes)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=mesh.axis_names)
+
+
+@contextlib.contextmanager
+def fake_group(size: int, rank: int = 0) -> Iterator[None]:
+    """The default process group as ``torch.distributed``'s ``"fake"``
+    backend over ``size`` ranks, this process being ``rank``: nothing is
+    sent, a collective only gives its output's shape.  Destroyed on exit;
+    raises if a group is already initialised."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_group: a process group is already initialised")
+    if "fake" not in dist.Backend.backend_list:
+        import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers it)
+    dist.init_process_group("fake", rank=rank, world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

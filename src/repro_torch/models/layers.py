@@ -15,9 +15,12 @@ PyTorch would launch about seven kernels for it.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 
 from .params import normal, ones, zeros
@@ -107,7 +110,47 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32):
 def embed_apply(p, tokens: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     # Gather, then cast: the same values as the reference's cast-then-take,
     # without casting the whole table.
+    if sh.is_dtensor(p["table"]):
+        return _embed_partitioned(p["table"], tokens).to(compute_dtype)
     return p["table"][tokens.long()].to(compute_dtype)
+
+
+def _embed_partitioned(table, tokens):
+    """The lookup over DTensors, its explicit rule (``local_map``): each
+    rank looks up its batch rows in its block of the vocabulary where the
+    tensor axis ``model`` divides it (a row outside the block reads zero),
+    the sum over ``model`` left pending (``Partial``); the table's gradient
+    is the ranks' partial sums over the batch split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    dp, model = sh.mesh_dims(mesh)
+    vocab = model is not None and mesh.size(model) > 1 and table.shape[0] % mesh.size(model) == 0
+    batch = tokens.shape[0] % math.prod(mesh.size(i) for i in dp) == 0
+    tok_pl = [Replicate()] * mesh.ndim
+    tab_pl = [Replicate()] * mesh.ndim
+    for i in dp:
+        tok_pl[i] = Shard(0) if batch else Replicate()
+    if vocab:
+        tab_pl[model] = Shard(0)
+    out_pl = list(tok_pl)
+    if vocab:
+        out_pl[model] = Partial()
+    tab_grad = [Partial() if batch and i in dp else p for i, p in enumerate(tab_pl)]
+
+    def local(table, tokens):
+        ids = tokens.long()
+        if not vocab:
+            return table[ids]
+        at = ids - mesh.get_local_rank(model) * table.shape[0]
+        here = (at >= 0) & (at < table.shape[0])
+        return torch.where(here[..., None], table[torch.where(here, at, 0)], 0.0)
+
+    return local_map(local, out_placements=(tuple(out_pl),),
+                     in_placements=(tuple(tab_pl), tuple(tok_pl)),
+                     in_grad_placements=(tuple(tab_grad), tuple(tok_pl)), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def logits_init(gen, d: int, vocab: int, dtype=torch.float32):

@@ -14,9 +14,19 @@ Port of ``repro/models/model.py`` for every family of ``configs/archs.py``:
 
 The reference's ``lax.scan`` over the stacked layer parameters is a Python
 loop over the leading layer axis, whose stacks are unbound once a call
-(``params.unstack``).  The reference's sharding hooks (the residual,
-expert and context shardings) have no counterpart: eager PyTorch has no
-partitioner, and the dry-run keeps them in its plan (``launch/dryrun.py``).
+(``params.unstack``).  The reference's sharding hooks are kept:
+``residual_sharding`` (the residual stream at each pattern group's start and
+end, ``model.py:291-295``), ``expert_sharding`` (the MoE dispatch) and
+``context_sharding`` (attention's query rows), each a ``sharding.Constraint``
+that redistributes a DTensor in a partitioned step and is None otherwise.
+A partitioned step also sets ``weight_gather`` (``sharding.gather_weights``): each
+layer gathers its weights over the data axes as it starts, FSDP's gather,
+re-done in the backward of a recomputed layer; and each block's normalised
+input is gathered whole but for its batch split (``sharding.split_on``) before
+products split over heads or features, sequence parallelism's all-gather, as
+is the gradient of each product's output (``sharding.grad_split_on``) in the
+backward.  Where the query rows are split instead (``context_sharding``),
+attention's projections keep the sequence split.
 With ``cfg.remat`` and autograd recording, each layer (and each encoder
 layer and loss chunk) runs under ``torch.utils.checkpoint`` (non-reentrant): its
 activations are recomputed in the backward, the reference's
@@ -39,12 +49,14 @@ decode (ROADMAP §3):
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, Optional, Union
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import sharding as sh
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
@@ -110,6 +122,14 @@ class Model:
         self.group_size = p
         self.n_groups = config.n_layers // p if config.scan_layers else 0
         self.tail_kinds = config.layer_kinds()[self.n_groups * p:]
+        # The reference's sharding hooks (``sharding.Constraint``s; None:
+        # nothing is constrained).
+        self.residual_sharding = None
+        self.context_sharding = None
+        self.expert_sharding = None
+        # A partitioned step's FSDP gather of a layer's weights over the data
+        # axes (``sharding.gather_weights``), inside the layer's recomputed region.
+        self.weight_gather = None
 
     # ------------------------------------------------------------- init
 
@@ -235,7 +255,14 @@ class Model:
         return attn.attention_apply(
             p, h, rope_theta=cfg.rope_theta, impl=cfg.attention_impl,
             block_q=cfg.attention_block_q, block_k=cfg.attention_block_k,
-            compute_dtype=self.compute_dtype, **kw)
+            compute_dtype=self.compute_dtype, context_sharding=self.context_sharding, **kw)
+
+    def _attention_input(self, h):
+        """A block's normalised input to attention: with the query rows
+        split over the tensor axis (``context_sharding``) it keeps its
+        sequence split, each rank projecting its rows; else it is gathered
+        whole but for the batch split (the heads split the products)."""
+        return h if self.context_sharding is not None else sh.split_on(h, 0)
 
     def _ffn(self, lp, kind: str, x: torch.Tensor, cache=None):
         """The block's second half, ``x + ffn(ln2(x))``, and the MoE aux loss
@@ -244,7 +271,7 @@ class Model:
         assignment."""
         cfg = self.cfg
         cd = self.compute_dtype
-        h2 = ll.norm_apply(lp["ln2"], x, cfg.norm)
+        h2 = sh.split_on(ll.norm_apply(lp["ln2"], x, cfg.norm), 0)
         aux = None
         if kind == "rwkv6":
             m, last = rwkv_mod.rwkv6_channel_mix(
@@ -256,24 +283,27 @@ class Model:
             m, aux = moe_mod.moe_apply(
                 lp["moe"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
                 capacity_factor=cfg.capacity_factor if cache is None else DECODE_CAPACITY_FACTOR,
-                activation=cfg.activation, token_sort=cfg.moe_token_sort, compute_dtype=cd)
+                activation=cfg.activation, token_sort=cfg.moe_token_sort, compute_dtype=cd,
+                dispatch_sharding=self.expert_sharding)
         else:
             m = ll.glu_mlp_apply(lp["mlp"], h2, cfg.activation, cd)
-        return x + m, aux
+        return x + sh.grad_split_on(m, 0), aux
 
     def _block_forward(self, lp, kind: str, x: torch.Tensor, enc_out: Optional[torch.Tensor],
                        prefix_len: int):
         """One pre-norm residual block: ``(x', aux or None)``."""
         cfg = self.cfg
-        h = ll.norm_apply(lp["ln1"], x, cfg.norm)
+        lp = self._gathered(lp)
+        h = self._attention_input(ll.norm_apply(lp["ln1"], x, cfg.norm))
         if kind in _ATTN_KINDS:
-            x = x + self._attention(lp["attn"], h, causal=True,
-                                    window=cfg.window if kind == "local_attn" else None,
-                                    prefix_len=prefix_len)
+            x = x + sh.grad_split_on(self._attention(
+                lp["attn"], h, causal=True, window=cfg.window if kind == "local_attn" else None,
+                prefix_len=prefix_len), 0)
             if cfg.is_encoder_decoder and enc_out is not None:
-                hc = ll.norm_apply(lp["ln_cross"], x, cfg.norm)
-                x = x + self._attention(lp["cross"], hc, causal=False,
-                                        kv_override=self._encoder_kv(lp["cross"], enc_out))
+                hc = self._attention_input(ll.norm_apply(lp["ln_cross"], x, cfg.norm))
+                x = x + sh.grad_split_on(self._attention(
+                    lp["cross"], hc, causal=False,
+                    kv_override=self._encoder_kv(lp["cross"], enc_out)), 0)
         elif kind == "rwkv6":
             a, _ = rwkv_mod.rwkv6_time_mix(
                 lp["tmix"], h, cfg.d_model // cfg.rnn_head_dim, cfg.rnn_head_dim,
@@ -302,12 +332,18 @@ class Model:
 
     def _encoder_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = x + self._attention(lp["attn"], ll.norm_apply(lp["ln1"], x, cfg.norm), causal=False)
-        return x + ll.glu_mlp_apply(lp["mlp"], ll.norm_apply(lp["ln2"], x, cfg.norm),
-                                    cfg.activation, self.compute_dtype)
+        lp = self._gathered(lp)
+        h = self._attention_input(ll.norm_apply(lp["ln1"], x, cfg.norm))
+        x = x + sh.grad_split_on(self._attention(lp["attn"], h, causal=False), 0)
+        h = sh.split_on(ll.norm_apply(lp["ln2"], x, cfg.norm), 0)
+        return x + sh.grad_split_on(ll.glu_mlp_apply(lp["mlp"], h, cfg.activation,
+                                                     self.compute_dtype), 0)
+
+    def _gathered(self, tree):
+        return tree if self.weight_gather is None else self.weight_gather(tree)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = ll.embed_apply(params["embed"], tokens, self.compute_dtype)
+        x = ll.embed_apply(self._gathered(params["embed"]), tokens, self.compute_dtype)
         # The reference multiplies by √d rounded to the compute dtype first
         # (model.py:277, :501): √3072 = 55.43 is 55.5 in bf16.
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.compute_dtype)
@@ -344,8 +380,16 @@ class Model:
             prefix_len = cfg.prefix_tokens
         enc_out = self.encode(params, batch["frames"]) if cfg.is_encoder_decoder else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp, kind in self._layers(params, unbind=True):
+        grouped = self.n_groups * self.group_size
+        for i, (lp, kind) in enumerate(self._layers(params, unbind=True)):
+            # The residual stream is constrained as the reference's scan body
+            # does: at each pattern group's start and end.
+            at = i % self.group_size
+            if i < grouped and at == 0:
+                x = sh.constrain(self.residual_sharding, x)
             x, a = self._remat(self._block_forward, lp, kind, x, enc_out, prefix_len)
+            if i < grouped and at == self.group_size - 1:
+                x = sh.constrain(self.residual_sharding, x)
             if a is not None:
                 aux = aux + a
         x = ll.norm_apply(params["ln_f"], x, cfg.norm)
@@ -377,34 +421,99 @@ class Model:
         ``torch.utils.checkpoint`` with ``cfg.remat``), their sums added in
         chunk order as the reference's scan carries them.  The last chunk is
         shorter where the reference pads it with masked rows, which add
-        nothing."""
+        nothing.
+
+        Over DTensors the sums run on each rank's rows and vocabulary block
+        (:meth:`_partitioned_sums`)."""
         x, aux = self.backbone(params, batch)
         b, t, d = x.shape
         n = b * t
-        xf = x.reshape(n, d)
+        xf = sh.split_on(x, 0).reshape(n, d)
         tf = batch["targets"].reshape(n).long()
         if self.cfg.tie_embeddings:
             w = params["embed"]["table"].to(self.compute_dtype).t()
         else:
             w = params["logits"]["w"].to(self.compute_dtype)
-        chunk = min(self.LOSS_CHUNK, n)
-        ce_sum = z_sum = tok = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c0 in range(0, n, chunk):
-            ce_c, z_c, tok_c = self._remat(self._chunk_loss, xf[c0:c0 + chunk],
-                                           tf[c0:c0 + chunk], w)
-            ce_sum, z_sum, tok = ce_sum + ce_c, z_sum + z_c, tok + tok_c
+        if sh.is_dtensor(xf):
+            ce_sum, z_sum, tok = self._partitioned_sums(xf, tf, w)
+        else:
+            ce_sum, z_sum, tok = self._chunk_sums(xf, tf, w)
         denom = torch.clamp(tok, min=1.0)
         ce = ce_sum / denom
         zl = 1e-4 * z_sum / denom
         total = ce + zl + 1e-2 * aux
         return total, {"ce": ce, "aux": aux, "zloss": zl, "tokens": tok}
 
-    def _chunk_loss(self, xch: torch.Tensor, tch: torch.Tensor, w: torch.Tensor):
-        """One chunk's (Σ nll, Σ lse², tokens) over its masked rows."""
+    def _chunk_sums(self, xf: torch.Tensor, tf: torch.Tensor, w: torch.Tensor, **kw):
+        """(Σ nll, Σ lse², tokens) over the rows of ``xf``, ``LOSS_CHUNK``
+        rows at a time, added in chunk order."""
+        n = xf.shape[0]
+        chunk = min(self.LOSS_CHUNK, n)
+        ce_sum = z_sum = tok = torch.zeros((), dtype=torch.float32, device=xf.device)
+        for c0 in range(0, n, chunk):
+            ce_c, z_c, tok_c = self._remat(functools.partial(self._chunk_loss, **kw),
+                                           xf[c0:c0 + chunk], tf[c0:c0 + chunk], w)
+            ce_sum, z_sum, tok = ce_sum + ce_c, z_sum + z_c, tok + tok_c
+        return ce_sum, z_sum, tok
+
+    def _partitioned_sums(self, xf, tf, w):
+        """``_chunk_sums`` over DTensors, the loss's explicit sharding rule,
+        under ``local_map``: where ``model`` divides the vocabulary, each
+        rank takes its rows of the data axes (whole over ``model``) and its
+        block of the vocabulary, the log-sum-exp's max and sum and the
+        target's logit all-reduced over ``model``; else its rows of every
+        axis and the whole vocabulary.  The sums come out partial over the
+        axes that split the rows."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+
+        dmesh = xf.device_mesh
+        dp, model = sh.mesh_dims(dmesh)
+        vocab = model is not None and dmesh.size(model) > 1 and w.shape[1] % dmesh.size(model) == 0
+        split = dp if vocab or model is None else dp + [model]
+        rows = xf.shape[0] % math.prod(dmesh.size(i) for i in split) == 0
+
+        def placed(on_rows, on_model):
+            pl = [Replicate()] * dmesh.ndim
+            if model is not None:
+                pl[model] = on_model
+            for i in split:
+                pl[i] = on_rows if rows else Replicate()
+            return tuple(pl)
+
+        row_pl = placed(Shard(0), Replicate())
+        w_pl = placed(Replicate(), Shard(1) if vocab else Replicate())
+        sum_pl = placed(Partial(), Replicate())
+        group = (dmesh, model) if vocab else None
+
+        def local(xf, tf, w):
+            v0 = dmesh.get_local_rank(model) * w.shape[1] if vocab else 0
+            return self._chunk_sums(xf, tf, w, v0=v0, group=group)
+
+        return local_map(
+            local, out_placements=(sum_pl, sum_pl, sum_pl), in_placements=(row_pl, row_pl, w_pl),
+            in_grad_placements=(placed(Shard(0), Partial() if vocab else Replicate()), row_pl,
+                                placed(Partial(), Shard(1) if vocab else Replicate())),
+            device_mesh=dmesh, redistribute_inputs=True)(xf, tf, w)
+
+    def _chunk_loss(self, xch: torch.Tensor, tch: torch.Tensor, w: torch.Tensor,
+                    v0: int = 0, group=None):
+        """One chunk's (Σ nll, Σ lse², tokens) over its masked rows.  With
+        ``group`` (a partitioned step) ``w`` is the vocabulary block from
+        ``v0`` on, the others' blocks on the ranks of ``group``."""
         logits = torch.matmul(xch.to(self.compute_dtype), w).float()
         mask = (tch >= 0).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, 1, torch.clamp(tch, min=0)[:, None])[:, 0]
+        if group is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, 1, torch.clamp(tch, min=0)[:, None])[:, 0]
+        else:
+            mx = sh.max_across(logits.amax(dim=-1), group)
+            lse = mx + torch.log(sh.sum_across(torch.exp(logits - mx[:, None]).sum(dim=-1),
+                                               group))
+            at = torch.clamp(tch, min=0) - v0
+            here = (at >= 0) & (at < w.shape[1])
+            picked = torch.gather(logits, 1, torch.clamp(at, 0, w.shape[1] - 1)[:, None])[:, 0]
+            picked = sh.sum_across(torch.where(here, picked, 0.0), group)
         nll = lse - picked
         return (nll * mask).sum(), (torch.square(lse) * mask).sum(), mask.sum()
 
@@ -459,6 +568,7 @@ class Model:
 
     def _block_decode(self, lp, kind: str, c, x: torch.Tensor, pos: int, prefix_len: int):
         cfg = self.cfg
+        lp = self._gathered(lp)
         cd = self.compute_dtype
         h = ll.norm_apply(lp["ln1"], x, cfg.norm)
         if kind in _ATTN_KINDS:

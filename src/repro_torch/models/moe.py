@@ -35,6 +35,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
+
 from .params import normal
 
 
@@ -105,8 +107,13 @@ def moe_apply(
     activation: str = "swiglu",
     token_sort: bool = True,
     compute_dtype=torch.bfloat16,
+    dispatch_sharding=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(output (B, T, D) in the compute dtype, aux_loss ())``."""
+    """Returns ``(output (B, T, D) in the compute dtype, aux_loss ())``.
+    ``dispatch_sharding``: the ``sharding.Constraint`` that pins the expert
+    dim of the dispatched rows and of the expert outputs, (E, B·C, D), to the
+    tensor axis in a partitioned step (the reference's, ``moe.py:112, 123``);
+    it does nothing to plain tensors."""
     b, t, d = x.shape
     logits = torch.matmul(x.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)                       # (B, T, E)
@@ -137,10 +144,12 @@ def moe_apply(
     # slots of an expert side by side, (E, B·C, D) @ (E, D, F) (a (B, E, C,
     # D) @ (E, D, F) matmul would copy the weights B times to broadcast).
     xe = buf[:, :, :capacity].transpose(0, 1).reshape(n_experts, b * capacity, d)
+    xe = sh.constrain(dispatch_sharding, xe)
     gate = torch.bmm(xe, p["wi_gate"].to(cd))                   # (E, B·C, F)
     up = torch.bmm(xe, p["wi_up"].to(cd))
     act = F.gelu(gate, approximate="tanh") if activation == "geglu" else F.silu(gate)
     expert_out = torch.bmm(act * up, p["wo"].to(cd))            # (E, B·C, D)
+    expert_out = sh.constrain(dispatch_sharding, expert_out)
     expert_out = expert_out.reshape(n_experts, b, capacity, d).transpose(0, 1)
 
     gathered = expert_out[rows, expert_ids, torch.where(keep, rank, 0)]   # (B, T, k, D)

@@ -14,12 +14,24 @@ Mesh: (pod, data, model) multi-pod or (data, model) single-pod.
   seq (activations)       → model  sequence parallelism between blocks
 
 The reference hands these to XLA's SPMD partitioner as ``NamedSharding``s.
-Eager PyTorch has none, so here they are plans: :class:`PartitionSpec` and
-:class:`NamedSharding` mirror JAX's (a spec's one-axis tuple is its axis
-name, as JAX normalises it), ``NamedSharding.shard_shape`` gives the
-per-device block, and :class:`TensorSpec` (shape, dtype, sharding) is the
-``ShapeDtypeStruct`` the dry-run plans with.  The rules read only the
-mesh's ``shape`` dict (``launch/mesh.Mesh``).
+Here :class:`PartitionSpec` and :class:`NamedSharding` mirror JAX's (a
+spec's one-axis tuple is its axis name, as JAX normalises it),
+``NamedSharding.shard_shape`` gives the per-device block, and
+:class:`TensorSpec` (shape, dtype, sharding) is the ``ShapeDtypeStruct``
+the dry-run plans with.  The rules read only the mesh's ``shape`` dict
+(``launch/mesh.Mesh``).
+
+A sharding becomes DTensor placements on a ``DeviceMesh`` of the same axes
+(``launch/mesh.device_mesh``): a tensor dim whose spec entry names mesh
+axes is ``Shard(d)`` on each of those mesh dims, every other mesh dim
+``Replicate()`` (:func:`placements`).  :func:`distribute_tree` places a
+tree on the mesh (meta local shards for a plan, each rank's block of full
+tensors for a run), and :class:`Constraint` is the reference's
+``with_sharding_constraint``: the models' ``residual_sharding``,
+``expert_sharding`` and ``context_sharding`` hooks, which redistribute a
+DTensor and pass a plain tensor through.  DTensor then partitions every op
+it has a rule for; the kernels' ops, which have none, run on the local
+shards under ``local_map`` with the placements their callers state.
 """
 
 from __future__ import annotations
@@ -253,3 +265,253 @@ def cache_shardings(mesh, cache_shapes, n_kv: int) -> Any:
         return NamedSharding(mesh, P(*lead, *parts))
 
     return tree_map_with_keys(one, cache_shapes)
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements
+# ---------------------------------------------------------------------------
+
+def placements(spec: PartitionSpec, mesh_axes: Tuple[str, ...]) -> tuple:
+    """DTensor placements of ``spec`` on a mesh whose dims are ``mesh_axes``:
+    ``Shard(d)`` on each mesh dim that entry d names, in the spec's order
+    (which must be the mesh's: DTensor splits a dim over its mesh dims left
+    to right, as JAX over a tuple's axes), ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(mesh_axes)
+    for d, part in enumerate(spec):
+        names = (part,) if isinstance(part, str) else tuple(part or ())
+        dims = [mesh_axes.index(n) for n in names]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: dim {d} names mesh axes {names} out of the mesh's "
+                             f"order {mesh_axes}")
+        for m in dims:
+            out[m] = Shard(d)
+    return tuple(out)
+
+
+def mesh_dims(dmesh) -> Tuple[list, Optional[int]]:
+    """A ``DeviceMesh``'s data-parallel dims (``pod``, ``data``) and its
+    ``model`` dim (None without one), as indices."""
+    names = tuple(dmesh.mesh_dim_names)
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    return dp, (names.index("model") if "model" in names else None)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def distribute(t: torch.Tensor, spec: PartitionSpec, dmesh):
+    """``t`` as a DTensor of ``spec`` on ``dmesh``: on meta, a meta local
+    shard of the block's shape; else this rank's block of ``t``, which every
+    rank holds whole (nothing is sent)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    pl = placements(spec, tuple(dmesh.mesh_dim_names))
+    if t.device.type != "meta":
+        # Each rank's block in storage of its own (not a view of ``t``).
+        local = distribute_tensor(t, dmesh, pl, src_data_rank=None).to_local().clone()
+        return DTensor.from_local(local, dmesh, pl, run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    sizes = dict(zip(dmesh.mesh_dim_names, dmesh.mesh.shape))
+    local = NamedSharding(_Axes(sizes), spec).shard_shape(tuple(t.shape))
+    return DTensor.from_local(torch.empty(local, dtype=t.dtype, device="meta"), dmesh, pl,
+                              run_check=False, shape=t.shape, stride=t.stride())
+
+
+@dataclasses.dataclass(frozen=True)
+class _Axes:
+    """A mesh's ``shape`` dict alone, which the sharding rules read."""
+
+    shape: dict
+
+
+def distribute_tree(tree: Any, specs: Any, dmesh) -> Any:
+    """Every tensor of ``tree`` distributed by the matching leaf of
+    ``specs`` (a ``TensorSpec`` or ``NamedSharding``, as ``attach_shardings``
+    and the ``*_shardings`` rules give them): see :func:`distribute`."""
+
+    def one(t, s):
+        sharding = s.sharding if isinstance(s, TensorSpec) else s
+        return distribute(t, sharding.spec if sharding else P(), dmesh)
+
+    return tree_map2(one, tree, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Constraint:
+    """The reference's ``with_sharding_constraint(x, NamedSharding(mesh,
+    spec))`` as a hook: a DTensor is redistributed to ``spec``'s placements on
+    ``dmesh``; any other tensor passes unchanged."""
+
+    dmesh: Any
+    spec: PartitionSpec
+
+    def __call__(self, x):
+        if not is_dtensor(x):
+            return x
+        return x.redistribute(self.dmesh, placements(self.spec,
+                                                     tuple(self.dmesh.mesh_dim_names)))
+
+
+def unflattenable(x, dim: int, parts: int):
+    """``x`` ready to have dim ``dim`` split into ``(parts, -1)``: a DTensor
+    split along it over mesh dims whose sizes do not divide ``parts`` is
+    gathered along those first (DTensor cannot unflatten such a split); any
+    other tensor passes unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim %= x.ndim
+    mesh = x.device_mesh
+    pl = list(x.placements)
+    n = 1
+    for i, p in enumerate(pl):
+        if p == Shard(dim):
+            if parts % (n * mesh.size(i)):
+                pl[i] = Replicate()
+            else:
+                n *= mesh.size(i)
+    return x if tuple(pl) == tuple(x.placements) else x.redistribute(mesh, tuple(pl))
+
+
+class _OnGrad(torch.autograd.Function):
+    """The identity, whose backward applies ``fn`` to the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
+def flattened(x, dim: int, parts: int):
+    """``x``, a tensor whose dim ``dim`` was flattened from ``(parts, -1)``,
+    with its gradient made ``unflattenable`` on the way back (the flatten's
+    backward unflattens it); any tensor not a DTensor passes unchanged."""
+    if not is_dtensor(x):
+        return x
+    return _OnGrad.apply(x, lambda g: unflattenable(g, dim, parts))
+
+
+def grad_placed(x, placements: tuple):
+    """``x``, whose gradient is redistributed to ``placements`` on the way
+    back (ahead of a view DTensor cannot take in another placement); any
+    tensor not a DTensor passes unchanged."""
+    if not is_dtensor(x):
+        return x
+    return _OnGrad.apply(x, lambda g: g.redistribute(g.device_mesh, placements))
+
+
+class _SumAcross(torch.autograd.Function):
+    """Sum all-reduce over a mesh dim whose ranks all go on to use the sum
+    alike; so the backward is the identity (Megatron's reduce from the
+    tensor-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_across(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (a ``(DeviceMesh, dim)``),
+    differentiable as :class:`_SumAcross` says."""
+    return _SumAcross.apply(t, group)
+
+
+def max_across(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s elementwise max over the ranks of ``group``, not
+    differentiated (a softmax's stabiliser)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_reduce(t.detach(), "max", group))
+
+
+def gather_weights(tree):
+    """FSDP's gather as a hook: every DTensor of a parameter tree made whole
+    over the data axes (the weight shard of the ``embed`` rule), its other
+    placements kept; any other leaf passes unchanged."""
+    from torch.distributed.tensor import Replicate
+
+    if isinstance(tree, dict):
+        return {k: gather_weights(v) for k, v in tree.items()}
+    if not is_dtensor(tree):
+        return tree
+    dp, _ = mesh_dims(tree.device_mesh)
+    pl = tuple(Replicate() if i in dp else p for i, p in enumerate(tree.placements))
+    return tree if pl == tuple(tree.placements) else tree.redistribute(tree.device_mesh, pl)
+
+
+def split_on(x, dim: int):
+    """A DTensor ``x`` whole along every dim but ``dim`` (its splits of the
+    others gathered), ahead of a flatten that would otherwise make DTensor
+    track a strided split; any other tensor passes unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = tuple(p if p == Shard(dim % x.ndim) else Replicate() for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def grad_split_on(x, dim: int):
+    """``x``, whose gradient comes back whole along every dim but ``dim``
+    (the counterpart of :func:`split_on` for a product's output, whose
+    backward flattens its gradient); any tensor not a DTensor passes
+    unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    return grad_placed(x, tuple(p if p == Shard(dim % x.ndim) else Replicate()
+                                for p in x.placements))
+
+
+def seq_split(x) -> bool:
+    """Whether ``x`` is a DTensor split evenly along dim 1 (a sequence)."""
+    if not is_dtensor(x):
+        return False
+    from torch.distributed.tensor import Shard
+
+    ways = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                     if p == Shard(1))
+    return ways > 1 and x.shape[1] % ways == 0
+
+
+def rows_local(fn: Callable, x, w):
+    """``fn(x, w)`` for a product whose output keeps ``x``'s leading two dims
+    (batch, sequence), on each rank's rows (``local_map``): ``x`` as it is
+    split (any pending sum reduced), ``w`` whole, the output split as ``x``,
+    ``w``'s gradient the ranks' partial sums.  The rule of a product over a
+    sequence split, where DTensor's would flatten the split dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    x_pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if any(p not in (Shard(0), Shard(1), Replicate()) for p in x_pl):
+        raise NotImplementedError(f"rows_local: x placed {x.placements}")
+    whole = (Replicate(),) * mesh.ndim
+    w_grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in x_pl)
+    return local_map(fn, out_placements=(x_pl,), in_placements=(x_pl, whole),
+                     in_grad_placements=(x_pl, w_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
+
+
+def constrain(hook: Optional[Constraint], x):
+    """``hook(x)``, or ``x`` where there is no hook (the single-device
+    paths)."""
+    return x if hook is None else hook(x)

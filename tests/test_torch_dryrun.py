@@ -13,7 +13,8 @@ import json
 
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 
 import torch_parity  # noqa: F401  (one intra-op thread)
 from repro_torch.configs import ShapeSpec, reduced_config
@@ -123,10 +124,11 @@ def test_run_cell_writes_a_record_with_the_reference_keys(tmp_path):
     assert set(rec) <= RECORD_KEYS and set(rec["memory"]) == MEMORY_KEYS
     assert set(rec["roofline"]) == ROOFLINE_KEYS
     assert rec["status"] == "ok" and rec["chips"] == 256
-    assert rec["reason"].startswith("temp_bytes: no partitioner")
-    assert rec["memory"]["temp_bytes"] is None and rec["memory"]["peak_estimate_bytes"] is None
-    assert rec["collective_bytes_per_device"] is None
-    assert rec["roofline"]["collective_s"] is None and rec["roofline"]["memory_s_fused_est"] is None
+    assert rec["reason"].startswith("rank 0's program over a fake process group")
+    assert rec["memory"]["temp_bytes"] > 0 and rec["memory"]["peak_estimate_bytes"] > 0
+    assert set(rec["collective_bytes_per_device"]) == set(dryrun.COLLECTIVES) | {"total"}
+    assert rec["collective_bytes_per_device"]["total"] > 0
+    assert rec["roofline"]["collective_s"] > 0 and rec["roofline"]["memory_s_fused_est"] is None
     skip = dryrun.run_cell("whisper-base", "long_500k", "multi", str(tmp_path), verbose=False)
     assert skip["status"] == "skipped" and set(skip) <= RECORD_KEYS
 
@@ -139,7 +141,8 @@ class _LargestCpuTensor(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         for t in dryrun.tree_tensors(out):
-            if t.device.type != "meta":
+            # DTensor's sharding propagation makes fake tensors: no storage.
+            if t.device.type != "meta" and not isinstance(t, FakeTensor):
                 self.largest = max(self.largest, t.numel() * t.element_size())
         return out
 
@@ -147,22 +150,37 @@ class _LargestCpuTensor(TorchDispatchMode):
 def test_the_dry_run_needs_no_card_and_allocates_nothing(monkeypatch, tmp_path):
     """``make_production_mesh`` and ``run_cell`` at full configs (a train
     step of 16 × 512 tokens, a prefill and a decode cell, and TeraAgent's)
-    make no CUDA call and no tensor off the meta device larger than 1 KiB."""
+    make no CUDA call and no tensor off the meta device larger than the
+    partitioned cells' device mesh's rank table (``DeviceMesh`` keeps one
+    int64 a rank on the host); TeraAgent's step none larger than its grid's
+    Morton rank table (one int32 a cell, built on the host and moved to the
+    device once, ``grid.device_constant``).  TeraAgent's branches are
+    recorded by an eager CPU step (``teraagent_branches``), left out of the
+    count."""
     def no_card(*a, **k):
         raise AssertionError("the dry-run called CUDA")
 
     for name in ("is_available", "init", "synchronize", "device_count", "current_device"):
         monkeypatch.setattr(torch.cuda, name, no_card)
-    spy = _LargestCpuTensor()
-    with spy:
-        mesh = make_production_mesh(multi_pod=True)
-        assert mesh.size == 512 and {d.type for d in mesh.devices} == {"meta"}
-        for arch, shape in (("whisper-base", ShapeSpec("t", 512, 16, "train")),
-                            ("gemma-7b", "prefill_32k"),
-                            ("recurrentgemma-9b", "long_500k"), ("teraagent", "train_4k")):
+    record = dryrun.teraagent_branches
+
+    def uncounted(*a, **k):
+        with _disable_current_modes():
+            return record(*a, **k)
+
+    monkeypatch.setattr(dryrun, "teraagent_branches", uncounted)
+    mesh = make_production_mesh(multi_pod=True)
+    assert mesh.size == 512 and {d.type for d in mesh.devices} == {"meta"}
+    cells = (("whisper-base", ShapeSpec("t", 512, 16, "train")), ("gemma-7b", "prefill_32k"),
+             ("recurrentgemma-9b", "long_500k"), ("teraagent", "train_4k"))
+    dcfg, _ = dryrun.teraagent_config(dryrun.stepped_mesh(mesh))
+    n_cells = dryrun.teraagent_engine(dcfg).spec.n_cells
+    for (arch, shape), bound in zip(cells, (8 * mesh.size,) * 3 + (4 * (n_cells + 1),)):
+        spy = _LargestCpuTensor()
+        with spy:
             rec = dryrun.run_cell(arch, shape, "multi", str(tmp_path), verbose=False)
-            assert rec["status"] == "ok" and rec["memory"]["argument_bytes"] > 0
-    assert spy.largest <= 1024
+        assert rec["status"] == "ok" and rec["memory"]["argument_bytes"] > 0
+        assert spy.largest <= bound, arch
 
 
 def test_cli_runs_one_cell(tmp_path, capsys):
