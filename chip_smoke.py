@@ -245,10 +245,11 @@ printing one JSON line; any failure raises and exits non-zero:
                   (every shape, both production meshes: 82 cells), one CLI
                   process an arch and mesh, ``DRYRUN_JOBS`` at a time, no card
                   visible to them; every cell ``ok`` but the reference's
-                  skips (``long_500k`` on full-attention archs), and every
-                  cell of TeraAgent and of ``DRYRUN_PARTITIONED`` (the six
-                  archs the dry-run partitions over DTensor) with collective
-                  bytes; per cell its status, per-device argument, temp and
+                  skips (``long_500k`` on full-attention archs), every cell
+                  partitioned (collective bytes: TeraAgent's exchange, each
+                  LM cell rank 0's program over DTensor), and no LM cell
+                  planned in more than ``DRYRUN_CELL_S`` (120) host seconds;
+                  per cell its status, per-device argument, temp and
                   collective bytes and host seconds.
   dryrun          the dry-run's plans held against the card, on a one-device
                   meta mesh: ``train``'s configuration (phi4-mini, 16 layers,
@@ -260,7 +261,15 @@ printing one JSON line; any failure raises and exits non-zero:
                   ``peak_estimate_bytes``; ``lm_prefill``'s (4 x 2,048, bf16)
                   argument bytes and FLOPs exact, its peak against the plan's
                   (printed); ``lm_serve``'s parameters and cache bytes
-                  exact; the TeraAgent cell's per-device state (one rank's
+                  exact; the ``moe`` family phase's prefill (olmoe, 4 x
+                  2,048, bf16, all 16 layers): argument
+                  bytes and FLOPs exact, launches as the layer list
+                  implies, the measured peak no more than
+                  ``MOE_PEAK_SLACK`` (10%) above the plan's estimate, and
+                  its first flash (D 128 tensor-core kernel) and rmsnorm
+                  calls against their plain versions (rows
+                  ``flash_attention[olmoe-1b-7b, dryrun]`` and
+                  ``rmsnorm[...]``, this run's launches); the TeraAgent cell's per-device state (one rank's
                   ``DistState``, 1M agents) built on the card, bytes exact on
                   both meshes, and one eager lock-step step of the plan's
                   (2, 2) / (2, 2, 2) ranks on the card at the cell's
@@ -3963,18 +3972,19 @@ def train_kernel_rows(store, launches, cfg):
 # ----------------------------------------------------------------- dry-run
 
 DRYRUN_JOBS = 8                  # dry-run CLI processes at a time (the host has 8 cores)
-# The archs whose cells must run partitioned (collective bytes, temp bytes).
-DRYRUN_PARTITIONED = ("command-r-35b", "gemma-7b", "mistral-nemo-12b", "paligemma-3b",
-                      "phi4-mini-3.8b", "whisper-base")
+DRYRUN_CELL_S = 120.0            # host seconds an LM cell of the grid may take to plan
 DRYRUN_AGENTS = 200_000          # agents a rank of the TeraAgent step on the card
 TRAIN_PEAK_SLACK = 1.10          # measured train peak / the plan's estimate, at most
+MOE_PEAK_SLACK = 1.10            # measured MoE prefill peak / the plan's estimate, at most
 
 
 def phase_dryrun_grid():
     """Every cell of the dry-run's grid through its CLI, one process an arch
     and mesh (``DRYRUN_JOBS`` at a time, ``CUDA_VISIBLE_DEVICES`` empty), records
-    under ``build/dryrun_smoke``; fails on a failed cell, a missing cell or a
-    skip other than the reference's."""
+    under ``build/dryrun_smoke``; fails on a failed cell, a missing cell, a
+    skip other than the reference's, a cell without collective bytes (every
+    cell is partitioned) or an LM cell planned in more than
+    ``DRYRUN_CELL_S`` seconds."""
     from repro_torch.configs import SHAPES, get_config, shape_applicable
     from repro_torch.launch import dryrun
 
@@ -4007,19 +4017,22 @@ def phase_dryrun_grid():
     if failed or wrong or len(records) != len(want):
         raise AssertionError(f"dryrun_grid: failed processes {failed}, cells missing or with "
                              f"another status {wrong}, {len(records)} records for {len(want)}")
-    unpartitioned = [c for c in want if c not in skip and records[c].get(
-        "collective_bytes_per_device") is None and c[1] in DRYRUN_PARTITIONED + ("teraagent",)]
-    if unpartitioned:
-        raise AssertionError(f"dryrun_grid: cells without collective bytes: {unpartitioned}")
+    unpartitioned = [c for c in want if c not in skip and not records[c].get(
+        "collective_bytes_per_device", {}).get("total")]
+    host_s = lambda c: records[c].get("lower_s", 0) + records[c].get("compile_s", 0)
+    slow = [(c, host_s(c)) for c in want if c[1] != "teraagent" and host_s(c) > DRYRUN_CELL_S]
+    if unpartitioned or slow:
+        raise AssertionError(f"dryrun_grid: cells without collective bytes {unpartitioned}, "
+                             f"LM cells over {DRYRUN_CELL_S} s {slow}")
     memory = lambda c, k: records[c].get("memory", {}).get(k)
     total = lambda c: (records[c].get("collective_bytes_per_device") or {}).get("total")
     cells = [[*c, records[c]["status"], memory(c, "argument_bytes"), memory(c, "temp_bytes"),
-              total(c), records[c].get("lower_s", 0) + records[c].get("compile_s", 0)]
-             for c in want]
+              total(c), host_s(c)] for c in want]
     emit("dryrun_grid", wall_s=wall, jobs=DRYRUN_JOBS, cells_total=len(want),
          ok=len(want) - len(skip), skipped=len(skip),
-         partitioned=sum(total(c) is not None for c in want),
-         host_s_total=sum(c[7] for c in cells),
+         partitioned=sum(bool(total(c)) for c in want),
+         host_s_total=sum(c[7] for c in cells), host_s_max_lm=max(
+             c[7] for c in cells if c[1] != "teraagent"), host_s_limit=DRYRUN_CELL_S,
          columns=["mesh", "arch", "shape", "status", "argument_bytes", "temp_bytes",
                   "collective_bytes", "host_s"], cells=cells)
 
@@ -4092,10 +4105,69 @@ def teraagent_step_on_card(kind: str, capacity: int) -> dict:
                 temp_bytes_plan_x_ranks=rec["memory"]["temp_bytes"] * mesh.size)
 
 
+def moe_prefill_on_card(mesh) -> tuple:
+    """The ``moe`` family phase's prefill (olmoe at full depth, 4 x 2,048
+    tokens, the flash kernel, bf16 weights and router), planned on the
+    one-device ``mesh`` and run once on the card: argument
+    bytes, FLOPs (the counter's and the flash formula's), launches and peak
+    beside the plan's.  Returns ``(fields, disagreements, kernel rows)``:
+    the flash (D 128, group 1) and RMSNorm rows hold the first calls against
+    their plain versions, with this run's launches."""
+    from repro_torch import training
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model
+
+    _, arch, batch, length = next(f for f in FAMILY_PHASES if f[0] == "moe")
+    cfg = dataclasses.replace(family_model(arch).cfg, param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    plan = dryrun.run_cell(arch, ShapeSpec("prefill", length, batch, "prefill"), "one", None,
+                           verbose=False, mesh=mesh, cfg=cfg)
+    plan_s = time.perf_counter() - t0
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    inputs = family_batch(cfg, batch, length, "cuda", model.compute_dtype)
+    held = tree_nbytes(params, inputs)
+    store, undo = capture_first_calls()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        logits, flops, flash = counted_flops(training.make_prefill_step(model), params, inputs)
+    finally:
+        undo()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_call = dryrun.flash_attention_flops((batch, cfg.n_heads, length, cfg.head_dim),
+                                            (batch, cfg.n_kv_heads, length, cfg.head_dim),
+                                            True, None, 0)
+    mem = plan["memory"]
+    want = family_launches(cfg, 1, 0, model.compute_dtype)
+    fields = dict(
+        arch=arch, layers=cfg.n_layers, batch=batch, prompt_len=length, plan_s=plan_s,
+        argument_bytes_plan=mem["argument_bytes"], argument_bytes_card=held,
+        flops_plan=plan["flops_per_device"], flops_card=flops + flash * per_call,
+        launches=launches, launches_want=want, peak_estimate_bytes=mem["peak_estimate_bytes"],
+        temp_bytes=mem["temp_bytes"], peak_memory_bytes=peak,
+        peak_over_estimate=peak / mem["peak_estimate_bytes"],
+        logits_finite=bool(torch.isfinite(logits).all()))
+    bad = [name for name, fine in (
+        ("moe_prefill argument bytes", held == mem["argument_bytes"]),
+        ("moe_prefill FLOPs", fields["flops_card"] == plan["flops_per_device"]),
+        ("moe_prefill launches", launches == want),
+        (f"moe_prefill peak over {MOE_PEAK_SLACK} x the estimate",
+         fields["peak_over_estimate"] <= MOE_PEAK_SLACK),
+        ("moe_prefill logits", fields["logits_finite"])) if not fine]
+    del params, inputs, logits
+    torch.cuda.empty_cache()
+    rows = family_kernel_rows(f"{arch}, dryrun", store, launches)
+    return fields, bad, rows
+
+
 def phase_dryrun():
-    """The dry-run's one-device plans of ``train``, ``lm_prefill`` and
-    ``lm_serve`` and the TeraAgent state, held against the same steps and
-    state built on the card."""
+    """The dry-run's one-device plans of ``train``, ``lm_prefill``,
+    ``lm_serve`` and the ``moe`` family's prefill, and the TeraAgent state,
+    held against the same steps and state built on the card; returns the
+    kernel rows of the MoE prefill (``moe_prefill_on_card``)."""
     from repro_torch import training
     from repro_torch.configs import ShapeSpec
     from repro_torch.data import DataConfig, device_batch
@@ -4189,6 +4261,8 @@ def phase_dryrun():
         bad.append("lm_serve parameter or cache bytes")
     del params, cache, toks
     torch.cuda.empty_cache()
+    out["moe_prefill"], moe_bad, rows = moe_prefill_on_card(mesh)
+    bad += moe_bad
 
     # TeraAgent: one rank's state at the cell's capacities, and one eager
     # lock-step step of the plan's mesh on the card against the plan's bytes
@@ -4208,9 +4282,11 @@ def phase_dryrun():
             bad.append(f"teraagent {kind} state bytes")
         if set(got["shift_bytes_card"].values()) != {got["collective_bytes_plan"]}:
             bad.append(f"teraagent {kind} exchange bytes")
-    emit("dryrun", nvidia_smi=smi, peak_slack=TRAIN_PEAK_SLACK, **out)
+    emit("dryrun", nvidia_smi=smi, peak_slack=TRAIN_PEAK_SLACK, moe_peak_slack=MOE_PEAK_SLACK,
+         **out)
     if bad:
         raise AssertionError(f"dryrun: the plan disagrees with the card: {bad}")
+    return rows
 
 
 # ---------------------------------------------------------------------- main
@@ -4363,7 +4439,7 @@ def main() -> int:
     seconds["families"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_dryrun_grid()
-    phase_dryrun()
+    rows += phase_dryrun()
     seconds["dryrun"] = time.perf_counter() - t0
     emit("wall", seconds=seconds)
 

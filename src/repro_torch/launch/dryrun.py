@@ -17,10 +17,11 @@ LM cells run **partitioned** (``partition``): the process is rank 0 of a
 ``"fake"`` process group of the mesh's size (``launch/mesh.fake_group``), the
 arguments are DTensors of their shardings on a ``DeviceMesh`` of the mesh's
 axes (meta local shards), and DTensor partitions the step; the kernels' ops,
-the loss, attention and the sequence-split products run under explicit
-``local_map`` rules, and the reference's sharding constraints are the
-model's hooks (``residual_sharding``, ``expert_sharding``,
-``context_sharding``; ``models/model.py``).  The counters see rank 0's
+the loss, attention, the sequence-split products, the MoE layer's expert
+parallelism, rwkv6's heads and the RG-LRU's recurrence in a train step
+run under explicit ``local_map`` rules, and the reference's sharding
+constraints are the model's hooks (``residual_sharding``,
+``expert_sharding``, ``context_sharding``; ``models/model.py``).  The counters see rank 0's
 local ops and its ``_c10d_functional`` collectives.  TeraAgent's cell steps
 every rank of the lock-step engine (``distributed.step_ranks``) on meta, its
 force passes taking the branches an eager CPU step records, with a mesh of
@@ -50,7 +51,8 @@ The JSON record has the reference's fields and units:
                              ``collective_bytes_from_hlo`` counts them:
                              DTensor's ``_c10d_functional`` ops, and the
                              bytes a TeraAgent rank sends through
-                             ``Mesh.shift`` (``collective-permute``).
+                             ``Mesh.shift`` (``collective-permute``); the
+                             CLI prints them by kind and mesh axis too.
   memory                     ``argument_bytes``, ``output_bytes`` and
                              ``alias_bytes`` (donated arguments the step
                              updates in place) per device, exactly, from the
@@ -72,10 +74,10 @@ The JSON record has the reference's fields and units:
 
 An ``ok`` record's ``reason`` (the reference's key of a skipped cell's
 record) says which of these numbers come otherwise than the reference's:
-the flash kernel's formula, the partitioned run, TeraAgent's stepped mesh
-and branches, or a cell that is not partitioned (``NOT_PARTITIONED``, or an
-op DTensor has no rule for: the error and the port's line are named), whose
-global counts are split evenly and whose temp and collective bytes are null.
+the flash kernel's formula, the partitioned run, or TeraAgent's stepped
+mesh and branches.  Every cell the reference plans is partitioned: a cell
+whose partition raises (an op DTensor has no rule for) fails, its record
+naming the error and the port's line, and the CLI exits non-zero.
 
 ``collective_bytes_from_hlo``, ``fused_bytes_from_hlo`` and
 ``_strip_done_ops`` parse XLA HLO and have no counterpart.  The
@@ -88,6 +90,7 @@ Usage (no card needed):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch teraagent --mesh multi
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --reduced --mesh-shape 4x4
 
 Records go to ``results/dryrun_torch/`` (the reference writes
 ``results/dryrun/``).
@@ -121,7 +124,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch import sharding as sh
 from repro_torch import training
 from repro_torch.configs import (ARCHS, SHAPES, ModelConfig, ShapeSpec, get_config,
-                                 input_specs, shape_applicable)
+                                 input_specs, reduced_config, shape_applicable)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ops import block_visible
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
@@ -145,21 +148,6 @@ ALLOC_BLOCK = 512         # the CUDA caching allocator's rounding
 
 OUT_DIR = "results/dryrun_torch"
 
-# Cells not run partitioned, by (family, step kind), with the reason: their
-# products flatten a batch split with another split into one dim, which
-# DTensor tracks as a strided split and plans each redistribution of by a
-# graph search (seconds a product, over a 3-axis mesh).
-_RWKV = ("models/rwkv6.py's time mix: its per-head products and its T/64 chunk scan over the "
-         "flattened (batch, head) rows take DTensor's redistribution planner minutes a cell "
-         "(over 15 for a train cell)")
-_RGLRU_TRAIN = ("models/rglru.py's train step: the backward of its gated recurrence over the "
-                "flattened rows takes DTensor's redistribution planner about 4 minutes on "
-                "the 512-device mesh")
-_MOE = ("models/moe.py: the router's expert counts (`scatter_add_`) and the dispatch's "
-        "`index_put` have no DTensor sharding rule")
-NOT_PARTITIONED = {("ssm", "train"): _RWKV, ("ssm", "prefill"): _RWKV,
-                   ("ssm", "decode"): _RWKV, ("hybrid", "train"): _RGLRU_TRAIN,
-                   ("moe", "train"): _MOE, ("moe", "prefill"): _MOE, ("moe", "decode"): _MOE}
 _ONE_DEVICE = make_mesh((1, 1), ("data", "model"), devices="meta")
 
 _ALLOCATIONS = frozenset({
@@ -911,25 +899,14 @@ def run_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh_kind: str,
         if plan.cfg.attention_impl == "cuda":
             notes.append("flops: the flash kernel is no aten op; its visible-tile formula "
                          "counts its attention")
-        skip = NOT_PARTITIONED.get((plan.cfg.family, plan.kind)) if n_chips > 1 else None
-        try:
-            if skip:
-                raise NotImplementedError(skip)
-            costs = extrapolated_costs(arch, shape, cfg=plan.cfg, mesh=mesh,
-                                       sequence_parallel=sequence_parallel)
-            full = global_costs(arch, shape, plan.cfg, mesh, sequence_parallel)
-            if n_chips > 1:
-                notes.append("rank 0's program over a fake process group of the mesh's "
-                             "size (DTensor): its local ops and collectives")
-        except (NotImplementedError, RuntimeError, AssertionError) as e:
-            # A skipped cell, or an op DTensor has no rule for: the global
-            # counts split evenly, no temp or collectives.
-            notes.append(f"not partitioned: {skip or _failed_op(e)}: the global counts split "
-                         f"evenly over the {n_chips} devices; no temp_bytes or collectives")
-            costs = extrapolated_costs(arch, shape, cfg=plan.cfg)
-            costs = dict(costs, flops=_split(costs["flops"], n_chips),
-                         bytes=_split(costs["bytes"], n_chips), collectives=None)
-            full = None
+        # A partition that raises fails the cell: every cell the reference
+        # plans is partitioned here too.
+        costs = extrapolated_costs(arch, shape, cfg=plan.cfg, mesh=mesh,
+                                   sequence_parallel=sequence_parallel)
+        full = global_costs(arch, shape, plan.cfg, mesh, sequence_parallel)
+        if n_chips > 1:
+            notes.append("rank 0's program over a fake process group of the mesh's "
+                         "size (DTensor): its local ops and collectives")
     flops, bytes_acc = costs["flops"], costs["bytes"]
     memory = plan_memory(plan, costs["outputs"], full)
     coll = costs["collectives"]
@@ -943,7 +920,7 @@ def run_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh_kind: str,
         compile_s=round(t_compile, 2),
         flops_per_device=flops,
         bytes_accessed_per_device=bytes_acc,
-        collective_bytes_per_device=None if coll is None else collective_bytes(coll),
+        collective_bytes_per_device=collective_bytes(coll),
         memory=memory,
         roofline=dict(
             compute_s=flops / PEAK_FLOPS,
@@ -951,13 +928,12 @@ def run_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh_kind: str,
             # XLA's fusions, which this reads in the reference, have no
             # counterpart in eager PyTorch.
             memory_s_fused_est=None,
-            collective_s=None if coll is None else collective_seconds(mesh, coll),
+            collective_s=collective_seconds(mesh, coll),
         ),
     )
     terms = record["roofline"]
-    record["roofline"]["dominant"] = max(
-        (k for k in ("compute_s", "memory_s", "collective_s") if terms[k] is not None),
-        key=lambda k: terms[k])
+    record["roofline"]["dominant"] = max(("compute_s", "memory_s", "collective_s"),
+                                         key=lambda k: terms[k])
     if arch != "teraagent":
         tokens = shape.global_batch * (1 if record["kind"] == "decode" else shape.seq_len)
         n_active = plan.cfg.params_active()
@@ -974,13 +950,14 @@ def run_cell(arch: str, shape_name: Union[str, ShapeSpec], mesh_kind: str,
               f"→ {r['dominant']}")
         print(f"     memory: {record['memory']}")
         print(f"     collectives: {record['collective_bytes_per_device']}")
+        print("     by axis: " + json.dumps({f"{k}/{a}": n for (k, a), n in sorted(coll.items())}))
     _write(out_dir, record)
     return record
 
 
 def _failed_op(e: BaseException) -> str:
-    """Where a partitioned step failed: the port's innermost line in the
-    traceback, and the error's first line."""
+    """Where a cell failed (a failed cell's record): the port's innermost
+    line in the traceback, and the error's first line."""
     where = ""
     for frame in traceback.extract_tb(e.__traceback__):
         if f"{os.sep}repro_torch{os.sep}" in frame.filename:
@@ -990,12 +967,6 @@ def _failed_op(e: BaseException) -> str:
     return f"{where}({type(e).__name__}{': ' + msg[0][:200] if msg else ''})"
 
 
-def _split(total, n: int):
-    """``total / n``: an int where it divides evenly, else a float."""
-    v = Fraction(total) / n
-    return int(v) if v.denominator == 1 else float(v)
-
-
 def _write(out_dir, record):
     if not out_dir:
         return
@@ -1003,6 +974,17 @@ def _write(out_dir, record):
     name = f"{record['mesh']}__{record['arch']}__{record.get('shape', '-')}.json"
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(record, f, indent=1)
+
+
+def reduced_cell_config(arch: str) -> ModelConfig:
+    """``arch``'s reduced config (``configs.reduced_config``: narrow, two
+    pattern groups deep) with the full config's attention blocks, rwkv6
+    chunk and remat, so that its loops over a cell's sequence take the full
+    config's steps."""
+    full = get_config(arch)
+    return reduced_config(arch, attention_block_q=full.attention_block_q,
+                          attention_block_k=full.attention_block_k, rwkv_chunk=full.rwkv_chunk,
+                          remat=full.remat)
 
 
 def grid_cells(arch: Optional[str] = None, shape: Optional[str] = None):
@@ -1025,28 +1007,41 @@ def main(argv=None):
     ap.add_argument("--out", default=OUT_DIR)
     ap.add_argument("--no-sp", action="store_true", help="disable sequence parallelism")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="plan on a mesh of this shape instead of the production meshes: "
+                         "DxM (data, model) or PxDxM (pod, data, model), e.g. 4x4")
+    ap.add_argument("--reduced", action="store_true",
+                    help="each arch's reduced config (reduced_cell_config)")
     args = ap.parse_args(argv)
 
-    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    if args.mesh_shape:
+        dims = tuple(int(n) for n in args.mesh_shape.split("x"))
+        axes = ("pod", "data", "model")[-len(dims):]
+        meshes = [(args.mesh_shape, make_mesh(dims, axes, devices="meta"))]
+    else:
+        meshes = [(k, None) for k in (["single", "multi"] if args.mesh == "both"
+                                      else [args.mesh])]
     if not args.all and not args.arch:
         ap.error("--arch required without --all")
     cells = grid_cells(None if args.all else args.arch, args.shape)
 
     failures = []
-    for mesh_kind in meshes:
+    for mesh_kind, mesh in meshes:
         for arch, shape in cells:
             name = f"{mesh_kind}__{arch}__{shape}.json"
             if args.skip_existing and os.path.exists(os.path.join(args.out, name)):
                 print(f"[cached] {name}")
                 continue
+            cfg = reduced_cell_config(arch) if args.reduced and arch != "teraagent" else None
             try:
-                run_cell(arch, shape, mesh_kind, args.out, sequence_parallel=not args.no_sp)
+                run_cell(arch, shape, mesh_kind, args.out, sequence_parallel=not args.no_sp,
+                         mesh=mesh, cfg=cfg)
             except Exception as e:
                 traceback.print_exc()
                 failures.append((mesh_kind, arch, shape, repr(e)))
                 _write(args.out, {
                     "arch": arch, "shape": shape, "mesh": mesh_kind,
-                    "status": "failed", "error": repr(e),
+                    "status": "failed", "error": _failed_op(e),
                 })
     if failures:
         print(f"\n{len(failures)} FAILURES:")

@@ -141,15 +141,10 @@ def attention_apply(
 def _placed(ndim: int, dp: list, batch_split: bool, model: Optional[int], model_pl):
     """Placements over ``ndim`` mesh dims: dim 0 of the tensor over the
     data dims (when ``batch_split``), ``model_pl`` on ``model``."""
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Shard
 
-    out = [Replicate()] * ndim
-    if batch_split:
-        for i in dp:
-            out[i] = Shard(0)
-    if model is not None:
-        out[model] = model_pl
-    return tuple(out)
+    return sh.placed(ndim, (dp if batch_split else [], Shard(0)),
+                     ([] if model is None else [model], model_pl))
 
 
 def _flash_partitioned(q, k, v, context, kw):

@@ -308,10 +308,10 @@ class Model:
             a, _ = rwkv_mod.rwkv6_time_mix(
                 lp["tmix"], h, cfg.d_model // cfg.rnn_head_dim, cfg.rnn_head_dim,
                 chunk=cfg.rwkv_chunk, impl="chunked", compute_dtype=self.compute_dtype)
-            x = x + a
+            x = x + sh.grad_split_on(a, 0)
         elif kind == "rglru":
             a, _ = rglru_mod.rglru_block_apply(lp["rec"], h, compute_dtype=self.compute_dtype)
-            x = x + a
+            x = x + sh.grad_split_on(a, 0)
         return self._ffn(lp, kind, x)
 
     def _encoder_kv(self, cross_p, enc_out: torch.Tensor):

@@ -14,14 +14,27 @@ odd/even recursion (``jax.lax.associative_scan``) written out: log-depth, a
 few tensor ops a level, the same pairs combined in the same order, so the
 same roundings.  Decode runs the block at T = 1 with the (width − 1)-token
 conv tail and the f32 state ``h`` carried in an :class:`RGLRUState`.
+
+In a partitioned train step (DTensors, autograd recording;
+``launch/dryrun.py``) the causal conv and the recurrence run on each
+rank's block under ``local_map``, their explicit sharding rule: the rows on
+the data axes and the recurrence width on the tensor axis ``model``.  The
+conv takes its block of the width as it is; the recurrence takes the conv's
+output whole over ``model`` (one all-gather) for its gates' products, whose
+weights' column blocks give its block of the gates, so the scan and its
+backward stay on the rank.  The forward-only steps (prefill, decode) keep
+DTensor's own rules.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import sharding as sh
 
 from .params import const, normal, zeros
 
@@ -66,16 +79,20 @@ def _conv1d_causal(p, x: torch.Tensor, tail: Optional[torch.Tensor], compute_dty
     return out, xp[:, -(kw - 1):, :]
 
 
-def _rglru_gates(p, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a_t and the gated input, f32."""
+def _rglru_gates(p, u: torch.Tensor, u_block: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a_t and the gated input, f32.  ``u_block``: the columns of ``u`` that
+    the gates' weights give (their column blocks, in a partitioned step;
+    default: all of ``u``)."""
     uf = u.float()
-    r = torch.sigmoid(torch.matmul(uf, p["wa"].float()) + p["ba"].float())
-    i = torch.sigmoid(torch.matmul(uf, p["wx"].float()) + p["bx"].float())
+    r = torch.sigmoid(sh.reduce_partial(torch.matmul(uf, p["wa"].float()), -1) + p["ba"].float())
+    i = torch.sigmoid(sh.reduce_partial(torch.matmul(uf, p["wx"].float()), -1) + p["bx"].float())
     lam = p["lam"].float()
     log_a_base = -_C_EXPONENT * torch.logaddexp(lam, torch.zeros_like(lam))   # softplus
     log_a = log_a_base * r                          # (B, T, W), ≤ 0
     a = torch.exp(log_a)
-    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * uf)
+    xin = uf if u_block is None else u_block.float()
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i * xin)
     return a, gated
 
 
@@ -115,9 +132,11 @@ def _combine(left, right):
     return [a1 * a2, x2 + a2 * x1]
 
 
-def rglru_scan(p, u: torch.Tensor, h0: Optional[torch.Tensor] = None):
-    """Full-sequence RG-LRU.  u: (B, T, W) → (h_seq in u's dtype, h_T f32)."""
-    a, x = _rglru_gates(p, u)
+def rglru_scan(p, u: torch.Tensor, h0: Optional[torch.Tensor] = None,
+               u_block: Optional[torch.Tensor] = None):
+    """Full-sequence RG-LRU.  u: (B, T, W) → (h_seq in u's dtype, h_T f32);
+    with ``u_block`` (see ``_rglru_gates``) the recurrence of its columns."""
+    a, x = _rglru_gates(p, u, u_block)
     if h0 is not None:
         # The carried state enters as a virtual step-0 contribution.
         x = torch.cat([x[:, :1] + a[:, :1] * h0.float()[:, None], x[:, 1:]], dim=1)
@@ -131,11 +150,59 @@ def rglru_block_apply(p, x: torch.Tensor, state: Optional[RGLRUState] = None,
     xc = x.to(compute_dtype)
     u = torch.matmul(xc, p["w_in"].to(compute_dtype))
     gate = F.gelu(torch.matmul(xc, p["w_gate"].to(compute_dtype)), approximate="tanh")
-    u, new_tail = _conv1d_causal(p, u, state.conv_tail if state else None, compute_dtype)
-    h_seq, h_last = rglru_scan(p, u, h0=state.h if state else None)
+    if sh.is_dtensor(u) and u.requires_grad:
+        h_seq, h_last, new_tail = _recurrence_partitioned(p, u, compute_dtype)
+    else:
+        h_seq, h_last, new_tail = _recurrence(p, u, state, compute_dtype)
     y = h_seq.to(compute_dtype) * gate
     out = torch.matmul(y, p["w_out"].to(compute_dtype))
     return out, RGLRUState(h=h_last, conv_tail=new_tail)
+
+
+def _recurrence(p, u: torch.Tensor, state: Optional[RGLRUState], compute_dtype):
+    """The causal conv and the RG-LRU: ``(h_seq, h_T, conv tail)``."""
+    u, new_tail = _conv1d_causal(p, u, state.conv_tail if state else None, compute_dtype)
+    h_seq, h_last = rglru_scan(p, u, h0=state.h if state else None)
+    return h_seq, h_last, new_tail
+
+
+def _recurrence_partitioned(p, u, compute_dtype):
+    """``_recurrence`` over DTensors in a train step (no carried state), by
+    the rule of the module docstring."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dmesh = u.device_mesh
+    dp, model = sh.mesh_dims(dmesh)
+    b, _, w = u.shape
+    if b % math.prod(dmesh.size(i) for i in dp):
+        dp = []
+    width = [model] if model is not None and w % dmesh.size(model) == 0 else []
+    placed = lambda on_dp, on_model: sh.placed(dmesh.ndim, (dp, on_dp), (width, on_model))
+
+    rows = placed(Shard(0), Shard(2))
+    conv = lambda u, conv_w: _conv1d_causal({"conv_w": conv_w}, u, None, compute_dtype)
+    u, new_tail = local_map(
+        conv, out_placements=(rows, rows), in_placements=(rows, placed(Replicate(), Shard(1))),
+        in_grad_placements=(rows, placed(Partial(), Shard(1))),
+        device_mesh=dmesh, redistribute_inputs=True)(u, p["conv_w"])
+
+    def scan(u, wa, ba, wx, bx, lam):
+        w0 = dmesh.get_local_rank(model) * lam.shape[0] if width else 0
+        gates = {"wa": wa, "ba": ba, "wx": wx, "bx": bx, "lam": lam}
+        return rglru_scan(gates, u, u_block=u[..., w0:w0 + lam.shape[0]])
+
+    whole = placed(Shard(0), Replicate())
+    cols, vec = placed(Replicate(), Shard(1)), placed(Replicate(), Shard(0))
+    cols_grad, vec_grad = placed(Partial(), Shard(1)), placed(Partial(), Shard(0))
+    h_seq, h_last = local_map(
+        scan, out_placements=(rows, placed(Shard(0), Shard(1))),
+        in_placements=(whole, cols, vec, cols, vec, vec),
+        in_grad_placements=(placed(Shard(0), Partial()), cols_grad, vec_grad, cols_grad,
+                            vec_grad, vec_grad),
+        device_mesh=dmesh, redistribute_inputs=True)(
+            u.redistribute(dmesh, whole), p["wa"], p["ba"], p["wx"], p["bx"], p["lam"])
+    return h_seq, h_last, new_tail
 
 
 def rglru_init_state(batch: int, width: int, conv_width: int = 4, dtype=torch.bfloat16,

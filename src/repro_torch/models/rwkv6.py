@@ -17,15 +17,25 @@ carried, a Python loop over T / chunk).  The chunked form factors the
 pairwise decay e^{L_t − L_j} into e^{L_t} · e^{−L_j}, which reach e^{±35}
 at chunk 64: its f32 products must stay true f32, so they run with TF32
 switched off whatever the caller set (``_true_f32``).
+
+Over DTensors (a partitioned step, ``launch/dryrun.py``) the time mix's
+per-head part (the heads' views, the recurrence or the chunk scan, the
+state) runs on each rank's block under ``local_map``, its explicit sharding
+rule: the rows on the data axes and the heads on the tensor axis ``model``
+where they divide it.  DTensor sees only the projections into and out of it
+and the channel mix, whose products keep DTensor's rules.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import sharding as sh
 
 from .layers import norm_apply, norm_init
 from .params import normal, zeros
@@ -105,7 +115,11 @@ def rwkv6_time_mix(
     b, t, d = x.shape
     h, dh = n_heads, head_dim
     xc = x.to(compute_dtype)
-    if state is None:
+    if state is None and sh.is_dtensor(xc):
+        # Each rank's blocks of the zero states (the WKV state's is made in
+        # its ``local_map``).
+        prev_x, s0 = torch.zeros_like(xc[:, 0]), None
+    elif state is None:
         prev_x = torch.zeros((b, d), dtype=compute_dtype, device=x.device)
         s0 = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
     else:
@@ -114,18 +128,60 @@ def rwkv6_time_mix(
     with _true_f32():
         x_shift = torch.cat([prev_x[:, None, :], xc[:, :-1, :]], dim=1)
         r, k, v, g, log_decay = _project(p, xc, x_shift, compute_dtype)
-        r, k, v = (_heads(a.float(), h, dh) for a in (r, k, v))   # (B, T, H, Dh)
-        logw = _heads(log_decay, h, dh)                            # ≤ 0
-        u = p["u"].float()                                         # (H, Dh)
-        if impl == "sequential":
-            out, s_last = _wkv_sequential(r, k, v, logw, u, s0)
+        if sh.is_dtensor(r):
+            out, s_last = _wkv_partitioned(r, k, v, log_decay, p["u"], s0, dh, impl, chunk)
         else:
-            out, s_last = _wkv_chunked(r, k, v, logw, u, s0, chunk)
+            out, s_last = _wkv(r, k, v, log_decay, p["u"], s0, dh, impl, chunk)
 
     out = norm_apply(p["ln_x"], out.reshape(b, t, d).to(compute_dtype), "layernorm")
     out = out * F.silu(g.to(compute_dtype))
     y = torch.matmul(out, p["wo"].to(compute_dtype))
     return y, (xc[:, -1, :], s_last)
+
+
+def _wkv(r, k, v, log_decay, u, s0, dh: int, impl: str, chunk: int):
+    """The per-head part: (B, T, H·Dh) projections → (B, T, H, Dh) output
+    and the last state (B, H, Dh, Dh)."""
+    h = r.shape[-1] // dh
+    r, k, v = (_heads(a.float(), h, dh) for a in (r, k, v))   # (B, T, H, Dh)
+    logw = _heads(log_decay, h, dh)                            # ≤ 0
+    u = u.float()                                              # (H, Dh)
+    if impl == "sequential":
+        return _wkv_sequential(r, k, v, logw, u, s0)
+    return _wkv_chunked(r, k, v, logw, u, s0, chunk)
+
+
+def _wkv_partitioned(r, k, v, log_decay, u, s0, dh: int, impl: str, chunk: int):
+    """``_wkv`` over DTensors on each rank's rows and heads (``local_map``);
+    ``s0`` is the cache's state or the zeros of a plain tensor (made on each
+    rank at its block's shape)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dmesh = r.device_mesh
+    dp, model = sh.mesh_dims(dmesh)
+    b, t, d = r.shape
+    if b % math.prod(dmesh.size(i) for i in dp):
+        dp = []
+    heads = [model] if model is not None and (d // dh) % dmesh.size(model) == 0 else []
+    placed = lambda dim, on_dp: sh.placed(dmesh.ndim, (dp, on_dp), (heads, Shard(dim)))
+    cached = sh.is_dtensor(s0)
+
+    def local(r, k, v, log_decay, u, *s0):
+        s0 = s0[0] if s0 else torch.zeros(r.shape[:1] + (r.shape[-1] // dh, dh, dh),
+                                          dtype=torch.float32, device=r.device)
+        out, s_last = _wkv(r, k, v, log_decay, u, s0, dh, impl, chunk)
+        return out.flatten(2), s_last
+
+    rows = placed(2, Shard(0))
+    state = placed(1, Shard(0))
+    u_pl = placed(0, Replicate())
+    return local_map(
+        local, out_placements=(rows, state),
+        in_placements=(rows,) * 4 + (u_pl,) + ((state,) if cached else ()),
+        in_grad_placements=(rows,) * 4 + (placed(0, Partial()),) + ((state,) if cached else ()),
+        device_mesh=dmesh, redistribute_inputs=True)(r, k, v, log_decay, u,
+                                                     *((s0,) if cached else ()))
 
 
 def _wkv_sequential(r, k, v, logw, u, s0):
@@ -201,13 +257,20 @@ def rwkv6_channel_mix(p, x: torch.Tensor, state: Optional[torch.Tensor] = None,
                       compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     b, t, d = x.shape
     xc = x.to(compute_dtype)
-    prev = (torch.zeros((b, d), dtype=compute_dtype, device=x.device) if state is None
-            else state.to(compute_dtype))
+    if state is not None:
+        prev = state.to(compute_dtype)
+    elif sh.is_dtensor(xc):
+        prev = torch.zeros_like(xc[:, 0])
+    else:
+        prev = torch.zeros((b, d), dtype=compute_dtype, device=x.device)
     x_shift = torch.cat([prev[:, None, :], xc[:, :-1, :]], dim=1)
     mu = p["mu"].to(compute_dtype)
     xk = _mix(xc, x_shift, mu[0])
     xr = _mix(xc, x_shift, mu[1])
     k = torch.matmul(xk, p["wk"].to(compute_dtype))
     v = torch.matmul(torch.square(F.relu(k)), p["wv"].to(compute_dtype))
-    r = torch.sigmoid(torch.matmul(xr, p["wr"].to(compute_dtype)))
+    # Over DTensors the gate's gradient comes back from ``r * v`` unreduced
+    # (``v`` is a partial sum): whole but for the batch split before the
+    # product's backward flattens it.
+    r = torch.sigmoid(sh.grad_split_on(torch.matmul(xr, p["wr"].to(compute_dtype)), 0))
     return r * v, xc[:, -1, :]

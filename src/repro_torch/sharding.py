@@ -298,6 +298,19 @@ def mesh_dims(dmesh) -> Tuple[list, Optional[int]]:
     return dp, (names.index("model") if "model" in names else None)
 
 
+def placed(ndim: int, *parts) -> tuple:
+    """Placements over ``ndim`` mesh dims: each ``(dims, placement)`` of
+    ``parts`` on its mesh dims (a list of indices), ``Replicate()`` on the
+    rest."""
+    from torch.distributed.tensor import Replicate
+
+    out = [Replicate()] * ndim
+    for dims, placement in parts:
+        for i in dims:
+            out[i] = placement
+    return tuple(out)
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -345,7 +358,9 @@ def distribute_tree(tree: Any, specs: Any, dmesh) -> Any:
 class Constraint:
     """The reference's ``with_sharding_constraint(x, NamedSharding(mesh,
     spec))`` as a hook: a DTensor is redistributed to ``spec``'s placements on
-    ``dmesh``; any other tensor passes unchanged."""
+    ``dmesh``, a dim its mesh axes do not divide evenly left whole (as the
+    logical-axis rules leave it, ``spec_for_axes``); any other tensor passes
+    unchanged."""
 
     dmesh: Any
     spec: PartitionSpec
@@ -353,7 +368,11 @@ class Constraint:
     def __call__(self, x):
         if not is_dtensor(x):
             return x
-        return x.redistribute(self.dmesh, placements(self.spec,
+        sizes = dict(zip(self.dmesh.mesh_dim_names, self.dmesh.mesh.shape))
+        even = [part if x.shape[d] % _mesh_size(_Axes(sizes), (part,) if isinstance(part, str)
+                                                 else part or ()) == 0 else None
+                for d, part in enumerate(self.spec)]
+        return x.redistribute(self.dmesh, placements(P(*even),
                                                      tuple(self.dmesh.mesh_dim_names)))
 
 
@@ -478,6 +497,19 @@ def grad_split_on(x, dim: int):
 
     return grad_placed(x, tuple(p if p == Shard(dim % x.ndim) else Replicate()
                                 for p in x.placements))
+
+
+def reduce_partial(x, dim: int):
+    """A DTensor ``x``'s pending sums reduced, each onto a split of dim
+    ``dim`` (a reduce-scatter), ahead of an op whose rule the card's torch
+    lacks for a partial sum (a bias split over the same axis); any other
+    tensor passes unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+
+    pl = tuple(Shard(dim % x.ndim) if p.is_partial() else p for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
 def seq_split(x) -> bool:

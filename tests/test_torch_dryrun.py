@@ -150,7 +150,10 @@ class _LargestCpuTensor(TorchDispatchMode):
 def test_the_dry_run_needs_no_card_and_allocates_nothing(monkeypatch, tmp_path):
     """``make_production_mesh`` and ``run_cell`` at full configs (a train
     step of 16 × 512 tokens, a prefill and a decode cell, and TeraAgent's)
-    make no CUDA call and no tensor off the meta device larger than the
+    run on a host without a card (``torch.cuda.is_available()`` False,
+    ``device_count()`` 0: DTensor's sharding propagation asks, in its fake
+    mode and its redistribution costs), make no other CUDA call and no
+    tensor off the meta device larger than the
     partitioned cells' device mesh's rank table (``DeviceMesh`` keeps one
     int64 a rank on the host); TeraAgent's step none larger than its grid's
     Morton rank table (one int32 a cell, built on the host and moved to the
@@ -160,7 +163,9 @@ def test_the_dry_run_needs_no_card_and_allocates_nothing(monkeypatch, tmp_path):
     def no_card(*a, **k):
         raise AssertionError("the dry-run called CUDA")
 
-    for name in ("is_available", "init", "synchronize", "device_count", "current_device"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for name in ("init", "synchronize", "current_device"):
         monkeypatch.setattr(torch.cuda, name, no_card)
     record = dryrun.teraagent_branches
 
