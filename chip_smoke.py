@@ -213,9 +213,10 @@ printing one JSON line; any failure raises and exits non-zero:
                   forward + backward, the bound of forward + backward (3.5 x
                   the forward's FLOP at 989 TFLOP/s); rmsnorm at (4,096,
                   3,072) bf16 with its plain backward.
-  families_small  reduced paligemma, olmoe, rwkv6, recurrentgemma and whisper
-                  (f32) on the card against the CPU: the prefill step (flash
-                  kernel) and 8 decode steps, logits atol 1e-4.
+  families_small  reduced paligemma, olmoe, rwkv6, recurrentgemma, whisper,
+                  gemma-7b, mistral-nemo and command-r (f32) on the card
+                  against the CPU: the prefill step (flash kernel) and 8
+                  decode steps, logits atol 1e-4.
   <family>_prefill, <family>_serve
                   the other serving families at published widths and full
                   depth, bf16 weights from a seed, one model on the card at a
@@ -223,23 +224,28 @@ printing one JSON line; any failure raises and exits non-zero:
                   decode_step with a cache of 256 + 192 slots), moe
                   (olmoe-1b-7b, 4 x 2,048; the assignments dropped by capacity
                   a layer), rwkv6 (rwkv6-1.6b, 4 x 2,048), hybrid
-                  (recurrentgemma-9b, 2 x 4,096, past its 2,048 window) and
-                  audio (whisper-base, 4 x (1,500 frames, 448 tokens)); serve:
-                  ``launch/serve.py``'s loop, batch 4, 128 + 64 tokens (rwkv6
-                  and hybrid also against their prefill step, relative L2 <=
-                  0.05).  Setup, median prefill ms and prompt tokens a second,
-                  decode ms a step, peak memory, the flash launches (tensor
-                  cores and SIMT) and rmsnorm launches against the count the
-                  layer list implies, finite logits.  phi3.5-moe-42b-a6.6b
-                  (83.8 GB in bf16) does not fit one card.
+                  (recurrentgemma-9b, 2 x 4,096, past its 2,048 window),
+                  audio (whisper-base, 4 x (1,500 frames, 448 tokens)) and
+                  the dense gemma7b (gemma-7b), nemo (mistral-nemo-12b) and
+                  commandr (command-r-35b, LayerNorm), 4 x 2,048; serve:
+                  ``launch/serve.py``'s loop, batch 4, 128 + 64 tokens (rwkv6,
+                  hybrid and the dense three also against their prefill step,
+                  relative L2 <= 0.05).  Setup, median prefill ms and prompt
+                  tokens a second, decode ms a step, peak memory, the flash
+                  launches (tensor cores and SIMT) and rmsnorm launches
+                  against the count the layer list implies, finite logits.
+                  phi3.5-moe-42b-a6.6b (83.7 GB in bf16) does not fit one
+                  card.
   kernels (LM families)
-                  flash_attention (the D 256 tensor-core kernel) and rmsnorm
-                  on the first calls' inputs of the vlm and hybrid prefills,
-                  against their plain versions (one bf16 ulp), timed beside
-                  them, the SIMT kernel on the same inputs (``simt_ms``) and
-                  ``scaled_dot_product_attention`` with the same boolean mask
-                  / ``rms_norm``; the flash bound also over the 64 x 64 tiles
-                  holding a visible pair.
+                  flash_attention (a tensor-core kernel) and rmsnorm on the
+                  first calls' inputs of the vlm, hybrid, gemma7b, nemo and
+                  commandr prefills (commandr: flash alone), against their
+                  plain versions (one bf16 ulp), timed beside them, the SIMT
+                  kernel on the same inputs (``simt_ms``) and
+                  ``scaled_dot_product_attention`` (``is_causal`` for a plain
+                  causal mask, else the same boolean mask; with the mask
+                  too, ``library_masked_ms``) / ``rms_norm``; the flash bound
+                  also over the 64 x 64 tiles holding a visible pair.
   dryrun_grid     ``python -m repro_torch.launch.dryrun --arch A --mesh M``
                   for every arch of ``configs/archs.py`` and ``teraagent``
                   (every shape, both production meshes: 82 cells), one CLI
@@ -405,19 +411,34 @@ LM_SERVE_PROMPT = 128
 LM_SERVE_GEN = 64
 BF16_TENSOR_OPS_PER_S = 989e12   # dense bf16 tensor-core rate
 
-# The other serving families at their published widths and full depth:
-# (phase prefix, arch, prefill batch, prefill prompt tokens).  The VLM
-# prefill adds its 256 patches before the prompt; whisper's prompt is 448
-# decoder tokens over 1,500 frames.  Serving: batch 4, 128 + 64 tokens.
-# phi3.5-moe-42b-a6.6b (41.9e9 parameters, 83.8 GB in bf16) exceeds one
-# card; olmoe runs the same MoE code.
+# The other serving archs at their published widths and full depth:
+# (phase prefix, arch, prefill batch, prefill prompt tokens).  With
+# phi4-mini above, eight of the ten archs run on the card: paligemma-3b,
+# olmoe-1b-7b, rwkv6-1.6b, recurrentgemma-9b, whisper-base and the three
+# dense archs gemma-7b (D 256 at group 1), mistral-nemo-12b (D 128 at
+# group 4) and command-r-35b (D 128 at group 8, LayerNorm, 60.6 GB of bf16
+# weights: the largest model on the card).  The VLM prefill adds its 256
+# patches before the prompt; whisper's prompt is 448 decoder tokens over
+# 1,500 frames.  Serving: batch 4, 128 + 64 tokens, every arch at full
+# depth.  phi3.5-moe-42b-a6.6b (41.9e9 parameters, 83.7 GB in bf16) does
+# not fit one card; olmoe runs the same MoE code.
 FAMILY_PHASES = (
     ("vlm", "paligemma-3b", 4, 2048),
     ("moe", "olmoe-1b-7b", 4, 2048),
     ("rwkv6", "rwkv6-1.6b", 4, 2048),
     ("hybrid", "recurrentgemma-9b", 2, 4096),
     ("audio", "whisper-base", 4, 448),
+    ("gemma7b", "gemma-7b", 4, 2048),
+    ("nemo", "mistral-nemo-12b", 4, 2048),
+    ("commandr", "command-r-35b", 4, 2048),
 )
+# The phases whose decode of the prompt is held against the prefill step
+# (the others' decode differs by design: the VLM's cache holds no patches,
+# whisper's cross-attention is zero, MoE capacity drops depend on the
+# tokens a call routes), and those whose first flash and RMSNorm calls get
+# kernel rows: the shapes no other phase or card test runs.
+DECODE_VS_PREFILL = ("rwkv6", "hybrid", "gemma7b", "nemo", "commandr")
+FAMILY_ROWS = ("vlm", "hybrid", "gemma7b", "nemo", "commandr")
 FLASH_TILE = 64                  # the SIMT kernel's query and key tiles
 
 
@@ -3541,9 +3562,9 @@ def phase_family_serve(prefix: str, arch: str):
     """Batch 4, 128 prompt tokens fed through ``decode_step`` and 64 greedy
     tokens at full width: ``serve.main`` (the VLM: the same loop with a
     cache of 256 + 192 slots, so that the decode positions, offset by the
-    prefix, are written).  rwkv6 and recurrentgemma also hold the prompt's
-    last logits against the prefill step on the same prompts (relative L2
-    <= 0.05)."""
+    prefix, are written).  The phases of ``DECODE_VS_PREFILL`` also hold
+    the prompt's last logits against the prefill step (flash kernel) on the
+    same prompts (relative L2 <= 0.05)."""
     from repro_torch.launch import serve
     from repro_torch.training import make_prefill_step
 
@@ -3577,7 +3598,7 @@ def phase_family_serve(prefix: str, arch: str):
         raise AssertionError(f"{prefix}_serve: generated {out['generated'].shape}, "
                              f"finite {finite}")
     extra = {}
-    if prefix in ("rwkv6", "hybrid"):
+    if prefix in DECODE_VS_PREFILL:
         pre = make_prefill_step(family_model(arch))(out["params"], {"tokens": out["prompt"]})
         dec = out["prompt_logits"][:, 0]
         rel_l2 = float(torch.linalg.norm(dec - pre[:, 0]) / torch.linalg.norm(pre[:, 0]))
@@ -3623,8 +3644,11 @@ def family_kernel_rows(tag, store, launches):
     """flash_attention and rmsnorm on the inputs of their first calls in a
     family's prefill (layer 0), against their plain versions (one bf16
     ulp), timed beside the plain versions and one PyTorch call of the same
-    function (``scaled_dot_product_attention`` with the same boolean mask,
-    ``rms_norm``)."""
+    function (``scaled_dot_product_attention``: ``is_causal`` where the
+    mask is plain causal, as phi4-mini's row, else the same boolean mask;
+    ``library_masked_ms`` times it with the boolean mask in every case;
+    ``rms_norm``).  A model that norms by LayerNorm (command-r) calls no
+    RMSNorm and gets the flash row alone."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fa_k
@@ -3647,7 +3671,11 @@ def family_kernel_rows(tag, store, launches):
                                                   prefix_len=prefix)
     plain = lambda: fa_ops.chunked_attention(q, k, v, causal=causal, window=window,
                                              prefix_len=prefix, block_k=128)
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    sdpa_masked = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                         enable_gqa=True)
+    sdpa = sdpa_masked
+    if causal and window is None and not prefix:
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
     tc = fa_k.uses_tensor_cores(q.dtype, d)
     counter = "flash_attention" if tc else "flash_attention_simt"
     want, plain_ms = warm_timed(plain)
@@ -3663,8 +3691,8 @@ def family_kernel_rows(tag, store, launches):
         replaces="src/repro/kernels/flash_attention/kernel.py:150",
         launches=launches[counter], max_abs_err=err, counter=counter,
         ms=cuda_ms(kernel, 5), plain_ms=plain_ms, library_ms=cuda_ms(sdpa, 5),
-        simt_ms=cuda_ms(simt, 3), simt_max_abs_err=simt_err,
-        simt_source=flash_source(torch.float32, d),
+        library_masked_ms=cuda_ms(sdpa_masked, 5), simt_ms=cuda_ms(simt, 3),
+        simt_max_abs_err=simt_err, simt_source=flash_source(torch.float32, d),
         **bound(flash_bytes, 4 * d * pairs, BF16_TENSOR_OPS_PER_S),
         blocks_bound_ms=blocks_ms,
         # The D 256 kernel's five products a visible tile (S in each of its
@@ -3674,22 +3702,23 @@ def family_kernel_rows(tag, store, launches):
         mask={"causal": causal, "window": window, "prefix_len": prefix},
         shape={"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
     )]
-    (x, scale, eps), _ = store["rmsnorm"]
-    x2 = x.reshape(-1, x.shape[-1])
-    norm = lambda: rms_k.rmsnorm_cuda(x2, scale, eps)
-    plain = lambda: rmsnorm_ref(x2, scale, eps)
-    lib = lambda: F.rms_norm(x2, (x2.shape[-1],), weight=scale, eps=eps)
-    rows.append(dict(
-        name=f"rmsnorm[{tag}]", route="cuda",
-        source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm/kernel.py:41",
-        launches=launches["rmsnorm"],
-        max_abs_err=bf16_ulp_check(f"rmsnorm[{tag}]", norm(), plain()),
-        ms=cuda_ms(norm, 50), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 50),
-        **bound(2 * x2.numel() * x2.element_size() + scale.numel() * scale.element_size(),
-                3 * x2.numel()),
-        shape={"x": list(x2.shape), "dtype": str(x2.dtype)},
-    ))
+    if "rmsnorm" in store:
+        (x, scale, eps), _ = store["rmsnorm"]
+        x2 = x.reshape(-1, x.shape[-1])
+        norm = lambda: rms_k.rmsnorm_cuda(x2, scale, eps)
+        plain = lambda: rmsnorm_ref(x2, scale, eps)
+        lib = lambda: F.rms_norm(x2, (x2.shape[-1],), weight=scale, eps=eps)
+        rows.append(dict(
+            name=f"rmsnorm[{tag}]", route="cuda",
+            source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm/kernel.py:41",
+            launches=launches["rmsnorm"],
+            max_abs_err=bf16_ulp_check(f"rmsnorm[{tag}]", norm(), plain()),
+            ms=cuda_ms(norm, 50), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 50),
+            **bound(2 * x2.numel() * x2.element_size() + scale.numel() * scale.element_size(),
+                    3 * x2.numel()),
+            shape={"x": list(x2.shape), "dtype": str(x2.dtype)},
+        ))
     for r in rows:
         emit("kernel", **r)
     return rows
@@ -3697,12 +3726,12 @@ def family_kernel_rows(tag, store, launches):
 
 def phase_families():
     """The family phases in order, each model freed before the next; returns
-    the kernel rows of the VLM and hybrid prefills."""
+    the kernel rows of the ``FAMILY_ROWS`` prefills."""
     rows = []
     phase_families_small()
     for prefix, arch, batch, length in FAMILY_PHASES:
         store, launches = phase_family_prefill(prefix, arch, batch, length)
-        if prefix in ("vlm", "hybrid"):
+        if prefix in FAMILY_ROWS:
             rows += family_kernel_rows(arch, store, launches)
         del store
         torch.cuda.empty_cache()

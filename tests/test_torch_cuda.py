@@ -581,6 +581,12 @@ FLASH_TC_CASES = {
     "ragged_window_g16_d256": (106, (1, 16, 1, 333, 333, 256), dict(causal=True, window=130)),
     "ragged_kv_offset_d256": (107, (1, 4, 2, 77, 205, 256), dict(causal=True, kv_offset=128)),
     "decode_row_g8_d256": (108, (2, 8, 1, 1, 259, 256), dict(causal=True, kv_offset=258)),
+    # The dense archs' prefills: gemma-7b's D 256 at group 1 (16 / 16 heads)
+    # with a plain causal mask; command-r's D 128 at group 8 (64 / 8 heads)
+    # with a plain causal mask and as one decode row past a cache.
+    "ragged_causal_g1_d256": (109, (1, 16, 16, 261, 261, 256), dict(causal=True)),
+    "ragged_causal_g8_d128": (110, (1, 16, 2, 203, 203, 128), dict(causal=True)),
+    "decode_row_g8_d128": (111, (2, 16, 2, 1, 203, 128), dict(causal=True, kv_offset=202)),
 }
 
 

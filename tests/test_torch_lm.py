@@ -41,10 +41,14 @@ PORTED = sorted(ARCHS)
 PALLAS = ("phi4-mini-3.8b", "paligemma-3b", "recurrentgemma-9b")
 
 
-def _pair(arch="phi4-mini-3.8b", dtype="float32", jax_impl="pallas", port_impl="cuda"):
-    """(jax model, jax params, port model, port params) from one draw."""
-    cj = dataclasses.replace(jax_reduced_config(arch), attention_impl=jax_impl, dtype=dtype)
-    ct = dataclasses.replace(reduced_config(arch), attention_impl=port_impl, dtype=dtype)
+def _pair(arch="phi4-mini-3.8b", dtype="float32", jax_impl="pallas", port_impl="cuda",
+          **overrides):
+    """(jax model, jax params, port model, port params) from one draw; both
+    reduced configs take the same ``overrides``."""
+    cj = dataclasses.replace(jax_reduced_config(arch, **overrides), attention_impl=jax_impl,
+                             dtype=dtype)
+    ct = dataclasses.replace(reduced_config(arch, **overrides), attention_impl=port_impl,
+                             dtype=dtype)
     mj, mt = jax_build_model(cj), build_model(ct)
     pj = unzip(mj.init(jax.random.PRNGKey(0)))[0]
     pt = convert.lm_params_from_numpy(jax.tree.map(np.asarray, pj), "cpu")
