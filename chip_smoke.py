@@ -201,7 +201,8 @@ printing one JSON line; any failure raises and exits non-zero:
                   of 32 layers (f32 weights, grads and two AdamW moments take
                   16 B a parameter: 45 GB), bf16 compute, remat, 2 x 2,048
                   tokens a step: 2 warm-up and 4 timed steps; median step ms,
-                  tokens a second, peak memory, each step's loss and grad norm
+                  tokens a second, peak memory beside the one-device plan's
+                  estimate, each step's loss and grad norm
                   (finite), the tensor-core flash kernel 32 and rmsnorm 65
                   launches a step; then one more AdamW update timed alone.
   kernels (train) the flash row at the training shape (B 2, 24 / 8 heads, T
@@ -213,6 +214,30 @@ printing one JSON line; any failure raises and exits non-zero:
                   forward + backward, the bound of forward + backward (3.5 x
                   the forward's FLOP at 989 TFLOP/s); rmsnorm at (4,096,
                   3,072) bf16 with its plain backward.
+  train_small (the other nine archs)
+                  the same for each arch of ``TRAIN_PHASES`` at its reduced
+                  config with ``remat=True``: the SIMT flash kernel with the
+                  prefix (paligemma), window (recurrentgemma) and cross
+                  (whisper) masks, the MoE backward, rwkv6's chunked WKV and
+                  the RG-LRU scan under autograd, command-r's LayerNorm.
+  <family>_train  the train step of the other nine archs at their published
+                  widths (``TRAIN_PHASES``: vlm, moe, rwkv6, hybrid, audio,
+                  gemma7b, nemo, commandr, phimoe), depth cut to the deepest
+                  that the port's one-device plan puts under
+                  ``TRAIN_PLAN_LIMIT`` (72 GB): as ``train``, 1 warm-up and 2
+                  timed steps; each prints its cut (L of the published
+                  layers), the plan's peak estimate at L and at the next
+                  depth beside the card's peak, the AdamW share, and the
+                  launches (two flash calls a step for each attention,
+                  cross-attention and encoder layer; 4L + 1 rmsnorm where the
+                  config norms by RMS, none for rwkv6, whisper and
+                  command-r).  phi3.5-moe-42b-a6.6b trains at its published
+                  widths (d 4,096, 16 experts) at 2 of 32 layers.
+  kernels (train families)
+                  the ``kernels (train)`` rows at each train phase's layer-0
+                  shapes: the tensor-core flash kernel at D 256 with the
+                  prefix and window masks, D 64 without a mask over 1,500
+                  frames, D 128 at groups 1, 4 and 8 (rwkv6: none).
   families_small  reduced paligemma, olmoe, rwkv6, recurrentgemma, whisper,
                   gemma-7b, mistral-nemo and command-r (f32) on the card
                   against the CPU: the prefill step (flash kernel) and 8
@@ -432,6 +457,35 @@ FAMILY_PHASES = (
     ("nemo", "mistral-nemo-12b", 4, 2048),
     ("commandr", "command-r-35b", 4, 2048),
 )
+# The train step of the other nine archs at their published widths, depth
+# cut to fit one card: (phase prefix, arch, layers, batch, tokens a row).
+# Each L is the deepest that the port's one-device plan (launch/dryrun.py,
+# on the meta device: f32 weights, gradients and AdamW moments, bf16
+# compute, remat) puts under TRAIN_PLAN_LIMIT, at least 2, a multiple of 3
+# for recurrentgemma (one layer of three is local attention); paligemma,
+# rwkv6 and whisper fit at full depth.  Plan peaks, in GB, at L and L + 1
+# (recurrentgemma L + 3): olmoe 65.6 / 73.4, recurrentgemma 64.8 / 72.9,
+# gemma-7b 68.9 / 73.0, mistral-nemo 71.0 / 75.9, phi3.5-moe 52.5 / 76.7.
+# command-r's 2 layers plan at 73.0 GB, over the limit at the least depth
+# (31 GB of its temp are the 256,000 x 8,192 tied vocabulary's gradients
+# and do not shrink with batch: 1 x 2,048 plans at 72.9).  The VLM adds its
+# 256 patches before the tokens; whisper's 448 tokens attend over 1,500
+# frames.  No batch is cut: 2 rows as phi4-mini's phase, recurrentgemma's
+# 4,096 tokens so that its 2,048-token window masks.
+TRAIN_PHASES = (
+    ("vlm", "paligemma-3b", 18, 2, 2048),
+    ("moe", "olmoe-1b-7b", 8, 2, 2048),
+    ("rwkv6", "rwkv6-1.6b", 24, 2, 2048),
+    ("hybrid", "recurrentgemma-9b", 3, 2, 4096),
+    ("audio", "whisper-base", 6, 2, 448),
+    ("gemma7b", "gemma-7b", 11, 2, 2048),
+    ("nemo", "mistral-nemo-12b", 10, 2, 2048),
+    ("commandr", "command-r-35b", 2, 2, 2048),
+    ("phimoe", "phi3.5-moe-42b-a6.6b", 2, 2, 2048),
+)
+TRAIN_PLAN_LIMIT = 72e9          # bytes: 90% of the card's 80 GB
+TRAIN_FAMILY_WARMUP = 1
+TRAIN_FAMILY_STEPS = 2
 # The phases whose decode of the prompt is held against the prefill step
 # (the others' decode differs by design: the VLM's cache holds no patches,
 # whisper's cross-attention is zero, MoE capacity drops depend on the
@@ -3408,6 +3462,144 @@ def family_launches(cfg, prefill_calls: int, decode_steps: int, dtype) -> dict:
     return want
 
 
+def train_launches(cfg, steps: int) -> dict:
+    """Launches of ``steps`` train steps with remat: a prefill's flash calls
+    twice a step (each attention, cross-attention and encoder layer in the
+    forward and in its recomputed forward); where the config norms by RMS,
+    two RMSNorms a layer in each pass and the final norm once (outside the
+    layers' remat)."""
+    want = family_launches(cfg, 2 * steps, 0, getattr(torch, cfg.dtype))
+    if cfg.norm == "rmsnorm":
+        want["rmsnorm"] = steps * (4 * cfg.n_layers + 1)
+    return want
+
+
+def train_plan(arch: str, cfg, batch: int, length: int) -> dict:
+    """The ``memory`` of the port's one-device plan of a train step of
+    ``cfg`` over ``batch`` x ``length`` tokens (``launch/dryrun.py`` on the
+    meta device, no card), and its host seconds."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), devices="meta")
+    rec = dryrun.run_cell(arch, ShapeSpec("train", length, batch, "train"), "one", None,
+                          verbose=False, mesh=mesh, cfg=cfg)
+    return dict(rec["memory"], plan_s=time.perf_counter() - t0)
+
+
+def phase_family_train(name: str, arch: str, layers: int, batch: int, length: int,
+                       warmup: int = TRAIN_FAMILY_WARMUP, steps: int = TRAIN_FAMILY_STEPS):
+    """``arch`` at its published widths cut to ``layers`` layers, for
+    training: f32 weights and AdamW moments drawn on the card, bf16 compute,
+    remat, the flash kernel; ``make_train_step`` over the data pipeline's
+    ``batch`` x ``length`` batches, ``warmup`` + ``steps`` steps, counters
+    zeroed just before the first and read after the last.  Printed beside
+    the card's peak: the one-device plan's peak estimate at ``layers`` and
+    at the next depth the pattern allows.  Returns the first flash and
+    RMSNorm calls' inputs, the launches and the config."""
+    from repro_torch import training
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, device_batch
+    from repro_torch.models.params import tree_map, tree_size
+    from repro_torch.optim import adamw
+
+    published = get_config(arch)
+    model = train_model(reduced=False, arch=arch, layers=layers)
+    cfg = model.cfg
+    plan = train_plan(arch, cfg, batch, length)
+    step_l = len(cfg.block_pattern)
+    deeper = None
+    if layers + step_l <= published.n_layers:
+        deeper = train_plan(arch, dataclasses.replace(cfg, n_layers=layers + step_l), batch,
+                            length)
+    t0 = time.perf_counter()
+    state = training.init_train_state(model, 0, "cuda")
+    n_params = tree_size(state.params)
+    data = DataConfig(seed=0, batch=batch, seq_len=length)
+    batches = [device_batch(data, cfg, i, "cuda") for i in range(warmup + steps)]
+    opt = adamw.AdamWConfig()
+    step = training.make_train_step(model, opt)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    store, undo = capture_first_calls()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses, norms = [], [], []
+    try:
+        for b in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    finally:
+        undo()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(batches)
+    want = train_launches(cfg, n_steps)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"{name}: losses {losses}, grad norms {norms}")
+    med = statistics.median(times[warmup:])
+    # The optimizer's share of a step: one more AdamW update of every leaf
+    # (zero gradients; the same passes), timed after a warm-up call.
+    grads = tree_map(torch.zeros_like, state.params)
+    _, adamw_ms = warm_timed(lambda: adamw.apply(opt, state.opt, state.params, grads))
+    del grads
+    extra = {}
+    if cfg.is_moe:
+        extra.update(experts=cfg.n_experts, top_k=cfg.top_k)
+    if cfg.family == "vlm":
+        extra["patches"] = cfg.prefix_tokens
+    if cfg.is_encoder_decoder:
+        extra.update(frames=cfg.encoder_seq, encoder_layers=cfg.n_encoder_layers)
+    cuts = {}
+    if layers < published.n_layers:
+        cuts["layers"] = f"{layers} of {published.n_layers}"
+    emit(name, arch=cfg.name, nvidia_smi=nvidia_smi_line(), layers=cfg.n_layers,
+         published_layers=published.n_layers, cuts=cuts, d_model=cfg.d_model,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, params=n_params, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.dtype, remat=cfg.remat, batch=batch, seq_len=length,
+         setup_s=setup_s, plan_s=plan["plan_s"], warmup_ms=[1e3 * t for t in times[:warmup]],
+         step_ms=[1e3 * t for t in times[warmup:]], median_step_ms=1e3 * med,
+         tokens_per_s=batch * length / med, losses=losses, grad_norms=norms,
+         peak_memory_bytes=peak, plan_peak_estimate_bytes=plan["peak_estimate_bytes"],
+         peak_over_plan=peak / plan["peak_estimate_bytes"],
+         plan_argument_bytes=plan["argument_bytes"], plan_temp_bytes=plan["temp_bytes"],
+         plan_limit_bytes=TRAIN_PLAN_LIMIT,
+         plan_next_depth=None if deeper is None else layers + step_l,
+         plan_next_depth_peak_bytes=None if deeper is None else deeper["peak_estimate_bytes"],
+         adamw_apply_ms=adamw_ms, adamw_share=adamw_ms / (1e3 * med), launches=launches,
+         launches_per_step={k: v / n_steps for k, v in launches.items() if v}, **extra)
+    del state, batches, step
+    torch.cuda.empty_cache()
+    return store, launches, cfg
+
+
+def phase_train_families():
+    """Each train arch's reduced config on the card against the CPU, then
+    the full-width train phases of ``TRAIN_PHASES`` in order, each freed
+    before the next; returns their kernel rows."""
+    rows = []
+    for _, arch, *_ in TRAIN_PHASES:
+        phase_train_small(arch)
+    for prefix, arch, layers, batch, length in TRAIN_PHASES:
+        store, launches, cfg = phase_family_train(f"{prefix}_train", arch, layers, batch,
+                                                  length)
+        rows += train_kernel_rows(store, launches, cfg, tag=f"train, {arch}")
+        del store
+        torch.cuda.empty_cache()
+    return rows
+
+
 def moe_drop_spy():
     """Wrap ``moe.assignments`` to keep each call's count of assignments
     dropped by capacity (a device tensor, read later) and of assignments;
@@ -3644,8 +3836,7 @@ def family_kernel_rows(tag, store, launches):
     """flash_attention and rmsnorm on the inputs of their first calls in a
     family's prefill (layer 0), against their plain versions (one bf16
     ulp), timed beside the plain versions and one PyTorch call of the same
-    function (``scaled_dot_product_attention``: ``is_causal`` where the
-    mask is plain causal, as phi4-mini's row, else the same boolean mask;
+    function (``scaled_dot_product_attention`` as ``sdpa_call`` gives it;
     ``library_masked_ms`` times it with the boolean mask in every case;
     ``rms_norm``).  A model that norms by LayerNorm (command-r) calls no
     RMSNorm and gets the flash row alone."""
@@ -3673,9 +3864,7 @@ def family_kernel_rows(tag, store, launches):
                                              prefix_len=prefix, block_k=128)
     sdpa_masked = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                          enable_gqa=True)
-    sdpa = sdpa_masked
-    if causal and window is None and not prefix:
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    sdpa = sdpa_call(q, k, v, causal, window, prefix)
     tc = fa_k.uses_tensor_cores(q.dtype, d)
     counter = "flash_attention" if tc else "flash_attention_simt"
     want, plain_ms = warm_timed(plain)
@@ -3753,43 +3942,30 @@ TRAIN_SMALL_RTOL = 1e-5          # losses and grad norms
 TRAIN_SMALL_ATOL = 1e-5          # every parameter after 3 steps
 
 
-def train_model(reduced: bool):
-    """phi4-mini for training: the flash kernel, ``remat=True`` (the reduced
-    config turns it off), the full config cut to ``TRAIN_LAYERS`` layers."""
+def train_model(reduced: bool, arch: str = LM_ARCH, layers: int = TRAIN_LAYERS):
+    """``arch`` for training: the flash kernel, ``remat=True`` (the reduced
+    config turns it off), the full config cut to ``layers`` layers."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.model import build_model
 
     if reduced:
-        cfg = reduced_config(LM_ARCH)
+        cfg = reduced_config(arch)
     else:
-        cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     return build_model(dataclasses.replace(cfg, attention_impl="cuda", remat=True))
 
 
-def train_launches(cfg, steps: int) -> dict:
-    """Launches of ``steps`` train steps: the flash kernel once a layer in
-    the forward and once in its recomputed forward; rmsnorm twice a layer in
-    each and once more for the final norm (outside the layers' remat)."""
-    from repro_torch.kernels.flash_attention import kernel as fa_k
-
-    want = {k: 0 for k in read_counts()}
-    tc = fa_k.uses_tensor_cores(getattr(torch, cfg.dtype), cfg.head_dim)
-    want["flash_attention" if tc else "flash_attention_simt"] = steps * 2 * cfg.n_layers
-    want["rmsnorm"] = steps * (4 * cfg.n_layers + 1)
-    return want
-
-
-def phase_train_small():
-    """Reduced phi4-mini (f32, remat) training on the card against the CPU:
-    one set of weights from a CPU generator, 3 ``make_train_step`` steps on
-    each over the data pipeline's batches; losses, grad norms and every
-    parameter compared and gated."""
+def phase_train_small(arch: str = LM_ARCH):
+    """``arch``'s reduced config (f32, remat) training on the card against
+    the CPU: one set of weights from a CPU generator, 3 ``make_train_step``
+    steps on each over the data pipeline's batches; losses, grad norms and
+    every parameter compared and gated, launches as the layer list implies."""
     from repro_torch import training
     from repro_torch.data import DataConfig, device_batch
     from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.optim import adamw
 
-    model = train_model(reduced=True)
+    model = train_model(reduced=True, arch=arch)
     cfg = model.cfg
     start = training.init_train_state(model, torch.Generator().manual_seed(0), "cpu")
     data = DataConfig(seed=0, batch=2, seq_len=40)
@@ -3813,15 +3989,15 @@ def phase_train_small():
                     [t.cpu() for t in tree_leaves(state.params)])
     want = train_launches(cfg, 3)
     if launches != want:
-        raise AssertionError(f"train_small: launches {launches}, want {want}")
+        raise AssertionError(f"train_small {arch}: launches {launches}, want {want}")
     rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(out["cuda"][0], out["cpu"][0]))
            for k in ("loss", "ce", "grad_norm", "lr")}
     param_err = max(float((a - b).abs().max()) for a, b in zip(out["cuda"][1], out["cpu"][1]))
     if not (max(rel.values()) <= TRAIN_SMALL_RTOL and param_err <= TRAIN_SMALL_ATOL):
-        raise AssertionError(f"train_small: card against CPU: relative {rel}, parameters "
-                             f"{param_err}")
-    emit("train_small", layers=cfg.n_layers, d_model=cfg.d_model, remat=cfg.remat, steps=3,
-         losses={d: [m["loss"] for m in out[d][0]] for d in out},
+        raise AssertionError(f"train_small {arch}: card against CPU: relative {rel}, "
+                             f"parameters {param_err}")
+    emit("train_small", arch=arch, layers=cfg.n_layers, d_model=cfg.d_model, remat=cfg.remat,
+         steps=3, losses={d: [m["loss"] for m in out[d][0]] for d in out},
          grad_norms={d: [m["grad_norm"] for m in out[d][0]] for d in out},
          max_rel_err=rel, max_param_abs_err=param_err,
          tolerance={"rtol": TRAIN_SMALL_RTOL, "param_atol": TRAIN_SMALL_ATOL},
@@ -3829,82 +4005,36 @@ def phase_train_small():
 
 
 def phase_train():
-    """phi4-mini training at its published widths, 16 of 32 layers: f32
-    weights and AdamW moments drawn on the card, ``make_train_step`` over
-    the data pipeline's 2 x 2,048-token batches, 2 warm-up and 4 timed
-    steps; counters zeroed just before the first step and read after the
-    last.  Returns the first flash and rmsnorm calls' inputs and the
-    launches."""
-    from repro_torch import training
-    from repro_torch.data import DataConfig, device_batch
-    from repro_torch.models.params import tree_size
-    from repro_torch.optim import adamw
-
-    t0 = time.perf_counter()
-    model = train_model(reduced=False)
-    cfg = model.cfg
-    state = training.init_train_state(model, 0, "cuda")
-    n_params = tree_size(state.params)
-    data = DataConfig(seed=0, batch=TRAIN_BATCH, seq_len=TRAIN_LEN)
-    batches = [device_batch(data, cfg, i, "cuda") for i in range(TRAIN_WARMUP + TRAIN_STEPS)]
-    opt = adamw.AdamWConfig()
-    step = training.make_train_step(model, opt)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-
-    store, undo = capture_first_calls()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    times, losses, norms = [], [], []
-    try:
-        for b in batches:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            state, m = step(state, b)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t1)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-    finally:
-        undo()
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    n_steps = len(batches)
-    want = train_launches(cfg, n_steps)
-    if launches != want:
-        raise AssertionError(f"train: launches {launches}, want {want}")
-    if not all(np.isfinite(losses + norms)):
-        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
-    med = statistics.median(times[TRAIN_WARMUP:])
-    tokens = TRAIN_BATCH * TRAIN_LEN
-    # The optimizer's share of a step: one more AdamW update of every leaf
-    # (zero gradients; the same passes), timed after a warm-up call.
-    from repro_torch.models.params import tree_map
-
-    grads = tree_map(torch.zeros_like, state.params)
-    _, adamw_ms = warm_timed(lambda: adamw.apply(opt, state.opt, state.params, grads))
-    del grads
-    emit("train", arch=cfg.name, layers=cfg.n_layers, published_layers=32,
-         d_model=cfg.d_model, vocab=cfg.vocab_size, heads=cfg.n_heads,
-         kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, params=n_params,
-         param_dtype=cfg.param_dtype, compute_dtype=cfg.dtype, remat=cfg.remat,
-         batch=TRAIN_BATCH, seq_len=TRAIN_LEN, setup_s=setup_s,
-         warmup_ms=[1e3 * t for t in times[:TRAIN_WARMUP]],
-         step_ms=[1e3 * t for t in times[TRAIN_WARMUP:]], median_step_ms=1e3 * med,
-         tokens_per_s=tokens / med, losses=losses, grad_norms=norms,
-         peak_memory_bytes=peak, adamw_apply_ms=adamw_ms, launches=launches,
-         launches_per_step={"flash_attention": launches["flash_attention"] / n_steps,
-                            "rmsnorm": launches["rmsnorm"] / n_steps})
-    del state, batches
-    torch.cuda.empty_cache()
-    return store, launches, cfg
+    """phi4-mini training at its published widths, 16 of 32 layers
+    (``phase_family_train``): 2 x 2,048-token batches, 2 warm-up and 4 timed
+    steps.  Returns the first flash and rmsnorm calls' inputs, the launches
+    and the config."""
+    return phase_family_train("train", LM_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_LEN,
+                              TRAIN_WARMUP, TRAIN_STEPS)
 
 
-def train_kernel_rows(store, launches, cfg):
-    """The flash and rmsnorm rows at the training shape (layer 0's first
-    call in ``train``): the forward kernels with the outputs the backward
+def sdpa_call(q, k, v, causal, window, prefix):
+    """``scaled_dot_product_attention`` of the flash call's function:
+    ``is_causal`` at a plain causal mask (its flash backend), no mask where
+    every key is visible, else the boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import visible
+
+    if window is None and not prefix:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      enable_gqa=True)
+    mask = visible(torch.arange(q.shape[2], device=q.device)[:, None],
+                   torch.arange(k.shape[2], device=q.device)[None, :], causal, window, prefix)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def train_kernel_rows(store, launches, cfg, tag="train"):
+    """The flash and rmsnorm rows at a training shape (layer 0's first call
+    in a train phase): the forward kernels with the outputs the backward
     reads, the plain backward a call, and the library's forward + backward;
-    the kernels against their plain versions."""
+    the kernels against their plain versions.  A model without attention
+    (rwkv6) gets no flash row, one that norms by LayerNorm no rmsnorm row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fa_k
@@ -3916,84 +4046,87 @@ def train_kernel_rows(store, launches, cfg):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     rows = []
-    (q, k, v), kw = store["flash_attention"]
-    q, k, v = (t.detach() for t in (q, k, v))
-    causal, window, prefix = kw["causal"], kw["window"], kw["prefix_len"]
-    b, hq, tq, d = q.shape
-    tk = k.shape[2]
-    block = cfg.attention_block_k
-    g = torch.Generator(device=q.device).manual_seed(3)
-    dout = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
-    fwd = lambda: fa_k.flash_attention_wgmma_cuda(q, k, v, causal=causal, window=window,
-                                                  prefix_len=prefix, return_lse=True)
-    plain_fwd = lambda: fa_ops.chunked_attention(q, k, v, causal=causal, window=window,
-                                                 prefix_len=prefix, block_k=128,
-                                                 return_lse=True)
-    out, lse = fwd()
-    (want, want_lse), plain_ms = warm_timed(plain_fwd)
-    err = bf16_ulp_check("flash_attention[train]", out, want)
-    lse_err = float((lse - want_lse).abs().max())
-    if not lse_err <= 1e-5 * float(want_lse.abs().max()) + 1e-5:
-        raise AssertionError(f"flash_attention[train]: lse differs by {lse_err}")
-    bwd = lambda: attention_backward(q, k, v, out, lse, dout, causal, window, prefix, 0, None,
-                                     block)
-    (dq, dk, dv), bwd_ms = warm_timed(bwd)
-    # The gradients through the plain forward: the same backward on its out and lse.
-    dq_w, dk_w, dv_w = attention_backward(q, k, v, want, want_lse, dout, causal, window, prefix,
-                                          0, None, block)
-    grad_rel = {n: float(torch.linalg.norm((a - w).float()) / torch.linalg.norm(w.float()))
-                for n, a, w in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w))}
-    if not max(grad_rel.values()) <= 2e-2:
-        raise AssertionError(f"flash_attention[train]: gradients through the kernel's forward "
-                             f"against the plain forward's: relative L2 {grad_rel}")
-    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    if "flash_attention" in store:
+        (q, k, v), kw = store["flash_attention"]
+        q, k, v = (t.detach() for t in (q, k, v))
+        causal, window, prefix = kw["causal"], kw["window"], kw["prefix_len"]
+        mask = dict(causal=causal, window=window, prefix_len=prefix)
+        b, hq, tq, d = q.shape
+        tk = k.shape[2]
+        block = cfg.attention_block_k
+        counter = ("flash_attention" if fa_k.uses_tensor_cores(q.dtype, d)
+                   else "flash_attention_simt")
+        dout = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+        fwd = lambda: fa_k.flash_attention_cuda(q, k, v, return_lse=True, **mask)
+        plain_fwd = lambda: fa_ops.chunked_attention(q, k, v, block_k=128, return_lse=True, **mask)
+        out, lse = fwd()
+        (want, want_lse), plain_ms = warm_timed(plain_fwd)
+        err = bf16_ulp_check(f"flash_attention[{tag}]", out, want)
+        lse_err = float((lse - want_lse).abs().max())
+        if not lse_err <= 1e-5 * float(want_lse.abs().max()) + 1e-5:
+            raise AssertionError(f"flash_attention[{tag}]: lse differs by {lse_err}")
+        bwd = lambda: attention_backward(q, k, v, out, lse, dout, causal, window, prefix, 0, None,
+                                         block)
+        (dq, dk, dv), bwd_ms = warm_timed(bwd)
+        # The gradients through the plain forward: the same backward on its out and lse.
+        dq_w, dk_w, dv_w = attention_backward(q, k, v, want, want_lse, dout, causal, window, prefix,
+                                              0, None, block)
+        grad_rel = {n: float(torch.linalg.norm((a - w).float()) / torch.linalg.norm(w.float()))
+                    for n, a, w in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w))}
+        if not max(grad_rel.values()) <= 2e-2:
+            raise AssertionError(f"flash_attention[{tag}]: gradients through the kernel's forward "
+                                 f"against the plain forward's: relative L2 {grad_rel}")
+        del dq, dk, dv, dq_w, dk_w, dv_w
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa = sdpa_call(qs, ks, vs, causal, window, prefix)
 
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(), (qs, ks, vs), dout)
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qs, ks, vs), dout)
 
-    pairs = int(visible(torch.arange(tq, device=q.device)[:, None],
-                        torch.arange(tk, device=q.device)[None, :],
-                        causal, window, prefix).sum()) * b * hq
-    flash_ops = 4 * d * pairs
-    flash_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * lse.numel()
-    rows.append(dict(
-        name="flash_attention[train]", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:150",
-        launches=launches["flash_attention"], max_abs_err=err, lse_max_abs_err=lse_err,
-        ms=cuda_ms(fwd, 10), plain_ms=plain_ms, library_ms=cuda_ms(sdpa, 10),
-        **bound(flash_bytes, flash_ops, BF16_TENSOR_OPS_PER_S),
-        backward_plain_ms=bwd_ms, backward_block_k=block,
-        library_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd, 5),
-        fwd_bwd_bound_ms=3.5 * flash_ops / BF16_TENSOR_OPS_PER_S * 1e3,
-        serving_ms=cuda_ms(lambda: fa_k.flash_attention_wgmma_cuda(q, k, v, causal=causal), 10),
-        grad_rel_l2_vs_plain_forward=grad_rel, visible_pairs=pairs,
-        shape={"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
-    ))
+        pairs = int(visible(torch.arange(tq, device=q.device)[:, None],
+                            torch.arange(tk, device=q.device)[None, :],
+                            causal, window, prefix).sum()) * b * hq
+        flash_ops = 4 * d * pairs
+        flash_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * lse.numel()
+        rows.append(dict(
+            name=f"flash_attention[{tag}]", route="cuda", source=flash_source(q.dtype, d),
+            replaces="src/repro/kernels/flash_attention/kernel.py:150",
+            launches=launches[counter], counter=counter, max_abs_err=err, lse_max_abs_err=lse_err,
+            ms=cuda_ms(fwd, 10), plain_ms=plain_ms, library_ms=cuda_ms(sdpa, 10),
+            **bound(flash_bytes, flash_ops, BF16_TENSOR_OPS_PER_S),
+            backward_plain_ms=bwd_ms, backward_block_k=block,
+            library_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd, 5),
+            fwd_bwd_bound_ms=3.5 * flash_ops / BF16_TENSOR_OPS_PER_S * 1e3,
+            serving_ms=cuda_ms(lambda: fa_k.flash_attention_cuda(q, k, v, **mask), 10),
+            grad_rel_l2_vs_plain_forward=grad_rel, visible_pairs=pairs, mask=mask,
+            shape={"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
+        ))
 
-    (x, scale, eps), _ = store["rmsnorm"]
-    x2 = x.detach().reshape(-1, x.shape[-1])
-    scale = scale.detach()
-    norm = lambda: rms_k.rmsnorm_cuda(x2, scale, eps)
-    plain = lambda: rmsnorm_ref(x2, scale, eps)
-    # The library's fused path takes a weight of the input's dtype: the
-    # first call's scale is the init's ones, exact in bf16.
-    scale_lib = scale.to(x2.dtype)
-    lib = lambda: F.rms_norm(x2, (x2.shape[-1],), weight=scale_lib, eps=eps)
-    dy = torch.randn(x2.shape, generator=g, device=x2.device).to(x2.dtype)
-    rows.append(dict(
-        name="rmsnorm[train]", route="cuda",
-        source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm/kernel.py:41",
-        launches=launches["rmsnorm"],
-        max_abs_err=bf16_ulp_check("rmsnorm[train]", norm(), plain()),
-        ms=cuda_ms(norm, 50), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 50),
-        **bound(2 * x2.numel() * x2.element_size() + scale.numel() * scale.element_size(),
-                3 * x2.numel()),
-        backward_plain_ms=cuda_ms(lambda: rms_ops.rmsnorm_backward(x2, scale, eps, dy), 20),
-        shape={"x": list(x2.shape), "dtype": str(x2.dtype), "scale_dtype": str(scale.dtype)},
-    ))
+    if "rmsnorm" in store:
+        (x, scale, eps), _ = store["rmsnorm"]
+        x2 = x.detach().reshape(-1, x.shape[-1])
+        scale = scale.detach()
+        norm = lambda: rms_k.rmsnorm_cuda(x2, scale, eps)
+        plain = lambda: rmsnorm_ref(x2, scale, eps)
+        # The library's fused path takes a weight of the input's dtype: the
+        # first call's scale is the init's ones, exact in bf16.
+        scale_lib = scale.to(x2.dtype)
+        lib = lambda: F.rms_norm(x2, (x2.shape[-1],), weight=scale_lib, eps=eps)
+        dy = torch.randn(x2.shape, generator=g, device=x2.device).to(x2.dtype)
+        rows.append(dict(
+            name=f"rmsnorm[{tag}]", route="cuda",
+            source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm/kernel.py:41",
+            launches=launches["rmsnorm"],
+            max_abs_err=bf16_ulp_check(f"rmsnorm[{tag}]", norm(), plain()),
+            ms=cuda_ms(norm, 50), plain_ms=cuda_ms(plain, 20), library_ms=cuda_ms(lib, 50),
+            **bound(2 * x2.numel() * x2.element_size() + scale.numel() * scale.element_size(),
+                    3 * x2.numel()),
+            backward_plain_ms=cuda_ms(lambda: rms_ops.rmsnorm_backward(x2, scale, eps, dy), 20),
+            shape={"x": list(x2.shape), "dtype": str(x2.dtype),
+                   "scale_dtype": str(scale.dtype)},
+        ))
     for r in rows:
         emit("kernel", **r)
     return rows
@@ -4463,6 +4596,9 @@ def main() -> int:
     rows += train_kernel_rows(*phase_train())
     torch.cuda.empty_cache()
     seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows += phase_train_families()
+    seconds["train_families"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows += phase_families()
     seconds["families"] = time.perf_counter() - t0

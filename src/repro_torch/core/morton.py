@@ -5,7 +5,8 @@ of the reference): codes interleave three ≤10-bit coordinates into a 30-bit
 key, and the per-grid-shape tables ``zorder_cells`` / ``cell_zrank`` are
 computed once on the host and uploaded by the grid code, so the layout sort
 needs no device sort.  :func:`encode3_torch` computes the same codes on
-tensors for the argsort path past ``MAX_TABLE_CELLS``.
+tensors for the argsort path past ``MAX_TABLE_CELLS``; :func:`decode3`
+inverts either; :func:`bits_for` sizes a dimension's bit budget.
 """
 
 from __future__ import annotations
@@ -38,6 +39,35 @@ def encode3(ix: np.ndarray, iy: np.ndarray, iz: np.ndarray) -> np.ndarray:
     return _part1by2(ix) | (_part1by2(iy) << np.uint32(1)) | (
         _part1by2(iz) << np.uint32(2)
     )
+
+
+# The reference's host-side mirror of its jnp ``encode3``; here ``encode3``
+# is itself the numpy version.
+encode3_np = encode3
+
+
+def _compact1by2(x: torch.Tensor) -> torch.Tensor:
+    """Gather every third bit of x (bits 0, 3, 6, ...) into its low 10 bits."""
+    x = x & _B32[0]
+    x = (x | (x >> _S32[0])) & _B32[1]
+    x = (x | (x >> _S32[1])) & _B32[2]
+    x = (x | (x >> _S32[2])) & _B32[3]
+    x = (x | (x >> _S32[3])) & _B32[4]
+    return x
+
+
+def decode3(code) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three coordinates of 30-bit Morton codes (a tensor or a numpy
+    array, as :func:`encode3_torch` / :func:`encode3` give them), as int64
+    tensors on the codes' device."""
+    code = (torch.from_numpy(code.astype(np.int64)) if isinstance(code, np.ndarray)
+            else code.to(torch.int64)) & 0xFFFFFFFF
+    return _compact1by2(code), _compact1by2(code >> 1), _compact1by2(code >> 2)
+
+
+def bits_for(n: int) -> int:
+    """Number of bits needed to index ``n`` cells (non-cubic grid support)."""
+    return max(int(n - 1).bit_length(), 1)
 
 
 def _part1by2_torch(x: torch.Tensor) -> torch.Tensor:

@@ -508,22 +508,29 @@ def test_rmsnorm_kernel_matches_plain(card, rows, d, dtype):
 FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
              torch.bfloat16: dict(rtol=2**-7, atol=1e-6)}
 
-# ((B, Hq, Hkv, Tq, Tk, D), mask kwargs): groups 1, 3 and 4, D 16 / 64 /
-# 128 / 256, Tq and Tk not multiples of the 64-row tiles, every mask term.
+# (seed, (B, Hq, Hkv, Tq, Tk, D), mask kwargs): groups 1 to 16, D 16 / 64
+# / 128 / 256, Tq and Tk not multiples of the 64-row tiles, every mask
+# term.  Each case keeps its own seed (the first ten: their index in sorted
+# order, which seeded them before the seed was a field).
 FLASH_CASES = {
-    "causal_g3_d128": ((2, 6, 2, 100, 100, 128), dict(causal=True)),
-    "full_g1_d16": ((1, 2, 2, 70, 70, 16), dict(causal=False)),
-    "window_g4_d64": ((1, 8, 2, 150, 150, 64), dict(causal=True, window=40)),
-    "prefix_d128": ((1, 3, 1, 90, 90, 128), dict(causal=True, prefix_len=20)),
-    "kv_offset_d256": ((1, 2, 1, 33, 129, 256), dict(causal=True, kv_offset=96)),
-    "decode_row_d128": ((2, 24, 8, 1, 200, 128), dict(causal=True, kv_offset=199)),
-    "all_terms_d16": ((1, 4, 2, 80, 95, 16), dict(causal=True, window=8, prefix_len=5,
-                                                   kv_offset=3)),
-    "masked_rows_d64": ((1, 2, 1, 16, 40, 64), dict(causal=True, window=4, kv_offset=60)),
+    "causal_g3_d128": (1, (2, 6, 2, 100, 100, 128), dict(causal=True)),
+    "full_g1_d16": (3, (1, 2, 2, 70, 70, 16), dict(causal=False)),
+    "window_g4_d64": (9, (1, 8, 2, 150, 150, 64), dict(causal=True, window=40)),
+    "prefix_d128": (6, (1, 3, 1, 90, 90, 128), dict(causal=True, prefix_len=20)),
+    "kv_offset_d256": (4, (1, 2, 1, 33, 129, 256), dict(causal=True, kv_offset=96)),
+    "decode_row_d128": (2, (2, 24, 8, 1, 200, 128), dict(causal=True, kv_offset=199)),
+    "all_terms_d16": (0, (1, 4, 2, 80, 95, 16), dict(causal=True, window=8, prefix_len=5,
+                                                      kv_offset=3)),
+    "masked_rows_d64": (5, (1, 2, 1, 16, 40, 64), dict(causal=True, window=4, kv_offset=60)),
     # paligemma's prefix-LM mask at D 256 and MQA group 8; recurrentgemma's
     # window shorter than T at D 256 and group 16.
-    "prefix_g8_d256": ((2, 8, 1, 200, 200, 256), dict(causal=True, prefix_len=72)),
-    "window_g16_d256": ((1, 16, 1, 230, 230, 256), dict(causal=True, window=64)),
+    "prefix_g8_d256": (7, (2, 8, 1, 200, 200, 256), dict(causal=True, prefix_len=72)),
+    "window_g16_d256": (8, (1, 16, 1, 230, 230, 256), dict(causal=True, window=64)),
+    # The train steps' new shapes: whisper's cross-attention (448 decoder
+    # queries over 1,500 frames, D 64, no mask) and command-r's D 128 at
+    # group 8 (64 / 8 heads) under a plain causal mask.
+    "cross_d64_1500": (10, (1, 8, 8, 448, 1500, 64), dict(causal=False)),
+    "causal_g8_d128": (11, (1, 16, 2, 200, 200, 128), dict(causal=True)),
 }
 
 
@@ -531,8 +538,8 @@ FLASH_CASES = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_attention_kernel_matches_plain(card, case, dtype):
-    (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
-    g = torch.Generator().manual_seed(sorted(FLASH_CASES).index(case))
+    seed, (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
+    g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(s, generator=g).to(dtype)
                for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
     want = fa_ops.flash_attention(q, k, v, impl="chunked", block_k=64, **kw)
@@ -661,8 +668,8 @@ def test_flash_attention_lse_matches_plain(card, case, dtype):
     version's on the same inputs: ``rtol=1e-5, atol=1e-5`` (f32 sums of
     exp in other orders, ``logf``); -1e30 exactly where a row's keys are
     all hidden; the output equals the launch without lse bit for bit."""
-    (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
-    g = torch.Generator().manual_seed(sorted(FLASH_CASES).index(case))
+    seed, (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
+    g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(s, generator=g).to(dtype).to(card)
                for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
     out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -677,10 +684,12 @@ def test_flash_attention_lse_matches_plain(card, case, dtype):
 
 
 # (FLASH_CASES case, dtype): the tensor-core kernels at D 128, 64 and 256
-# (bf16), the SIMT kernel at D 256 (f32).
+# (bf16), the SIMT kernel at D 256 (f32); whisper's cross shape and D 128
+# at group 8, as the train steps run them.
 FLASH_GRAD_CASES = [("causal_g3_d128", torch.bfloat16), ("window_g4_d64", torch.bfloat16),
                     ("prefix_g8_d256", torch.float32), ("kv_offset_d256", torch.float32),
-                    ("prefix_g8_d256", torch.bfloat16), ("window_g16_d256", torch.bfloat16)]
+                    ("prefix_g8_d256", torch.bfloat16), ("window_g16_d256", torch.bfloat16),
+                    ("cross_d64_1500", torch.bfloat16), ("causal_g8_d128", torch.bfloat16)]
 
 
 @pytest.mark.cuda
@@ -692,8 +701,8 @@ def test_flash_attention_kernel_gradients_match_plain(card, case, dtype):
     relative L2 of dq, dk, dv ≤ 1e-4 in f32 (the forwards' out and lse agree
     to 2e-5) and ≤ 2e-2 in bf16 (out differs by a bf16 ulp and the
     gradients round to bf16)."""
-    (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
-    g = torch.Generator().manual_seed(50 + sorted(FLASH_CASES).index(case))
+    seed, (b, hq, hkv, tq, tk, d), kw = FLASH_CASES[case]
+    g = torch.Generator().manual_seed(50 + seed)
     base = [torch.randn(s, generator=g).to(dtype).to(card)
             for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d))]
     dout = torch.randn((b, hq, tq, d), generator=g).to(dtype).to(card)

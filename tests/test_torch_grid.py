@@ -95,6 +95,28 @@ def test_morton_encode_and_helpers():
     assert t_morton.max_grid_dim() == j_morton.max_grid_dim()
 
 
+def test_morton_decode_bits_for_and_encode3_np():
+    """``decode3`` inverts ``encode3`` / ``encode3_torch`` and equals the
+    reference's on any uint32 code; ``bits_for`` and ``encode3_np`` equal
+    the reference's, the codes bit for bit."""
+    rng = np.random.default_rng(1)
+    ijk = rng.integers(0, 1024, (500, 3)).astype(np.uint32)
+    codes = t_morton.encode3(*ijk.T)
+    on_tensors = t_morton.encode3_torch(*(torch.from_numpy(ijk[:, d].astype(np.int64))
+                                          for d in range(3)))
+    for c in (codes, on_tensors):
+        for got, want in zip(t_morton.decode3(c), ijk.T):
+            assert got.dtype == torch.int64
+            np.testing.assert_array_equal(to_np(got), want.astype(np.int64))
+    any_code = rng.integers(0, 2 ** 32, 500, dtype=np.uint64).astype(np.uint32)
+    for got, want in zip(t_morton.decode3(any_code), j_morton.decode3(jnp.asarray(any_code))):
+        np.testing.assert_array_equal(to_np(got), to_np(want).astype(np.int64))
+    for n in [*range(1, 70), 1023, 1024, 1025, 2 ** 20, 2 ** 20 + 1]:
+        assert t_morton.bits_for(n) == j_morton.bits_for(n), n
+    got, want = t_morton.encode3_np(*ijk.T), j_morton.encode3_np(*ijk.T)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
 # --------------------------------------------------------------- cell_rank
 
 def _cids(case):

@@ -12,7 +12,8 @@ against the reference on the CPU.
   reference's order; XLA's and torch's ``pow``, ``cos`` and sums may differ
   by an ulp, and an ulp of the clip scale moves every moment by one; seen
   1.9e-9 at one of 72 values).
-* Three ``make_train_step`` steps of reduced phi4-mini against the
+* Three ``make_train_step`` steps of reduced phi4-mini, and of one arch a
+  family with ``remat=True`` (``TRAIN_STEP_CASES``), against the
   reference's jitted step from the same state: loss and ``ce`` ``rtol=2e-6``,
   ``grad_norm`` ``rtol=1e-5``, ``lr`` ``rtol=1e-6``, parameters
   ``atol=2e-5`` (AdamW moves a parameter by about ``lr`` a step whatever its
@@ -100,11 +101,22 @@ def test_schedule_matches_jax():
         np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=str(step))
 
 
-def test_train_steps_match_jax():
-    arch = "phi4-mini-3.8b"
-    cj = dataclasses.replace(jax_reduced_config(arch), attention_impl="chunked")
+# (arch, remat): phi4-mini as the reduced config has it, and one arch a
+# family with ``remat=True`` in both packages: the MoE router, the VLM's
+# prefix mask, rwkv6's chunked WKV, the RG-LRU scan and local window,
+# whisper's encoder and cross-attention, gemma's D 256 at group 1 and
+# command-r's LayerNorm.
+TRAIN_STEP_CASES = [("phi4-mini-3.8b", False), ("olmoe-1b-7b", True), ("paligemma-3b", True),
+                    ("rwkv6-1.6b", True), ("recurrentgemma-9b", True), ("whisper-base", True),
+                    ("gemma-7b", True), ("command-r-35b", True)]
+
+
+@pytest.mark.parametrize("arch,remat", TRAIN_STEP_CASES, ids=[a for a, _ in TRAIN_STEP_CASES])
+def test_train_steps_match_jax(arch, remat):
+    cj = dataclasses.replace(jax_reduced_config(arch), attention_impl="chunked", remat=remat)
     mj = jax_build_model(cj)
-    mt = build_model(dataclasses.replace(reduced_config(arch), attention_impl="cuda"))
+    mt = build_model(dataclasses.replace(reduced_config(arch), attention_impl="cuda",
+                                         remat=remat))
     opt_w = jax_adamw.AdamWConfig(learning_rate=3e-4, warmup_steps=20, total_steps=100)
     opt_t = adamw.AdamWConfig(learning_rate=3e-4, warmup_steps=20, total_steps=100)
     state_w, _ = jax_training.init_train_state(mj, jax.random.PRNGKey(0))
@@ -115,6 +127,11 @@ def test_train_steps_match_jax():
     for i in range(3):
         toks = rng.integers(0, cj.vocab_size, (2, 17)).astype(np.int32)
         batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        if cj.family == "vlm":
+            batch["patches"] = rng.normal(0, 1, (2, cj.prefix_tokens, cj.d_model)
+                                          ).astype(np.float32)
+        if cj.is_encoder_decoder:
+            batch["frames"] = rng.normal(0, 1, (2, cj.encoder_seq, cj.d_model)).astype(np.float32)
         state_w, met_w = step_w(state_w, {k: jnp.asarray(v) for k, v in batch.items()})
         state, met = step_t(state, {k: torch.from_numpy(v) for k, v in batch.items()})
         assert set(met) == set(met_w) | {"loss"} == set(met_w)
