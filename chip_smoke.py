@@ -163,6 +163,25 @@ printing one JSON line; any failure raises and exits non-zero:
                   step against the single-node one, the host's time a step in
                   migrate + halo_exchange and in the other ops, launches a
                   step, peak memory.
+  distributed_procs
+                  the distributed engine with one process a rank
+                  (``launch/procs.spawn``, ``launch/mesh.process_mesh``), eight
+                  processes on the one card over gloo (a card's tensors staged
+                  through pinned host memory): dist_small's corner case (int16)
+                  on its 4x2 mesh, serial and overlapped, 8 steps, each
+                  bit-identical to its in-process card run; then on four of
+                  them (a subgroup) ``distributed``'s model on its 2x2 mesh,
+                  20 steps: the final state (every leaf, so the gid-keyed
+                  positions), the population series and the overflow counters
+                  bit-identical to ``distributed``'s in-process run, every
+                  process launching cell_rank and cell_list_force[ghost], the
+                  four processes' launches adding up to the in-process run's,
+                  the bytes each rank sends through ``Mesh.shift`` a step equal
+                  to the in-process mesh's.  Printed: each process's median
+                  step, host-staging ms a step, bytes a rank a step, the card's
+                  name and power limit.  With 4 or more cards the 2x2 case also
+                  runs over NCCL, one rank a card, against the gloo run;
+                  otherwise a line ``nccl: not run (N card)``.
   kernels (dist)  cell_list_force over rank 0's ghost-extended sources (S = C
                   + 4H rows, num_out = C) of the distributed run's final
                   state, against its plain version (atol 1e-5 x max|F|), its
@@ -330,6 +349,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -427,6 +447,12 @@ DIST_HALO = 10.0
 DIST_HALO_CAPACITY = 4096
 DIST_MIGRATE_CAPACITY = 4096
 DIST_OVERLAP_STEPS = 4
+# distributed_procs: one process a rank (launch/procs.py), gloo on one card.
+PROCS_SMALL_RANKS = 8           # dist_small's 4x2 mesh; the first 4 run DIST_MESH
+PROCS_SMALL_STEPS = 8
+PROCS_TIMEOUT_S = 300
+DIST_KERNELS = ("cell_rank", "cell_list_force", "cell_window_force", "pairwise_force",
+                "diffusion3d")
 
 # The LM serving path: phi4-mini-3.8b at its published widths and depth.
 LM_ARCH = "phi4-mini-3.8b"
@@ -2191,9 +2217,10 @@ def dist_force_case(corners: bool):
     return dcfg, pos.astype(np.float32), (256 if corners else 192)
 
 
-def dist_small_run(dcfg, pos, capacity, device, steps, **engine):
+def dist_small_run(dcfg, pos, capacity, device, steps, mesh=None, **engine):
     """``steps`` distributed steps of a force-only case on ``device``
-    (``"cuda"`` or ``"cpu"``), grid ranks by cell_rank."""
+    (``"cuda"`` or ``"cpu"``), grid ranks by cell_rank; on an in-process
+    mesh unless ``mesh`` (a process mesh) is given."""
     from repro_torch.core import EngineConfig, ForceParams
     from repro_torch.core import distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -2201,7 +2228,7 @@ def dist_small_run(dcfg, pos, capacity, device, steps, **engine):
     ecfg = EngineConfig(spec=dcfg.grid_spec(box_size=2.0, max_per_cell=32, rank_impl="cuda"),
                         force_params=ForceParams(), dt=0.05, min_bound=0.0, max_bound=16.0,
                         boundary="open", sort_frequency=4, **engine)
-    mesh = make_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices=device)
+    mesh = mesh or make_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices=device)
     state = dist.init_dist_state(dcfg, capacity, pos, diameter=1.6, device=mesh.devices[0])
     step = dist.make_distributed_step(mesh, dcfg, ecfg)
     for _ in range(steps):
@@ -2286,9 +2313,10 @@ def phase_dist_small():
     emit("dist_small", mesh=[4, 2], agents=[500, 572], overlap_bit_identical=True, **out)
 
 
-def dist_soma(codec="int16", overlap=False, device="cuda"):
+def dist_soma(codec="int16", overlap=False, device="cuda", mesh=None):
     """Path 1's soma model through ``Simulation.distribute`` on a 2x2 mesh of
-    ranks on the one card, with a ``gid`` attribute and a ``pop`` series."""
+    ranks on the one card (or on ``mesh``, a process mesh), with a ``gid``
+    attribute and a ``pop`` series."""
     from repro_torch.core.distributed import DomainConfig
     from repro_torch.launch.mesh import make_mesh
 
@@ -2298,7 +2326,7 @@ def dist_soma(codec="int16", overlap=False, device="cuda"):
                         migrate_capacity=DIST_MIGRATE_CAPACITY, depth=SPACE,
                         halo_codec=codec, overlap_halo=overlap)
     sim = dist_soma_model(device)
-    return sim.distribute(make_mesh(DIST_MESH, ("x", "y"), devices=device), dcfg,
+    return sim.distribute(mesh or make_mesh(DIST_MESH, ("x", "y"), devices=device), dcfg,
                           capacity=DIST_CAPACITY)
 
 
@@ -2365,12 +2393,34 @@ def timed_ops(dsim):
     return dataclasses.replace(dsim, scheduler=sched, step=step), seconds
 
 
+def dist_counters(final) -> dict:
+    """The distributed state's overflow and health counters, a rank each."""
+    return {"migrate_overflow": final.migrate_overflow, "halo_overflow": final.halo_overflow,
+            "pool_overflow": final.pool.overflow,
+            **{f"health.{f.name}": getattr(final.health, f.name)
+               for f in dataclasses.fields(final.health)}}
+
+
+def state_digest(state) -> str:
+    """SHA-1 of every leaf of a state (its checkpoint key, dtype, shape and
+    bytes), so that states held by other processes compare bit for bit."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for key, x in state_leaves(state).items():
+        h.update(f"{key}|{x.dtype}|{tuple(x.shape)}".encode())
+        h.update(x.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def phase_distributed():
     """Path 1's 600,000-agent soma model on a 2x2 mesh of four ranks on the
     card, through ``Simulation.distribute``; against the single-node card run
-    of the same model in the same call."""
+    of the same model in the same call.  Returns the deployment, its final
+    state and launches, and the record ``distributed_procs`` is held to."""
     from repro_torch.core import distributed as dist
     from repro_torch.core.api import Observable
+    from repro_torch.launch.mesh import count_shift_bytes
 
     t0 = time.perf_counter()
     # The single-node reference run, timed step by step.
@@ -2419,8 +2469,9 @@ def phase_distributed():
     reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    s4, obs4 = dsim.run(DIST_OVERLAP_STEPS)
-    final, obs16 = dsim.run(STEPS - DIST_OVERLAP_STEPS, state=s4)
+    with count_shift_bytes() as sent:
+        s4, obs4 = dsim.run(DIST_OVERLAP_STEPS)
+        final, obs16 = dsim.run(STEPS - DIST_OVERLAP_STEPS, state=s4)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - start
     launches = read_counts()
@@ -2436,10 +2487,7 @@ def phase_distributed():
         raise AssertionError(f"distributed: population series {pop.tolist()}")
     if not torch.equal(pop, single_pop):
         raise AssertionError("distributed: population series differs from the single-node run")
-    counters = {"migrate_overflow": final.migrate_overflow, "halo_overflow": final.halo_overflow,
-                "pool_overflow": final.pool.overflow,
-                **{f"health.{f.name}": getattr(final.health, f.name)
-                   for f in dataclasses.fields(final.health)}}
+    counters = dist_counters(final)
     bad = {k: int(v.sum()) for k, v in counters.items() if int(v.sum()) != 0}
     if bad:
         raise AssertionError(f"distributed: counters not zero: {bad}")
@@ -2504,8 +2552,201 @@ def phase_distributed():
          peak_memory_bytes=peak,
          max_gid_distance_to_single_node={"int16": dist_int16, "none": dist_none,
                                           f"int16_after_{DIST_OVERLAP_STEPS}": dist_at4},
-         overlap_bit_identical_steps=DIST_OVERLAP_STEPS, second_run_bit_identical=True)
-    return dsim, final, launches
+         overlap_bit_identical_steps=DIST_OVERLAP_STEPS, second_run_bit_identical=True,
+         shift_bytes_a_rank_a_step={r: n / STEPS for r, n in sent.ranks().items()})
+    record = dict(digest=state_digest(final), gid=(dg, dp), pop=pop.numpy(),
+                  counters={k: v.cpu().numpy() for k, v in counters.items()},
+                  launches=launches,
+                  shift_bytes_a_step={r: n / STEPS for r, n in sent.ranks().items()})
+    return dsim, final, launches, record
+
+
+# ---------------------------------------------------- one process a rank
+
+def procs_soma(mesh):
+    """``dist_soma``'s model on ``mesh`` (this process's rank of a process
+    mesh), STEPS steps with a step clock: what ``distributed_procs`` holds
+    the process to, and its times."""
+    from repro_torch.core.api import Observable
+    from repro_torch.launch.mesh import count_shift_bytes
+
+    dev = mesh.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    dsim = dist_soma(device=str(dev), mesh=mesh)
+    ends = []
+
+    def clock(state):
+        sync()
+        ends.append(time.perf_counter())
+        return torch.zeros((), dtype=torch.int32, device=state.pool.device)
+
+    dsim = dataclasses.replace(dsim, observables=dsim.observables + (
+        Observable("step_clock", clock),))
+    stats, rank = dsim.mesh.stats, dsim.mesh.rank
+    setup_s = time.perf_counter() - t0
+    stats.reset()
+    reset_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync()
+    start = time.perf_counter()
+    with count_shift_bytes() as sent:
+        final, obs = dsim.run(STEPS)
+    sync()
+    run_s = time.perf_counter() - start
+    launches = read_counts()
+    step_s = [b - a for a, b in zip([start] + ends[:-1], ends)]
+    out = dict(rank=rank, device=str(dev), launches=launches, setup_s=setup_s, run_s=run_s,
+               step_ms=[1e3 * t for t in step_s],
+               median_step_ms=1e3 * statistics.median(step_s),
+               staging_ms_a_step=1e3 * stats.staging_s / STEPS,
+               staged_bytes_a_step=stats.staged_bytes / STEPS,
+               wire_ms_a_step=1e3 * stats.wire_s / STEPS,
+               gather_wire_ms_a_step=1e3 * stats.gather_s / STEPS,
+               exchanges_a_step=stats.exchanges / STEPS,
+               shift_bytes_a_step=sent.ranks()[rank] / STEPS,
+               peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+               digest=state_digest(final))
+    if rank == 0:
+        out.update(gid=gid_positions(final, dsim.dcfg), pop=obs["pop"].cpu().numpy(),
+                   counters={k: v.cpu().numpy() for k, v in dist_counters(final).items()})
+    return out
+
+
+def procs_rank(device, soma_ranks):
+    """One process of ``distributed_procs`` (``launch.procs.spawn``'s
+    worker): dist_small's corner case on the 4x2 process mesh, serial and
+    overlapped, then on the first ``soma_ranks`` processes ``procs_soma``
+    on DIST_MESH."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import process_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dcfg, pos, cap = dist_force_case(True)
+    mesh = process_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices=device)
+    out = {}
+    for name, d in (("serial", dcfg), ("overlap", dataclasses.replace(dcfg, overlap_halo=True))):
+        out[f"small_{name}"] = state_digest(
+            dist_small_run(d, pos, cap, device, PROCS_SMALL_STEPS, mesh=mesh,
+                           force_impl="fused"))
+    group = tdist.new_group(list(range(soma_ranks)))
+    if tdist.get_rank() < soma_ranks:
+        out["soma"] = procs_soma(process_mesh(DIST_MESH, ("x", "y"), devices=device,
+                                              group=group))
+    tdist.barrier()
+    return out
+
+
+def procs_nccl_rank():
+    """One process of ``distributed_procs``' NCCL run: ``procs_soma`` on
+    DIST_MESH, rank r on ``cuda:r``."""
+    from repro_torch.launch.mesh import process_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return procs_soma(process_mesh(DIST_MESH, ("x", "y")))
+
+
+def check_procs_soma(runs, record, label):
+    """The processes' runs of ``dist_soma``'s model against the in-process
+    card run's ``record``: bit-identical state, series and counters, the
+    launches adding up, the shift bytes a rank a step equal."""
+    digests = {r["digest"] for r in runs}
+    if digests != {record["digest"]}:
+        raise AssertionError(f"{label}: the processes' final states {sorted(digests)} are not "
+                             f"the in-process run's {record['digest']}")
+    head = next(r for r in runs if r["rank"] == 0)
+    if not (np.array_equal(head["gid"][0], record["gid"][0])
+            and np.array_equal(head["gid"][1], record["gid"][1])):
+        raise AssertionError(f"{label}: gid-keyed positions differ from the in-process run")
+    if not np.array_equal(head["pop"], record["pop"]):
+        raise AssertionError(f"{label}: population series {head['pop'].tolist()} vs "
+                             f"{record['pop'].tolist()}")
+    bad = [k for k in record["counters"]
+           if not np.array_equal(head["counters"][k], record["counters"][k])]
+    if bad:
+        raise AssertionError(f"{label}: counters differ from the in-process run: {bad}")
+    for r in runs:
+        missing = [k for k in ("cell_rank", "cell_list_force") if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: rank {r['rank']} launched no {missing}")
+    total = functools.reduce(add_counts, [r["launches"] for r in runs])
+    if {k: v for k, v in total.items() if v} != {k: v for k, v in record["launches"].items()
+                                                if v}:
+        raise AssertionError(f"{label}: the processes' launches {total} do not add up to the "
+                             f"in-process run's {record['launches']}")
+    for r in runs:
+        want = record["shift_bytes_a_step"][r["rank"]]
+        if r["shift_bytes_a_step"] != want:
+            raise AssertionError(f"{label}: rank {r['rank']} sent {r['shift_bytes_a_step']} "
+                                 f"bytes a step through Mesh.shift, in-process {want}")
+    return total
+
+
+def phase_distributed_procs(record, device="cuda"):
+    """The distributed engine with one process a rank on the one card over
+    gloo, against the in-process card runs: dist_small's corner case on
+    eight processes, ``distributed``'s model on four (``record``)."""
+    from repro_torch.launch import procs
+
+    smi = nvidia_smi_line()
+    dcfg, pos, cap = dist_force_case(True)
+    small = {name: state_digest(dist_small_run(d, pos, cap, device, PROCS_SMALL_STEPS,
+                                               force_impl="fused"))
+             for name, d in (("serial", dcfg),
+                             ("overlap", dataclasses.replace(dcfg, overlap_halo=True)))}
+    if small["serial"] != small["overlap"]:
+        raise AssertionError("distributed_procs: the in-process overlapped run differs from "
+                             "the serial one")
+    t0 = time.perf_counter()
+    results = procs.spawn(procs_rank, PROCS_SMALL_RANKS, args=(device, math.prod(DIST_MESH)),
+                          timeout_s=PROCS_TIMEOUT_S,
+                          kernels=DIST_KERNELS if device == "cuda" else ())
+    launch_s = time.perf_counter() - t0
+    for name in ("serial", "overlap"):
+        got = {r[f"small_{name}"] for r in results}
+        if got != {small[name]}:
+            raise AssertionError(f"distributed_procs: dist_small's corner case ({name}) on "
+                                 f"{PROCS_SMALL_RANKS} processes differs from its in-process "
+                                 f"run")
+    runs = [r["soma"] for r in results if "soma" in r]
+    total = check_procs_soma(runs, record, "distributed_procs")
+    per = lambda key: [r[key] for r in runs]
+    emit("distributed_procs", backend="gloo", processes=len(runs), agents=N_AGENTS,
+         mesh=list(DIST_MESH), steps=STEPS, nvidia_smi=smi,
+         small_case=dict(mesh=[4, 2], processes=PROCS_SMALL_RANKS, steps=PROCS_SMALL_STEPS,
+                         serial_and_overlap_bit_identical_to_in_process=True),
+         launch_s=launch_s, setup_s=per("setup_s"), run_s=per("run_s"),
+         median_step_ms=per("median_step_ms"), step_ms=per("step_ms"),
+         staging_ms_a_step=per("staging_ms_a_step"),
+         staged_bytes_a_step=per("staged_bytes_a_step"),
+         wire_ms_a_step=per("wire_ms_a_step"),
+         gather_wire_ms_a_step=per("gather_wire_ms_a_step"),
+         exchanges_a_step=per("exchanges_a_step"),
+         shift_bytes_a_rank_a_step=per("shift_bytes_a_step"),
+         peak_memory_bytes=per("peak_memory_bytes"),
+         launches=per("launches"), launches_total=total,
+         bit_identical_to_in_process=True)
+    print(f"distributed_procs: median step ms {per('median_step_ms')}, host staging ms a step "
+          f"{per('staging_ms_a_step')}, bytes a rank a step {per('shift_bytes_a_step')} "
+          f"({smi})", flush=True)
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    if cards >= math.prod(DIST_MESH):
+        t0 = time.perf_counter()
+        nccl = procs.spawn(procs_nccl_rank, math.prod(DIST_MESH), backend="nccl",
+                           timeout_s=PROCS_TIMEOUT_S, kernels=DIST_KERNELS)
+        check_procs_soma(nccl, record, "distributed_procs (nccl)")
+        emit("distributed_procs_nccl", processes=len(nccl), cards=cards, nvidia_smi=smi,
+             launch_s=time.perf_counter() - t0,
+             median_step_ms=[r["median_step_ms"] for r in nccl],
+             wire_ms_a_step=[r["wire_ms_a_step"] for r in nccl],
+             bit_identical_to_in_process=True)
+    else:
+        print(f"nccl: not run ({cards} card{'s' if cards != 1 else ''})", flush=True)
 
 
 DIST_CROWD = 100              # agents stacked in one 10 um box of 64 ...
@@ -4566,8 +4807,13 @@ def main() -> int:
     t0 = time.perf_counter()
 
     phase_dist_small()
-    dsim, final, launches = phase_distributed()
+    dsim, final, launches, record = phase_distributed()
     seconds["distributed_eager"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    phase_distributed_procs(record)
+    del record
+    torch.cuda.empty_cache()
+    seconds["distributed_procs"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     launches = add_counts(launches, phase_distributed_jit())
     torch.cuda.empty_cache()

@@ -24,9 +24,9 @@ resumes in the other.  ``BuiltSimulation.batched()`` is the many-session
 engine (``core/batch.py``) and ``run_batch`` sweeps B variants through it,
 slot b bit-identical to a solo run of its variant.  ``distribute(mesh,
 dcfg)`` deploys the same description on the distributed engine
-(``core/distributed.py``) over an in-process mesh (``launch/mesh.py``); its
-grid build takes the facade's ``rank_impl``, where the reference's takes
-the default.
+(``core/distributed.py``) over an in-process mesh or a mesh of one process
+a rank (``launch/mesh.py``); its grid build takes the facade's
+``rank_impl``, where the reference's takes the default.
 """
 
 from __future__ import annotations
@@ -425,7 +425,9 @@ class Simulation:
         through the distributed schedule.  ``capacity`` is per rank (default:
         the single-node capacity).  ``mesh`` is a
         :class:`~repro_torch.launch.mesh.Mesh`; the state lives on its
-        devices.
+        devices.  On a process mesh (``process_mesh``) every process builds
+        the same stacked initial state on the host from the seed, and a run
+        moves only its own rank's slice to its device.
         """
         from . import distributed as dist
 
@@ -446,7 +448,7 @@ class Simulation:
             raise ValueError(f"DomainConfig.halo_width {dcfg.halo_width} < interaction "
                              f"radius {radius}: remote neighbors would be missed")
         mesh = dist._check_mesh(mesh, dcfg)
-        device = mesh.devices[0]
+        device = torch.device("cpu") if mesh.process else mesh.devices[0]
 
         # The single-node config with the deployment's fields swapped: the
         # halo-extended grid (with the facade's rank_impl) and the local frame.
@@ -592,6 +594,7 @@ def _checkpointed_loop(
     on_chunk: Optional[Callable[[Any], None]],
     obs_acc: Optional[Dict[str, np.ndarray]] = None,
     target_step: Optional[int] = None,
+    mesh=None,
 ):
     """Drive ``run_chunk`` in checkpoint-interval chunks up to the target.
 
@@ -601,7 +604,9 @@ def _checkpointed_loop(
     uninterrupted run.  Chunking is invisible to the dynamics: the per-step
     RNG folds the absolute step counter.  An anchor checkpoint is written
     before the first chunk; ``on_chunk(state)`` fires after each save.  The
-    step counter is read from the device once a chunk.
+    step counter is read from the device once a chunk.  On a process
+    ``mesh`` every process holds the stacked state, one writes it, and all
+    wait for the write.
     """
     every = int(checkpoint_every) if checkpoint_every else int(n_steps)
     if every <= 0:
@@ -611,19 +616,22 @@ def _checkpointed_loop(
     acc = {k: np.asarray(v) for k, v in (obs_acc or {}).items()}
 
     def save(st, at):
-        _ckpt.save(
-            checkpoint_dir,
-            at,
-            {"state": st, "obs": acc},
-            keep=keep,
-            meta={
-                "format": CKPT_FORMAT,
-                "engine": engine,
-                "target_step": target,
-                "checkpoint_every": every,
-                "obs_rows": {k: int(v.shape[0]) for k, v in acc.items()},
-            },
-        )
+        if mesh is None or mesh.writes_checkpoints:
+            _ckpt.save(
+                checkpoint_dir,
+                at,
+                {"state": st, "obs": acc},
+                keep=keep,
+                meta={
+                    "format": CKPT_FORMAT,
+                    "engine": engine,
+                    "target_step": target,
+                    "checkpoint_every": every,
+                    "obs_rows": {k: int(v.shape[0]) for k, v in acc.items()},
+                },
+            )
+        if mesh is not None:
+            mesh.barrier()
 
     save(state, step)
     while step < target:
@@ -828,10 +836,13 @@ class DistributedSimulation:
     ``run`` steps the ranks in lock-step; observables are evaluated on the
     *stacked* state (the built-in kind-counts observable flattens the rank
     axis; custom observables that index pool arrays see a leading rank
-    axis).  Between observable firings the loop keeps one state a rank and
-    stacks only when an observable fires and at the end of a chunk.
-    ``run_jit`` returns the same, bit for bit, with the lock-step step of
-    every rank replayed from CUDA graphs (``core/runner.py``).
+    axis).  Between observable firings the loop keeps one state a local rank
+    and stacks only when an observable fires and at the end of a chunk.  On
+    a process mesh each process steps its own rank and the stack is an
+    all-gather: every process gets the same stacked state and rows, and rank
+    0 writes the checkpoints, in the in-process mesh's format.  ``run_jit``
+    returns the same, bit for bit, with the lock-step step of every rank
+    replayed from CUDA graphs (``core/runner.py``; in-process meshes only).
     """
 
     mesh: Any
@@ -872,7 +883,7 @@ class DistributedSimulation:
         return _checkpointed_loop(
             run_chunk, state, n_steps, engine="dist",
             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-            keep=keep, on_chunk=on_chunk,
+            keep=keep, on_chunk=on_chunk, mesh=self.mesh,
         )
 
     @functools.cached_property
@@ -918,13 +929,31 @@ class DistributedSimulation:
         """Finish an interrupted distributed checkpointed run, its chunks
         through :meth:`run_jit` (``jit=True``) or :meth:`run`.  The
         checkpoint's per-rank shapes are checked against this deployment's
-        state, so a different mesh shape or capacity fails loudly."""
-        step, state, acc, target, every = _resume_payload(
-            checkpoint_dir, "dist", self.state, self.observables)
+        state, so a different mesh shape or capacity fails loudly.  Either
+        kind of mesh resumes either's checkpoint; on a process mesh rank 0
+        reads it, sends it to every process, and each steps its own rank's
+        slice."""
+        if self.mesh.process:
+            meta, state = None, None
+            if self.mesh.writes_checkpoints:
+                try:
+                    step, state, acc, target, every = _resume_payload(
+                        checkpoint_dir, "dist", self.state, self.observables)
+                    meta = (step, acc, target, every)
+                except Exception as err:   # raised on every process, not only rank 0
+                    meta = err
+            meta = self.mesh.broadcast_object(meta)
+            if isinstance(meta, Exception):
+                raise meta
+            step, acc, target, every = meta
+            state = self.mesh.broadcast(state, self.state)
+        else:
+            step, state, acc, target, every = _resume_payload(
+                checkpoint_dir, "dist", self.state, self.observables)
         if target - step <= 0:
             return state, _obs_tensors(acc, state.pool.device)
         return _checkpointed_loop(
             self._jit_chunk if jit else self._run_chunk, state, target - step, engine="dist",
             checkpoint_dir=checkpoint_dir, checkpoint_every=every, keep=keep,
-            on_chunk=on_chunk, obs_acc=acc, target_step=target,
+            on_chunk=on_chunk, obs_acc=acc, target_step=target, mesh=self.mesh,
         )

@@ -13,17 +13,30 @@ communication:
      (§6.2.2) and the quantized delta codec of ``core/delta.py`` (§6.2.3).
 
 The reference runs one SPMD program over a JAX device mesh.  The port runs
-an *in-process mesh* (``launch/mesh.py``): R ranks, each a torch device (all
-on ``cuda:0`` with one card), stepped in lock-step, op by op.  Every
-collective lives inside one of three whole ops — ``migrate``,
+the same step over either of two meshes (``launch/mesh.py``), which it reads
+through one interface: ``mesh.local_ranks``, the ranks this process steps,
+and :meth:`Mesh.shift`, the ring shift ``_shift``, which takes one value a
+local rank.
+
+* An *in-process mesh* (``make_mesh``): R ranks, each a torch device (all
+  on ``cuda:0`` with one card), stepped in lock-step, op by op, from one
+  host thread.  The shift is a rotation of the ranks' tensors moved to the
+  receiver's device.  Lock-step needs no threads or barriers, and all ranks
+  use the current stream, so a rank reads another's tensors without events.
+* A *process mesh* (``process_mesh``): one process a rank over a
+  ``torch.distributed`` group (``launch/procs.py`` or ``torchrun``).  Each
+  process holds only its own rank's state, on its own device; the shift is
+  a ``dist.batch_isend_irecv`` with the ring neighbours (NCCL: device
+  tensors; gloo: staged through pinned host memory).  The lists below hold
+  one state, indexed by the process's global rank wherever a rank number is
+  read (``prng.fold_in``, ``rank_scope``, the axis index).
+
+Every collective lives inside one of three whole ops — ``migrate``,
 ``halo_exchange`` and the distributed ``diffusion`` — which take the list
-of every rank's state (``Operation.collective``); every other op runs once
-a rank on that rank's state.  The ring shift ``_shift`` is
-:meth:`Mesh.shift`, a rotation of the ranks' tensors moved to the receiver's
-device.  Lock-step needs no threads or barriers, and all ranks use the
-current stream, so a rank reads another's tensors without events.  A step
-replaces no rank's state until every rank has finished it, so an error in
-any rank leaves the caller's state as it was.
+of every local rank's state (``Operation.collective``); every other op runs
+once a local rank on that rank's state.  A step replaces no rank's state
+until every local rank has finished it, so an error in any rank leaves the
+caller's state as it was.
 
 The step IS the single-node schedule (``core/schedule.py``):
 :func:`distributed_scheduler` takes ``Scheduler.default(ecfg)`` and
@@ -36,20 +49,23 @@ ghost-extended sources with ``num_out = C``.
 
 State is stacked on a leading rank axis (the reference's leaf layout)
 wherever it is observed or saved; during a run the executor keeps one
-state a rank (views of the stacked tensors, moved to each rank's device)
-and stacks them when an observable fires and at the end of a chunk.
+state a local rank (views of the stacked tensors, moved to each rank's
+device) and stacks them when an observable fires and at the end of a chunk
+(on a process mesh: an all-gather, so every process holds the stacked
+state).
 
 All shapes are static: halo and migration buffers have fixed capacities
 and overflow *counters*.  Coordinates are rank-local, and the decomposed
 dims live on the rank torus.
 
 The compiled run (:func:`jitted_distributed_runner`, the reference's
-``jax.jit`` of the step) replays the lock-step step of every rank from CUDA
-graphs (``core/runner.py``): ``step_ranks`` with ``branches`` hands each
-rank's ops its device counter, and each rank's force passes their branches
-under its own scope.  So the step makes no host read and no host-to-device
-copy: scalars are filled on the device, the interior cell tables are kept
-device constants, and the grids' ``n_valid`` is a state leaf.
+``jax.jit`` of the step; in-process meshes only) replays the lock-step step
+of every rank from CUDA graphs (``core/runner.py``): ``step_ranks`` with
+``branches`` hands each rank's ops its device counter, and each rank's
+force passes their branches under its own scope.  So the step makes no
+host read and no host-to-device copy: scalars are filled on the device, the
+interior cell tables are kept device constants, and the grids' ``n_valid``
+is a state leaf.
 
 Every op that works for one rank runs under ``rank_scope(r)``, a context
 that does nothing unless the dry-run (``launch/dryrun.py``) sets it: there
@@ -253,9 +269,13 @@ class DistState:
     ghost: GhostFrame
 
 
-def stack_states(states: Sequence[DistState], device=None) -> DistState:
+def stack_states(states: Sequence[DistState], device=None, mesh=None) -> DistState:
     """The ranks' states stacked on a leading rank axis, on ``device``
-    (default: rank 0's)."""
+    (default: rank 0's).  On a process mesh ``states`` is this process's one
+    rank and the stack is an all-gather of every leaf in rank order, on the
+    process's device."""
+    if mesh is not None and mesh.process:
+        return mesh.all_gather(states[0])
     dev = states[0].pool.device if device is None else device
     return tree_map(lambda *xs: torch.stack([x.to(dev) for x in xs]), *states)
 
@@ -265,9 +285,14 @@ def replicate(tree, n: int):
     return tree_map(lambda x: torch.stack([x] * n), tree)
 
 
-def unstack_state(state: DistState, devices: Sequence[torch.device]) -> List[DistState]:
+def unstack_state(state: DistState, devices) -> List[DistState]:
     """One state a rank: views of the stacked leaves (copies on another
-    device)."""
+    device).  ``devices``: one device a rank, or a mesh; a process mesh keeps
+    only its process's rank, on its device."""
+    if getattr(devices, "process", False):
+        r, dev = devices.rank, devices.device
+        return [tree_map(lambda x: x[r].to(dev), state)]
+    devices = getattr(devices, "devices", devices)
     return [tree_map(lambda x, r=r: x[r].to(dev), state) for r, dev in enumerate(devices)]
 
 
@@ -369,19 +394,21 @@ def _pack_outbound(dcfg: DomainConfig, pool: AgentPool, d: int):
 def migrate(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool]
             ) -> Tuple[List[AgentPool], List[torch.Tensor]]:
     """Dimension-ordered migration of agents that left the local box, over
-    every rank's pool; returns the new pools and each rank's overflow."""
+    every local rank's pool; returns the new pools and each rank's
+    overflow."""
     pools = list(pools)
+    ranks = mesh.local_ranks
     overflow = []
-    for r, pool in enumerate(pools):
+    for r, pool in zip(ranks, pools):
         with rank_scope(r):
             overflow.append(torch.zeros((), dtype=torch.int32, device=pool.device))
     for d in range(dcfg.n_decomposed):
         axis = dcfg.mesh_axes[d]
         east_recs, east_valid, west_recs, west_valid = [], [], [], []
-        for r, pool in enumerate(pools):
+        for i, (r, pool) in enumerate(zip(ranks, pools)):
             with rank_scope(r):
-                pools[r], rec_e, val_e, rec_w, val_w, ovf = _pack_outbound(dcfg, pool, d)
-                overflow[r] = overflow[r] + ovf
+                pools[i], rec_e, val_e, rec_w, val_w, ovf = _pack_outbound(dcfg, pool, d)
+                overflow[i] = overflow[i] + ovf
             east_recs.append(rec_e)
             east_valid.append(val_e)
             west_recs.append(rec_w)
@@ -391,10 +418,10 @@ def migrate(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool]
         from_west_valid = mesh.shift(east_valid, axis, +1)
         from_east = mesh.shift(west_recs, axis, -1)
         from_east_valid = mesh.shift(west_valid, axis, -1)
-        for r in range(len(pools)):
+        for i, r in enumerate(ranks):
             with rank_scope(r):
-                pools[r] = _insert_records(pools[r], from_west[r], from_west_valid[r])
-                pools[r] = _insert_records(pools[r], from_east[r], from_east_valid[r])
+                pools[i] = _insert_records(pools[i], from_west[i], from_west_valid[i])
+                pools[i] = _insert_records(pools[i], from_east[i], from_east_valid[i])
     return pools, overflow
 
 
@@ -461,16 +488,16 @@ def _codec_decode(dcfg, codec: _Codec, d: int, s: int, q: torch.Tensor,
 
 def halo_exchange(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool],
                   codecs: Sequence[HaloCodecState]):
-    """Multi-phase aura exchange over every rank.
+    """Multi-phase aura exchange over every local rank.
 
-    Returns, a rank, the ghost-extended ``(position, radius, kind, alive)``
+    Returns, a local rank, the ghost-extended ``(position, radius, kind, alive)``
     whose first C rows are the local pool followed by 2·D halo blocks, the
     updated codec state and the overflow count; plus the wire-byte account
     of one rank (the same on every rank: the buffers are fixed-size).
     The dims go in order and each phase's bands include the halo rows of
     the earlier phases, so corner halos ride along."""
     h = dcfg.halo_capacity
-    n = len(pools)
+    ranks = mesh.local_ranks
     wire = {"payload_bytes": 0, "baseline_bytes": 0}
     wire_dtype = WIRE_DTYPES.get(dcfg.halo_codec)
     bits = lambda k: (k + 7) // 8   # bitmask wire size, ceil (never 0 bytes)
@@ -479,7 +506,7 @@ def halo_exchange(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool],
     g_kind = [p.kind for p in pools]
     g_alive = [p.alive for p in pools]
     g_rad, codec, overflow = [], [], []
-    for r, (p, c) in enumerate(zip(pools, codecs)):
+    for r, p, c in zip(ranks, pools, codecs):
         with rank_scope(r):
             g_rad.append(p.radius())
             codec.append(_Codec.of(c))
@@ -489,33 +516,33 @@ def halo_exchange(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool],
     for d in range(dcfg.n_decomposed):
         axis = dcfg.mesh_axes[d]
         packs = {0: [], 1: []}
-        for r in range(n):
+        for j, r in enumerate(ranks):
             with rank_scope(r):
-                coord = g_pos[r][:, d]
-                east_band = g_alive[r] & (coord >= ext - hw) & (coord < ext)
-                west_band = g_alive[r] & (coord >= 0.0) & (coord < hw)
+                coord = g_pos[j][:, d]
+                east_band = g_alive[j] & (coord >= ext - hw) & (coord < ext)
+                west_band = g_alive[j] & (coord >= 0.0) & (coord < hw)
                 for s, (band, sign) in enumerate(((east_band, +1), (west_band, -1))):
                     ids, valid, ovf = _select(band, h)
-                    overflow[r] = overflow[r] + ovf
+                    overflow[j] = overflow[j] + ovf
                     i = ids.long()
-                    pos = _rebase(g_pos[r][i], d, -sign * ext)
+                    pos = _rebase(g_pos[j][i], d, -sign * ext)
                     pos = torch.where(valid[:, None], pos, 0.0)
-                    rad = torch.where(valid, g_rad[r][i], 0.0)
-                    knd = torch.where(valid, g_kind[r][i], 0).to(torch.int8)
+                    rad = torch.where(valid, g_rad[j][i], 0.0)
+                    knd = torch.where(valid, g_kind[j][i], 0).to(torch.int8)
                     if wire_dtype is not None:
                         slot_ids = torch.where(valid, ids, -1)
-                        q, fresh = _codec_encode(dcfg, codec[r], d, s, pos, slot_ids, wire_dtype)
+                        q, fresh = _codec_encode(dcfg, codec[j], d, s, pos, slot_ids, wire_dtype)
                         payload = dict(q=q, fresh=fresh, rad=rad, kind=knd, valid=valid)
-                        if r == 0:
+                        if j == 0:
                             wire["payload_bytes"] += (
                                 q.numel() * q.element_size() + bits(fresh.numel())
                                 + rad.numel() * 4 + knd.numel() + bits(valid.numel()))
                     else:
                         payload = dict(pos=pos, rad=rad, kind=knd, valid=valid)
-                        if r == 0:
+                        if j == 0:
                             wire["payload_bytes"] += (pos.numel() * 4 + rad.numel() * 4
                                                       + knd.numel() + bits(valid.numel()))
-                    if r == 0:
+                    if j == 0:
                         # Baseline: the f32 full-attribute record (pos, rad, kind).
                         wire["baseline_bytes"] += (pos.numel() * 4 + rad.numel() * 4
                                                    + knd.numel() * 4 + bits(valid.numel()))
@@ -523,20 +550,20 @@ def halo_exchange(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool],
 
         for s, sign in ((0, +1), (1, -1)):
             got = mesh.shift(packs[s], axis, sign)
-            for r in range(n):
+            for j, r in enumerate(ranks):
                 with rank_scope(r):
-                    g = got[r]
+                    g = got[j]
                     if wire_dtype is not None:
-                        pos = _codec_decode(dcfg, codec[r], d, s, g["q"], g["fresh"])
+                        pos = _codec_decode(dcfg, codec[j], d, s, g["q"], g["fresh"])
                     else:
                         pos = g["pos"]
-                    g_pos[r] = torch.cat([g_pos[r], pos], dim=0)
-                    g_rad[r] = torch.cat([g_rad[r], g["rad"]], dim=0)
-                    g_kind[r] = torch.cat([g_kind[r], g["kind"].to(torch.int32)], dim=0)
-                    g_alive[r] = torch.cat([g_alive[r], g["valid"]], dim=0)
+                    g_pos[j] = torch.cat([g_pos[j], pos], dim=0)
+                    g_rad[j] = torch.cat([g_rad[j], g["rad"]], dim=0)
+                    g_kind[j] = torch.cat([g_kind[j], g["kind"].to(torch.int32)], dim=0)
+                    g_alive[j] = torch.cat([g_alive[j], g["valid"]], dim=0)
 
-    out = [(g_pos[r], g_rad[r], g_kind[r], g_alive[r], codec[r].state(), overflow[r])
-           for r in range(n)]
+    out = [(g_pos[j], g_rad[j], g_kind[j], g_alive[j], codec[j].state(), overflow[j])
+           for j in range(len(ranks))]
     return out, wire
 
 
@@ -565,7 +592,7 @@ def _padding_mask(grid: dgrid.DiffusionGrid) -> Optional[torch.Tensor]:
 
 def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.DiffusionGrid],
                         dt: float, boundary: str = "toroidal") -> List[dgrid.DiffusionGrid]:
-    """One Eq-4.3 step over every rank's local grid, with the 1-voxel stencil
+    """One Eq-4.3 step over every local rank's grid, with the 1-voxel stencil
     halo exchanged over the mesh.
 
     ``boundary`` is the engine's §4.4.11 policy: "toroidal" keeps the ring
@@ -574,8 +601,9 @@ def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.Diffusio
     (``n_valid``) is masked out of the stencil and pinned to zero.  Plain
     PyTorch, as the reference's is plain XLA: the stencil kernel has no
     ghost faces."""
+    ranks = mesh.local_ranks
     us, masks, padded = [], [], []
-    for r, g in enumerate(grids):
+    for r, g in zip(ranks, grids):
         with rank_scope(r):
             u = g.concentration
             mask = _padding_mask(g)
@@ -591,9 +619,9 @@ def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.Diffusio
         hi_faces = [u.narrow(d, u.shape[d] - 1, 1) for u in us]
         from_west = mesh.shift(hi_faces, axis, +1)   # west neighbour's top slice
         from_east = mesh.shift(lo_faces, axis, -1)   # east neighbour's bottom
-        for r, p in enumerate(padded):
+        for j, (r, p) in enumerate(zip(ranks, padded)):
             with rank_scope(r):
-                fw, fe = from_west[r], from_east[r]
+                fw, fe = from_west[j], from_east[j]
                 if boundary != "toroidal":
                     coord = mesh.axis_index(r, axis)
                     if coord == 0:
@@ -608,7 +636,7 @@ def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.Diffusio
                 p[tuple(idx_hi)] = fe
 
     out = []
-    for r, (g, u, p, mask) in enumerate(zip(grids, us, padded, masks)):
+    for r, g, u, p, mask in zip(ranks, grids, us, padded, masks):
         with rank_scope(r):
             lap = (
                 p[2:, 1:-1, 1:-1]
@@ -638,7 +666,7 @@ def migrate_op(dcfg: DomainConfig) -> Operation:
     def fn(mesh, ctxs, states):
         pools, ovf = migrate(dcfg, mesh, [s.pool for s in states])
         out = []
-        for r, (s, p, o) in enumerate(zip(states, pools, ovf)):
+        for r, s, p, o in zip(mesh.local_ranks, states, pools, ovf):
             with rank_scope(r):
                 out.append(dataclasses.replace(s, pool=p,
                                                migrate_overflow=s.migrate_overflow + o))
@@ -657,8 +685,8 @@ def halo_exchange_op(dcfg: DomainConfig) -> Operation:
         per_rank, wire = halo_exchange(dcfg, mesh, [s.pool for s in states],
                                        [s.codec for s in states])
         out = []
-        for r, (ctx, s, (g_pos, g_rad, g_kind, g_alive, codec, ovf)) in enumerate(
-                zip(ctxs, states, per_rank)):
+        for r, ctx, s, (g_pos, g_rad, g_kind, g_alive, codec, ovf) in zip(
+                mesh.local_ranks, ctxs, states, per_rank):
             ctx.extras["halo_sources"] = (g_pos, g_rad, g_kind, g_alive)
             c = s.pool.capacity
             ghost = GhostFrame(position=g_pos[c:], radius=g_rad[c:], kind=g_kind[c:],
@@ -831,8 +859,8 @@ def dist_diffusion_op(dcfg: DomainConfig, ecfg: EngineConfig) -> Operation:
         new = {name: distributed_diffuse(dcfg, mesh, [s.grids[name] for s in states], dt,
                                          boundary=ecfg.boundary)
                for name in states[0].grids}
-        return [dataclasses.replace(s, grids={k: v[r] for k, v in new.items()})
-                for r, s in enumerate(states)]
+        return [dataclasses.replace(s, grids={k: v[j] for k, v in new.items()})
+                for j, s in enumerate(states)]
 
     return Operation("diffusion", fn, phase="post", frequency=ecfg.diffusion_frequency,
                      gate="cond", collective=True)
@@ -869,23 +897,28 @@ def distributed_scheduler(dcfg: DomainConfig, ecfg: EngineConfig) -> Scheduler:
 
 def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: int,
                branches: Optional[Branches] = None) -> List[DistState]:
-    """One iteration of every rank, op by op in lock-step.  ``step`` is the
-    ranks' common pre-increment counter, on the host; the frequency gates
-    read it.
+    """One iteration of every local rank (``mesh.local_ranks``: all of an
+    in-process mesh's, a process mesh's own), op by op in lock-step.
+    ``step`` is the ranks' common pre-increment counter, on the host; the
+    frequency gates read it.
 
     Each rank's key is folded with its linear rank index for the step and
     restored after it, as the reference's per-device body does.  A
-    collective op takes the lists of every rank's context and state; any
-    other op runs once a rank.  Nothing of the caller's states is changed.
+    collective op takes the lists of every local rank's context and state;
+    any other op runs once a local rank.  Nothing of the caller's states is
+    changed.
 
     With ``branches`` (the compiled run, ``core/runner.py``) the ops see
     each rank's device counter as ``OpContext.step``, the key is folded from
     it, and rank r's force passes take their branches under the scope
     ``"rank{r}"``; an op, or ``fold_rng``, that reads the device while the
     step is captured in a CUDA graph raises ``CaptureError`` naming it."""
+    ranks = mesh.local_ranks
+    if len(states) != len(ranks):
+        raise ValueError(f"step_ranks: {len(states)} states for the local ranks {ranks}")
     keys = [s.rng for s in states]
     folded, ctxs = [], []
-    for r, s in enumerate(states):
+    for r, s in zip(ranks, states):
         with rank_scope(r):
             s = dataclasses.replace(s, rng=prng.fold_in(s.rng, r))
             counter = step if branches is None else s.step
@@ -906,13 +939,13 @@ def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: in
                 new = op.fn(mesh, ctxs, states)
             else:
                 new = []
-                for r, (ctx, s) in enumerate(zip(ctxs, states)):
+                for r, ctx, s in zip(ranks, ctxs, states):
                     with rank_scope(r):
                         new.append(op.fn(ctx, s))
         if fires:
             states = new
     out = []
-    for r, (s, k) in enumerate(zip(states, keys)):
+    for r, s, k in zip(ranks, states, keys):
         with rank_scope(r):
             out.append(dataclasses.replace(s, rng=k, step=s.step + 1))
     return out
@@ -925,8 +958,9 @@ def _host_step(state: DistState) -> int:
 @dataclasses.dataclass(frozen=True)
 class DistributedStep:
     """The distributed step over the stacked state (the reference's
-    ``jit(shard_map(step))``): ``step(state)`` unstacks, steps every rank
-    once and restacks.  :meth:`run_ranks` steps the unstacked ranks."""
+    ``jit(shard_map(step))``): ``step(state)`` unstacks, steps every local
+    rank once and restacks (on a process mesh: keeps its rank's slice, and
+    all-gathers).  :meth:`step_ranks` steps the unstacked ranks."""
 
     mesh: object
     dcfg: DomainConfig
@@ -934,10 +968,10 @@ class DistributedStep:
     scheduler: Scheduler
 
     def unstack(self, state: DistState) -> List[DistState]:
-        return unstack_state(state, self.mesh.devices)
+        return unstack_state(state, self.mesh)
 
     def stack(self, states: Sequence[DistState]) -> DistState:
-        return stack_states(states, self.mesh.devices[0])
+        return stack_states(states, self.mesh.devices[0], mesh=self.mesh)
 
     def step_ranks(self, states: Sequence[DistState], step: int) -> List[DistState]:
         return step_ranks(self.mesh, self.scheduler, states, step)
@@ -956,12 +990,16 @@ def jitted_distributed_runner(mesh, dcfg: DomainConfig, ecfg: EngineConfig,
     graphs keyed by the firing pattern and every rank's branches
     (``core/runner.py``).
 
-    Every rank must live on one device (one card, or the CPU): a mesh over
-    several devices raises ``ValueError``, since its ring shifts copy across
-    cards; running such a mesh is ROADMAP item 17."""
+    Every rank must live in this process on one device (one card, or the
+    CPU): a process mesh, or a mesh over several devices, raises
+    ``ValueError``; a compiled run of either is ROADMAP item 17 (a gloo
+    exchange cannot be captured in a CUDA graph)."""
     from .runner import Runner
 
     mesh = _check_mesh(mesh, dcfg)
+    if mesh.process:
+        raise ValueError("run_jit needs every rank in one process; this mesh has one process "
+                         "a rank (a multi-process compiled run is ROADMAP item 17)")
     devices = sorted({str(d) for d in mesh.devices})
     if len(devices) > 1:
         raise ValueError(f"run_jit needs every rank on one device; the mesh spans "

@@ -89,8 +89,8 @@ run; custom ops and observables must not read the device or copy host
 values to it (a ``torch.tensor(...)`` on the card inside the step is such
 a copy, and so is a Python scalar written through an index tensor,
 ``x[idx] = True``: ``index_fill_`` fills on the device); a distributed run
-needs every rank on one device (a mesh over several cards raises
-``ValueError``; ROADMAP item 17).
+needs every rank in this process on one device (a mesh over several cards,
+or one process a rank, raises ``ValueError``; ROADMAP item 17).
 """
 
 from __future__ import annotations

@@ -273,11 +273,16 @@ def run_elastic_distributed(
     pads the restored state into the new shapes (:func:`grow_dist_state`).
     ``jit=True`` runs each chunk through ``DistributedSimulation.run_jit``
     (the deployment's runner, so the chunks between regrows replay its
-    graphs).  Returns ``(final_state, {name: rows}, n_regrows)``.
+    graphs).  Returns ``(final_state, {name: rows}, n_regrows)``.  It runs
+    on an in-process mesh: a process mesh raises ``ValueError`` (ROADMAP
+    item 17).
     """
     from repro_torch import checkpoint as ckpt
     from repro_torch.core.api import _concat_obs, _obs_tensors, _step_of
 
+    if mesh.process:
+        raise ValueError("run_elastic_distributed runs on an in-process mesh; a mesh of one "
+                         "process a rank is ROADMAP item 17")
     dsim = sim.distribute(mesh, dcfg, capacity=capacity, seed=seed)
     every = int(checkpoint_every) if checkpoint_every else int(n_steps)
     if every <= 0:

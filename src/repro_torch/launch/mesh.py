@@ -1,12 +1,26 @@
-"""The in-process device mesh of the distributed engine.
+"""The device meshes of the distributed engine.
 
 The reference runs one program over a JAX device mesh (``shard_map``) and
-moves data between devices with ``ppermute`` ring shifts.  Its counterpart
-here is a mesh of R *ranks* inside one process: each rank is a position on
-the named axes and a torch device (all on ``cuda:0`` with one card,
-``cuda:i % n`` with n cards, or the host).  A collective is a Python
-function over the list of the ranks' tensors; :meth:`Mesh.shift` is the
-ring shift, a rotation of that list followed by ``.to(receiver's device)``.
+moves data between devices with ``ppermute`` ring shifts.  The port has two
+counterparts, which the engine reads through one interface: a mesh's
+``local_ranks`` are the ranks this process steps, and :meth:`Mesh.shift`
+takes one value a local rank and returns what each of them receives.
+
+* :class:`Mesh` (``make_mesh``): R *ranks* inside one process, each a
+  position on the named axes and a torch device (all on ``cuda:0`` with one
+  card, ``cuda:i % n`` with n cards, or the host).  Its local ranks are all
+  of them; a collective is a Python function over the list of the ranks'
+  tensors, and the ring shift a rotation of that list followed by
+  ``.to(receiver's device)``.
+* :class:`ProcessMesh` (``process_mesh``): one process a rank, over an
+  initialised ``torch.distributed`` process group (``launch/procs.py``
+  starts one on this host; ``torchrun`` works as well).  Its one local rank
+  is the process's own; the ring shift is one ``dist.batch_isend_irecv``
+  with the two ring neighbours of every tensor of the value, packed into one
+  byte buffer in a fixed leaf order.  Under NCCL device tensors go as they
+  are; under gloo a card's tensors are staged through pinned host buffers
+  (gloo's send and receive read host memory), and the time that takes is
+  kept in ``ProcessMesh.stats``.
 
 Ranks are numbered x-major over the axes in the mesh's order:
 ``rank = ((c0 · n1) + c1) · n2 + c2``, the linearization of
@@ -37,7 +51,10 @@ import collections
 import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
+import os
+import socket
+import time
+from typing import Any, Callable, ClassVar, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -115,6 +132,9 @@ class Mesh:
     axis_sizes: Tuple[int, ...]
     devices: Tuple[torch.device, ...]
 
+    # One process steps every rank (a ProcessMesh: one rank a process).
+    process: ClassVar[bool] = False
+
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
             raise ValueError(f"{len(self.axis_names)} axis names for "
@@ -131,6 +151,20 @@ class Mesh:
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        """The ranks this process steps, in the order of the lists the
+        engine's collectives take: every rank."""
+        return tuple(range(self.size))
+
+    @property
+    def writes_checkpoints(self) -> bool:
+        """Whether this process writes a run's checkpoints."""
+        return True
+
+    def barrier(self) -> None:
+        """Wait for every process of the mesh (one process: nothing)."""
 
     def rank_coords(self, rank: int) -> Tuple[int, ...]:
         """The coordinates of ``rank`` on the axes, in axis order."""
@@ -192,6 +226,324 @@ class Mesh:
             devices.append(self.devices[self.rank_of([named.get(a, 0)
                                                       for a in self.axis_names])])
         return dataclasses.replace(out, devices=tuple(devices))
+
+
+# ------------------------------------------------------------ one rank a process
+
+_ALIGN = 8   # every packed leaf starts at a multiple of this many bytes
+
+
+def _flatten(tree) -> Tuple[List[torch.Tensor], Callable[[Sequence[torch.Tensor]], Any]]:
+    """The tensor leaves of a (dataclass / dict / list / tuple / tensor)
+    tree in a fixed order, and a function that rebuilds the tree around new
+    leaves given in that order.  Anything else (None, numbers, a dataclass
+    field marked ``metadata={"static": True}``) is kept as it is."""
+    leaves: List[torch.Tensor] = []
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            leaves.append(t)
+            i = len(leaves) - 1
+            return lambda new: new[i]
+        if isinstance(t, dict):
+            parts = {k: walk(v) for k, v in t.items()}
+            return lambda new: {k: f(new) for k, f in parts.items()}
+        if isinstance(t, (list, tuple)):
+            items = [walk(v) for v in t]
+            return lambda new: type(t)(f(new) for f in items)
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            fields = {f.name: walk(getattr(t, f.name)) for f in dataclasses.fields(t)
+                      if f.init and not f.metadata.get("static", False)}
+            return lambda new: dataclasses.replace(t, **{k: f(new) for k, f in fields.items()})
+        return lambda new: t
+
+    return leaves, walk(tree)
+
+
+def _offsets(leaves: Sequence[torch.Tensor]) -> Tuple[List[int], int]:
+    """Each leaf's byte offset in the packed buffer, and the buffer's size."""
+    offsets, end = [], 0
+    for x in leaves:
+        offsets.append(end)
+        end += -(-x.numel() * x.element_size() // _ALIGN) * _ALIGN
+    return offsets, max(end, _ALIGN)
+
+
+def _pack(leaves: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The leaves' bytes in one uint8 buffer on ``device``, in order."""
+    offsets, size = _offsets(leaves)
+    buf = torch.empty((size,), dtype=torch.uint8, device=device)
+    for x, at in zip(leaves, offsets):
+        n = x.numel() * x.element_size()
+        if n:
+            buf[at:at + n].copy_(x.contiguous().reshape(-1).view(torch.uint8))
+    return buf
+
+
+def _unpack(buf: torch.Tensor, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Views of ``buf`` shaped and typed like ``leaves``; a (R, n) ``buf``
+    gives each leaf a leading axis of R."""
+    offsets, _ = _offsets(leaves)
+    lead = tuple(buf.shape[:-1])
+    return [buf[..., at:at + x.numel() * x.element_size()].view(x.dtype)
+            .reshape(lead + tuple(x.shape)) for x, at in zip(leaves, offsets)]
+
+
+@dataclasses.dataclass
+class TransportStats:
+    """What a :class:`ProcessMesh`'s exchanges cost this process.
+
+    staging_s:     host seconds in gloo's staging copies (card → pinned host
+                   before a send, host → card after a receive, each waited
+                   for; the device's earlier work is waited for first, not
+                   counted).
+    staged_bytes:  the bytes those copies moved.
+    wire_s:        host seconds from posting an exchange to its completion.
+    gather_s:      the part of ``wire_s`` spent in all-gathers (stacking).
+    exchanges:     shifts and gathers that went between processes.
+    """
+
+    staging_s: float = 0.0
+    staged_bytes: int = 0
+    wire_s: float = 0.0
+    gather_s: float = 0.0
+    exchanges: int = 0
+
+    def reset(self) -> None:
+        self.staging_s, self.staged_bytes, self.exchanges = 0.0, 0, 0
+        self.wire_s = self.gather_s = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh(Mesh):
+    """This process's view of a mesh of one process a rank, over a
+    ``torch.distributed`` process group (:func:`process_mesh`).
+
+    rank:    this process's rank on the mesh, in the mesh's numbering.
+    peers:   every mesh rank's rank in the default group (the P2P peers).
+    members: every mesh rank's rank within ``group`` (the order in which a
+             collective over the group fills its outputs).
+    group:   the process group; ``None`` is the default group.
+    backend: the group's backend: ``"nccl"`` sends device tensors as they
+             are; any other (gloo) stages a card's tensors through host
+             memory.
+    stats:   the exchanges' costs, shared by the mesh's reorderings.
+
+    ``devices`` holds this process's device for every rank: a process sees
+    no other rank's device.
+    """
+
+    rank: int = 0
+    peers: Tuple[int, ...] = ()
+    members: Tuple[int, ...] = ()
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    backend: str = "gloo"
+    stats: TransportStats = dataclasses.field(default_factory=TransportStats, compare=False,
+                                              repr=False)
+
+    process: ClassVar[bool] = True
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        return (self.rank,)
+
+    @property
+    def writes_checkpoints(self) -> bool:
+        return self.rank == 0
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+    @property
+    def _staging(self) -> bool:
+        return self.backend != "nccl" and self.device.type == "cuda"
+
+    def _to_wire(self, buf: torch.Tensor) -> torch.Tensor:
+        """``buf`` as the backend reads it: under gloo a card's buffer is
+        copied into a pinned host buffer."""
+        if not self._staging:
+            return buf
+        torch.cuda.current_stream(buf.device).synchronize()
+        t0 = time.perf_counter()
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf)
+        self.stats.staging_s += time.perf_counter() - t0
+        self.stats.staged_bytes += buf.nbytes
+        return host
+
+    def _from_wire(self, buf: torch.Tensor) -> torch.Tensor:
+        """A received buffer on this process's device."""
+        if not self._staging:
+            return buf
+        t0 = time.perf_counter()
+        out = buf.to(self.device, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        self.stats.staging_s += time.perf_counter() - t0
+        self.stats.staged_bytes += buf.nbytes
+        return out
+
+    def _like(self, wire: torch.Tensor, lead: Tuple[int, ...] = ()) -> torch.Tensor:
+        if wire.device.type == "cpu":
+            return torch.empty(lead + tuple(wire.shape), dtype=wire.dtype,
+                               pin_memory=wire.is_pinned())
+        return torch.empty(lead + tuple(wire.shape), dtype=wire.dtype, device=wire.device)
+
+    def shift(self, values: Sequence[Any], axis: str, direction: int) -> list:
+        """The ring shift over processes: ``values`` holds this process's
+        one value (a tensor or tree of tensors), which goes to the rank
+        ``direction`` steps further along ``axis``; the result holds what
+        the rank as many steps back sent, on this process's device.  Every
+        shape is static, so the receive buffer is shaped like the value
+        sent.  One ``batch_isend_irecv`` posts the send and the receive
+        together (on a 2-long axis both go to the same process); a shift by
+        a multiple of the axis's length (an axis of length 1) sends
+        nothing."""
+        if len(values) != 1:
+            raise ValueError(f"shift: {len(values)} values for one local rank")
+        value = values[0]
+        if shift_observers:
+            nbytes = tree_nbytes(value)
+            for observe in shift_observers:
+                observe(self.rank, axis, nbytes)
+        d = self.axis_names.index(axis)
+        if direction % self.axis_sizes[d] == 0:
+            return [value]
+        coords = list(self.rank_coords(self.rank))
+        here = coords[d]
+        coords[d] = here + direction
+        dest = self.rank_of(coords)
+        coords[d] = here - direction
+        source = self.rank_of(coords)
+        leaves, rebuild = _flatten(value)
+        sent = self._to_wire(_pack(leaves, self.device))
+        got = self._like(sent)
+        t0 = time.perf_counter()
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, sent, self.peers[dest], self.group),
+            dist.P2POp(dist.irecv, got, self.peers[source], self.group)])
+        for work in works:
+            work.wait()
+        self.stats.wire_s += time.perf_counter() - t0
+        self.stats.exchanges += 1
+        return [rebuild(_unpack(self._from_wire(got), leaves))]
+
+    def all_gather(self, tree: Any) -> Any:
+        """Every rank's ``tree`` (the same structure, shapes and dtypes on
+        every rank) stacked on a leading axis in mesh-rank order, on this
+        process's device: one all-gather of the leaves packed into one
+        buffer."""
+        leaves, rebuild = _flatten(tree)
+        sent = self._to_wire(_pack(leaves, self.device))
+        rows = self._like(sent, (self.size,))
+        t0 = time.perf_counter()
+        dist.all_gather(list(rows.unbind(0)), sent, group=self.group)
+        took = time.perf_counter() - t0
+        self.stats.wire_s += took
+        self.stats.gather_s += took
+        self.stats.exchanges += 1
+        rows = self._from_wire(rows)
+        if self.members != tuple(range(self.size)):
+            rows = rows[list(self.members)]
+        return rebuild([x.contiguous() for x in _unpack(rows, leaves)])
+
+    def broadcast_object(self, obj: Any) -> Any:
+        """Mesh rank 0's ``obj`` (a picklable object holding no tensor), on
+        every process."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.peers[0], group=self.group)
+        return box[0]
+
+    def broadcast(self, tree: Any, like: Any) -> Any:
+        """Mesh rank 0's ``tree`` on every process, packed into one buffer
+        (on the card under NCCL, else on the host); the other processes pass
+        ``None`` and get a tree structured, shaped and typed like ``like``."""
+        leaves, rebuild = _flatten(like if tree is None else tree)
+        device = self.device if self.backend == "nccl" else torch.device("cpu")
+        if tree is None:
+            buf = torch.empty((_offsets(leaves)[1],), dtype=torch.uint8, device=device)
+        else:
+            buf = _pack(leaves, device)
+        dist.broadcast(buf, src=self.peers[0], group=self.group)
+        return rebuild(_unpack(buf, leaves))
+
+    def ordered(self, axes: Sequence[str]) -> "ProcessMesh":
+        base = Mesh.ordered(self, axes)
+        old = []
+        for rank in range(base.size):
+            named = dict(zip(base.axis_names, base.rank_coords(rank)))
+            old.append(self.rank_of([named.get(a, 0) for a in self.axis_names]))
+        return ProcessMesh(axis_names=base.axis_names, axis_sizes=base.axis_sizes,
+                           devices=base.devices, rank=old.index(self.rank),
+                           peers=tuple(self.peers[o] for o in old),
+                           members=tuple(self.members[o] for o in old), group=self.group,
+                           backend=self.backend, stats=self.stats)
+
+
+def one_card_a_rank(places: Sequence[Tuple[str, str]]) -> None:
+    """Raise ``ValueError`` when two ranks' ``(host, card)`` places are the
+    same: NCCL refuses two ranks on one card."""
+    seen: Dict[Tuple[str, str], int] = {}
+    for rank, place in enumerate(places):
+        place = tuple(place)
+        if place in seen:
+            raise ValueError(
+                f"process_mesh: ranks {seen[place]} and {rank} share the card {place[1]} on "
+                f"{place[0]}; NCCL takes one rank a card (gloo takes several, staging "
+                f"through host memory)")
+        seen[place] = rank
+
+
+def process_mesh(shape: Sequence[int], axes: Sequence[str], devices=None,
+                 group: Optional[Any] = None) -> ProcessMesh:
+    """This process's rank of a mesh of one process a rank.
+
+    The process group (``group``; default: the default group) must be
+    initialised and hold ``prod(shape)`` processes; its rank i is mesh
+    rank i.  ``devices``: ``None`` / ``"cuda"`` → ``cuda:{LOCAL_RANK %
+    device_count}`` (``LOCAL_RANK`` from the environment, as ``torchrun``
+    and ``launch/procs.py`` set it, else the group rank; raises without a
+    card); ``"cpu"`` → the host; a device such as ``"cuda:1"`` → that one.
+    Under NCCL every rank needs a card of its own: two ranks on one card
+    raise ``ValueError``.  Collective: every process of the group calls it."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if not dist.is_initialized():
+        raise RuntimeError("process_mesh: no process group; initialise one first "
+                           "(launch/procs.py, torchrun, or dist.init_process_group)")
+    size = math.prod(shape)
+    world = dist.get_world_size(group)
+    if world != size:
+        raise ValueError(f"process_mesh: the process group has {world} processes, the mesh "
+                         f"{shape} {size} ranks")
+    rank = dist.get_rank(group)
+    if devices is None or devices == "cuda":
+        resolve_device("cuda")
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    else:
+        dev = resolve_device(devices)
+    if dev.type == "meta":
+        raise ValueError("process_mesh: a rank runs on a card or on the host, not on meta")
+    backend = str(dist.get_backend(group))
+    peers = tuple(range(size)) if group is None else tuple(
+        dist.get_global_rank(group, g) for g in range(size))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError("process_mesh: NCCL runs a rank on a card; put CPU ranks on gloo")
+        side = dist.new_group(ranks=list(peers), backend="gloo",
+                              use_local_synchronization=True)
+        places: List[Any] = [None] * size
+        dist.all_gather_object(places, (socket.gethostname(),
+                                        str(torch.cuda.get_device_properties(dev).uuid)),
+                               group=side)
+        one_card_a_rank(places)
+    return ProcessMesh(axis_names=axes, axis_sizes=shape, devices=(dev,) * size, rank=rank,
+                       peers=peers, members=tuple(range(size)), group=group, backend=backend)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], devices=None) -> Mesh:

@@ -1,21 +1,28 @@
 """The reference's distributed scenarios (tests/dist_scenarios.py) applied to
 the port, in-process: its mesh needs no forced devices.  Each test names
-the scenario it ports; the thresholds are the reference's.
+the scenario it ports; the thresholds are the reference's.  The ring shift
+of a mesh of one process a rank is held to the in-process mesh's in one
+launch of four gloo processes (``tests/torch_dist_process_run.py shifts``).
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+import torch_dist_process_run as P
 import torch_dist_reference as R
 from torch_parity import CPU
 
 from repro_torch.core import (EngineConfig, ForceParams, Simulation, init_state, make_pool,
                               run, spec_for_space)
 from repro_torch.core import distributed as dist
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import (count_shift_bytes, fake_group, make_mesh, one_card_a_rank,
+                                     process_mesh)
 
 
 def _force_only_setup(halo_codec="int16", **over):
@@ -449,3 +456,104 @@ def test_mesh_shift_and_axis_index():
     assert [flipped.axis_index(r, "a") for r in range(6)] == [0, 1, 0, 1, 0, 1]
     with pytest.raises(ValueError):
         mesh.ordered(("a",))
+
+
+# ------------------------------------------------------- one process a rank
+
+
+@pytest.fixture(scope="module")
+def shifts(tmp_path_factory):
+    """Four gloo processes' shifts and step bytes on (2, 2) and (4, 1), and
+    a launch of three in which rank 1 fails."""
+    out = str(tmp_path_factory.mktemp("dist_shifts") / "shifts.npz")
+    here = os.path.dirname(__file__)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(here, "..", "src"),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, os.path.join(here, "torch_dist_process_run.py"),
+                           "shifts", out], capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-8000:]
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _in_process_shift(shape, axis, direction):
+    mesh = make_mesh(shape, ("a", "b"), devices=CPU)
+    return [int(v) for v in mesh.shift([torch.tensor(r) for r in range(mesh.size)], axis,
+                                       direction)]
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_process_mesh_shift_matches_in_process(shifts, shape):
+    """``Mesh.shift`` with one process a rank: ±1 along both axes, every
+    leaf of the value (int32, bool, f32, int8) from the in-process mesh's
+    sender.  On (2, 2) both directions reach the same process; on (4, 1) the
+    1-long axis is the identity (the value itself, nothing sent)."""
+    tag = "x".join(map(str, shape))
+    for axis in ("a", "b"):
+        for direction in (1, -1):
+            senders = _in_process_shift(shape, axis, direction)
+            for r in range(4):
+                key = f"rank{r}/{tag}/{axis}/{direction:+d}"
+                src = senders[r]
+                np.testing.assert_array_equal(shifts[f"{key}/rank"], [src, 100 + src])
+                np.testing.assert_array_equal(shifts[f"{key}/flag"], [src % 2 == 0])
+                np.testing.assert_array_equal(shifts[f"{key}/pos"], np.full((3, 3), float(src)))
+                assert shifts[f"{key}/kind"].dtype == np.int8 and int(shifts[f"{key}/kind"]) == src
+                assert bool(shifts[f"{key}/same_object"]) == (shape[("a", "b").index(axis)] == 1)
+    if shape == (2, 2):
+        assert _in_process_shift(shape, "a", 1) == _in_process_shift(shape, "a", -1)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_process_mesh_shift_bytes_equal_in_process(shifts, shape):
+    """``count_shift_bytes`` over one distributed step: each process's rank
+    sends the in-process mesh's bytes along each axis, and the stepped state
+    every process gathers is the in-process step's, bit for bit."""
+    tag = "x".join(map(str, shape))
+    dcfg, ecfg, pos = P.shift_engine(shape)
+    state = dist.init_dist_state(dcfg, capacity=192, positions=pos, diameter=1.6)
+    mesh = make_mesh(shape, ("a", "b"), devices=CPU)
+    with count_shift_bytes() as sent:
+        stepped = dist.make_distributed_step(mesh, dcfg, ecfg)(state)
+    for r in range(4):
+        got = {a: int(shifts[f"rank{r}/{tag}/bytes/{a}"]) for a in ("a", "b")
+               if f"rank{r}/{tag}/bytes/{a}" in shifts}
+        assert got == sent.on_axes(r) and min(got.values()) > 0, (r, got, sent.on_axes(r))
+        np.testing.assert_array_equal(shifts[f"rank{r}/{tag}/senders"], [r])
+        assert str(shifts[f"rank{r}/{tag}/step_digest"]) == P.digest(stepped)
+
+
+def test_process_launch_fails_at_the_first_failed_rank(shifts):
+    """``launch.procs.spawn``: a rank that raises fails the launch, named,
+    within seconds; the ranks waiting on it are stopped, not left hanging."""
+    message = str(shifts["failure/message"])
+    assert message.startswith("procs: rank 1 failed first: RuntimeError: a planned failure")
+    assert float(shifts["failure/seconds"]) < 30
+
+
+def test_process_mesh_refusals():
+    """No silent fallback: a process mesh without a process group, of the
+    wrong size, or on the card where there is none raises; NCCL with two
+    ranks on one card raises; ``run_jit`` and ``run_elastic_distributed`` on
+    a process mesh raise, naming ROADMAP item 17."""
+    from repro_torch.launch import elastic
+
+    with pytest.raises(RuntimeError, match="no process group"):
+        process_mesh((2, 2), ("data", "model"), devices="cpu")
+    _, dcfg, ecfg, _ = P.force_engine("int16")
+    with fake_group(8, rank=3):
+        with pytest.raises(ValueError, match="8 processes"):
+            process_mesh((2, 2), ("data", "model"), devices="cpu")
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                process_mesh((4, 2), ("data", "model"))
+        mesh = process_mesh((4, 2), ("data", "model"), devices="cpu")
+        assert mesh.local_ranks == (3,) and mesh.device == CPU
+        with pytest.raises(ValueError, match="item 17"):
+            dist.jitted_distributed_runner(mesh, dcfg, ecfg)
+        with pytest.raises(ValueError, match="item 17"):
+            elastic.run_elastic_distributed(None, mesh, dcfg, 1, "unused")
+    one_card_a_rank([("h", "GPU-0"), ("h", "GPU-1"), ("g", "GPU-0")])
+    with pytest.raises(ValueError, match="NCCL takes one rank a card"):
+        one_card_a_rank([("h", "GPU-0"), ("h", "GPU-1"), ("h", "GPU-0")])

@@ -5,7 +5,11 @@ subprocess with eight forced host devices (``tests/torch_dist_reference.py``),
 and writes its results into an ``.npz``.  The port runs here on the CPU on
 an in-process mesh, from the reference's initial state carried across by
 ``convert.dist_state_from_numpy`` or from its own ``Simulation.distribute``
-of the same description.
+of the same description.  Beside the reference's subprocess, one more runs
+the port with one process a rank over gloo (``tests/
+torch_dist_process_run.py engine``, eight processes, every case in one
+launch); its results must equal the in-process port's exactly, and so the
+reference's at the same tolerances.
 
 Tolerances: integer and bool leaves (pool order, alive, kind, counters,
 wire bytes, codec ids, the ghost frame's alive and kind) are exact.  Float
@@ -21,11 +25,13 @@ import dataclasses
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
 
+import torch_dist_process_run as P
 import torch_dist_reference as R
 from torch_parity import CPU
 
@@ -42,37 +48,70 @@ def _mesh(domain):
 
 
 def _resume_model():
-    domain, space, pos, kinds = R.resume_setup()
-    return (Simulation(space=(0.0, space), cell_size=2.0, boundary="open", dt=0.05,
-                       max_per_cell=32, seed=3, sort_frequency=4, capacity=256, device="cpu")
-            .add_agents(position=pos, diameter=1.6, kind=kinds)
-            .mechanics(ForceParams())
-            .observe_kinds("counts", n_kinds=2)).distribute(_mesh(domain),
-                                                            dist.DomainConfig(**domain))
+    domain = R.resume_setup()[0]
+    return P.resume_sim().distribute(_mesh(domain), dist.DomainConfig(**domain))
 
 
-class _Killed(Exception):
-    pass
+def _killed_run(checkpoint_dir):
+    """The resume model's checkpointed run, stopped after ``RESUME_KILL``."""
+    with pytest.raises(P.Killed):
+        _resume_model().run(R.RESUME_STEPS, checkpoint_dir=checkpoint_dir,
+                            checkpoint_every=R.RESUME_EVERY, on_chunk=P.killer)
 
 
-def _killer(state):
-    if int(state.step.reshape(-1)[0]) >= R.RESUME_KILL:
-        raise _Killed
+def _env(**extra):
+    return dict(os.environ, **extra,
+                PYTHONPATH=os.pathsep.join([os.path.join(_HERE, "..", "src"),
+                                            os.environ.get("PYTHONPATH", "")]))
+
+
+PROCS_TIMEOUT_S = 120
 
 
 @pytest.fixture(scope="module")
-def ref(tmp_path_factory):
+def procs_launch(tmp_path_factory):
+    """Starts the one-process-a-rank run (it goes on beside the reference's
+    subprocess); first the in-process killed run it resumes."""
+    tmp = tmp_path_factory.mktemp("dist_procs")
+    in_process_ckpt = str(tmp / "in_process_ckpt")
+    _killed_run(in_process_ckpt)
+    out, ckpt, log = str(tmp / "procs.npz"), str(tmp / "procs_ckpt"), tmp / "procs.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(_HERE, "torch_dist_process_run.py"), "engine", out,
+             in_process_ckpt, ckpt], stdout=f, stderr=subprocess.STDOUT, env=_env())
+    yield proc, time.monotonic(), out, ckpt, log
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def procs(procs_launch):
+    """The one-process-a-rank run's results (and ``_ckpt``: its killed
+    run's checkpoints), within ``PROCS_TIMEOUT_S`` of its start."""
+    proc, start, out, ckpt, log = procs_launch
+    try:
+        proc.wait(timeout=max(1.0, PROCS_TIMEOUT_S - (time.monotonic() - start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        pytest.fail(f"the process run took over {PROCS_TIMEOUT_S} s:\n{log.read_text()[-4000:]}")
+    assert proc.returncode == 0, log.read_text()[-8000:]
+    with np.load(out) as z:
+        arrays = {k: z[k] for k in z.files}
+    arrays["_ckpt"] = ckpt
+    return arrays
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory, procs_launch):
     """The reference's results; first the port's killed run it resumes."""
     tmp = tmp_path_factory.mktemp("dist_ref")
     port_ckpt = str(tmp / "port_ckpt")
-    with pytest.raises(_Killed):
-        _resume_model().run(R.RESUME_STEPS, checkpoint_dir=port_ckpt,
-                            checkpoint_every=R.RESUME_EVERY, on_chunk=_killer)
+    _killed_run(port_ckpt)
     out = str(tmp / "ref.npz")
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join([os.path.join(_HERE, "..", "src"),
-                                           os.environ.get("PYTHONPATH", "")]))
+    env = _env(XLA_FLAGS="--xla_force_host_platform_device_count=8", JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, os.path.join(_HERE, "torch_dist_reference.py"),
                            out, port_ckpt], capture_output=True, text=True, env=env,
                           timeout=600)
@@ -182,33 +221,9 @@ def test_force_relaxation_run_jit_matches_reference(ref, codec):
 
 
 def _soma_model():
-    from repro_torch.core import chemotaxis, concentration_at, secretion
-
-    domain, space, res, pos, kind, fields = R.soma_setup()
-
-    def exposure_op(ctx, state):
-        pool = state.pool
-        c0 = concentration_at(state.grids["substance_0"], pool.position)
-        c1 = concentration_at(state.grids["substance_1"], pool.position)
-        own = torch.where(pool.kind == 0, c0, c1)
-        dose = torch.where(pool.alive, own * ctx.config.dt, 0.0)
-        return dataclasses.replace(
-            state, pool=pool.set_attr("exposure", pool.get("exposure") + dose))
-
-    soma = (Simulation(space=(0.0, space), cell_size=4.0, boundary="closed", dt=1.0,
-                       max_per_cell=32, seed=4, device="cpu")
-            .add_agents(position=pos, diameter=3.0, kind=kind, exposure=0.0)
-            .add_substance("substance_0", diffusion=0.4, decay=0.002, resolution=res,
-                           concentration=fields[0])
-            .add_substance("substance_1", diffusion=0.4, decay=0.002, resolution=res,
-                           concentration=fields[1])
-            .use(secretion("substance_0", 1.0, kind=0), secretion("substance_1", 1.0, kind=1),
-                 chemotaxis("substance_0", 0.75, kind=0),
-                 chemotaxis("substance_1", 0.75, kind=1))
-            .mechanics(ForceParams())
-            .op(exposure_op, name="exposure", phase="post")
-            .observe_kinds("kinds", n_kinds=2))
-    return domain, soma.distribute(_mesh(domain), dist.DomainConfig(**domain), capacity=128)
+    domain = R.soma_setup()[0]
+    return domain, P.soma_sim().distribute(_mesh(domain), dist.DomainConfig(**domain),
+                                           capacity=128)
 
 
 def test_facade_soma_model_matches_reference(ref):
@@ -281,3 +296,74 @@ def _check_elastic(ref, tmp_path, jit):
     np.testing.assert_array_equal(obs["pop"].numpy(), ref["elastic/obs/pop"])
     _assert_matches(dist_state_to_numpy(final), R.unflatten(ref, "elastic/final"),
                     _float_tol(R.ELASTIC_STEPS, domain), "elastic")
+
+
+# ------------------------------------------------------- one process a rank
+
+
+def _assert_same(port_state, procs, key, label):
+    """A port state equal, leaf for leaf and bit for bit, to the process
+    run's state under ``key``, which every process of that run held."""
+    got = R.flatten(dist_state_to_numpy(port_state))
+    want = R.flatten(R.unflatten(procs, key))
+    assert sorted(got) == sorted(want), (label, sorted(set(got) ^ set(want)))
+    for k in want:
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, (label, k)
+        assert a.tobytes() == b.tobytes(), f"{label}: {k} differs from the in-process run"
+    digests = {str(procs[k]) for k in procs if k.rsplit("/", 1)[0] == f"digest/{key}"}
+    assert len(digests) == 1, f"{label}: the processes hold different states"
+
+
+@pytest.mark.parametrize("codec", R.FORCE_CODECS)
+def test_process_mesh_force_relaxation_matches(ref, procs, codec):
+    """The 4×2 relaxation with one process a rank (eight gloo processes):
+    after 1 and 5 steps the in-process port's state exactly, and so the
+    reference's within the file's tolerances."""
+    domain, dcfg, ecfg, _ = P.force_engine(codec)
+    step = dist.make_distributed_step(_mesh(domain), dcfg, ecfg)
+    state = _state(ref, f"force/{codec}/0")
+    for i in range(1, max(R.FORCE_STEPS) + 1):
+        state = step(state)
+        if i in R.FORCE_STEPS:
+            key = f"force/{codec}/{i}"
+            _assert_same(state, procs, key, f"processes {key}")
+            _assert_matches(R.unflatten(procs, key), R.unflatten(ref, key),
+                            _float_tol(i, domain), f"processes {key} vs reference")
+
+
+def test_process_mesh_soma_model_matches(ref, procs):
+    """Simulation.distribute of the soma model on a 2×2 mesh of four
+    processes (a subgroup of the eight): the series and final state of the
+    in-process run exactly, and the reference's at the file's tolerances."""
+    domain, dsim = _soma_model()
+    final, obs = dsim.run(R.SOMA_STEPS)
+    np.testing.assert_array_equal(procs["soma/obs/kinds"], obs["kinds"].numpy())
+    np.testing.assert_array_equal(procs["soma/obs/kinds"], ref["soma/obs/kinds"])
+    _assert_same(final, procs, "soma/final", "processes soma")
+    _assert_matches(R.unflatten(procs, "soma/final"), R.unflatten(ref, "soma/final"),
+                    _float_tol(R.SOMA_STEPS, domain), "processes soma vs reference")
+
+
+def test_process_mesh_checkpoint_resumes_in_process(ref, procs):
+    """A run of four processes checkpointed every RESUME_EVERY steps and
+    stopped after RESUME_KILL, finished by an in-process resume: the
+    straight run's state and series (in-process and multi-process)."""
+    domain = R.resume_setup()[0]
+    straight, sobs = _resume_model().run(R.RESUME_STEPS)
+    final, obs = _resume_model().resume(procs["_ckpt"])
+    np.testing.assert_array_equal(obs["counts"].numpy(), sobs["counts"].numpy())
+    np.testing.assert_array_equal(procs["resume/straight_obs/counts"], sobs["counts"].numpy())
+    _assert_same(straight, procs, "resume/straight", "processes straight")
+    _assert_same(final, procs, "resume/straight", "in-process resume of the processes' run")
+    _assert_matches(R.unflatten(procs, "resume/straight"), R.unflatten(ref, "resume/straight"),
+                    _float_tol(R.RESUME_STEPS, domain), "processes straight vs reference")
+
+
+def test_process_mesh_resumes_an_in_process_checkpoint(procs):
+    """The reverse: an in-process run stopped after RESUME_KILL, finished by
+    four processes, equals the straight run."""
+    straight, sobs = _resume_model().run(R.RESUME_STEPS)
+    np.testing.assert_array_equal(procs["resume/of_in_process_obs/counts"],
+                                  sobs["counts"].numpy())
+    _assert_same(straight, procs, "resume/of_in_process", "processes' resume")
