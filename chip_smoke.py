@@ -344,6 +344,7 @@ cell_list_force and cell_window_force calls and of the pairwise_force call
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -2313,10 +2314,11 @@ def phase_dist_small():
     emit("dist_small", mesh=[4, 2], agents=[500, 572], overlap_bit_identical=True, **out)
 
 
-def dist_soma(codec="int16", overlap=False, device="cuda", mesh=None):
+def dist_soma(codec="int16", overlap=False, device="cuda", mesh=None, n=None, capacity=None):
     """Path 1's soma model through ``Simulation.distribute`` on a 2x2 mesh of
     ranks on the one card (or on ``mesh``, a process mesh), with a ``gid``
-    attribute and a ``pop`` series."""
+    attribute and a ``pop`` series (``n`` agents and ``capacity`` a rank:
+    path 1's unless cut)."""
     from repro_torch.core.distributed import DomainConfig
     from repro_torch.launch.mesh import make_mesh
 
@@ -2325,14 +2327,14 @@ def dist_soma(codec="int16", overlap=False, device="cuda", mesh=None):
                         halo_width=DIST_HALO, halo_capacity=DIST_HALO_CAPACITY,
                         migrate_capacity=DIST_MIGRATE_CAPACITY, depth=SPACE,
                         halo_codec=codec, overlap_halo=overlap)
-    sim = dist_soma_model(device)
+    sim = dist_soma_model(device, n)
     return sim.distribute(mesh or make_mesh(DIST_MESH, ("x", "y"), devices=device), dcfg,
-                          capacity=DIST_CAPACITY)
+                          capacity=DIST_CAPACITY if capacity is None else capacity)
 
 
-def dist_soma_model(device):
-    return (soma_model(N_AGENTS, SPACE, RESOLUTION, 0, device,
-                       gid=np.arange(N_AGENTS, dtype=np.int32))
+def dist_soma_model(device, n=None):
+    n = N_AGENTS if n is None else n
+    return (soma_model(n, SPACE, RESOLUTION, 0, device, gid=np.arange(n, dtype=np.int32))
             .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
 
 
@@ -2419,6 +2421,7 @@ def phase_distributed():
     of the same model in the same call.  Returns the deployment, its final
     state and launches, and the record ``distributed_procs`` is held to."""
     from repro_torch.core import distributed as dist
+    from repro_torch.core import lanes
     from repro_torch.core.api import Observable
     from repro_torch.launch.mesh import count_shift_bytes
 
@@ -2467,6 +2470,7 @@ def phase_distributed():
         Observable("step_clock", clock),))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    lanes.counts.reset()
     torch.cuda.synchronize()
     start = time.perf_counter()
     with count_shift_bytes() as sent:
@@ -2474,6 +2478,7 @@ def phase_distributed():
         final, obs16 = dsim.run(STEPS - DIST_OVERLAP_STEPS, state=s4)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - start
+    lane_counts = dataclasses.asdict(lanes.counts)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     step_s = [b - a for a, b in zip([start] + ends[:-1], ends)]
@@ -2549,6 +2554,8 @@ def phase_distributed():
          host_ms_a_step_by_op={k: 1e3 * v / timed_steps for k, v in seconds.items()},
          launches=launches,
          launches_a_step={k: v / STEPS for k, v in launches.items() if v},
+         lane_events_a_step=lane_counts["events"] / STEPS,
+         lane_waits_a_step=lane_counts["waits"] / STEPS,
          peak_memory_bytes=peak,
          max_gid_distance_to_single_node={"int16": dist_int16, "none": dist_none,
                                           f"int16_after_{DIST_OVERLAP_STEPS}": dist_at4},
@@ -2759,24 +2766,236 @@ def phase_distributed_jit():
     step clock) through ``DistributedSimulation.run_jit``: bit-identical to
     its eager run, with its launches, no rollback, and a second run that
     replays from its first step.  Prints the device-to-host reads of an
-    eager step and of a run_jit run."""
+    eager step and of a run_jit run, the overlap report (equal to the
+    CPU's), the lanes' events and waits a step, where the graphs' lane
+    allocations went, and the rank concurrency of a replayed step."""
     dsim = dist_soma()
 
-    def reads():
+    def extra():
         return dict(dtoh_reads_a_step_eager=dtoh_reads(lambda n: dsim.run(n)),
-                    dtoh_reads_a_run_jit_run=dtoh_in(lambda: dsim.run_jit(STEPS)))
+                    dtoh_reads_a_run_jit_run=dtoh_in(lambda: dsim.run_jit(STEPS)),
+                    **lane_fields(dsim))
 
-    return jit_phase("distributed_jit", dsim, STEPS, warm=True, extra=reads)
+    with capture_pools() as pools:
+        return jit_phase("distributed_jit", dsim, STEPS, warm=True,
+                         extra=lambda: {**extra(), "graph_pool_bytes_by_stream": pools})
 
 
 def phase_distributed_jit_variants():
     """The int8 codec (its two-scale path) and the overlapped schedule (two
-    force passes a rank, each keying its own branches) through run_jit, a
-    few steps each, bit-identical to their own eager runs."""
-    launches = jit_phase("distributed_jit_int8", dist_soma(codec="int8"),
-                         DIST_OVERLAP_STEPS)
-    return add_counts(launches, jit_phase("distributed_jit_overlap", dist_soma(overlap=True),
-                                          DIST_OVERLAP_STEPS))
+    force passes a rank, each keying its own branches; each rank's halo
+    exchange on its exchange lane beside its interior pass) through
+    run_jit, a few steps each, bit-identical to their own eager runs, with
+    their overlap reports and replays' concurrency."""
+    int8 = dist_soma(codec="int8")
+    launches = jit_phase("distributed_jit_int8", int8, DIST_OVERLAP_STEPS,
+                         extra=lambda: lane_fields(int8))
+    overlap = dist_soma(overlap=True)
+    with capture_pools() as pools:
+        launches = add_counts(launches, jit_phase(
+            "distributed_jit_overlap", overlap, DIST_OVERLAP_STEPS,
+            extra=lambda: {**lane_fields(overlap), "graph_pool_bytes_by_stream": pools}))
+    return launches
+
+
+# The CPU's copy of the model: agents, and capacity a rank (the report
+# counts shifts, not agents).
+DIST_REPORT_CPU_AGENTS, DIST_REPORT_CPU_CAPACITY = 4_000, 8_192
+
+
+def lane_fields(dsim) -> dict:
+    """The overlap report of ``dsim``'s model on the card, which must equal
+    the CPU's (``distributed.overlap_report`` of the same model on a CPU
+    mesh, cut to DIST_REPORT_CPU_AGENTS agents in DIST_REPORT_CPU_CAPACITY
+    rows a rank); the lanes' events and waits a step (one eager step); and
+    the concurrency of one replayed step (:func:`replay_concurrency`)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import lanes
+
+    dcfg = dsim.dcfg
+    card = dist.overlap_report(dsim.mesh, dcfg, dsim.config, dsim.state, dsim.scheduler)
+    cpu_sim = dist_soma(codec=dcfg.halo_codec, overlap=dcfg.overlap_halo, device="cpu",
+                        n=DIST_REPORT_CPU_AGENTS, capacity=DIST_REPORT_CPU_CAPACITY)
+    cpu = dist.overlap_report(cpu_sim.mesh, cpu_sim.dcfg, cpu_sim.config, cpu_sim.state,
+                              cpu_sim.scheduler)
+    if card != cpu:
+        raise AssertionError(f"the overlap report on the card {card} is not the CPU's {cpu}")
+    rule = (card["forces"]["halo_collective_ancestors"] >= 1 if not dcfg.overlap_halo else
+            card["interior_forces"]["halo_collective_ancestors"] == 0
+            and card["interior_forces"]["collective_ancestors"] >= 1
+            and card["shell_forces"]["halo_collective_ancestors"] >= 1)
+    if not rule:
+        raise AssertionError(f"the overlap report breaks the reference's rule: {card}")
+    ranks = dsim.step.unstack(dsim.state)
+    lanes.counts.reset()
+    dsim.step.step_ranks(ranks, 0)
+    torch.cuda.synchronize()
+    streams = [lane.stream.cuda_stream for lane in lanes.lanes_for(dsim.step.mesh).all()]
+    if len(set(streams)) != len(streams):
+        raise AssertionError("two lanes share a stream")
+    return dict(overlap_report=card, overlap_report_equals_cpu=True,
+                lane_events_a_step=lanes.counts.events, lane_waits_a_step=lanes.counts.waits,
+                **replay_concurrency(dsim))
+
+
+@contextlib.contextmanager
+def capture_pools():
+    """Within the context, every graph capture of a runner is followed by a
+    reading of the memory snapshot: the bytes of the capture's pool by the
+    stream that allocated them, each lane's stream by its name (a dict the
+    caller prints once the context is left)."""
+    from repro_torch.core import lanes
+    from repro_torch.core.runner import Runner
+
+    names = {}
+    pools = {}
+    real = Runner._capture
+
+    def capture(self, lay, key, host, live):
+        real(self, lay, key, host, live)
+        if self.mesh is None or lay.pool is None:
+            return
+        for lane in lanes.lanes_for(self.mesh).all():
+            names[lane.stream.cuda_stream] = f"rank{lane.rank}/{lane.role}"
+        seen = collections.Counter()
+        for seg in torch.cuda.memory._snapshot()["segments"]:
+            if tuple(seg.get("segment_pool_id", ())) == tuple(lay.pool):
+                seen[names.get(seg["stream"], f"stream {seg['stream']:#x}")] += seg["total_size"]
+        pools.update(seen)
+
+    Runner._capture = capture
+    try:
+        yield pools
+    finally:
+        Runner._capture = real
+    lane_bytes = sum(n for k, n in pools.items() if k.startswith("rank"))
+    if pools and not lane_bytes:
+        raise AssertionError(f"no lane allocated in the graphs' pool: {dict(pools)}")
+
+
+def replay_concurrency(dsim) -> dict:
+    """From a ``torch.profiler`` trace of one replayed step of ``dsim``'s
+    runner (its graph of step 1, the run's usual key): ``rank_concurrency``,
+    the device activities' summed time over the union of their intervals
+    (1 when nothing overlaps), and the streams the trace shows.  In the
+    overlapped schedule also ``exchange_busy_ms`` (the exchange lanes'
+    work), ``interior_exchange_overlap_ms`` (the time in which an interior
+    force pass and exchange work run together) and ``exchange_hidden_ms``
+    (exchange work beside any other work of the step).
+
+    A replay runs the graph's branches on streams of CUDA's choosing, not
+    the lanes' (a rank's work before the exchange forks continues on one of
+    the two branches' streams), so the exchange work is found by its
+    activities: each exchange lane's sequence in the trace of one eager
+    step (a lane's stream there; one without a force pass), found as a run
+    on a replay stream (a branch keeps its order).  The interior passes are
+    the first of each stream's pairs of ``cell_list_force`` launches (a
+    rank's interior, then its shell pass)."""
+    runner = dsim._jitted
+    lay = next(reversed(runner._layouts.values()))
+    key = (runner._pattern(1), lay.branches)
+    graph, _ = lay.graphs[key] if key in lay.graphs else next(iter(lay.graphs.values()))
+
+    def replay():
+        # The observables' row of a replay is its step less the run's start:
+        # a replay outside a run writes row 0.
+        lay.start.copy_(lay.static.step)
+        graph.replay()
+
+    replay()
+    events = device_events(replay)
+    busy = _union((a, b) for a, b, _, _ in events)
+    total = sum(b - a for a, b, _, _ in events)
+    out = {"replay_activities": len(events),
+           "replay_streams": len({st for _, _, _, st in events}),
+           "replay_busy_ms": _length(busy) / 1e3, "replay_activity_ms": total / 1e3,
+           "rank_concurrency": total / max(_length(busy), 1e-9)}
+    if dsim.dcfg.overlap_halo:
+        ranks = dsim.step.unstack(dsim.state)
+        eager = _by_stream(device_events(lambda: dsim.step.step_ranks(ranks, 1)))
+        signatures = {tuple(n for _, _, n in evs) for evs in eager.values()
+                      if not any("cell_list_force" in n for _, _, n in evs)}
+        out.update(exchange_overlap(_by_stream(events), signatures, len(ranks)))
+    return out
+
+
+def _by_stream(events) -> dict:
+    by_stream = collections.defaultdict(list)
+    for a, b, name, stream in sorted(events):
+        by_stream[stream].append((a, b, name))
+    return by_stream
+
+
+def exchange_overlap(by_stream: dict, signatures, ranks: int) -> dict:
+    """The exchange's and the interior passes' activities in a trace
+    (``{stream: [(start, end, name)]}``, see :func:`replay_concurrency`),
+    and how long they ran beside each other and beside the rest."""
+    exchange, interior, rest = [], [], []
+    for evs in by_stream.values():
+        names = [n for _, _, n in evs]
+        mine = [False] * len(evs)
+        for sig in signatures:
+            i = 0
+            while i + len(sig) <= len(names):
+                if tuple(names[i:i + len(sig)]) == sig:
+                    mine[i:i + len(sig)] = [True] * len(sig)
+                    i += len(sig)
+                else:
+                    i += 1
+        forces = [e for e in evs if "cell_list_force" in e[2]]
+        interior.extend(e[:2] for e in forces[0::2])
+        exchange.extend(e[:2] for e, m in zip(evs, mine) if m)
+        rest.extend(e[:2] for e, m in zip(evs, mine) if not m)
+    per_lane = sum(len(s) for s in signatures) / max(len(signatures), 1)
+    found = len(exchange) == ranks * per_lane and len(interior) == ranks
+    t0 = min(a for evs in by_stream.values() for a, _, _ in evs)
+    span = lambda xs: [round((min(a for a, _ in xs) - t0) / 1e3, 4),
+                       round((max(b for _, b in xs) - t0) / 1e3, 4)] if xs else None
+    return {"exchange_activities": len(exchange), "exchange_signatures": len(signatures),
+            "exchange_found": found,
+            "exchange_busy_ms": _length(_union(exchange)) / 1e3 if found else None,
+            "interior_exchange_overlap_ms": _overlap(interior, exchange) / 1e3 if found
+            else None,
+            "exchange_hidden_ms": _overlap(rest, exchange) / 1e3 if found else None,
+            # When each ran, ms from the trace's first activity.
+            "interior_pass_spans": [span([x]) for x in sorted(interior)],
+            "exchange_span": span(exchange)}
+
+
+def _overlap(a, b) -> float:
+    """The time in which some span of ``a`` and some span of ``b`` run."""
+    both = 0.0
+    for x, y in _union(a):
+        for u, v in _union(b):
+            both += max(0.0, min(y, v) - max(x, u))
+    return both
+
+
+def device_events(fn) -> list:
+    """``(start_us, end_us, name, stream)`` of every device activity of one
+    profiled call of ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.time_range.start, e.time_range.end, e.name, e.device_resource_id)
+            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _union(spans) -> list:
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _length(spans) -> float:
+    return sum(b - a for a, b in spans)
 
 
 def dist_crowd_model():

@@ -21,8 +21,11 @@ local rank.
 * An *in-process mesh* (``make_mesh``): R ranks, each a torch device (all
   on ``cuda:0`` with one card), stepped in lock-step, op by op, from one
   host thread.  The shift is a rotation of the ranks' tensors moved to the
-  receiver's device.  Lock-step needs no threads or barriers, and all ranks
-  use the current stream, so a rank reads another's tensors without events.
+  receiver's device.  Lock-step needs no threads or barriers; each rank's
+  work runs on its own lanes (``core/lanes.py``: a stream a rank on the
+  card, and in the overlapped schedule a second for its exchange), so the
+  ranks run side by side, and a shift makes the receiver's lane wait on the
+  sender's event.
 * A *process mesh* (``process_mesh``): one process a rank over a
   ``torch.distributed`` group (``launch/procs.py`` or ``torchrun``).  Each
   process holds only its own rank's state, on its own device; the shift is
@@ -86,7 +89,7 @@ import torch.nn.functional as F
 
 from . import delta as dcodec
 from . import diffusion as dgrid
-from . import prng
+from . import lanes, prng
 from .agents import AgentPool, compact_indices, free_slot_table, make_pool, remove_agents
 from .behaviors import StepContext
 from .engine import EngineConfig, count_kinds
@@ -119,6 +122,14 @@ def _no_scope(rank: int) -> ContextManager:
 rank_scope: Callable[[int], ContextManager] = _no_scope
 
 
+@contextlib.contextmanager
+def _on_rank(rank: int):
+    """Rank ``rank``'s own work: in its lane of the running step
+    (``core/lanes.py``), under ``rank_scope``."""
+    with lanes.entered(rank), rank_scope(rank):
+        yield
+
+
 # ---------------------------------------------------------------------------
 # Configuration
 # ---------------------------------------------------------------------------
@@ -138,7 +149,11 @@ class DomainConfig:
     overlap_halo: split the force op into an interior pass over a
                  local-only index (no ghost reads) and a boundary-shell pass
                  over the ghost-extended one; bit-identical to the serial
-                 schedule.  The port runs both passes on the current stream.
+                 schedule.  The halo exchange and the ghost-extended build
+                 run in each rank's exchange lane, beside the interior pass
+                 on its compute lane; the first op that reads what they made
+                 (the shell pass, or a behaviour reading neighbours) joins
+                 the exchange (``core/lanes.py``, :func:`overlap_report`).
     """
 
     mesh_axes: Tuple[str, ...]
@@ -400,13 +415,13 @@ def migrate(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool]
     ranks = mesh.local_ranks
     overflow = []
     for r, pool in zip(ranks, pools):
-        with rank_scope(r):
+        with _on_rank(r):
             overflow.append(torch.zeros((), dtype=torch.int32, device=pool.device))
     for d in range(dcfg.n_decomposed):
         axis = dcfg.mesh_axes[d]
         east_recs, east_valid, west_recs, west_valid = [], [], [], []
         for i, (r, pool) in enumerate(zip(ranks, pools)):
-            with rank_scope(r):
+            with _on_rank(r):
                 pools[i], rec_e, val_e, rec_w, val_w, ovf = _pack_outbound(dcfg, pool, d)
                 overflow[i] = overflow[i] + ovf
             east_recs.append(rec_e)
@@ -419,7 +434,7 @@ def migrate(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool]
         from_east = mesh.shift(west_recs, axis, -1)
         from_east_valid = mesh.shift(west_valid, axis, -1)
         for i, r in enumerate(ranks):
-            with rank_scope(r):
+            with _on_rank(r):
                 pools[i] = _insert_records(pools[i], from_west[i], from_west_valid[i])
                 pools[i] = _insert_records(pools[i], from_east[i], from_east_valid[i])
     return pools, overflow
@@ -507,7 +522,7 @@ def halo_exchange(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool],
     g_alive = [p.alive for p in pools]
     g_rad, codec, overflow = [], [], []
     for r, p, c in zip(ranks, pools, codecs):
-        with rank_scope(r):
+        with _on_rank(r):
             g_rad.append(p.radius())
             codec.append(_Codec.of(c))
             overflow.append(torch.zeros((), dtype=torch.int32, device=p.device))
@@ -517,7 +532,7 @@ def halo_exchange(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool],
         axis = dcfg.mesh_axes[d]
         packs = {0: [], 1: []}
         for j, r in enumerate(ranks):
-            with rank_scope(r):
+            with _on_rank(r):
                 coord = g_pos[j][:, d]
                 east_band = g_alive[j] & (coord >= ext - hw) & (coord < ext)
                 west_band = g_alive[j] & (coord >= 0.0) & (coord < hw)
@@ -551,7 +566,7 @@ def halo_exchange(dcfg: DomainConfig, mesh, pools: Sequence[AgentPool],
         for s, sign in ((0, +1), (1, -1)):
             got = mesh.shift(packs[s], axis, sign)
             for j, r in enumerate(ranks):
-                with rank_scope(r):
+                with _on_rank(r):
                     g = got[j]
                     if wire_dtype is not None:
                         pos = _codec_decode(dcfg, codec[j], d, s, g["q"], g["fresh"])
@@ -604,7 +619,7 @@ def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.Diffusio
     ranks = mesh.local_ranks
     us, masks, padded = [], [], []
     for r, g in zip(ranks, grids):
-        with rank_scope(r):
+        with _on_rank(r):
             u = g.concentration
             mask = _padding_mask(g)
             if mask is not None:
@@ -620,7 +635,7 @@ def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.Diffusio
         from_west = mesh.shift(hi_faces, axis, +1)   # west neighbour's top slice
         from_east = mesh.shift(lo_faces, axis, -1)   # east neighbour's bottom
         for j, (r, p) in enumerate(zip(ranks, padded)):
-            with rank_scope(r):
+            with _on_rank(r):
                 fw, fe = from_west[j], from_east[j]
                 if boundary != "toroidal":
                     coord = mesh.axis_index(r, axis)
@@ -637,7 +652,7 @@ def distributed_diffuse(dcfg: DomainConfig, mesh, grids: Sequence[dgrid.Diffusio
 
     out = []
     for r, g, u, p, mask in zip(ranks, grids, us, padded, masks):
-        with rank_scope(r):
+        with _on_rank(r):
             lap = (
                 p[2:, 1:-1, 1:-1]
                 + p[:-2, 1:-1, 1:-1]
@@ -667,7 +682,7 @@ def migrate_op(dcfg: DomainConfig) -> Operation:
         pools, ovf = migrate(dcfg, mesh, [s.pool for s in states])
         out = []
         for r, s, p, o in zip(mesh.local_ranks, states, pools, ovf):
-            with rank_scope(r):
+            with _on_rank(r):
                 out.append(dataclasses.replace(s, pool=p,
                                                migrate_overflow=s.migrate_overflow + o))
         return out
@@ -675,11 +690,13 @@ def migrate_op(dcfg: DomainConfig) -> Operation:
     return Operation("migrate", fn, phase="pre", collective=True)
 
 
-def halo_exchange_op(dcfg: DomainConfig) -> Operation:
+def halo_exchange_op(dcfg: DomainConfig, lane: str = "compute") -> Operation:
     """§6.2.2/§6.2.3 aura exchange as a pre standalone op (collective).
     Publishes each rank's ghost-extended sources on its context for
     ``env_build``, writes the halo rows into the rank's :class:`GhostFrame`,
-    and accounts wire bytes and overflow."""
+    and accounts wire bytes and overflow.  In the ``"exchange"`` lane (the
+    overlapped schedule) what it hands on is the lane's product
+    (``lanes.product``): a later op joins the lane where it first reads it."""
 
     def fn(mesh, ctxs, states):
         per_rank, wire = halo_exchange(dcfg, mesh, [s.pool for s in states],
@@ -687,18 +704,33 @@ def halo_exchange_op(dcfg: DomainConfig) -> Operation:
         out = []
         for r, ctx, s, (g_pos, g_rad, g_kind, g_alive, codec, ovf) in zip(
                 mesh.local_ranks, ctxs, states, per_rank):
-            ctx.extras["halo_sources"] = (g_pos, g_rad, g_kind, g_alive)
-            c = s.pool.capacity
-            ghost = GhostFrame(position=g_pos[c:], radius=g_rad[c:], kind=g_kind[c:],
-                               alive=g_alive[c:])
-            with rank_scope(r):
-                out.append(dataclasses.replace(
-                    s, codec=codec, ghost=ghost, halo_overflow=s.halo_overflow + ovf,
+            with _on_rank(r):
+                ctx.extras["halo_sources"] = lanes.product((g_pos, g_rad, g_kind, g_alive))
+                c = s.pool.capacity
+                ghost = GhostFrame(position=g_pos[c:], radius=g_rad[c:], kind=g_kind[c:],
+                                   alive=g_alive[c:])
+                made = dict(
+                    codec=codec, ghost=ghost, halo_overflow=s.halo_overflow + ovf,
                     halo_payload_bytes=s.halo_payload_bytes + wire["payload_bytes"],
-                    halo_baseline_bytes=s.halo_baseline_bytes + wire["baseline_bytes"]))
+                    halo_baseline_bytes=s.halo_baseline_bytes + wire["baseline_bytes"])
+                out.append(dataclasses.replace(
+                    s, **{k: lanes.product(v) for k, v in made.items()}))
         return out
 
-    return Operation("halo_exchange", fn, phase="pre", collective=True)
+    return Operation("halo_exchange", fn, phase="pre", collective=True, lane=lane)
+
+
+def _step_context(ctx: OpContext, ecfg: EngineConfig, state: DistState,
+                  neighbors: Optional[NeighborContext]) -> StepContext:
+    return StepContext(
+        rng=ctx.rng,
+        grids=dict(state.grids),
+        neighbors=neighbors,
+        dt=torch.full((), ecfg.dt, dtype=torch.float32, device=state.pool.device),
+        step=ctx.step,
+        min_bound=ecfg.min_bound,
+        max_bound=ecfg.max_bound,
+    )
 
 
 def dist_env_build_op(dcfg: DomainConfig, ecfg: EngineConfig,
@@ -708,7 +740,10 @@ def dist_env_build_op(dcfg: DomainConfig, ecfg: EngineConfig,
     behaviours, forces and the fused cell-list kernel; the dense (C, 27M)
     candidate tensor stays lazy.  ``from_state_ghost`` (the overlapped
     schedule) reads the halo rows from the state's :class:`GhostFrame`
-    instead of the exchange's context entry: the same values."""
+    instead of the exchange's context entry (the same values), runs in the
+    exchange lane beside the interior pass, and publishes only what reads
+    the ghosts: the index and the neighbours, as the lane's products, set
+    into the step context ``interior_env_build`` made."""
 
     def fn(ctx: OpContext, state: DistState) -> DistState:
         pool = state.pool
@@ -721,23 +756,20 @@ def dist_env_build_op(dcfg: DomainConfig, ecfg: EngineConfig,
         else:
             g_pos, g_rad, g_kind, g_alive = ctx.extras["halo_sources"]
         index = build_index_arrays(ecfg.spec, g_pos, g_alive)
-        ctx.index = index
-        ctx.neighbors = NeighborContext.for_sources(ecfg.spec, index, pool, g_pos, g_rad,
-                                                    g_kind, g_alive)
-        ctx.neighbors.masked = ctx.branches is not None and ctx.branches.assuming
-        ctx.pre_positions = pool.position
-        ctx.sctx = StepContext(
-            rng=ctx.rng,
-            grids=dict(state.grids),
-            neighbors=ctx.neighbors,
-            dt=torch.full((), ecfg.dt, dtype=torch.float32, device=pool.device),
-            step=ctx.step,
-            min_bound=ecfg.min_bound,
-            max_bound=ecfg.max_bound,
-        )
+        neighbors = NeighborContext.for_sources(ecfg.spec, index, pool, g_pos, g_rad,
+                                                g_kind, g_alive)
+        neighbors.masked = ctx.branches is not None and ctx.branches.assuming
+        ctx.index = lanes.product(index)
+        ctx.neighbors = lanes.product(neighbors)
+        if from_state_ghost:
+            ctx.sctx = dataclasses.replace(ctx.sctx, neighbors=ctx.neighbors)
+        else:
+            ctx.pre_positions = pool.position
+            ctx.sctx = _step_context(ctx, ecfg, state, ctx.neighbors)
         return state
 
-    return Operation("env_build", fn, phase="pre")
+    return Operation("env_build", fn, phase="pre",
+                     lane="exchange" if from_state_ghost else "compute")
 
 
 # ---------------------------------------------------------------------------
@@ -784,7 +816,8 @@ def interior_shell_masks(dcfg: DomainConfig, spec: GridSpec, position: torch.Ten
 def interior_env_build_op(dcfg: DomainConfig, ecfg: EngineConfig) -> Operation:
     """Local-only environment build of the overlapped schedule (pre op,
     before ``halo_exchange``): a grid index over the live pool alone plus
-    the interior/shell row masks, on ``ctx.extras``."""
+    the interior/shell row masks, on ``ctx.extras``, and the step context
+    and start positions, which read no ghost."""
 
     def fn(ctx: OpContext, state: DistState) -> DistState:
         pool = state.pool
@@ -796,6 +829,10 @@ def interior_env_build_op(dcfg: DomainConfig, ecfg: EngineConfig) -> Operation:
         ctx.extras["interior_neighbors"] = neighbors
         ctx.extras["interior_mask"] = interior
         ctx.extras["shell_mask"] = shell
+        # What the behaviours read besides the neighbours, made here on the
+        # compute lane: the ghost-extended build only sets their neighbours.
+        ctx.pre_positions = pool.position
+        ctx.sctx = _step_context(ctx, ecfg, state, None)
         return state
 
     return Operation("interior_env_build", fn, phase="pre")
@@ -878,7 +915,8 @@ def distributed_scheduler(dcfg: DomainConfig, ecfg: EngineConfig) -> Scheduler:
     overlap = dcfg.overlap_halo and ecfg.force_params is not None
     if overlap:
         sched = sched.insert_after("migrate", interior_env_build_op(dcfg, ecfg))
-        sched = sched.insert_after("interior_env_build", halo_exchange_op(dcfg))
+        sched = sched.insert_after("interior_env_build",
+                                   halo_exchange_op(dcfg, lane="exchange"))
         sched = sched.replace_op("forces", interior_forces_op(dcfg, ecfg))
         sched = sched.insert_after("interior_forces", shell_forces_op(dcfg, ecfg))
     else:
@@ -902,6 +940,14 @@ def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: in
     ``step`` is the ranks' common pre-increment counter, on the host; the
     frequency gates read it.
 
+    Each rank's work runs in its lanes (``core/lanes.py``): its compute
+    lane, forked from the caller's current stream, and for an op of
+    ``lane="exchange"`` its exchange lane, forked from the compute lane
+    (the overlapped schedule's halo exchange and ghost-extended build).  A
+    collective op runs each rank's part in that rank's lane; a shift orders
+    the receiver's lane after the sender's.  Every lane used is joined back
+    into the caller's stream before the step returns.
+
     Each rank's key is folded with its linear rank index for the step and
     restored after it, as the reference's per-device body does.  A
     collective op takes the lists of every local rank's context and state;
@@ -911,44 +957,50 @@ def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: in
     With ``branches`` (the compiled run, ``core/runner.py``) the ops see
     each rank's device counter as ``OpContext.step``, the key is folded from
     it, and rank r's force passes take their branches under the scope
-    ``"rank{r}"``; an op, or ``fold_rng``, that reads the device while the
+    ``"rank{r}"`` (setting the j-th slot of a slotted ``diverged``, j its
+    local index); an op, or ``fold_rng``, that reads the device while the
     step is captured in a CUDA graph raises ``CaptureError`` naming it."""
     ranks = mesh.local_ranks
     if len(states) != len(ranks):
         raise ValueError(f"step_ranks: {len(states)} states for the local ranks {ranks}")
     keys = [s.rng for s in states]
-    folded, ctxs = [], []
-    for r, s in zip(ranks, states):
-        with rank_scope(r):
-            s = dataclasses.replace(s, rng=prng.fold_in(s.rng, r))
-            counter = step if branches is None else s.step
-            with _naming("fold_rng"):
-                rng = scheduler.fold_rng(s, counter)
-        folded.append(s)
-        ctxs.append(OpContext(config=scheduler.config, step=counter, rng=rng,
-                              branches=None if branches is None else branches.scoped(f"rank{r}")))
-    states = folded
-    for op in scheduler.ordered_ops():
-        if op.frequency == 0:
-            continue
-        fires = step % op.frequency == 0
-        if op.gate == "cond" and not fires:
-            continue
-        with _naming(f"op {op.name!r}"):
-            if op.collective:
-                new = op.fn(mesh, ctxs, states)
-            else:
-                new = []
-                for r, ctx, s in zip(ranks, ctxs, states):
-                    with rank_scope(r):
-                        new.append(op.fn(ctx, s))
-        if fires:
-            states = new
-    out = []
-    for r, s, k in zip(ranks, states, keys):
-        with rank_scope(r):
-            out.append(dataclasses.replace(s, rng=k, step=s.step + 1))
-    return out
+    with lanes.running(mesh) as run:
+        folded, ctxs = [], []
+        for j, (r, s) in enumerate(zip(ranks, states)):
+            with _on_rank(r):
+                s = dataclasses.replace(s, rng=prng.fold_in(s.rng, r))
+                counter = step if branches is None else s.step
+                with _naming("fold_rng"):
+                    rng = scheduler.fold_rng(s, counter)
+            folded.append(s)
+            ctxs.append(OpContext(
+                config=scheduler.config, step=counter, rng=rng,
+                branches=None if branches is None else branches.scoped(f"rank{r}", slot=j)))
+        states = folded
+        for op in scheduler.ordered_ops():
+            if op.frequency == 0:
+                continue
+            fires = step % op.frequency == 0
+            if op.gate == "cond" and not fires:
+                continue
+            run.op = op.name
+            run.use(op.lane, states)
+            with _naming(f"op {op.name!r}"):
+                if op.collective:
+                    new = op.fn(mesh, ctxs, states)
+                else:
+                    new = []
+                    for r, ctx, s in zip(ranks, ctxs, states):
+                        with _on_rank(r):
+                            new.append(op.fn(ctx, s))
+            if fires:
+                states = new
+        run.use("compute")
+        out = []
+        for r, s, k in zip(ranks, states, keys):
+            with _on_rank(r):
+                out.append(dataclasses.replace(s, rng=k, step=s.step + 1))
+    return [lanes.settled(s) for s in out]
 
 
 def _host_step(state: DistState) -> int:
@@ -1029,6 +1081,42 @@ def distributed_step(dcfg: DomainConfig, ecfg: EngineConfig, mesh, state: DistSt
                      ) -> DistState:
     """One distributed iteration (the default distributed schedule)."""
     return make_distributed_step(mesh, dcfg, ecfg)(state)
+
+
+FORCE_OPS = ("forces", "interior_forces", "shell_forces")
+
+
+def overlap_report(mesh, dcfg: DomainConfig, ecfg: EngineConfig, state: DistState,
+                   scheduler: Optional[Scheduler] = None) -> dict:
+    """The counterpart of the reference's ``hlo_overlap_report``: one eager
+    step of the distributed schedule (``scheduler``, by default
+    :func:`distributed_scheduler`'s) from the stacked ``state``,
+    and for each force op (``forces``, ``interior_forces``,
+    ``shell_forces``) what the lane issuing its pass had waited on when the
+    pass issued (``core/lanes.py``): ``passes`` (the reference's
+    ``conditionals``), ``collective_ancestors`` (the shifts of every op)
+    and ``halo_collective_ancestors`` (those of ``halo_exchange``), at this
+    process's first local rank; ``halo_collectives`` counts the step's
+    ``halo_exchange`` shifts.  The overlap guarantee: under
+    ``overlap_halo`` the interior pass has no halo ancestor (its lane never
+    waited on the exchange) and at least one other (migration), the shell
+    pass at least one halo ancestor; under the serial schedule ``forces``
+    has one.  The records, and so the report, are the same on every
+    device."""
+    step = make_distributed_step(mesh, dcfg, ecfg, scheduler)
+    with lanes.observe() as seen:
+        step.step_ranks(step.unstack(state), _host_step(state))
+    rank = step.mesh.local_ranks[0]
+    report = {"halo_collectives": sum(op == "halo_exchange" for op, _ in seen.shifts)}
+    for name in FORCE_OPS:
+        records = [rec for r, op, rec in seen.passes if r == rank and op == name]
+        ancestors = frozenset().union(*records)
+        report[name] = {
+            "passes": len(records),
+            "collective_ancestors": len(ancestors),
+            "halo_collective_ancestors": sum(op == "halo_exchange" for op, _ in ancestors),
+        }
+    return report
 
 
 # ---------------------------------------------------------------------------

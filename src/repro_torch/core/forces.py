@@ -91,7 +91,11 @@ class Branches:
     the assumed values, the record and ``diverged``: the distributed step
     gives each rank its own scope (``"rank1/"``), and the overlapped
     schedule each of a rank's two force passes (``"rank1/interior/"``), so
-    every pass keys and checks its own predicates."""
+    every pass keys and checks its own predicates.  A distributed run's
+    ``diverged`` holds a slot a rank ((R,) bool): each rank's view sets its
+    own slot only, from its own lane (``core/lanes.py``; the ranks' streams
+    never write one byte together), and the runner reduces the slots after
+    the ranks' lanes have joined."""
 
     def __init__(self, assumed: Optional[dict] = None,
                  diverged: Optional[torch.Tensor] = None):
@@ -108,10 +112,14 @@ class Branches:
         """The branches taken, as a hashable key."""
         return tuple(sorted(self.taken.items()))
 
-    def scoped(self, name: str) -> "Branches":
-        """A view of these branches whose names are prefixed by ``name/``."""
+    def scoped(self, name: str, slot: Optional[int] = None) -> "Branches":
+        """A view of these branches whose names are prefixed by ``name/``;
+        with ``slot``, and a ``diverged`` with a slot axis, it sets
+        ``diverged[slot]`` only."""
         out = Branches.__new__(Branches)
         out.assumed, out.diverged, out.taken = self.assumed, self.diverged, self.taken
+        if slot is not None and self.diverged is not None and self.diverged.ndim == 1:
+            out.diverged = self.diverged[slot]
         out.scope = f"{self.scope}{name}/"
         return out
 

@@ -37,12 +37,18 @@ def device_constant(key: tuple, device: torch.device, make) -> torch.Tensor:
     there at its first use and kept for later ones.  A host-to-device copy
     synchronises, and under a CUDA graph capture it fails: every constant a
     captured step needs is made by the eager step that precedes its capture.
-    Callers must not write to the tensor."""
+    On the card the host waits for the copy, so the constant is complete
+    for every stream that reads it later: the distributed step's lanes
+    (``core/lanes.py``) share a device's constants, whichever lane made
+    them.  Callers must not write to the tensor."""
     device = torch.device(device)
     k = key + (device,)
     t = _CONSTANTS.get(k)
     if t is None:
-        t = _CONSTANTS[k] = make().to(device)
+        t = make().to(device)
+        if t.is_cuda:
+            torch.cuda.current_stream(device).synchronize()
+        _CONSTANTS[k] = t
     return t
 
 

@@ -46,7 +46,9 @@ bit for bit, whichever branches the run takes.  The rules:
   replay takes the branches of the last eager step (``forces.Branches``: a
   bool a predicate, in a batch one a session): it computes the force pass's
   predicates on the device and sets a device ``diverged`` flag where one
-  (of a live session) differs from its assumed branch.  The runner copies
+  (of a live session) differs from its assumed branch (a distributed step:
+  in its rank's own slot of the flag, reduced once the ranks' lanes have
+  joined the runner's stream).  The runner copies
   the state aside at the start of each chunk of at most :data:`CHUNK`
   replays and reads ``diverged`` once at its end; if it is set, the runner
   restores the copy and runs the chunk eagerly, each step reading its
@@ -90,7 +92,11 @@ values to it (a ``torch.tensor(...)`` on the card inside the step is such
 a copy, and so is a Python scalar written through an index tensor,
 ``x[idx] = True``: ``index_fill_`` fills on the device); a distributed run
 needs every rank in this process on one device (a mesh over several cards,
-or one process a rank, raises ``ValueError``; ROADMAP item 17).
+or one process a rank, raises ``ValueError``; ROADMAP item 17).  Its ranks
+run on their own lanes (``core/lanes.py``): one stream a rank, and in the
+overlapped schedule a second beside it for the halo exchange, each forked
+from the runner's stream and joined back within the step, so one graph
+holds a branch a lane.
 """
 
 from __future__ import annotations
@@ -182,7 +188,9 @@ class _Layout:
             self.rank_key = _skeleton(self.ranks[0])
         self.saved = [torch.empty_like(x) for x in self.leaves]
         self.ptrs = {x.untyped_storage().data_ptr() for x in self.leaves}
-        self.diverged = torch.zeros((), dtype=torch.bool, device=device)
+        # A distributed run's flag has a slot a rank (forces.Branches.scoped).
+        self.diverged = torch.zeros((len(mesh.local_ranks),) if mesh is not None else (),
+                                    dtype=torch.bool, device=device)
         self.start = torch.zeros(counter.shape, dtype=torch.int32, device=device)
         self.graphs: Dict[tuple, object] = {}
         self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
@@ -520,6 +528,11 @@ class Runner:
     # -- graphs ---------------------------------------------------------------
 
     def _capture(self, lay: _Layout, key: tuple, host, live):
+        """Capture the step of ``key`` into the layout's pool.  A
+        distributed step's lanes join the capture: each forks from the
+        capture stream and joins it again before the step returns
+        (``distributed.step_ranks``), so the graph holds a branch a rank's
+        lane, side by side, and their allocations land in the pool too."""
         assumed = dict(key[1])
         body = lambda: self._step(lay, host, live, Branches(assumed, lay.diverged))
         self.stats["graphs"] += 1
@@ -627,7 +640,7 @@ class Runner:
                     lay.diverged.zero_()
                 launched.update(self._replay(entry))
                 host, i = self._advance(host), i + 1
-            if i > first and bool(lay.diverged):
+            if i > first and self._diverged(lay):
                 for s, d in zip(lay.saved, lay.leaves):
                     d.copy_(s)
                 self.stats["rollbacks"] += 1
@@ -643,6 +656,12 @@ class Runner:
                 host, i = self._advance(host), i + 1
         lay.branches = branches
         return host
+
+    def _diverged(self, lay: _Layout) -> bool:
+        """Did a replay of the chunk diverge?  One read of the flag, its
+        rank slots reduced first on the runner's stream, after every rank's
+        lane has joined it."""
+        return bool(lay.diverged.any())
 
     def _outs(self, lay: _Layout, final, n: int, start, end):
         bufs = lay.bufs

@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from . import diffusion as dgrid
-from . import prng
+from . import lanes, prng
 from .behaviors import StepContext
 from .forces import Branches, mechanical_forces, update_static_flags_celllist
 from .grid import GridIndex, bool_mask, build_index, sort_agents
@@ -174,6 +174,10 @@ class Operation:
                and returns the list of new states (the distributed engine's
                exchanges, ``core/distributed.py``); only the distributed
                executor runs it.
+    lane:      the lane in which the distributed executor runs each rank's
+               part (``core/lanes.py``): "compute", or "exchange" (the
+               overlapped schedule's halo exchange and ghost-extended build,
+               beside the interior pass).  Other executors ignore it.
     """
 
     name: str
@@ -183,10 +187,13 @@ class Operation:
     gate: str = "cond"
     batched: bool = False
     collective: bool = False
+    lane: str = "compute"
 
     def __post_init__(self):
         if self.phase not in PHASES:
             raise ValueError(f"unknown phase {self.phase!r}; expected {PHASES}")
+        if self.lane not in lanes.ROLES:
+            raise ValueError(f"unknown lane {self.lane!r}; expected {lanes.ROLES}")
         if self.gate not in GATES:
             raise ValueError(f"unknown gate {self.gate!r}; expected {GATES}")
         if self.frequency < 0:
@@ -471,11 +478,14 @@ def force_pass(config, ctx: OpContext, state, *, index=None, neighbors=None,
     over the step's index and context unless ``index`` / ``neighbors`` are
     given (the distributed overlapped schedule runs an interior pass over a
     local-only index and a shell pass over the ghost-extended one, each
-    under its own ``scope`` of the compiled run's branches)."""
+    under its own ``scope`` of the compiled run's branches).  In the
+    distributed step the issuing lane's record is noted once the pass has
+    read its inputs (``lanes.force_pass_issued``, read by
+    ``distributed.overlap_report``)."""
     branches = ctx.branches
     if branches is not None and scope is not None:
         branches = branches.scoped(scope)
-    return mechanical_forces(
+    force = mechanical_forces(
         config.spec,
         ctx.index if index is None else index,
         state.pool,
@@ -493,6 +503,8 @@ def force_pass(config, ctx: OpContext, state, *, index=None, neighbors=None,
         live=ctx.live,
         branches=branches,
     )
+    lanes.force_pass_issued()
+    return force
 
 
 def apply_force(pool, force: torch.Tensor, dt: float):

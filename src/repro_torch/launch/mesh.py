@@ -59,6 +59,7 @@ from typing import Any, Callable, ClassVar, Dict, Iterator, List, Optional, Sequ
 import torch
 import torch.distributed as dist
 
+from ..core import lanes
 from ..device import resolve_device
 
 
@@ -189,11 +190,12 @@ class Mesh:
         the rank ``direction`` steps further along ``axis`` (mod its size),
         the other coordinates kept.  ``values`` holds one tensor (or tree of
         tensors) a rank; the result is indexed by the receiving rank and lies
-        on its device."""
+        on its device.  In a running step (``core/lanes.py``) each
+        receiver's lane waits on its sender's, and reads the value there."""
         if len(values) != self.size:
             raise ValueError(f"shift: {len(values)} values for {self.size} ranks")
         d = self.axis_names.index(axis)
-        out = [None] * self.size
+        moves = []
         for rank, value in enumerate(values):
             if shift_observers:
                 nbytes = tree_nbytes(value)
@@ -201,8 +203,18 @@ class Mesh:
                     observe(rank, axis, nbytes)
             coords = list(self.rank_coords(rank))
             coords[d] += direction
-            dest = self.rank_of(coords)
-            out[dest] = _tree_to(value, self.devices[dest])
+            moves.append((rank, self.rank_of(coords)))
+        lanes.shift(moves)
+        out = [None] * self.size
+        for (rank, dest), value in zip(moves, values):
+            if self.devices[rank] == self.devices[dest]:
+                out[dest] = _tree_to(value, self.devices[dest])
+            else:
+                # The copy is ordered after the sender's lane and before the
+                # receiver's (the current streams of both devices).
+                with lanes.entered(rank), lanes.entered(dest):
+                    out[dest] = _tree_to(value, self.devices[dest])
+            lanes.received(out[dest], dest)
         return out
 
     def ordered(self, axes: Sequence[str]) -> "Mesh":
@@ -364,10 +376,14 @@ class ProcessMesh(Mesh):
 
     def _to_wire(self, buf: torch.Tensor) -> torch.Tensor:
         """``buf`` as the backend reads it: under gloo a card's buffer is
-        copied into a pinned host buffer."""
+        copied into a pinned host buffer, once the buffer is packed (the
+        host waits for the packing's event only: other work already
+        enqueued, such as the interior pass on the rank's compute lane, runs
+        on)."""
         if not self._staging:
             return buf
-        torch.cuda.current_stream(buf.device).synchronize()
+        packed = torch.cuda.current_stream(buf.device).record_event()
+        packed.synchronize()
         t0 = time.perf_counter()
         host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
         host.copy_(buf)
@@ -411,6 +427,7 @@ class ProcessMesh(Mesh):
                 observe(self.rank, axis, nbytes)
         d = self.axis_names.index(axis)
         if direction % self.axis_sizes[d] == 0:
+            lanes.shift([(self.rank, self.rank)])
             return [value]
         coords = list(self.rank_coords(self.rank))
         here = coords[d]
@@ -418,18 +435,22 @@ class ProcessMesh(Mesh):
         dest = self.rank_of(coords)
         coords[d] = here - direction
         source = self.rank_of(coords)
+        lanes.shift([(source, self.rank)])
         leaves, rebuild = _flatten(value)
-        sent = self._to_wire(_pack(leaves, self.device))
-        got = self._like(sent)
-        t0 = time.perf_counter()
-        works = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, sent, self.peers[dest], self.group),
-            dist.P2POp(dist.irecv, got, self.peers[source], self.group)])
-        for work in works:
-            work.wait()
-        self.stats.wire_s += time.perf_counter() - t0
-        self.stats.exchanges += 1
-        return [rebuild(_unpack(self._from_wire(got), leaves))]
+        # The packing, the wire's staging and the unpacking are the rank's
+        # work: in its lane of the running step, after what made the value.
+        with lanes.entered(self.rank):
+            sent = self._to_wire(_pack(leaves, self.device))
+            got = self._like(sent)
+            t0 = time.perf_counter()
+            works = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, sent, self.peers[dest], self.group),
+                dist.P2POp(dist.irecv, got, self.peers[source], self.group)])
+            for work in works:
+                work.wait()
+            self.stats.wire_s += time.perf_counter() - t0
+            self.stats.exchanges += 1
+            return [rebuild(_unpack(self._from_wire(got), leaves))]
 
     def all_gather(self, tree: Any) -> Any:
         """Every rank's ``tree`` (the same structure, shapes and dtypes on

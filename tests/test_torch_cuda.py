@@ -1621,6 +1621,36 @@ def test_dist_run_jit_one_rank_rolls_back_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True], ids=["serial", "overlap"])
+def test_dist_lanes_equal_one_stream_on_card(card, overlap, monkeypatch):
+    """The small soma model on 4 ranks, serial and overlapped: its eager
+    and run_jit runs with every rank on its own lanes (distinct streams)
+    are bit-identical to the same runs with every lane on the current
+    stream (the lane factory patched to make no stream)."""
+    import torch_jit_cases as J
+    from repro_torch.core import lanes
+
+    def runs():
+        dsim = J.dist_soma(card, overlap=overlap)
+        eager = dsim.run(8)
+        jit = dsim.run_jit(8)
+        torch.cuda.synchronize()
+        J.assert_runs_bit_equal(eager, jit)
+        return dsim, eager, jit
+
+    dsim, eager, jit = runs()
+    streams = [lane.stream.cuda_stream for lane in lanes.lanes_for(dsim.step.mesh).all()]
+    assert len(streams) == 8 and len(set(streams)) == 8
+    assert torch.cuda.current_stream(card).cuda_stream not in streams
+    monkeypatch.setattr(lanes, "_SETS", {})
+    monkeypatch.setattr(lanes, "make_stream", lambda device: None)
+    one, eager1, jit1 = runs()
+    assert all(lane.stream is None for lane in lanes.lanes_for(one.step.mesh).all())
+    J.assert_runs_bit_equal(eager, eager1)
+    J.assert_runs_bit_equal(jit, jit1)
+
+
+@pytest.mark.cuda
 def test_dist_run_jit_raises_when_an_op_reads_the_card(card):
     """A custom op of a distributed model that reads the card cannot be
     captured: run_jit raises CaptureError naming it."""

@@ -367,3 +367,18 @@ def test_process_mesh_resumes_an_in_process_checkpoint(procs):
     np.testing.assert_array_equal(procs["resume/of_in_process_obs/counts"],
                                   sobs["counts"].numpy())
     _assert_same(straight, procs, "resume/of_in_process", "processes' resume")
+
+
+@pytest.mark.parametrize("schedule", ["serial", "overlap"])
+def test_process_mesh_overlap_report_matches(procs, schedule):
+    """Each of the four processes' ``overlap_report`` (its one rank's lanes,
+    each receiving shift recorded by number) equals the in-process mesh's."""
+    import json
+
+    import torch_overlap_reference as O
+
+    assert schedule in O.SCHEDULES
+    want = dist.overlap_report(*P.overlap_model(schedule, "cpu"))
+    for r in range(4):
+        got = json.loads(str(procs[f"digest/overlap/{schedule}/{r}"]))
+        assert got == want, (r, got, want)

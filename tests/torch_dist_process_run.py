@@ -10,8 +10,10 @@ tests/test_torch_distributed.py that this mode covers: the relaxation at
 both codecs after 1 and 5 steps on all eight, then on the first four (a
 subgroup) the 2×2 soma model through ``Simulation.distribute``, the resume
 model straight and killed after step ``RESUME_KILL`` with its checkpoints
-in CKPT_OUT, and the resume model finishing CKPT_IN (an in-process killed
-run).  ``shifts`` starts four processes: ``Mesh.shift`` on (2, 2) and
+in CKPT_OUT, the resume model finishing CKPT_IN (an in-process killed
+run), and ``distributed.overlap_report`` of tests/
+torch_overlap_reference.py's force model under both schedules (each
+process's report, as JSON, beside its digests).  ``shifts`` starts four processes: ``Mesh.shift`` on (2, 2) and
 (4, 1) process meshes, and the bytes each rank sends through it in one
 distributed step on each; then three processes of which one fails, which
 must fail the launch at once.  Rank 0 writes what the mode's tests read into
@@ -27,6 +29,7 @@ tests/test_torch_distributed.py builds the same ones in-process.
 
 import dataclasses
 import hashlib
+import json
 import sys
 import time
 
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 import torch_dist_reference as R
+import torch_overlap_reference as O
 
 from repro_torch.convert import dist_state_to_numpy
 from repro_torch.core import EngineConfig, ForceParams, Simulation
@@ -98,6 +102,23 @@ def force_engine(codec):
     return domain, dcfg, ecfg, pos
 
 
+def overlap_model(schedule, devices, group=None):
+    """torch_overlap_reference's force model on a 2×2 mesh (a process mesh
+    over ``group``, or an in-process one when ``group`` is None)."""
+    from repro_torch.launch.mesh import make_mesh, process_mesh
+
+    domain, numbers, pos = O.overlap_setup()
+    dcfg = dist.DomainConfig(**domain, overlap_halo=schedule == "overlap")
+    ecfg = EngineConfig(spec=dcfg.grid_spec(box_size=2.0, max_per_cell=32),
+                        force_params=ForceParams(), force_impl="reference", **numbers)
+    if group is None:
+        mesh = make_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices=devices)
+    else:
+        mesh = process_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices=devices, group=group)
+    state = dist.init_dist_state(dcfg, capacity=256, positions=pos, diameter=1.6)
+    return mesh, dcfg, ecfg, state
+
+
 def digest(state) -> str:
     """SHA-1 of every leaf of a stacked state, in the numpy layout."""
     h = hashlib.sha1()
@@ -157,6 +178,12 @@ def _engine_rank(ckpt_in, ckpt_out):
         final, robs = dsim.resume(ckpt_in)
         put("resume/of_in_process", final)
         out["resume/of_in_process_obs/counts"] = robs["counts"].numpy()
+
+        # The overlap report of each schedule, from this process's lanes.
+        for schedule in O.SCHEDULES:
+            mesh, dcfg, ecfg, state = overlap_model(schedule, "cpu", group)
+            digests[f"overlap/{schedule}"] = json.dumps(
+                dist.overlap_report(mesh, dcfg, ecfg, state), sort_keys=True)
     tdist.barrier()
     return out, digests
 
