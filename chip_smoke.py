@@ -452,6 +452,10 @@ DIST_OVERLAP_STEPS = 4
 PROCS_SMALL_RANKS = 8           # dist_small's 4x2 mesh; the first 4 run DIST_MESH
 PROCS_SMALL_STEPS = 8
 PROCS_TIMEOUT_S = 300
+# distributed_procs_jit's elastic case: tests/dist_scenarios.py's regrowth.
+DIST_ELASTIC_STEPS = 4
+DIST_ELASTIC_EVERY = 2
+DIST_ELASTIC_CAPACITY = 32
 DIST_KERNELS = ("cell_rank", "cell_list_force", "cell_window_force", "pairwise_force",
                 "diffusion3d")
 
@@ -2218,10 +2222,10 @@ def dist_force_case(corners: bool):
     return dcfg, pos.astype(np.float32), (256 if corners else 192)
 
 
-def dist_small_run(dcfg, pos, capacity, device, steps, mesh=None, **engine):
-    """``steps`` distributed steps of a force-only case on ``device``
-    (``"cuda"`` or ``"cpu"``), grid ranks by cell_rank; on an in-process
-    mesh unless ``mesh`` (a process mesh) is given."""
+def dist_small_engine(dcfg, pos, capacity, device, mesh=None, **engine):
+    """A force-only case's engine config, mesh (in-process on ``device``
+    unless ``mesh``, a process mesh, is given) and initial state; grid
+    ranks by cell_rank."""
     from repro_torch.core import EngineConfig, ForceParams
     from repro_torch.core import distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -2230,11 +2234,32 @@ def dist_small_run(dcfg, pos, capacity, device, steps, mesh=None, **engine):
                         force_params=ForceParams(), dt=0.05, min_bound=0.0, max_bound=16.0,
                         boundary="open", sort_frequency=4, **engine)
     mesh = mesh or make_mesh(dcfg.axis_sizes, dcfg.mesh_axes, devices=device)
-    state = dist.init_dist_state(dcfg, capacity, pos, diameter=1.6, device=mesh.devices[0])
+    return ecfg, mesh, dist.init_dist_state(dcfg, capacity, pos, diameter=1.6,
+                                            device=mesh.devices[0])
+
+
+def dist_small_run(dcfg, pos, capacity, device, steps, mesh=None, **engine):
+    """``steps`` distributed steps of a force-only case on ``device``
+    (``"cuda"`` or ``"cpu"``); on an in-process mesh unless ``mesh`` (a
+    process mesh) is given."""
+    from repro_torch.core import distributed as dist
+
+    ecfg, mesh, state = dist_small_engine(dcfg, pos, capacity, device, mesh, **engine)
     step = dist.make_distributed_step(mesh, dcfg, ecfg)
     for _ in range(steps):
         state = step(state)
     return state
+
+
+def dist_small_jit(dcfg, pos, capacity, device, steps, mesh, **engine):
+    """The same steps through ``jitted_distributed_runner`` on the process
+    mesh ``mesh``: the final state and the runner's counts."""
+    from repro_torch.core import distributed as dist
+
+    ecfg, mesh, state = dist_small_engine(dcfg, pos, capacity, device, mesh, **engine)
+    runner = dist.jitted_distributed_runner(mesh, dcfg, ecfg)
+    final, _ = runner(state, steps)
+    return final, dict(runner.stats)
 
 
 def dist_leaf_errors(card, cpu, label, atol):
@@ -2640,11 +2665,17 @@ def procs_rank(device, soma_ranks):
         out[f"small_{name}"] = state_digest(
             dist_small_run(d, pos, cap, device, PROCS_SMALL_STEPS, mesh=mesh,
                            force_impl="fused"))
+        reset_counts()
+        final, stats = dist_small_jit(d, pos, cap, device, PROCS_SMALL_STEPS, mesh,
+                                      force_impl="fused")
+        out[f"small_jit_{name}"] = (state_digest(final), dict(stats, launches=read_counts()))
     group = tdist.new_group(list(range(soma_ranks)))
     if tdist.get_rank() < soma_ranks:
-        out["soma"] = procs_soma(process_mesh(DIST_MESH, ("x", "y"), devices=device,
-                                              group=group))
-    tdist.barrier()
+        mesh = process_mesh(DIST_MESH, ("x", "y"), devices=device, group=group)
+        out["soma"] = procs_soma(mesh)
+        out["jit"] = procs_soma_jit(mesh)
+    # The others return at once: the four run longer than a collective on
+    # the whole group may wait, and use only their subgroup from here on.
     return out
 
 
@@ -2655,7 +2686,121 @@ def procs_nccl_rank():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return procs_soma(process_mesh(DIST_MESH, ("x", "y")))
+    mesh = process_mesh(DIST_MESH, ("x", "y"))
+    return dict(procs_soma(mesh), jit=procs_soma_jit(mesh))
+
+
+def procs_jit_runs(dsim):
+    """Two ``run_jit`` runs of STEPS steps of ``dsim`` (a deployment on a
+    process mesh) from its start, the first capturing, the second replaying:
+    each run's digest, series, counters, launches, the runner's counts and
+    the exchanges' costs, and the second run's wall time a step."""
+    runner, stats, dev = dsim._jitted, dsim.mesh.stats, dsim.mesh.device
+    runs = []
+    for _ in range(2):
+        before = dict(runner.stats)
+        stats.reset()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        final, obs = dsim.run_jit(STEPS)
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t0
+        counts = {k: runner.stats[k] - before[k] for k in runner.stats}
+        run = dict(run_s=run_s, step_ms=1e3 * run_s / STEPS, launches=read_counts(),
+                   digest=state_digest(final),
+                   staging_ms_a_step=1e3 * stats.staging_s / STEPS,
+                   staged_bytes_a_step=stats.staged_bytes / STEPS,
+                   wire_ms_a_step=1e3 * stats.wire_s / STEPS,
+                   gather_wire_ms_a_step=1e3 * stats.gather_s / STEPS,
+                   exchanges_a_step=stats.exchanges / STEPS,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                   segments_a_graph=runner.stats["segments"] / max(runner.stats["graphs"], 1),
+                   **counts)
+        if dsim.mesh.rank == 0:
+            run.update(pop=obs["pop"].cpu().numpy() if "pop" in obs else None,
+                       counters={k: v.cpu().numpy() for k, v in dist_counters(final).items()})
+        runs.append(run)
+    return runs
+
+
+def procs_soma_jit(mesh):
+    """``distributed_procs_jit``'s runs on this process's rank of ``mesh``:
+    ``dist_soma``'s model through ``run_jit`` with ``pop`` every step and
+    with its observables off (``procs_jit_runs``), ``dist_crowd_model``'s
+    rollback, and the regrowing elastic case with ``jit=True``."""
+    import tempfile
+
+    from repro_torch.launch.elastic import run_elastic_distributed
+
+    dev = mesh.device
+    dsim = dist_soma(device=str(dev), mesh=mesh)
+    out = {"pop_every_step": procs_jit_runs(dsim),
+           "observables_off": procs_jit_runs(dataclasses.replace(dsim, observables=()))}
+    del dsim
+    torch.cuda.empty_cache()
+    crowd = dist_crowd_model(mesh, str(dev))
+    reset_counts()
+    final, obs = crowd.run_jit(DIST_CROWD_STEPS)
+    torch.cuda.synchronize(dev)
+    runner = crowd._jitted
+    out["crowd"] = dict(digest=state_digest(final), pop=obs["pop"].cpu().numpy(),
+                        launches=read_counts(),
+                        rolled_back_launches=dict(runner.rolled_back_launches),
+                        overflowed=sorted({dict(key[1])[f"rank{mesh.rank}/overflowed"]
+                                           for key in runner._graphs}),
+                        **runner.stats)
+    del crowd, runner
+    torch.cuda.empty_cache()
+    sim, dcfg = dist_elastic_case(str(dev))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_procs_") as d:
+        final, obs, grows = run_elastic_distributed(
+            sim, mesh, dcfg, DIST_ELASTIC_STEPS, d, checkpoint_every=DIST_ELASTIC_EVERY,
+            capacity=DIST_ELASTIC_CAPACITY, max_regrows=4, jit=True)
+    out["elastic"] = dict(digest=state_digest(final), pop=obs["pop"].cpu().numpy(),
+                          grows=grows)
+    return out
+
+
+def dist_elastic_case(device):
+    """tests/dist_scenarios.py's distributed regrowth (48 dividing agents on
+    a 2x2 mesh, halo 3, pools of DIST_ELASTIC_CAPACITY a rank), ranked by
+    cell_rank, its population every step: the model and its decomposition."""
+    from repro_torch import Simulation
+    from repro_torch.core import cell_division
+    from repro_torch.core.distributed import DomainConfig
+
+    space = 32.0
+    dcfg = DomainConfig(mesh_axes=("x", "y"), axis_sizes=DIST_MESH, extent=space / 2,
+                        halo_width=3.0, halo_capacity=64, migrate_capacity=32, depth=space,
+                        halo_codec="none")
+    pos = np.random.default_rng(5).uniform(3.0, space - 3.0, (48, 3)).astype(np.float32)
+    sim = (Simulation(space=(0.0, space), cell_size=3.0, boundary="open", dt=1.0,
+                      max_per_cell=32, seed=2, capacity=256, rank_impl="cuda", device=device)
+           .add_agents(position=pos, diameter=2.0)
+           .use(cell_division(0.5))
+           .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
+    return sim, dcfg
+
+
+def elastic_record(device="cuda"):
+    """The elastic case on an in-process 2x2 mesh on the card, ``jit=True``:
+    what the processes' elastic run is held to."""
+    import tempfile
+
+    from repro_torch.launch.elastic import run_elastic_distributed
+    from repro_torch.launch.mesh import make_mesh
+
+    sim, dcfg = dist_elastic_case(device)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="chip_smoke_procs_") as d:
+        final, obs, grows = run_elastic_distributed(
+            sim, make_mesh(DIST_MESH, ("x", "y"), devices=device), dcfg, DIST_ELASTIC_STEPS, d,
+            checkpoint_every=DIST_ELASTIC_EVERY, capacity=DIST_ELASTIC_CAPACITY,
+            max_regrows=4, jit=True)
+    if grows < 1:
+        raise AssertionError("distributed_procs_jit: the in-process elastic run did not regrow")
+    return dict(digest=state_digest(final), pop=obs["pop"].cpu().numpy(), grows=grows)
 
 
 def check_procs_soma(runs, record, label):
@@ -2697,7 +2842,10 @@ def check_procs_soma(runs, record, label):
 def phase_distributed_procs(record, device="cuda"):
     """The distributed engine with one process a rank on the one card over
     gloo, against the in-process card runs: dist_small's corner case on
-    eight processes, ``distributed``'s model on four (``record``)."""
+    eight processes, ``distributed``'s model on four (``record``).  The same
+    processes then run ``distributed_procs_jit``'s cases; returns their
+    results (the NCCL run's second, None with fewer cards than ranks) and
+    the corner case's in-process digests, which that phase checks."""
     from repro_torch.launch import procs
 
     smi = nvidia_smi_line()
@@ -2706,6 +2854,7 @@ def phase_distributed_procs(record, device="cuda"):
                                                force_impl="fused"))
              for name, d in (("serial", dcfg),
                              ("overlap", dataclasses.replace(dcfg, overlap_halo=True)))}
+    (ROOT / "build").mkdir(exist_ok=True)
     if small["serial"] != small["overlap"]:
         raise AssertionError("distributed_procs: the in-process overlapped run differs from "
                              "the serial one")
@@ -2742,6 +2891,7 @@ def phase_distributed_procs(record, device="cuda"):
           f"{per('staging_ms_a_step')}, bytes a rank a step {per('shift_bytes_a_step')} "
           f"({smi})", flush=True)
     cards = torch.cuda.device_count() if device == "cuda" else 0
+    nccl = None
     if cards >= math.prod(DIST_MESH):
         t0 = time.perf_counter()
         nccl = procs.spawn(procs_nccl_rank, math.prod(DIST_MESH), backend="nccl",
@@ -2754,6 +2904,149 @@ def phase_distributed_procs(record, device="cuda"):
              bit_identical_to_in_process=True)
     else:
         print(f"nccl: not run ({cards} card{'s' if cards != 1 else ''})", flush=True)
+    return (results, nccl), small
+
+
+def check_procs_jit(runs, record, crowd, elastic, label):
+    """The processes' compiled runs (``procs_soma_jit``; ``runs``: each
+    process's ``procs_soma`` result with its ``jit``) against the
+    in-process card records: ``dist_soma``'s (``record``: digest, series,
+    counters, launches), ``dist_crowd_model``'s rollback (``crowd``) and the
+    elastic case's (``elastic``).  Every process replays; its only eager
+    steps are cold starts, missing graphs (its own or a peer's) and
+    rolled-back chunks; the second run of each variant replays every step.
+    Returns the fields ``distributed_procs_jit`` prints."""
+    ranks = [r["rank"] for r in runs]
+    fields = {}
+    for variant in ("pop_every_step", "observables_off"):
+        for i in range(2):
+            got = [r["jit"][variant][i] for r in runs]
+            where = f"{label}: {variant} run {i}"
+            if {g["digest"] for g in got} != {record["digest"]}:
+                raise AssertionError(f"{where}: final states differ from the in-process run")
+            head = got[ranks.index(0)]
+            if variant == "pop_every_step" and not np.array_equal(head["pop"], record["pop"]):
+                raise AssertionError(f"{where}: population series {head['pop'].tolist()}")
+            bad = [k for k in record["counters"]
+                   if not np.array_equal(head["counters"][k], record["counters"][k])]
+            if bad:
+                raise AssertionError(f"{where}: counters differ from the in-process run: {bad}")
+            total = functools.reduce(add_counts, [g["launches"] for g in got])
+            if ({k: v for k, v in total.items() if v}
+                    != {k: v for k, v in record["launches"].items() if v}):
+                raise AssertionError(f"{where}: launches {total} do not add up to the "
+                                     f"in-process run_jit's {record['launches']}")
+            for g in got:
+                allowed = (g["runs"] - g["warm_starts"] + g["missing_steps"] + g["peer_steps"]
+                           + g["rolled_back_steps"])
+                if g["replays"] < 1 or g["eager_steps"] != allowed or g["rollbacks"]:
+                    raise AssertionError(f"{where}: runner counts {g}")
+                if i == 1 and (g["eager_steps"] or g["replays"] != STEPS):
+                    raise AssertionError(f"{where}: the second run stepped eagerly: {g}")
+            if len({g["exchanges"] for g in got}) != 1:
+                raise AssertionError(f"{where}: the processes ran different exchanges")
+        cold, warm = ([r["jit"][variant][i] for r in runs] for i in (0, 1))
+        fields[variant] = dict(
+            launches_a_run=functools.reduce(add_counts, [w["launches"] for w in warm]),
+            replayed_step_ms=[w["step_ms"] for w in warm],
+            cold_run_step_ms=[c["step_ms"] for c in cold],
+            graphs=[c["graphs"] for c in cold], segments_a_graph=[c["segments_a_graph"]
+                                                              for c in cold],
+            replays=[c["replays"] for c in cold], eager_steps=[c["eager_steps"] for c in cold],
+            missing_steps=[c["missing_steps"] for c in cold],
+            peer_steps=[c["peer_steps"] for c in cold], capture_s=[c["capture_s"] for c in cold],
+            exchanges_a_step=[w["exchanges_a_step"] for w in warm],
+            staging_ms_a_step=[w["staging_ms_a_step"] for w in warm],
+            staged_bytes_a_step=[w["staged_bytes_a_step"] for w in warm],
+            wire_ms_a_step=[w["wire_ms_a_step"] for w in warm],
+            gather_wire_ms_a_step=[w["gather_wire_ms_a_step"] for w in warm],
+            peak_memory_bytes=[max(c["peak_memory_bytes"], w["peak_memory_bytes"])
+                               for c, w in zip(cold, warm)])
+    got = [r["jit"]["crowd"] for r in runs]
+    if {g["digest"] for g in got} != {crowd["digest"]}:
+        raise AssertionError(f"{label}: the crowd run differs from the in-process run_jit")
+    if not np.array_equal(got[ranks.index(0)]["pop"], crowd["pop"]):
+        raise AssertionError(f"{label}: the crowd run's population series differs")
+    kept = functools.reduce(add_counts, [
+        {k: v - g["rolled_back_launches"].get(k, 0) for k, v in g["launches"].items()}
+        for g in got])
+    if {k: v for k, v in kept.items() if v} != {k: v for k, v in crowd["eager"].items() if v}:
+        raise AssertionError(f"{label}: the crowd run's launches less the rolled-back ones "
+                             f"{kept} are not the eager run's {crowd['eager']}")
+    flips = {r: g["overflowed"] for r, g in zip(ranks, got)}
+    if (len({(g["rollbacks"], g["rolled_back_steps"]) for g in got}) != 1
+            or got[0]["rollbacks"] < 1 or flips[0] != [False, True]
+            or any(flips[r] != [False] for r in ranks if r)):
+        raise AssertionError(f"{label}: the crowd run's rollbacks "
+                             f"{[(g['rollbacks'], g['rolled_back_steps']) for g in got]}, "
+                             f"branches {flips}")
+    fields["crowd"] = dict(launches=functools.reduce(add_counts, [g["launches"] for g in got]),
+                           rolled_back_launches=functools.reduce(add_counts, [
+                               {k: g["rolled_back_launches"].get(k, 0) for k in g["launches"]}
+                               for g in got]),
+                           rollbacks=got[0]["rollbacks"],
+                           rolled_back_steps=got[0]["rolled_back_steps"],
+                           overflowed_branches=flips,
+                           eager_steps=[g["eager_steps"] for g in got],
+                           peer_steps=[g["peer_steps"] for g in got])
+    got = [r["jit"]["elastic"] for r in runs]
+    if ({g["digest"] for g in got} != {elastic["digest"]}
+            or any(g["grows"] != elastic["grows"] for g in got)
+            or not all(np.array_equal(g["pop"], elastic["pop"]) for g in got)):
+        raise AssertionError(f"{label}: the elastic run differs from the in-process one")
+    fields["elastic"] = dict(grows=elastic["grows"], pop=elastic["pop"].tolist())
+    return fields
+
+
+def phase_distributed_procs_jit(procs_results, small, record, crowd, elastic, device="cuda"):
+    """The compiled run with one process a rank (gloo on the one card, the
+    processes ``distributed_procs`` started): dist_small's corner case on
+    eight processes, serial and overlapped, bit-identical to the in-process
+    eager runs (``small``); on four, ``dist_soma``'s model with ``pop``
+    every step and with observables off, ``dist_crowd_model``'s rollback and
+    the elastic case, held by ``check_procs_jit``.  Under NCCL (four or more
+    cards) the same checks hold the NCCL run's.  Returns the launches of
+    the four processes' compiled runs, summed (the distributed kernel rows
+    count them)."""
+    (results, nccl) = procs_results
+    smi = nvidia_smi_line()
+    for name in ("serial", "overlap"):
+        got = [r[f"small_jit_{name}"] for r in results]
+        if {d for d, _ in got} != {small[name]}:
+            raise AssertionError(f"distributed_procs_jit: dist_small's corner case ({name}) "
+                                 f"under run_jit differs from its in-process run")
+        if any(st["replays"] < 1 or (device == "cuda" and st["segments"] < 2)
+               for _, st in got):
+            raise AssertionError(f"distributed_procs_jit: dist_small ({name}) counts "
+                                 f"{[st for _, st in got]}")
+    runs = [dict(r["soma"], jit=r["jit"]) for r in results if "soma" in r]
+    fields = check_procs_jit(runs, record, crowd, elastic, "distributed_procs_jit")
+    eager = [r["median_step_ms"] for r in runs]
+    # Every launch of the four processes' compiled runs (rolled back included).
+    total = functools.reduce(add_counts, [
+        r["jit"][v][i]["launches"] for r in runs for v in ("pop_every_step", "observables_off")
+        for i in (0, 1)] + [r["jit"]["crowd"]["launches"] for r in runs])
+    emit("distributed_procs_jit", backend="gloo", processes=len(runs), agents=N_AGENTS,
+         mesh=list(DIST_MESH), steps=STEPS, nvidia_smi=smi,
+         small_case=dict(mesh=[4, 2], processes=PROCS_SMALL_RANKS, steps=PROCS_SMALL_STEPS,
+                         segments=[st["segments"] for _, st in
+                                   (r["small_jit_serial"] for r in results)],
+                         launches={name: functools.reduce(add_counts, [
+                             r[f"small_jit_{name}"][1]["launches"] for r in results])
+                             for name in ("serial", "overlap")},
+                         serial_and_overlap_bit_identical_to_in_process=True),
+         eager_median_step_ms=eager, launches_total=total, **fields,
+         bit_identical_to_in_process=True)
+    print(f"distributed_procs_jit: replayed step ms, pop every step "
+          f"{fields['pop_every_step']['replayed_step_ms']}, observables off "
+          f"{fields['observables_off']['replayed_step_ms']}; eager median {eager} ({smi})",
+          flush=True)
+    if nccl is not None:
+        check_procs_jit(nccl, record, crowd, elastic, "distributed_procs_jit (nccl)")
+        emit("distributed_procs_jit_nccl", processes=len(nccl), nvidia_smi=smi,
+             replayed_step_ms=[r["jit"]["pop_every_step"][1]["step_ms"] for r in nccl],
+             bit_identical_to_in_process=True)
+    return total
 
 
 DIST_CROWD = 100              # agents stacked in one 10 um box of 64 ...
@@ -2998,7 +3291,7 @@ def _length(spans) -> float:
     return sum(b - a for a, b in spans)
 
 
-def dist_crowd_model():
+def dist_crowd_model(mesh=None, device="cuda"):
     """``dist_soma`` with the ``gid``s renumbered so that the agents deep in
     rank 0's box (100-400 um of its 500 on both decomposed axes;
     soma_model's positions, drawn again from its seed) come first, and an op
@@ -3019,13 +3312,13 @@ def dist_crowd_model():
         return dataclasses.replace(state, pool=pool.replace(
             position=torch.where(hit[:, None], SPACE / 4, pool.position)))
 
-    sim = (soma_model(N_AGENTS, SPACE, RESOLUTION, 0, "cuda", gid=gid)
+    sim = (soma_model(N_AGENTS, SPACE, RESOLUTION, 0, device, gid=gid)
            .op(crowd, name="crowd", phase="agent")
            .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
     dcfg = DomainConfig(mesh_axes=("x", "y"), axis_sizes=DIST_MESH, extent=SPACE / 2,
                         halo_width=DIST_HALO, halo_capacity=DIST_HALO_CAPACITY,
                         migrate_capacity=DIST_MIGRATE_CAPACITY, depth=SPACE)
-    return sim.distribute(make_mesh(DIST_MESH, ("x", "y"), devices="cuda"), dcfg,
+    return sim.distribute(mesh or make_mesh(DIST_MESH, ("x", "y"), devices=device), dcfg,
                           capacity=DIST_CAPACITY)
 
 
@@ -3033,7 +3326,8 @@ def phase_dist_jit_divergence():
     """dist_crowd_model's run: rank 0's speculated ``overflowed`` branch
     rolls back; the run stays bit-identical to the eager run, the other
     ranks keep their branch, and the launches less the thrown-away replays'
-    are the eager run's."""
+    are the eager run's.  Returns the eager run's digest, series and
+    launches (what ``distributed_procs_jit`` holds its processes to)."""
     dsim = dist_crowd_model()
     reset_counts()
     efinal, eobs = dsim.run(DIST_CROWD_STEPS)
@@ -3060,6 +3354,7 @@ def phase_dist_jit_divergence():
          steps=DIST_CROWD_STEPS, eager_launches=eager, launches=launches,
          rolled_back_launches=dict(runner.rolled_back_launches),
          overflowed_branches=flips, **runner.stats)
+    return dict(digest=state_digest(efinal), pop=eobs["pop"].cpu().numpy(), eager=eager)
 
 
 def dist_kernel_rows(dsim, final, launches):
@@ -5029,8 +5324,7 @@ def main() -> int:
     dsim, final, launches, record = phase_distributed()
     seconds["distributed_eager"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    phase_distributed_procs(record)
-    del record
+    procs_results, small = phase_distributed_procs(record)
     torch.cuda.empty_cache()
     seconds["distributed_procs"] = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -5038,9 +5332,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = add_counts(launches, phase_distributed_jit_variants())
     torch.cuda.empty_cache()
-    phase_dist_jit_divergence()
+    crowd = phase_dist_jit_divergence()
     torch.cuda.empty_cache()
     seconds["distributed_jit"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    launches = add_counts(launches, phase_distributed_procs_jit(procs_results, small, record,
+                                                                crowd, elastic_record()))
+    del procs_results, record, crowd
+    torch.cuda.empty_cache()
+    seconds["distributed_procs_jit"] = time.perf_counter() - t1
     rows += dist_kernel_rows(dsim, final, launches)
     del dsim, final
     torch.cuda.empty_cache()

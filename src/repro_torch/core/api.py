@@ -842,7 +842,8 @@ class DistributedSimulation:
     all-gather: every process gets the same stacked state and rows, and rank
     0 writes the checkpoints, in the in-process mesh's format.  ``run_jit``
     returns the same, bit for bit, with the lock-step step of every rank
-    replayed from CUDA graphs (``core/runner.py``; in-process meshes only).
+    replayed from CUDA graphs (``core/runner.py``); on a process mesh each
+    process replays its own rank's step as graphs cut at every exchange.
     """
 
     mesh: Any
@@ -871,7 +872,10 @@ class DistributedSimulation:
         graphs by the deployment's runner
         (:func:`~repro_torch.core.distributed.jitted_distributed_runner`),
         kept for the object's lifetime, so checkpointed chunks reuse its
-        graphs.  Every rank must live on one device."""
+        graphs.  An in-process mesh must hold every rank on one device; on a
+        process mesh each process replays its rank's step as segments cut at
+        its exchanges, every process returns the same stacked state and
+        rows, and rank 0 writes the checkpoints."""
         return self._run(n_steps, state, self._jit_chunk, checkpoint_dir, checkpoint_every,
                          keep, on_chunk)
 
@@ -934,19 +938,12 @@ class DistributedSimulation:
         reads it, sends it to every process, and each steps its own rank's
         slice."""
         if self.mesh.process:
-            meta, state = None, None
-            if self.mesh.writes_checkpoints:
-                try:
-                    step, state, acc, target, every = _resume_payload(
-                        checkpoint_dir, "dist", self.state, self.observables)
-                    meta = (step, acc, target, every)
-                except Exception as err:   # raised on every process, not only rank 0
-                    meta = err
-            meta = self.mesh.broadcast_object(meta)
-            if isinstance(meta, Exception):
-                raise meta
-            step, acc, target, every = meta
-            state = self.mesh.broadcast(state, self.state)
+            def payload():
+                step, state, acc, target, every = _resume_payload(
+                    checkpoint_dir, "dist", self.state, self.observables)
+                return (step, acc, target, every), state
+
+            (step, acc, target, every), state = self.mesh.from_first(payload, self.state)
         else:
             step, state, acc, target, every = _resume_payload(
                 checkpoint_dir, "dist", self.state, self.observables)

@@ -1042,18 +1042,19 @@ def jitted_distributed_runner(mesh, dcfg: DomainConfig, ecfg: EngineConfig,
     graphs keyed by the firing pattern and every rank's branches
     (``core/runner.py``).
 
-    Every rank must live in this process on one device (one card, or the
-    CPU): a process mesh, or a mesh over several devices, raises
-    ``ValueError``; a compiled run of either is ROADMAP item 17 (a gloo
-    exchange cannot be captured in a CUDA graph)."""
+    On an in-process mesh every rank must live on one device (one card, or
+    the CPU), and one graph holds the step of every rank; a mesh over
+    several devices raises ``ValueError`` (ROADMAP item 17).  On a process
+    mesh each process replays its own rank's step as CUDA graphs cut at
+    every exchange (a gloo exchange cannot be captured: the host stages it
+    and waits on the wire), the exchanges run by the host between them; the
+    processes agree on chunk lengths and divergences, so every one runs the
+    same exchanges in the same order."""
     from .runner import Runner
 
     mesh = _check_mesh(mesh, dcfg)
-    if mesh.process:
-        raise ValueError("run_jit needs every rank in one process; this mesh has one process "
-                         "a rank (a multi-process compiled run is ROADMAP item 17)")
     devices = sorted({str(d) for d in mesh.devices})
-    if len(devices) > 1:
+    if not mesh.process and len(devices) > 1:
         raise ValueError(f"run_jit needs every rank on one device; the mesh spans "
                          f"{devices} (a multi-card distributed run is ROADMAP item 17)")
     return Runner(ecfg, scheduler or distributed_scheduler(dcfg, ecfg), mesh=mesh)

@@ -48,7 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import operator
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -250,6 +250,18 @@ class Step:
             if r in self.forked:
                 self._caller(lane.device).wait(self.lanes.exchange[r])
 
+    def refork(self) -> None:
+        """Fork every lane this step used from the caller's streams again,
+        after a cut (:func:`rejoined`): the events of before are dropped (a
+        captured event serves its own graph only), the records kept."""
+        for lane in self.lanes.all():
+            lane._event, lane._seen = None, {}
+        self.callers = {}
+        for r, lane in self.lanes.compute.items():
+            lane.wait(self._caller(lane.device))
+            if r in self.forked:
+                self.lanes.exchange[r].wait(self._caller(lane.device))
+
 
 _step: Optional[Step] = None
 
@@ -277,6 +289,21 @@ def running(mesh) -> Iterator[Step]:
     step.join()
     for o in _observers:
         o.shifts.extend(step.shifts)
+
+
+def rejoined(between: Callable[[], None]) -> None:
+    """Cut the running step: join every lane it used into the caller's
+    streams, call ``between()`` (the end of one captured segment and the
+    begin of the next, ``core/runner.py``), and fork the lanes again, so
+    that each segment holds its own branches a lane.  Outside a step only
+    ``between()`` runs."""
+    step = _step
+    if step is None:
+        between()
+        return
+    step.join()
+    between()
+    step.refork()
 
 
 def entered(rank: int):
@@ -440,6 +467,19 @@ def observe() -> Iterator[Seen]:
         yield seen
     finally:
         _observers.remove(seen)
+
+
+@contextlib.contextmanager
+def withheld() -> Iterator[Seen]:
+    """Within the context the observers see nothing; what they would have
+    seen goes to the :class:`Seen` yielded (a step being captured: its
+    replays report its shifts)."""
+    saved, seen = list(_observers), Seen()
+    _observers[:] = [seen]
+    try:
+        yield seen
+    finally:
+        _observers[:] = saved
 
 
 def force_pass_issued() -> None:

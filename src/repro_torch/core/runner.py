@@ -42,19 +42,34 @@ bit for bit, whichever branches the run takes.  The rules:
   leaf into them (a leaf every rank left as its view is skipped; a source
   that shares memory with a buffer is copied aside first).  One graph holds
   the step of every rank.
+* **A process mesh** (one process a rank, ``launch.mesh.ProcessMesh``):
+  the buffers hold this process's rank, copied from its rows of the stacked
+  input.  A step is captured as *segments*, CUDA graphs of one pool cut at
+  every shift and gather (``launch.mesh.cutting``): the value is packed in
+  the segment, every lane joins the capture stream, and the exchange is
+  kept with fixed buffers; a replay runs each segment, then its exchange
+  from the host (staging through pinned memory under gloo), in capture
+  order.  Nothing is sent during a capture, so processes that capture
+  different keys at one step do not wait on each other.  As the eager loop,
+  a step gathers the stacked state only where an observable fires (a gather
+  entry, whose rows the next segment records), and the run's end gathers it
+  once.  The processes agree in one all-reduce each on a warm start, on
+  each chunk's length (the fewest steps any can replay: where one lacks its
+  graph, all step eagerly there) and on a divergence (all roll back), so
+  every process runs the same exchanges in the same order.
 * **Speculation with rollback** (the counterpart of ``lax.cond``).  A
   replay takes the branches of the last eager step (``forces.Branches``: a
   bool a predicate, in a batch one a session): it computes the force pass's
   predicates on the device and sets a device ``diverged`` flag where one
   (of a live session) differs from its assumed branch (a distributed step:
   in its rank's own slot of the flag, reduced once the ranks' lanes have
-  joined the runner's stream).  The runner copies
-  the state aside at the start of each chunk of at most :data:`CHUNK`
-  replays and reads ``diverged`` once at its end; if it is set, the runner
-  restores the copy and runs the chunk eagerly, each step reading its
-  predicates itself (and raising the eager ``ValueError`` on a negative cell
-  id at the same step).  Later steps replay the graphs keyed by the last
-  eager step's branches.  A step after a divergence is thrown away; every
+  joined the runner's stream, and on a process mesh over the processes).
+  The runner copies the state aside at the start of each chunk of at most
+  :data:`CHUNK` replays and reads ``diverged`` once at its end; if it is
+  set, the runner restores the copy and runs the chunk eagerly, each step
+  reading its predicates itself (and raising the eager ``ValueError`` on a
+  negative cell id at the same step).  Later steps replay the graphs keyed
+  by the last eager step's branches.  A step after a divergence is thrown away; every
   kernel on the path stays in bounds on such a state.
 * **Warm starts.**  A run whose first step's key has a graph, under the
   branches its layout's last run ended with, starts with a replay (the
@@ -73,8 +88,11 @@ bit for bit, whichever branches the run takes.  The rules:
   observable or ``fold_rng`` that reads the device while the step is
   captured raises ``ValueError`` naming it (``schedule.CaptureError``).  The
   only eager steps are the warm-up of each new key, the rolled-back chunks
-  and the first step of a run that cannot start warm; :attr:`Runner.stats`
-  counts them.
+  and the first step of a run that cannot start warm, and on a process mesh
+  a step whose graph a peer lacks; :attr:`Runner.stats` counts them
+  (``eager_steps`` = ``runs`` − ``warm_starts`` + ``missing_steps`` +
+  ``peer_steps`` + ``rolled_back_steps``), with the graphs' ``segments``
+  and the replayed ``exchanges``.
 * **Launch counters.**  A kernel wrapper counts its launch when its Python
   runs, which for a captured kernel is at the capture: the runner takes
   each graph's count back after capture and adds it again at each replay.
@@ -90,13 +108,14 @@ Limits: the state's tree, shapes and static fields must not change over a
 run; custom ops and observables must not read the device or copy host
 values to it (a ``torch.tensor(...)`` on the card inside the step is such
 a copy, and so is a Python scalar written through an index tensor,
-``x[idx] = True``: ``index_fill_`` fills on the device); a distributed run
-needs every rank in this process on one device (a mesh over several cards,
-or one process a rank, raises ``ValueError``; ROADMAP item 17).  Its ranks
-run on their own lanes (``core/lanes.py``): one stream a rank, and in the
-overlapped schedule a second beside it for the halo exchange, each forked
-from the runner's stream and joined back within the step, so one graph
-holds a branch a lane.
+``x[idx] = True``: ``index_fill_`` fills on the device); an in-process
+distributed run needs every rank on one device (a mesh over several cards
+raises ``ValueError``; ROADMAP item 17), a process mesh one device a
+process.  The ranks run on their own lanes (``core/lanes.py``): one stream
+a rank, and in the overlapped schedule a second beside it for the halo
+exchange, each forked from the runner's stream and joined back within the
+step (and at each cut of a process mesh's step), so a graph holds a branch
+a lane.
 """
 
 from __future__ import annotations
@@ -175,13 +194,13 @@ class _Layout:
     pool, the observable buffers, and the branches its last run ended
     with."""
 
-    def __init__(self, key: tuple, state, counter: torch.Tensor, mesh=None):
-        device = counter.device
+    def __init__(self, key: tuple, state, counter: torch.Tensor, device: torch.device,
+                 mesh=None):
         self.key, self.device = key, device
         self.static = _map_with_paths(
             state, lambda p, x: torch.empty(x.shape, dtype=x.dtype, device=device))
         self.leaves = [x for _, x in _leaves_with_paths(self.static)]
-        if mesh is not None:
+        if mesh is not None and not mesh.process:
             from .distributed import unstack_state
 
             self.ranks = unstack_state(self.static, mesh.devices)
@@ -198,11 +217,41 @@ class _Layout:
         self.bufs: Dict[str, object] = {}
         self.protos: Optional[Dict[str, object]] = None
         self.branches: Optional[tuple] = None
+        # A process mesh's exchange buffers (``launch.mesh.Exchange.place``).
+        self.wires: Dict[tuple, tuple] = {}
 
     def drop_graphs(self):
         self.graphs = {}
         if self.pool is not None:
             self.pool = torch.cuda.graph_pool_handle()
+
+
+class _Segments:
+    """A process mesh's captured step: its CUDA graphs (one pool), each but
+    the last followed by the exchange cut there (``launch.mesh.Exchange``);
+    the ``(rank, axis, nbytes)`` of its shifts, reported to
+    ``count_shift_bytes`` at each replay, and its shifts' lane records
+    (``lanes.observe``)."""
+
+    def __init__(self):
+        self.graphs: list = []
+        self.exchanges: list = []
+        self.shifted: list = []
+        self.tags: list = []
+
+    def replay(self) -> None:
+        from ..launch.mesh import shift_observers
+        from . import lanes
+
+        for j, graph in enumerate(self.graphs):
+            graph.replay()
+            if j < len(self.exchanges):
+                self.exchanges[j].run()
+        for rank, axis, nbytes in self.shifted:
+            for observe in shift_observers:
+                observe(rank, axis, nbytes)
+        for seen in lanes._observers:
+            seen.shifts.extend(self.tags)
 
 
 class Runner:
@@ -212,7 +261,8 @@ class Runner:
     ``engine.run(config, state, n_steps, ...)`` returns; with
     ``batched=True``, ``runner(bstate, n_steps, observables=None)`` returns
     what ``batch.batched_run(config, bstate, n_steps, ...)`` returns; with
-    a ``mesh`` (the distributed step's scheduler, every rank on one device),
+    a ``mesh`` (the distributed step's scheduler; an in-process mesh with
+    every rank on one device, or a process mesh),
     ``runner(state, n_steps, observables=None)`` steps the stacked
     ``DistState`` and returns what ``DistributedSimulation.run`` returns."""
 
@@ -224,8 +274,10 @@ class Runner:
         self.scheduler = scheduler or Scheduler.default(config)
         self.batched = batched
         self.mesh = mesh
-        self.stats = {"runs": 0, "warm_starts": 0, "graphs": 0, "replays": 0,
-                      "eager_steps": 0, "rollbacks": 0, "rolled_back_steps": 0,
+        self._process = mesh is not None and mesh.process
+        self.stats = {"runs": 0, "warm_starts": 0, "graphs": 0, "segments": 0, "replays": 0,
+                      "exchanges": 0, "eager_steps": 0, "missing_steps": 0,
+                      "peer_steps": 0, "rollbacks": 0, "rolled_back_steps": 0,
                       "capture_s": 0.0}
         self._gates = tuple(op for op in self.scheduler.ordered_ops() if op.frequency > 1)
         # Launches of the replays thrown away by rollbacks, by kernel: the
@@ -294,14 +346,20 @@ class Runner:
         """The layout's buffers and graphs (made at its first run; the least
         recently run of more than :data:`LAYOUTS` dropped), the state copied
         in."""
+        if self._process:
+            # This process's rank, from the stacked state wherever it lies.
+            from .slots import tree_map
+
+            state = tree_map(lambda x: x[self.mesh.rank], state)
         counter = self._counter(state)
-        if self.mesh is not None and counter.device != self.mesh.devices[0]:
+        device = self.mesh.device if self._process else counter.device
+        if self.mesh is not None and device != self.mesh.devices[0]:
             raise ValueError(f"run_jit: the state lies on {counter.device}, the mesh's "
                              f"ranks on {self.mesh.devices[0]}")
-        key = (counter.device, _skeleton(state))
+        key = (device, _skeleton(state))
         lay = self._layouts.get(key)
         if lay is None:
-            lay = self._layouts[key] = _Layout(key, state, counter, self.mesh)
+            lay = self._layouts[key] = _Layout(key, state, counter, device, self.mesh)
             while len(self._layouts) > LAYOUTS:
                 self._layouts.popitem(last=False)
         self._layouts.move_to_end(key)
@@ -474,9 +532,20 @@ class Runner:
         """One lock-step step of every rank from the stacked static buffers,
         committed into them; returns the rows it records (observed on the
         committed stacked state), every observable's value with ``protos``,
-        and the rows' offset from the start (taken before the commit)."""
+        and the rows' offset from the start (taken before the commit).  On
+        a process mesh the buffers hold this process's rank, and the stacked
+        state is gathered only at a step where an observable fires, as the
+        eager loop gathers it (the buffers were made from the run's input)."""
         from .distributed import step_ranks
 
+        if self._process:
+            i = lay.static.step - lay.start if self._rows else None
+            self._commit(lay, step_ranks(self.mesh, self.scheduler, [lay.static], host,
+                                         branches=branches)[0])
+            if not any(host % k == 0 for _, _, k in self._obs):
+                return {}, {}, i
+            record, every = self._values(self.mesh.all_gather(lay.static), host, None)
+            return record, every, i
         i = lay.static.step[:1] - lay.start[:1] if self._rows else None
         self._commit_ranks(lay, step_ranks(self.mesh, self.scheduler, lay.ranks, host,
                                            branches=branches))
@@ -547,32 +616,81 @@ class Runner:
                 bool_mask(values, lay.device)
         t0 = time.perf_counter()
         before = kernels.read_launches()
-        graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(pool=lay.pool)
-        try:
-            body()
-        except BaseException:
-            with contextlib.suppress(RuntimeError):
-                graph.capture_end()
-            raise
-        graph.capture_end()
+        if self._process:
+            graph = self._capture_segments(lay, body)
+        else:
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=lay.pool)
+            try:
+                body()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+            self.stats["segments"] += 1
         after = kernels.read_launches()
         kernels.add_launches({n: before[n] - after[n] for n in after})
         lay.graphs[key] = (graph, {n: after[n] - before[n] for n in after})
         self.stats["capture_s"] += time.perf_counter() - t0
 
+    def _capture_segments(self, lay: _Layout, body) -> "_Segments":
+        """Capture a process mesh's step as segments cut at each exchange:
+        a shift or gather packs its value in the segment being captured;
+        there every lane joins the capture stream, the segment ends, the
+        exchange takes its fixed buffers, and the next segment begins with
+        the lanes forked again (``lanes.rejoined``).  Nothing is sent: the
+        exchanges run at each replay, between their segments."""
+        from ..launch import mesh as mesh_mod
+        from . import lanes
+
+        stream = self._streams[lay.device]
+        segs = _Segments()
+
+        def begin():
+            segs.graphs.append(torch.cuda.CUDAGraph())
+            segs.graphs[-1].capture_begin(pool=lay.pool)
+
+        def cut(exchange):
+            def between():
+                with torch.cuda.stream(stream):
+                    segs.graphs[-1].capture_end()
+                    exchange.place(lay.wires, len(segs.exchanges))
+                    segs.exchanges.append(exchange)
+                    begin()
+            lanes.rejoined(between)
+
+        begin()
+        try:
+            with lanes.withheld() as seen, mesh_mod.cutting(cut) as cutting:
+                body()
+        except BaseException:
+            with contextlib.suppress(RuntimeError):
+                segs.graphs[-1].capture_end()
+            raise
+        segs.graphs[-1].capture_end()
+        segs.shifted, segs.tags = cutting.shifted, seen.shifts
+        self.stats["segments"] += len(segs.graphs)
+        return segs
+
     def _replay(self, entry) -> dict:
-        """Replay a graph; returns its launches, by kernel."""
+        """Replay a graph (a process mesh's: its segments, each followed by
+        its exchange); returns its launches, by kernel."""
         from repro_torch import kernels
 
         if callable(entry):
             before = kernels.read_launches()
+            sent = self.mesh.stats.exchanges if self._process else 0
             entry()
+            if self._process:
+                self.stats["exchanges"] += self.mesh.stats.exchanges - sent
             after = kernels.read_launches()
             launches = {n: after[n] - before[n] for n in after}
         else:
             graph, launches = entry
             graph.replay()
+            if isinstance(graph, _Segments):
+                self.stats["exchanges"] += len(graph.exchanges)
             kernels.add_launches(launches)
         self.stats["replays"] += 1
         return launches
@@ -606,32 +724,56 @@ class Runner:
             if n <= 0 or not self._any_live(host):
                 return self._empty(state, n)
             self.stats["runs"] += 1
+            if self._process:
+                # The buffers' protos, from the stacked input (the eager loop
+                # gathers only where an observable fires).
+                self._protos = {name: fn(state) for name, fn, _ in self._obs}
             lay = self._layout(state)
             with self._on_stream(lay):
                 self._fill_start(lay, host)
                 end = self._drive(lay, host, n)
-            final = _map_with_paths(lay.static, lambda p, x: x.clone())
+                if self._process:
+                    final = self.mesh.all_gather(lay.static)
+            if not self._process:
+                final = _map_with_paths(lay.static, lambda p, x: x.clone())
             return self._outs(lay, final, n, host, end)
         finally:
             _running -= 1
 
     def _drive(self, lay: _Layout, host, n: int):
         """``n`` steps from the host count ``host`` (fewer once no session
-        is live); returns the host count at the end."""
+        is live); returns the host count at the end.
+
+        On a process mesh every process must run the same exchanges in the
+        same order, so the processes agree, each in one all-reduce, on a
+        warm start, on each chunk's length (the fewest steps any process can
+        replay from its start: where one lacks its graph every process ends
+        the chunk and steps eagerly) and on a divergence."""
         sig = (self._collect, self._obs)
         branches, i = lay.branches, 0
-        if (self._ready(lay, sig) and branches is not None
-                and (self._pattern(host), branches) in lay.graphs):
+        ready = self._ready(lay, sig)
+        if self._process and not ready:
+            self._ensure_buffers(lay, self._protos)
+            ready = True
+        warm = (ready and branches is not None
+                and (self._pattern(host), branches) in lay.graphs)
+        if self._process:
+            warm = not self.mesh.all_max([not warm])[0]
+        if warm:
             self.stats["warm_starts"] += 1
         else:
-            branches = self._eager(lay, host, first=True)
+            branches = self._eager(lay, host, first=not self._process)
             host, i = self._advance(host), 1
         while i < n and self._any_live(host):
             first, first_host = i, host
+            agreed = None
+            if self._process:
+                agreed = -self.mesh.all_max([-self._replayable(lay, host, branches,
+                                                               min(n - i, CHUNK))])[0]
             missing, launched = False, collections.Counter()
             while i < n and self._any_live(host) and i - first < CHUNK:
                 entry = lay.graphs.get((self._pattern(host), branches))
-                if entry is None:
+                if entry is None or (agreed is not None and i - first >= agreed):
                     missing = True
                     break
                 if i == first:
@@ -652,16 +794,31 @@ class Runner:
                     host = self._advance(host)
                 continue
             if missing:
+                own = (self._pattern(host), branches) in lay.graphs
+                self.stats["peer_steps" if own else "missing_steps"] += 1
                 branches = self._eager(lay, host)
                 host, i = self._advance(host), i + 1
         lay.branches = branches
         return host
 
+    def _replayable(self, lay: _Layout, host, branches, most: int) -> int:
+        """How many steps from ``host`` (at most ``most``) have a graph under
+        ``branches``."""
+        for j in range(most):
+            if (self._pattern(host), branches) not in lay.graphs:
+                return j
+            host = self._advance(host)
+        return most
+
     def _diverged(self, lay: _Layout) -> bool:
         """Did a replay of the chunk diverge?  One read of the flag, its
         rank slots reduced first on the runner's stream, after every rank's
-        lane has joined it."""
-        return bool(lay.diverged.any())
+        lane has joined it; on a process mesh, then reduced over the
+        processes, so that all roll the chunk back together."""
+        diverged = bool(lay.diverged.any())
+        if self._process:
+            return bool(self.mesh.all_max([diverged])[0])
+        return diverged
 
     def _outs(self, lay: _Layout, final, n: int, start, end):
         bufs = lay.bufs

@@ -273,16 +273,18 @@ def run_elastic_distributed(
     pads the restored state into the new shapes (:func:`grow_dist_state`).
     ``jit=True`` runs each chunk through ``DistributedSimulation.run_jit``
     (the deployment's runner, so the chunks between regrows replay its
-    graphs).  Returns ``(final_state, {name: rows}, n_regrows)``.  It runs
-    on an in-process mesh: a process mesh raises ``ValueError`` (ROADMAP
-    item 17).
+    graphs).  Returns ``(final_state, {name: rows}, n_regrows)``.
+
+    On a process mesh every process calls it alike and gets the same
+    result: each decides from the gathered stacked health, so all take the
+    same action; rank 0 writes the checkpoints and the processes meet at a
+    barrier after each; a regrow has rank 0 restore the checkpoint and
+    broadcast it (a failed restore raises on every process), and each
+    process re-deploys on the same mesh with the grown ``DomainConfig``.
     """
     from repro_torch import checkpoint as ckpt
     from repro_torch.core.api import _concat_obs, _obs_tensors, _step_of
 
-    if mesh.process:
-        raise ValueError("run_elastic_distributed runs on an in-process mesh; a mesh of one "
-                         "process a rank is ROADMAP item 17")
     dsim = sim.distribute(mesh, dcfg, capacity=capacity, seed=seed)
     every = int(checkpoint_every) if checkpoint_every else int(n_steps)
     if every <= 0:
@@ -294,7 +296,15 @@ def run_elastic_distributed(
     grows = 0
 
     def save(st, at):
-        ckpt.save(checkpoint_dir, at, {"state": st, "obs": acc}, keep=keep)
+        if mesh.writes_checkpoints:
+            ckpt.save(checkpoint_dir, at, {"state": st, "obs": acc}, keep=keep)
+        mesh.barrier()
+
+    def restore(like):
+        def latest():
+            return None, ckpt.restore(checkpoint_dir, {"state": like, "obs": acc})[1]["state"]
+
+        return mesh.from_first(latest, like)[1] if mesh.process else latest()[1]
 
     save(state, step)
     while step < target:
@@ -318,9 +328,9 @@ def run_elastic_distributed(
                 halo_capacity=int(math.ceil(dcfg.halo_capacity * g)),
                 migrate_capacity=int(math.ceil(dcfg.migrate_capacity * g)),
             )
-            _, payload = ckpt.restore(checkpoint_dir, {"state": state, "obs": acc})
+            restored = restore(state)
             dsim = sim.distribute(mesh, dcfg, capacity=new_cap, seed=seed)
-            state = grow_dist_state(payload["state"], new_cap, dcfg)
+            state = grow_dist_state(restored, new_cap, dcfg)
             save(state, step)              # re-anchor at the new shapes
             continue
         state = new_state

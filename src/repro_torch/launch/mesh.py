@@ -22,6 +22,12 @@ takes one value a local rank and returns what each of them receives.
   (gloo's send and receive read host memory), and the time that takes is
   kept in ``ProcessMesh.stats``.
 
+  While the compiled run (``core/runner.py``) captures a step of a process
+  mesh in CUDA graphs (:func:`cutting`), a shift or a gather sends nothing:
+  it packs its value inside the segment being captured, and the runner ends
+  that segment there and keeps an :class:`Exchange`, which each replay runs
+  between the segment and the next, from and into fixed buffers.
+
 Ranks are numbered x-major over the axes in the mesh's order:
 ``rank = ((c0 · n1) + c1) · n2 + c2``, the linearization of
 ``DomainConfig.device_coords``.  :meth:`Mesh.ordered` gives the same ranks
@@ -326,6 +332,108 @@ class TransportStats:
         self.wire_s = self.gather_s = 0.0
 
 
+class Exchange:
+    """A shift or a gather cut out of a step captured on a process mesh.
+
+    ``send`` is the packed value, written by the segment before the cut (a
+    tensor of the graphs' pool).  :meth:`place` gives the exchange its fixed
+    buffers, made outside every capture: ``recv`` on the device, which the
+    segment after the cut reads (a shift's receive, shaped like ``send``;
+    a gather's ``(R, n)`` rows in mesh-rank order), and under gloo on a card
+    the pinned host buffers the wire reads and writes.  :meth:`run` is the
+    eager shift or gather, from and into those buffers."""
+
+    def __init__(self, mesh: "ProcessMesh", kind: str, send: torch.Tensor,
+                 dest: int = 0, source: int = 0):
+        self.mesh, self.kind, self.send = mesh, kind, send
+        self.dest, self.source = dest, source
+        lead = (mesh.size,) if kind == "gather" else ()
+        self.shape = lead + tuple(send.shape)
+        self.recv: Optional[torch.Tensor] = None
+
+    def place(self, store: Dict[tuple, tuple], position: int) -> None:
+        """Take the buffers of the ``position``-th exchange of a step of this
+        kind and shape from ``store`` (made there at first): the steps of
+        one layout replay one at a time, and each consumes what it received
+        before it ends, so they share them."""
+        key = (position, self.kind, self.shape)
+        if key not in store:
+            m = self.mesh
+            recv = torch.empty(self.shape, dtype=torch.uint8, device=m.device)
+            if m._staging:
+                store[key] = (recv, torch.empty(self.send.shape, dtype=torch.uint8,
+                                                pin_memory=True),
+                              torch.empty(self.shape, dtype=torch.uint8, pin_memory=True))
+            else:
+                store[key] = (recv, None, recv)
+        self.recv, self._host_send, self._wire = store[key]
+
+    def run(self) -> None:
+        """The exchange, after the segment that packed ``send`` was enqueued
+        on the current stream, and before the next segment (enqueued after
+        it on the same stream) reads ``recv``."""
+        m, stats = self.mesh, self.mesh.stats
+        send, wire = self.send, self._wire
+        if m._staging:
+            torch.cuda.current_stream(m.device).record_event().synchronize()
+            t0 = time.perf_counter()
+            self._host_send.copy_(send)
+            stats.staging_s += time.perf_counter() - t0
+            stats.staged_bytes += send.nbytes
+            send = self._host_send
+        t0 = time.perf_counter()
+        if self.kind == "shift":
+            works = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, self.dest, m.group),
+                dist.P2POp(dist.irecv, wire, self.source, m.group)])
+            for work in works:
+                work.wait()
+        else:
+            dist.all_gather(list(wire.unbind(0)), send, group=m.group)
+        took = time.perf_counter() - t0
+        stats.wire_s += took
+        if self.kind == "gather":
+            stats.gather_s += took
+            if m.members != tuple(range(m.size)):
+                wire = wire[list(m.members)]
+        stats.exchanges += 1
+        if wire is not self.recv:
+            t0 = time.perf_counter()
+            self.recv.copy_(wire, non_blocking=True)
+            stats.staging_s += time.perf_counter() - t0
+            stats.staged_bytes += wire.nbytes
+
+
+@dataclasses.dataclass
+class Cut:
+    """A step being captured on a process mesh (:func:`cutting`).
+
+    ``cut(exchange)`` ends the segment being captured, places the exchange
+    and begins the next segment; ``shifted`` collects ``(rank, axis,
+    nbytes)`` of every shift of the step, for ``count_shift_bytes`` at each
+    replay (the capture itself sends and counts nothing)."""
+
+    cut: Callable[[Exchange], None]
+    shifted: List[Tuple[int, str, int]] = dataclasses.field(default_factory=list)
+
+
+_cutting: Optional[Cut] = None
+
+
+@contextlib.contextmanager
+def cutting(cut: Callable[[Exchange], None]) -> Iterator[Cut]:
+    """Within the context, every shift and gather of a process mesh is cut
+    out of the step being captured (``core/runner.py``)."""
+    global _cutting
+    if _cutting is not None:
+        raise RuntimeError("a process mesh's step is already being captured")
+    _cutting = Cut(cut)
+    try:
+        yield _cutting
+    finally:
+        _cutting = None
+
+
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh(Mesh):
     """This process's view of a mesh of one process a rank, over a
@@ -417,11 +525,15 @@ class ProcessMesh(Mesh):
         sent.  One ``batch_isend_irecv`` posts the send and the receive
         together (on a 2-long axis both go to the same process); a shift by
         a multiple of the axis's length (an axis of length 1) sends
-        nothing."""
+        nothing.  While a step is captured (:func:`cutting`) the value is
+        packed in the segment being captured, the segment is cut there, and
+        the result is a view of the exchange's receive buffer."""
         if len(values) != 1:
             raise ValueError(f"shift: {len(values)} values for one local rank")
         value = values[0]
-        if shift_observers:
+        if _cutting is not None:
+            _cutting.shifted.append((self.rank, axis, tree_nbytes(value)))
+        elif shift_observers:
             nbytes = tree_nbytes(value)
             for observe in shift_observers:
                 observe(self.rank, axis, nbytes)
@@ -437,6 +549,12 @@ class ProcessMesh(Mesh):
         source = self.rank_of(coords)
         lanes.shift([(source, self.rank)])
         leaves, rebuild = _flatten(value)
+        if _cutting is not None:
+            with lanes.entered(self.rank):
+                exchange = Exchange(self, "shift", _pack(leaves, self.device),
+                                    dest=self.peers[dest], source=self.peers[source])
+            _cutting.cut(exchange)
+            return [rebuild(_unpack(exchange.recv, leaves))]
         # The packing, the wire's staging and the unpacking are the rank's
         # work: in its lane of the running step, after what made the value.
         with lanes.entered(self.rank):
@@ -456,8 +574,12 @@ class ProcessMesh(Mesh):
         """Every rank's ``tree`` (the same structure, shapes and dtypes on
         every rank) stacked on a leading axis in mesh-rank order, on this
         process's device: one all-gather of the leaves packed into one
-        buffer."""
+        buffer (cut out of a step being captured, as :meth:`shift` is)."""
         leaves, rebuild = _flatten(tree)
+        if _cutting is not None:
+            exchange = Exchange(self, "gather", _pack(leaves, self.device))
+            _cutting.cut(exchange)
+            return rebuild([x.contiguous() for x in _unpack(exchange.recv, leaves)])
         sent = self._to_wire(_pack(leaves, self.device))
         rows = self._like(sent, (self.size,))
         t0 = time.perf_counter()
@@ -478,6 +600,22 @@ class ProcessMesh(Mesh):
         dist.broadcast_object_list(box, src=self.peers[0], group=self.group)
         return box[0]
 
+    def from_first(self, fn: Callable[[], Tuple[Any, Any]], like: Any) -> Tuple[Any, Any]:
+        """``(meta, tree) = fn()`` run on mesh rank 0 only, on every process:
+        ``meta`` (picklable, no tensor) by :meth:`broadcast_object`, ``tree``
+        by :meth:`broadcast` (shaped like ``like``).  An error ``fn`` raises
+        is raised on every process, not only on rank 0."""
+        got = meta = None
+        if self.writes_checkpoints:
+            try:
+                meta, got = fn()
+            except Exception as err:
+                meta = err
+        meta = self.broadcast_object(meta)
+        if isinstance(meta, Exception):
+            raise meta
+        return meta, self.broadcast(got, like)
+
     def broadcast(self, tree: Any, like: Any) -> Any:
         """Mesh rank 0's ``tree`` on every process, packed into one buffer
         (on the card under NCCL, else on the host); the other processes pass
@@ -490,6 +628,15 @@ class ProcessMesh(Mesh):
             buf = _pack(leaves, device)
         dist.broadcast(buf, src=self.peers[0], group=self.group)
         return rebuild(_unpack(buf, leaves))
+
+    def all_max(self, values: Sequence[int]) -> List[int]:
+        """The largest of every process's ``values``, element by element, on
+        every process (one all-reduce; on the card under NCCL, else on the
+        host)."""
+        device = self.device if self.backend == "nccl" else torch.device("cpu")
+        t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return [int(v) for v in t.tolist()]
 
     def ordered(self, axes: Sequence[str]) -> "ProcessMesh":
         base = Mesh.ordered(self, axes)

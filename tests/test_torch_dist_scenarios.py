@@ -535,13 +535,9 @@ def test_process_launch_fails_at_the_first_failed_rank(shifts):
 def test_process_mesh_refusals():
     """No silent fallback: a process mesh without a process group, of the
     wrong size, or on the card where there is none raises; NCCL with two
-    ranks on one card raises; ``run_jit`` and ``run_elastic_distributed`` on
-    a process mesh raise, naming ROADMAP item 17."""
-    from repro_torch.launch import elastic
-
+    ranks on one card raises."""
     with pytest.raises(RuntimeError, match="no process group"):
         process_mesh((2, 2), ("data", "model"), devices="cpu")
-    _, dcfg, ecfg, _ = P.force_engine("int16")
     with fake_group(8, rank=3):
         with pytest.raises(ValueError, match="8 processes"):
             process_mesh((2, 2), ("data", "model"), devices="cpu")
@@ -550,10 +546,6 @@ def test_process_mesh_refusals():
                 process_mesh((4, 2), ("data", "model"))
         mesh = process_mesh((4, 2), ("data", "model"), devices="cpu")
         assert mesh.local_ranks == (3,) and mesh.device == CPU
-        with pytest.raises(ValueError, match="item 17"):
-            dist.jitted_distributed_runner(mesh, dcfg, ecfg)
-        with pytest.raises(ValueError, match="item 17"):
-            elastic.run_elastic_distributed(None, mesh, dcfg, 1, "unused")
     one_card_a_rank([("h", "GPU-0"), ("h", "GPU-1"), ("g", "GPU-0")])
     with pytest.raises(ValueError, match="NCCL takes one rank a card"):
         one_card_a_rank([("h", "GPU-0"), ("h", "GPU-1"), ("h", "GPU-0")])

@@ -8,8 +8,8 @@ an in-process mesh, from the reference's initial state carried across by
 of the same description.  Beside the reference's subprocess, one more runs
 the port with one process a rank over gloo (``tests/
 torch_dist_process_run.py engine``, eight processes, every case in one
-launch); its results must equal the in-process port's exactly, and so the
-reference's at the same tolerances.
+launch, eager and through the compiled run); its results must equal the
+in-process port's exactly, and so the reference's at the same tolerances.
 
 Tolerances: integer and bool leaves (pool order, alive, kind, counters,
 wire bytes, codec ids, the ghost frame's alive and kind) are exact.  Float
@@ -29,10 +29,10 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 import torch_dist_process_run as P
 import torch_dist_reference as R
+import torch_jit_cases as J
 from torch_parity import CPU
 
 from repro_torch.convert import dist_state_from_numpy, dist_state_to_numpy
@@ -280,18 +280,8 @@ def test_run_elastic_distributed_jit_matches_reference(ref, tmp_path):
 
 
 def _check_elastic(ref, tmp_path, jit):
-    from repro_torch.core import cell_division
-    from repro_torch.launch import elastic
-
-    domain, space, pos = R.elastic_setup()
-    grow = (Simulation(space=(0.0, space), cell_size=3.0, boundary="open", dt=1.0,
-                       max_per_cell=32, seed=2, capacity=256, device="cpu")
-            .add_agents(position=pos, diameter=2.0)
-            .use(cell_division(0.5))
-            .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
-    final, obs, grows = elastic.run_elastic_distributed(
-        grow, _mesh(domain), dist.DomainConfig(**domain), R.ELASTIC_STEPS, str(tmp_path),
-        checkpoint_every=R.ELASTIC_EVERY, capacity=32, max_regrows=4, jit=jit)
+    domain = R.elastic_setup()[0]
+    final, obs, grows = P.run_elastic(_mesh(domain), str(tmp_path), jit)
     assert grows == int(ref["elastic/grows"]) >= 1
     np.testing.assert_array_equal(obs["pop"].numpy(), ref["elastic/obs/pop"])
     _assert_matches(dist_state_to_numpy(final), R.unflatten(ref, "elastic/final"),
@@ -382,3 +372,105 @@ def test_process_mesh_overlap_report_matches(procs, schedule):
     for r in range(4):
         got = json.loads(str(procs[f"digest/overlap/{schedule}/{r}"]))
         assert got == want, (r, got, want)
+
+
+# ------------------------------------ one process a rank, the compiled run
+
+
+def _stats(procs, key, ranks):
+    """Each process's ``Runner.stats`` of the compiled run under ``key``."""
+    import json
+
+    out = [json.loads(str(procs[f"digest/stats/{key}/{r}"])) for r in range(ranks)]
+    for s in out:
+        # The only eager steps: cold starts, missing graphs, rolled-back chunks.
+        assert s["eager_steps"] == (s["runs"] - s["warm_starts"] + s["missing_steps"]
+                                    + s["peer_steps"] + s["rolled_back_steps"]), s
+        assert s["replays"] > 0 and s["exchanges"] > 0, s
+    return out
+
+
+@pytest.mark.parametrize("codec", R.FORCE_CODECS)
+def test_process_mesh_force_relaxation_run_jit_matches(ref, procs, codec):
+    """The 4×2 relaxation through ``jitted_distributed_runner`` on eight
+    processes (1 step, then 4 more from it): the in-process compiled run's
+    state exactly, and so the reference's within the file's tolerances;
+    every process replays and exchanges alike."""
+    domain, dcfg, ecfg, _ = P.force_engine(codec)
+    runner = dist.jitted_distributed_runner(_mesh(domain), dcfg, ecfg)
+    state, done = _state(ref, f"force/{codec}/0"), 0
+    for i in R.FORCE_STEPS:
+        state, _ = runner(state, i - done)
+        done = i
+        key = f"force_jit/{codec}/{i}"
+        _assert_same(state, procs, key, f"processes {key}")
+        _assert_matches(R.unflatten(procs, key), R.unflatten(ref, f"force/{codec}/{i}"),
+                        _float_tol(i, domain), f"processes {key} vs reference")
+    stats = _stats(procs, f"force_jit/{codec}", 8)
+    assert len({(s["replays"], s["exchanges"], s["eager_steps"]) for s in stats}) == 1
+
+
+def test_process_mesh_soma_model_run_jit_matches(ref, procs):
+    """``DistributedSimulation.run_jit`` of the soma model on four processes:
+    the in-process ``run_jit``'s series and final state exactly, and the
+    reference's series."""
+    _, dsim = _soma_model()
+    final, obs = dsim.run_jit(R.SOMA_STEPS)
+    np.testing.assert_array_equal(procs["soma_jit/obs/kinds"], obs["kinds"].numpy())
+    np.testing.assert_array_equal(procs["soma_jit/obs/kinds"], ref["soma/obs/kinds"])
+    _assert_same(final, procs, "soma_jit/final", "processes soma run_jit")
+    _stats(procs, "soma_jit", 4)
+
+
+def test_process_mesh_resume_jit_matches(procs):
+    """A checkpointed ``run_jit`` of four processes, killed after
+    RESUME_KILL and finished by a new deployment's ``resume(jit=True)``:
+    the straight run's state and series; its later chunk starts warm."""
+    straight, sobs = _resume_model().run(R.RESUME_STEPS)
+    np.testing.assert_array_equal(procs["resume_jit/obs/counts"], sobs["counts"].numpy())
+    _assert_same(straight, procs, "resume_jit/final", "processes' resume(jit=True)")
+    for s in _stats(procs, "resume_jit", 4):
+        assert s["runs"] == 2 and s["warm_starts"] == 1, s
+
+
+def test_process_mesh_crowd_rolls_back_together(procs):
+    """tests/torch_jit_cases.py's one-rank flip on four processes: rank 0's
+    ``overflowed`` predicate flips, every process rolls the same chunk back,
+    and the result is the in-process compiled run's, bit for bit."""
+    final, obs = J.dist_crowd(CPU).run_jit(10)
+    np.testing.assert_array_equal(procs["crowd_jit/obs/pop"], obs["pop"].numpy())
+    _assert_same(final, procs, "crowd_jit/final", "processes crowd run_jit")
+    stats = _stats(procs, "crowd_jit", 4)
+    assert len({(s["rollbacks"], s["rolled_back_steps"], s["replays"]) for s in stats}) == 1
+    assert stats[0]["rollbacks"] >= 1
+    assert stats[0]["overflowed"] == {"0": [False, True]}
+    for r in (1, 2, 3):
+        assert stats[r]["overflowed"] == {str(r): [False]}
+
+
+def test_process_mesh_peer_lacking_a_graph_steps_all_eagerly(procs):
+    """Rank 0's predicate flips at the first run's last step; in the next
+    run it lacks the graph of a pattern the others have, so every process
+    ends the chunk there and steps eagerly (rank 0 a missing step, the
+    others a peer step): the eager run's state, bit for bit."""
+    dsim = J.dist_crowd(CPU, at_step=P.PEER_AT)
+    first, _ = dsim.run(P.PEER_STEPS[0])
+    final, _ = dsim.run(P.PEER_STEPS[1], state=first)
+    _assert_same(final, procs, "crowd_peer/final", "processes crowd, two runs")
+    stats = _stats(procs, "crowd_peer", 4)
+    assert len({(s["eager_steps"], s["replays"], s["rollbacks"]) for s in stats}) == 1
+    assert stats[0]["peer_steps"] == 0 and stats[0]["missing_steps"] > 0
+    for s in stats[1:]:
+        assert s["peer_steps"] >= 1 and s["missing_steps"] < stats[0]["missing_steps"], s
+
+
+@pytest.mark.parametrize("mode", ["eager", "jit"])
+def test_process_mesh_elastic_matches(procs, tmp_path, mode):
+    """``run_elastic_distributed`` on four processes, eager and
+    ``jit=True``: the in-process run's regrows, series and final state,
+    bit for bit (that run is held to the reference above)."""
+    domain = R.elastic_setup()[0]
+    final, obs, grows = P.run_elastic(_mesh(domain), str(tmp_path), mode == "jit")
+    assert grows == int(procs[f"elastic_{mode}/grows"]) >= 1
+    np.testing.assert_array_equal(procs[f"elastic_{mode}/obs/pop"], obs["pop"].numpy())
+    _assert_same(final, procs, f"elastic_{mode}/final", f"processes elastic {mode}")

@@ -7,13 +7,21 @@
 a rank of the reference's 4×2 force relaxation (tests/
 torch_dist_reference.py), and runs on them every case of
 tests/test_torch_distributed.py that this mode covers: the relaxation at
-both codecs after 1 and 5 steps on all eight, then on the first four (a
-subgroup) the 2×2 soma model through ``Simulation.distribute``, the resume
-model straight and killed after step ``RESUME_KILL`` with its checkpoints
-in CKPT_OUT, the resume model finishing CKPT_IN (an in-process killed
-run), and ``distributed.overlap_report`` of tests/
-torch_overlap_reference.py's force model under both schedules (each
-process's report, as JSON, beside its digests).  ``shifts`` starts four processes: ``Mesh.shift`` on (2, 2) and
+both codecs after 1 and 5 steps on all eight, eagerly and through the
+compiled run (``jitted_distributed_runner``), then on the first four (a
+subgroup) the 2×2 soma model through ``Simulation.distribute`` (``run`` and
+``run_jit``), the resume model straight and killed after step
+``RESUME_KILL`` with its checkpoints in CKPT_OUT, the resume model
+finishing CKPT_IN (an in-process killed run), the resume model's
+checkpointed ``run_jit`` killed after ``RESUME_KILL`` and finished by
+``resume(jit=True)`` (its checkpoints in CKPT_OUT + ``_jit``), the one-rank
+flip model of tests/torch_jit_cases.py (``dist_crowd``) through ``run_jit``
+(and flipping late, so that a later run finds one process without a graph),
+``run_elastic_distributed`` of the regrowth case, eager and ``jit=True``,
+and ``distributed.overlap_report`` of tests/torch_overlap_reference.py's
+force model under both schedules (each process's report, as JSON, beside
+its digests; each compiled run's ``Runner.stats`` likewise, under
+``stats/``).  ``shifts`` starts four processes: ``Mesh.shift`` on (2, 2) and
 (4, 1) process meshes, and the bytes each rank sends through it in one
 distributed step on each; then three processes of which one fails, which
 must fail the launch at once.  Rank 0 writes what the mode's tests read into
@@ -42,6 +50,11 @@ import torch_overlap_reference as O
 from repro_torch.convert import dist_state_to_numpy
 from repro_torch.core import EngineConfig, ForceParams, Simulation
 from repro_torch.core import distributed as dist
+
+
+# The crowd of torch_jit_cases.dist_crowd from step PEER_AT, through two
+# run_jit runs of these lengths (rank 0's overflowed flips at step 9 of 0-15).
+PEER_AT, PEER_STEPS = 8, (10, 6)
 
 
 class Killed(Exception):
@@ -94,6 +107,42 @@ def resume_sim():
             .observe_kinds("counts", n_kinds=2))
 
 
+def elastic_sim():
+    """torch_dist_reference.elastic_setup's dividing agents, undeployed,
+    with their population every step."""
+    from repro_torch.core import cell_division
+
+    _, space, pos = R.elastic_setup()
+    return (Simulation(space=(0.0, space), cell_size=3.0, boundary="open", dt=1.0,
+                       max_per_cell=32, seed=2, capacity=256, device="cpu")
+            .add_agents(position=pos, diameter=2.0)
+            .use(cell_division(0.5))
+            .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
+
+
+def run_elastic(mesh, checkpoint_dir, jit):
+    """``run_elastic_distributed`` of :func:`elastic_sim` on ``mesh``: pools
+    of 32 a rank, regrown up to four times."""
+    from repro_torch.launch import elastic
+
+    domain = R.elastic_setup()[0]
+    return elastic.run_elastic_distributed(
+        elastic_sim(), mesh, dist.DomainConfig(**domain), R.ELASTIC_STEPS, checkpoint_dir,
+        checkpoint_every=R.ELASTIC_EVERY, capacity=32, max_regrows=4, jit=jit)
+
+
+def branch_values(runner, name):
+    """``{rank: sorted values}`` of the branch ``name`` over the runner's
+    graphs' keys, for every rank whose key names it."""
+    out = {}
+    for key in runner._graphs:
+        for k, v in key[1]:
+            rank, _, rest = k.partition("/")
+            if rest == name:
+                out.setdefault(int(rank[4:]), set()).add(v)
+    return {r: sorted(v) for r, v in out.items()}
+
+
 def force_engine(codec):
     domain, engine, pos = R.force_setup()
     dcfg = dist.DomainConfig(**domain, halo_codec=codec)
@@ -134,6 +183,8 @@ def _engine_rank(ckpt_in, ckpt_out):
 
     from repro_torch.launch.mesh import process_mesh
 
+    import torch_jit_cases as J
+
     torch.set_num_threads(1)
     out, digests = {}, {}
 
@@ -141,7 +192,10 @@ def _engine_rank(ckpt_in, ckpt_out):
         out.update(R.flatten(dist_state_to_numpy(state), key + "/"))
         digests[key] = digest(state)
 
-    # 1. The 4×2 force relaxation on all eight processes.
+    def stats(key, runner, **more):
+        digests[f"stats/{key}"] = json.dumps(dict(runner.stats, **more), sort_keys=True)
+
+    # 1. The 4×2 force relaxation on all eight processes, eager and compiled.
     for codec in R.FORCE_CODECS:
         domain, dcfg, ecfg, pos = force_engine(codec)
         mesh = process_mesh(domain["axis_sizes"], domain["mesh_axes"], devices="cpu")
@@ -151,6 +205,13 @@ def _engine_rank(ckpt_in, ckpt_out):
             state = step(state)
             if i in R.FORCE_STEPS:
                 put(f"force/{codec}/{i}", state)
+        runner = dist.jitted_distributed_runner(mesh, dcfg, ecfg)
+        state, done = dist.init_dist_state(dcfg, capacity=192, positions=pos, diameter=1.6), 0
+        for i in R.FORCE_STEPS:
+            state, _ = runner(state, i - done)
+            done = i
+            put(f"force_jit/{codec}/{i}", state)
+        stats(f"force_jit/{codec}", runner)
 
     # 2. The 2×2 cases on the first four processes.
     group = tdist.new_group([0, 1, 2, 3])
@@ -162,6 +223,10 @@ def _engine_rank(ckpt_in, ckpt_out):
         final, obs = dsim.run(R.SOMA_STEPS)
         put("soma/final", final)
         out["soma/obs/kinds"] = obs["kinds"].numpy()
+        final, obs = dsim.run_jit(R.SOMA_STEPS)
+        put("soma_jit/final", final)
+        out["soma_jit/obs/kinds"] = obs["kinds"].numpy()
+        stats("soma_jit", dsim._jitted)
 
         domain = R.resume_setup()[0]
         dsim = resume_sim().distribute(mesh, dist.DomainConfig(**domain))
@@ -178,6 +243,42 @@ def _engine_rank(ckpt_in, ckpt_out):
         final, robs = dsim.resume(ckpt_in)
         put("resume/of_in_process", final)
         out["resume/of_in_process_obs/counts"] = robs["counts"].numpy()
+
+        # The compiled run, checkpointed, killed and resumed by a new deployment.
+        try:
+            dsim.run_jit(R.RESUME_STEPS, checkpoint_dir=ckpt_out + "_jit",
+                         checkpoint_every=R.RESUME_EVERY, on_chunk=killer)
+        except Killed:
+            pass
+        else:
+            raise AssertionError("the checkpointed run_jit was not stopped")
+        fresh = resume_sim().distribute(mesh, dist.DomainConfig(**domain))
+        final, robs = fresh.resume(ckpt_out + "_jit", jit=True)
+        put("resume_jit/final", final)
+        out["resume_jit/obs/counts"] = robs["counts"].numpy()
+        stats("resume_jit", fresh._jitted)
+
+        # Rank 0's overflowed predicate flips: every process rolls back.
+        dsim = J.dist_crowd("cpu", mesh=mesh)
+        final, obs = dsim.run_jit(10)
+        put("crowd_jit/final", final)
+        out["crowd_jit/obs/pop"] = obs["pop"].numpy()
+        stats("crowd_jit", dsim._jitted,
+              overflowed=branch_values(dsim._jitted, "overflowed"))
+
+        # Rank 0 flips at the first run's last step, so in the next run it
+        # lacks its graph of a pattern the others have: all step eagerly there.
+        dsim = J.dist_crowd("cpu", at_step=PEER_AT, mesh=mesh)
+        final, _ = dsim.run_jit(PEER_STEPS[1], state=dsim.run_jit(PEER_STEPS[0])[0])
+        put("crowd_peer/final", final)
+        stats("crowd_peer", dsim._jitted)
+
+        # The elastic run, eager and compiled, regrowing the pools.
+        for mode in ("eager", "jit"):
+            final, obs, grows = run_elastic(mesh, f"{ckpt_out}_elastic_{mode}", mode == "jit")
+            put(f"elastic_{mode}/final", final)
+            out[f"elastic_{mode}/obs/pop"] = obs["pop"].numpy()
+            out[f"elastic_{mode}/grows"] = np.asarray(grows)
 
         # The overlap report of each schedule, from this process's lanes.
         for schedule in O.SCHEDULES:

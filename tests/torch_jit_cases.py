@@ -222,12 +222,13 @@ def dist_soma(device, n=4000, space=200.0, res=40, codec="int16", overlap=False)
         make_mesh((2, 2), ("x", "y"), devices=device), dcfg)
 
 
-def dist_crowd(device, k=12, at_step=4, impl="fused"):
+def dist_crowd(device, k=12, at_step=4, impl="fused", mesh=None):
     """The reference's facade-resume layout (200 agents of two kinds in a
     32 um cube on a 2x2 mesh, boxes of 2 um holding 8) with ``gid``s, the
     first ``k`` agents placed inside rank 0's box and stacked at its centre
     from ``at_step`` on by :func:`crowd_gid_op`: rank 0's ``overflowed``
-    predicate flips, the other ranks' do not."""
+    predicate flips, the other ranks' do not.  ``mesh``: a process mesh to
+    deploy on (default: an in-process mesh on ``device``)."""
     import torch_dist_reference as R
     from repro_torch.core import distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -244,5 +245,5 @@ def dist_crowd(device, k=12, at_step=4, impl="fused"):
            .mechanics(ForceParams(), impl=impl)
            .op(crowd_gid_op(k, at_step, 8.0), name="crowd", phase="agent")
            .observe("pop", lambda s: s.pool.alive.sum(dtype=torch.int32)))
-    mesh = make_mesh(domain["axis_sizes"], domain["mesh_axes"], devices=device)
+    mesh = mesh or make_mesh(domain["axis_sizes"], domain["mesh_axes"], devices=device)
     return sim.distribute(mesh, dist.DomainConfig(**domain))
