@@ -137,7 +137,41 @@ printing one JSON line; any failure raises and exits non-zero:
                   calibrated triple (3.24, 0.36, 6.2) at 400 agents, space 55,
                   300 steps: trajectory RMSE against the analytical solution
                   below 0.08, the example's own bar.
-  dist_small      the distributed engine (``core/distributed.py``) at the
+  neurite_small   the neurite-growth model of examples/neurite_growth.py
+                  (tests/torch_usecases.py ``neurite``, the fused force impl,
+                  the cuda rank impl, §5.5 work compaction): the example's
+                  smoke run (4 neurons, 12 steps) and its validation run (8
+                  neurons, 100 steps, ``neurite_main``'s five bars, and
+                  ``neurite_main(jit=True)``, the example's four run_jit
+                  chunks, with the same bars) on the
+                  card against the CPU: alive, kind and static flags and the
+                  kind counts exact, positions, directions and path lengths
+                  atol 1e-4; each then through ``run_jit``
+                  (``neurite_small_jit[...]``, as ``slice_jit``); then the
+                  crowded case, active_capacity 40 below the active set from
+                  step 5 on: at least one rollback, both ``crowded`` branches
+                  captured, bit-identical to the eager run.
+  neurite         the example's model at 900 neurons on a 600 x 600 um plate
+                  (its density), space 640 um (160^3 boxes of 4 um, 128 slots
+                  a box), the cue peaking at 120 um on 5 um voxels, capacity
+                  131,072, 120 steps, from one start with active_capacity
+                  32,768 and without compaction (cell_list_force over every
+                  agent), each eagerly and twice through ``run_jit`` in
+                  10-step chunks: every run_jit pass bit-identical to the
+                  eager pass; the two runs equal after 8 steps (flags exact,
+                  positions atol 1e-4); ``neurite_main``'s bars per neuron at
+                  step 120.  Printed: alive, active and static fraction every
+                  10 steps, the steps that outgrew active_capacity, eager and
+                  replayed step medians of both runs, launches, peak memory,
+                  set-up seconds.
+  neurite_batch   4 slots of the 8-neuron model differing in their seed, 100
+                  steps in one batch with compaction: each slot bit-identical
+                  to its solo card run; then ``neurite_batch_jit`` (as
+                  ``batch_sweep_jit``).
+  kernels (neurite)
+                  cell_rank and cell_list_force at the 900-neuron run's final
+                  state, as the ``kernels`` rows of path 1.
+  dist_small     the distributed engine (``core/distributed.py``) at the
                   reference's test sizes: the 4x2 force-only relaxation (500
                   agents, 5 steps, fused) and its corner-cluster layout (572
                   agents, 8 steps, fused and the dense pairwise_force over
@@ -292,7 +326,9 @@ printing one JSON line; any failure raises and exits non-zero:
                   also over the 64 x 64 tiles holding a visible pair.
   dryrun_grid     ``python -m repro_torch.launch.dryrun --arch A --mesh M``
                   for every arch of ``configs/archs.py`` and ``teraagent``
-                  (every shape, both production meshes: 82 cells), one CLI
+                  (every shape) on the multi-pod production mesh, and
+                  ``teraagent`` on the single-pod one too
+                  (``DRYRUN_SINGLE_MESH``: 42 of the grid's 82 cells), one CLI
                   process an arch and mesh, ``DRYRUN_JOBS`` at a time, no card
                   visible to them; every cell ``ok`` but the reference's
                   skips (``long_500k`` on full-attention archs), every cell
@@ -433,6 +469,25 @@ CAL_PARTICLES, CAL_ITERS, CAL_SEED = 4, 1, 1
 CAL_FULL_RUNS = 8 * (8 + 1)      # the example's n_particles=8, n_iters=8
 SIR_FAST = ((3.24, 0.36, 6.2), 400, 8, 55.0, 300)   # params, agents, infected, space, steps
 SIR_FULL = (3.24, 0.285, 5.79)     # the example's triple calibrated at 2,000 agents
+# The neurite-growth use case of examples/neurite_growth.py (paper §4.6.1,
+# Algorithm 1; §5.5 static-agent omission), its builder from
+# tests/torch_usecases.py with the fused force impl and the cuda rank impl.
+# neurite_small: the example's smoke run (neurons, steps) and its validation
+# run (neurite_main), and a crowded case whose active set outgrows
+# NEU_CROWD_ACTIVE from step 5 to ~40 of NEU_CROWD_STEPS.  neurite: the
+# example's plate (16 neurons on 80 x 80 um) scaled to 900 neurons on 600 x
+# 600 um at its density, the space to 640 um (160^3 boxes of 4 um, 128 slots
+# a box), the cue's peak kept at 120 um on 5 um voxels (resolution 128),
+# capacity and active_capacity the example's 8,192 / 2,048 scaled by 16,
+# 120 steps (its main); the runs with and without compaction are held to
+# each other after NEU_GATE_STEP steps, before any cone reaches target_z.
+NEU_SMOKE = (4, 12)
+NEU_VALID = (8, 100)
+NEU_CROWD_ACTIVE, NEU_CROWD_STEPS = 40, 60
+NEU_NEURONS, NEU_SPACE, NEU_PLATE, NEU_CUE_TOP = 900, 640.0, (20.0, 620.0), 120.0
+NEU_CAPACITY, NEU_ACTIVE, NEU_STEPS, NEU_GATE_STEP = 131_072, 32_768, 120, 8
+NEU_CHUNK = 10                 # steps between the census reads of the neurite runs
+NEU_SLOTS = 4
 SERVE_AGENTS = 20_000
 SERVE_SPACE = 320.0            # 32^3 boxes
 SERVE_RES = 64
@@ -1743,15 +1798,17 @@ def batch_differences(a, b) -> list:
     return differing_leaves(dict(zip(names, a)), dict(zip(names, b)))
 
 
-def batch_jit_phase(name, eng, bstate, steps, **fields):
+def batch_jit_phase(name, eng, bstate, steps, dtoh_steps=None, **fields):
     """``steps`` steps of a batch eagerly (``BatchedSimulation.run``), then
     ``JIT_RUNS`` times through ``run_jit`` from the same start: each run
     bit-identical to the eager run (every leaf of every slot, every
     observable row and count) with its launches and no rollback, and the
     last run with no eager step (it starts warm and replays every step).
     Emits the times, the runner's counts, peak and reserved memory and the
-    device-to-host reads of a run both ways.  Returns the launches of the
-    run_jit runs, summed."""
+    device-to-host reads of a run of ``dtoh_steps`` (default ``steps``)
+    both ways, from profiled runs.  Returns the launches of the run_jit
+    runs, summed."""
+    dtoh_steps = dtoh_steps or steps
     def timed(fn):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1783,8 +1840,9 @@ def batch_jit_phase(name, eng, bstate, steps, **fields):
          eager_step_ms=1e3 * eager_s / steps, eager_peak_memory_bytes=eager_peak,
          run_s=runs[-1]["run_s"], step_ms=runs[-1]["step_ms"], runs=runs,
          launches=eager_launches, bit_identical_to_eager=True,
-         dtoh_reads_a_run=dtoh_in(lambda: eng.run_jit(bstate, steps)),
-         eager_dtoh_reads_a_run=dtoh_in(lambda: eng.run(bstate, steps)),
+         dtoh_steps=dtoh_steps,
+         dtoh_reads_a_run=dtoh_in(lambda: eng.run_jit(bstate, dtoh_steps)),
+         eager_dtoh_reads_a_run=dtoh_in(lambda: eng.run(bstate, dtoh_steps)),
          nvidia_smi=nvidia_smi_line(), **fields)
     return total
 
@@ -2197,6 +2255,302 @@ def phase_calibrate():
          fast_check=dict(params=list(params), agents=n, space=space, steps=steps,
                          rmse=rmse, bar=0.08,
                          mean_infectious_h=float(final.pool.get("t_inf")[recovered].mean())))
+
+
+# -------------------------------------------------------------- neurite growth
+
+def usecases():
+    """tests/torch_usecases.py, the use-case models declared through the port
+    (it imports no JAX)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_usecases
+
+    return torch_usecases
+
+
+def neurite_model(n, device="cuda", **model):
+    """The neurite model with the kernels of its path switched on."""
+    return usecases().neurite(n, device=device, impl="fused", rank_impl="cuda", **model)
+
+
+NEU_FLOATS = ("position", "direction", "path_len")
+
+
+def neurite_leaves(state, obs) -> dict:
+    """The leaves the neurite phases compare, on the host."""
+    pool = state.pool
+    out = {f: getattr(pool, f).cpu() for f in ("alive", "kind", "static", "overflow")}
+    out.update({f: (pool.position if f == "position" else pool.get(f)).cpu()
+                for f in NEU_FLOATS})
+    out.update({f"obs/{k}": v.cpu() for k, v in obs.items()})
+    return out
+
+
+def neurite_distance(a: dict, b: dict, label: str, atol: float = 1e-4) -> float:
+    """Flags, kinds and counts of ``a`` and ``b`` equal, the float leaves
+    within ``atol``; returns their largest difference."""
+    bad = [k for k in a if k not in NEU_FLOATS and not torch.equal(a[k], b[k])]
+    err = max(float((a[k] - b[k]).abs().max()) for k in NEU_FLOATS)
+    if bad or set(a) != set(b) or not err <= atol:
+        raise AssertionError(f"{label}: {bad} differ, float leaves by {err} (atol {atol})")
+    return err
+
+
+def phase_neurite_small():
+    """The example's smoke and validation runs on the card against the CPU
+    (the kernels' plain versions), each then through ``run_jit``; the
+    validation run's final state meets ``neurite_main``'s bars.  Then the
+    crowded case: ``run_jit`` speculates the compacted branch, rolls back
+    where the active set outgrows the capacity, captures both branches and
+    gives the eager run's bits.  Returns the launches of its card runs."""
+    U = usecases()
+    total = collections.Counter()
+    for label, (n, steps) in (("smoke", NEU_SMOKE), ("validation", NEU_VALID)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            built = neurite_model(n, dev).observe_kinds(n_kinds=2).build()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                reset_counts()
+            final, obs = built.run(steps)
+            out[dev] = neurite_leaves(final, obs)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts()
+                card_final = final
+        err = neurite_distance(out["cuda"], out["cpu"], f"neurite_small[{label}] card vs CPU")
+        want = {"cell_rank": steps + len(range(0, steps, 16)), "cell_list_force": 0}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"neurite_small[{label}]: launches {launches}, want {want}")
+        bars = None
+        if label == "validation":
+            # The example's main on the card: four run_jit chunks, its bars.
+            bars = U.neurite_bars(card_final.pool, n)
+            reset_counts()
+            main_bars = U.neurite_main(n, steps, jit=True, device="cuda", impl="fused",
+                                       rank_impl="cuda")
+            torch.cuda.synchronize()
+            total.update(read_counts())
+            if main_bars != bars:
+                raise AssertionError(f"neurite_small: neurite_main(jit=True) gives {main_bars}, "
+                                     f"the eager run {bars}")
+        card = neurite_model(n).observe_kinds(n_kinds=2).build()
+        total.update(jit_phase(f"neurite_small_jit[{label}]", card, steps, warm=True))
+        total.update(launches)
+        emit("neurite_small", run=label, neurons=n, steps=steps,
+             alive=int(out["cuda"]["alive"].sum()),
+             static=int(out["cuda"]["static"].sum()), max_float_err_vs_cpu=err,
+             launches=launches, bars=bars and dict(alive=bars[0], static_fraction=bars[1]))
+
+    n, steps = NEU_VALID[0], NEU_CROWD_STEPS
+    built = neurite_model(n, active_capacity=NEU_CROWD_ACTIVE).observe_kinds(n_kinds=2).build()
+    reset_counts()
+    eager = neurite_leaves(*built.run(steps))
+    torch.cuda.synchronize()
+    eager_launches = read_counts()
+    reset_counts()
+    got = neurite_leaves(*built.run_jit(steps))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    runner = built._jitted
+    kept = {k: v - runner.rolled_back_launches[k] for k, v in launches.items()}
+    bad = [k for k in eager if not torch.equal(eager[k], got[k])]
+    branches = sorted({dict(k[1])["crowded"] for k in runner._graphs})
+    if bad or kept != eager_launches:
+        raise AssertionError(f"neurite_small[crowded]: run_jit differs from the eager run in "
+                             f"{bad}, launches {launches} less {dict(runner.rolled_back_launches)}"
+                             f" rolled back (eager {eager_launches})")
+    if runner.stats["rollbacks"] < 1 or branches != [False, True] or not (
+            eager_launches["cell_list_force"]):
+        raise AssertionError(f"neurite_small[crowded]: {runner.stats}, crowded branches "
+                             f"captured {branches}, eager launches {eager_launches}")
+    total.update(launches)
+    emit("neurite_small", run="crowded", neurons=n, steps=steps,
+         active_capacity=NEU_CROWD_ACTIVE, eager_launches=eager_launches, launches=launches,
+         rolled_back_launches=dict(runner.rolled_back_launches), crowded_branches=branches,
+         bit_identical_to_eager=True, **runner.stats)
+    return dict(total)
+
+
+def neurite_census():
+    """A post op that records the fused kernel's launch count after each
+    eager step (a host counter: no device read), and its list."""
+    from repro_torch.core import Operation
+
+    seen = []
+
+    def fn(ctx, state):
+        seen.append(read_counts()["cell_list_force"])
+        return state
+
+    return Operation("census", fn, phase="post"), seen
+
+
+def neurite_pass(built, state, jit: bool) -> dict:
+    """NEU_STEPS steps from ``state`` in chunks (NEU_GATE_STEP, then up to
+    each multiple of NEU_CHUNK), eagerly or through ``run_jit``: each
+    chunk's wall, the state after the gate step and at the end, the alive
+    and active counts and the static fraction after each chunk (read
+    outside the clock), launches and peak memory."""
+    ends = [NEU_GATE_STEP] + list(range(NEU_CHUNK, NEU_STEPS + 1, NEU_CHUNK))
+    run = built.run_jit if jit else built.run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, census, at, gate = [], [], 0, None
+    for end in ends:
+        t0 = time.perf_counter()
+        state, _ = run(end - at, state=state)
+        torch.cuda.synchronize()
+        walls.append((end - at, time.perf_counter() - t0))
+        at = end
+        pool = state.pool
+        alive = int(pool.alive.sum())
+        census.append(dict(step=end, alive=alive, active=int((pool.alive & ~pool.static).sum()),
+                           static_fraction=int(pool.static.sum()) / max(alive, 1)))
+        if end == NEU_GATE_STEP:
+            gate = state
+    chunk_ms = [1e3 * s / n for n, s in walls if n == NEU_CHUNK]
+    return dict(final=state, gate=gate, walls=walls, census=census, launches=read_counts(),
+                peak=torch.cuda.max_memory_allocated(),
+                median_step_ms=statistics.median(chunk_ms), chunk_step_ms=chunk_ms)
+
+
+def phase_neurite():
+    """The example's model at 900 neurons (NEU_* above) from one start, with
+    compaction and without, each eagerly and twice through ``run_jit`` (the
+    first captures, the second replays): every run_jit pass bit-identical to
+    its eager pass at the gate step and at the end, with its launches; the
+    two eager runs equal at the gate step (flags exact, positions atol
+    1e-4); ``neurite_main``'s bars per neuron at the end of both.  Returns
+    the full run's built model and eager final state, and the phase's
+    launches."""
+    from repro_torch.core import morton
+    from repro_torch.kernels.cell_force import kernel as cf_k
+
+    U = usecases()
+    gates, total = {}, collections.Counter()
+    cf_k.crowded_tiles(torch.device("cuda", 0), reset=True)
+    for label, active in (("compaction", NEU_ACTIVE), ("full", None)):
+        census_op, seen = neurite_census()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = neurite_model(NEU_NEURONS, space=NEU_SPACE, plate=NEU_PLATE,
+                              cue_top=NEU_CUE_TOP, capacity=NEU_CAPACITY,
+                              active_capacity=active).op(census_op).build()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        spec = built.config.spec
+        assert spec.dims == (int(NEU_SPACE // 4),) * 3 and spec.max_per_cell == 128
+        assert built.state.grids["guide"].concentration.shape == (int(NEU_SPACE // 5),) * 3
+        eager = neurite_pass(built, built.state, jit=False)
+        per_step = [b - a for a, b in zip([0] + seen[:-1], seen)]
+        crowded = [i for i, d in enumerate(per_step) if d]
+        passes = []
+        for i in range(JIT_RUNS):
+            before = dict(built._jitted.stats)
+            out = neurite_pass(built, built.state, jit=True)
+            for at in ("gate", "final"):
+                bad = differing_leaves(eager[at], out[at])
+                if bad:
+                    raise AssertionError(f"neurite[{label}]: run_jit pass {i} differs from "
+                                         f"the eager pass at the {at} step in {bad}")
+            if out["launches"] != eager["launches"]:
+                raise AssertionError(f"neurite[{label}]: run_jit launched {out['launches']}, "
+                                     f"eager {eager['launches']}")
+            counts = {k: built._jitted.stats[k] - before[k] for k in before}
+            if counts["rollbacks"] or (i == JIT_RUNS - 1 and counts["eager_steps"]):
+                raise AssertionError(f"neurite[{label}]: run_jit pass {i}: {counts}")
+            total.update(out["launches"])
+            passes.append(dict(median_step_ms=out["median_step_ms"],
+                               chunk_step_ms=out["chunk_step_ms"], peak_memory_bytes=out["peak"],
+                               **counts))
+            del out
+        total.update(eager["launches"])
+        bars = U.neurite_bars(eager["final"].pool, NEU_NEURONS)
+        # The Morton sort ranks with cell_rank up to MAX_TABLE_CELLS boxes;
+        # past them (160^3 here) it takes a stable argsort, as the reference.
+        sorts = (len(range(0, NEU_STEPS, built.config.sort_frequency))
+                 if spec.n_cells <= morton.MAX_TABLE_CELLS else 0)
+        want = {"cell_rank": NEU_STEPS + sorts,
+                "cell_list_force": len(crowded) if active else NEU_STEPS}
+        if any(eager["launches"][k] != v for k, v in want.items()):
+            raise AssertionError(f"neurite[{label}]: launches {eager['launches']}, want {want}")
+        gates[label] = eager["gate"]
+        emit("neurite", run=label, neurons=NEU_NEURONS, space=NEU_SPACE, plate=NEU_PLATE,
+             boxes=spec.n_cells, max_per_cell=spec.max_per_cell, capacity=NEU_CAPACITY,
+             active_capacity=active, steps=NEU_STEPS, setup_s=setup_s,
+             census=eager["census"], crowded_steps=crowded if active else None,
+             eager_median_step_ms=eager["median_step_ms"],
+             eager_chunk_step_ms=eager["chunk_step_ms"],
+             replayed_median_step_ms=passes[-1]["median_step_ms"], jit_passes=passes,
+             launches=eager["launches"], eager_peak_memory_bytes=eager["peak"],
+             bars=dict(alive=bars[0], static_fraction=bars[1]),
+             capacity_overflow=int(eager["final"].pool.overflow),
+             run_jit_bit_identical_to_eager=True, nvidia_smi=nvidia_smi_line())
+        if label == "compaction":
+            del built, eager          # the runner's graphs and their pool
+        torch.cuda.empty_cache()
+
+    on, off = gates["compaction"], gates["full"]
+    gate_err = neurite_distance(neurite_leaves(on, {}), neurite_leaves(off, {}),
+                                f"neurite: compaction vs full at step {NEU_GATE_STEP}")
+    crowded_tiles = cf_k.crowded_tiles(torch.device("cuda", 0), reset=True)
+    emit("neurite_gate", step=NEU_GATE_STEP, max_float_err=gate_err,
+         flags_equal=True, alive=int(on.pool.alive.sum()))
+    return built, eager["final"], dict(total), crowded_tiles
+
+
+def neurite_kernel_rows(built, final, launches, crowded_in_path):
+    """cell_rank and cell_list_force at the 900-neuron run's final state
+    (160^3 boxes, mostly empty), with the neurite phases' launches."""
+    spec, pool = built.config.spec, final.pool
+    rows = [cell_rank_row(spec, pool, launches, name="cell_rank[neurite]"),
+            cell_list_force_row(spec, pool, launches, crowded_in_path,
+                                name="cell_list_force[neurite]")]
+    for r in rows:
+        emit("kernel", **r)
+    return rows
+
+
+def phase_neurite_batch():
+    """NEU_SLOTS slots of the validation run's model that differ only in
+    their seed, NEU_VALID[1] steps in one batch with compaction: each slot
+    bit-identical to its solo card run; then eagerly and through the batch
+    engine's ``run_jit`` as batch_jit_phase does.  Returns the launches."""
+    n, steps = NEU_VALID
+    built = neurite_model(n).observe_kinds(n_kinds=2).build()
+    eng = built.batched()
+    seeds = list(range(NEU_SLOTS))
+    bstate = eng.sweep_state(seeds=seeds)
+    torch.cuda.synchronize()
+    reset_counts()
+    final, obs, counts = eng.run(bstate, steps)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {"cell_rank": steps + len(range(0, steps, 16)), "cell_list_force": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"neurite_batch: launches {launches}, want {want}")
+    alive = []
+    for b, seed in enumerate(seeds):
+        solo, solo_obs = built.run(steps, state=eng.session_state(seed=seed))
+        got = slots_of(final.states, NEU_SLOTS)[b]
+        bad = differing_leaves({"state": solo, "obs": solo_obs},
+                               {"state": got, "obs": {k: v[b][: int(counts[k][b])]
+                                                      for k, v in obs.items()}})
+        if bad:
+            raise AssertionError(f"neurite_batch: slot {b} differs from its solo run in {bad}")
+        alive.append(int(got.pool.alive.sum()))
+    if len(set(alive)) < 2:
+        raise AssertionError(f"neurite_batch: the seeds gave one arbor size {alive}")
+    emit("neurite_batch", slots=NEU_SLOTS, neurons=n, steps=steps, seeds=seeds, alive=alive,
+         launches=launches, slots_bit_identical_to_solo=True)
+    # The device-to-host reads counted over 10 steps: a profiled 100-step
+    # eager batch records ~10^5 launches, which take the profiler tens of
+    # seconds to hand back.
+    jit = batch_jit_phase("neurite_batch_jit", eng, bstate, steps, dtoh_steps=10, neurons=n)
+    return add_counts(launches, jit)
 
 
 # ---------------------------------------------------------------- distributed
@@ -3508,29 +3862,22 @@ def halo_multiplicity(dims, tile) -> torch.Tensor:
     return (mx[:, None, None] * my[None, :, None] * mz[None, None, :]).reshape(-1)
 
 
-def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
-    """Path 1's kernels at the final state; ``force_inputs``, a dict, also
-    receives cell_list_force's inputs."""
-    from repro_torch.core.grid import _live_cell_ids, build_index
-    from repro_torch.kernels.cell_force import kernel as cf_k
-    from repro_torch.kernels.cell_force.ref import cell_list_force_ref
+def cell_rank_row(spec, pool, launches, name="cell_rank") -> dict:
+    """cell_rank on the env_build input of ``pool`` (and on one crowded box
+    and an all-dead pool at its grid) against its plain version and a sort
+    oracle, exact; its times and bounds."""
+    from repro_torch.core.grid import _live_cell_ids
     from repro_torch.kernels.cell_rank import kernel as cr_k
     from repro_torch.kernels.cell_rank import ops as cr_ops
-    from repro_torch.kernels.diffusion3d import kernel as d3_k
-    from repro_torch.kernels.diffusion3d.ref import diffusion_step_ref
 
-    spec, pool = built.config.spec, final.pool
     n_cells = spec.n_cells
-    rows = []
-
-    # ---- cell_rank: the env_build input of the final state.
     cid = _live_cell_ids(spec, pool.position, pool.alive)
     check_cell_rank(cid, n_cells)
     crowded = torch.full((65_536,), 4242, dtype=torch.int32, device=cid.device)
     check_cell_rank(crowded, n_cells)           # every agent in one box
     check_cell_rank(torch.full_like(cid, n_cells), n_cells)
-    rows.append(dict(
-        name="cell_rank", route="cuda",
+    return dict(
+        name=name, route="cuda",
         source="src/repro_torch/kernels/cell_rank/csrc/cell_rank.cu",
         replaces="src/repro/kernels/cell_rank/kernel.py:88",
         launches=launches["cell_rank"], max_abs_err=0.0,
@@ -3539,12 +3886,22 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
         **cell_rank_times(cid, n_cells),
         crowded_box_ms=cuda_ms(lambda: cr_k.cell_rank_cuda(crowded, n_cells), 3),
         crowded_box_device_ms=graph_ms(lambda: cr_k.cell_rank_cuda(crowded, n_cells), 3),
-    ))
+    )
 
-    # ---- cell_list_force: the final state's cell list, every box.
+
+def cell_list_force_row(spec, pool, launches, crowded_in_path, name="cell_list_force",
+                        force_inputs=None) -> dict:
+    """cell_list_force over every box of ``pool``'s cell list against its
+    plain version (atol 1e-5 x max|F|); its times and bounds.
+    ``force_inputs``, a dict, also receives its inputs."""
+    from repro_torch.core.grid import build_index
+    from repro_torch.kernels.cell_force import kernel as cf_k
+    from repro_torch.kernels.cell_force.ref import cell_list_force_ref
+
+    n_cells = spec.n_cells
     index = build_index(spec, pool)
     if bool(index.overflowed):
-        raise AssertionError("kernels: the final state overflowed a box")
+        raise AssertionError(f"{name}: the final state overflowed a box")
     radius = pool.radius()
     args = (pool.position, radius, index.cell_list, spec.dims)
     list_force = lambda: cf_k.cell_list_force_cuda(*args, num_out=pool.capacity)
@@ -3566,7 +3923,7 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     if not scale > 0 or not err <= 1e-5 * scale:
-        raise AssertionError(f"cell_list_force: max error {err} vs max|F| {scale}")
+        raise AssertionError(f"{name}: max error {err} vs max|F| {scale}")
     # Bytes this run's data needs: each row's occupied slots and its first
     # sentinel in 32-byte sectors, position + radius of each listed agent,
     # and the (C, 3) output.  Operations: ~12 f32 ops per pair evaluation.
@@ -3579,8 +3936,8 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
     mult = halo_multiplicity(spec.dims, cf_k.TILE).to(cnt.device)
     design_bytes = int((mult * (row_bytes + 16 * listed)).sum()) + 2 * pool.capacity * 12
     pairs = box_pairs(cnt, spec.dims)
-    rows.append(dict(
-        name="cell_list_force", route="cuda",
+    return dict(
+        name=name, route="cuda",
         source="src/repro_torch/kernels/cell_force/csrc/cell_list_force.cu",
         replaces="src/repro/kernels/cell_force/kernel.py:186",
         launches=launches["cell_list_force"], max_abs_err=err,
@@ -3592,7 +3949,19 @@ def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
         tile=list(cf_k.TILE), stage_budget=cf_k.STAGE_BUDGET,
         crowded_tiles=crowded_in_path, crowded_tiles_a_call=crowded_call,
         pair_evaluations=pairs, max_force=scale, fullest_box=k_max,
-    ))
+    )
+
+
+def phase_kernels(built, final, launches, crowded_in_path, force_inputs=None):
+    """Path 1's kernels at the final state; ``force_inputs``, a dict, also
+    receives cell_list_force's inputs."""
+    from repro_torch.kernels.diffusion3d import kernel as d3_k
+    from repro_torch.kernels.diffusion3d.ref import diffusion_step_ref
+
+    spec, pool = built.config.spec, final.pool
+    rows = [cell_rank_row(spec, pool, launches),
+            cell_list_force_row(spec, pool, launches, crowded_in_path,
+                                force_inputs=force_inputs)]
 
     # ---- diffusion3d: a substance field of the final state.
     u = final.grids["substance_0"].concentration.contiguous()
@@ -4889,6 +5258,17 @@ def train_kernel_rows(store, launches, cfg, tag="train"):
 # ----------------------------------------------------------------- dry-run
 
 DRYRUN_JOBS = 8                  # dry-run CLI processes at a time (the host has 8 cores)
+# The single-pod (16 x 16) mesh plans only these archs here: the LM archs'
+# cells are planned on the multi-pod (2 x 16 x 16) mesh, the same shapes over
+# one more axis.  With both meshes the phase took 195.8 s on 8 cores, 495.5
+# of its 1,077.0 process seconds the single-pod LM processes (the host of an
+# NVIDIA H100 80GB HBM3, 700.00 W); tests/test_torch_dryrun_partitioned.py
+# plans reduced LM configs on a two-axis mesh on the CPU.
+DRYRUN_SINGLE_MESH = ("teraagent",)
+# The slowest planners start first, so that no long process starts last:
+# rwkv6-1.6b took 101.8-122.7 s a mesh, recurrentgemma-9b 55.5-80.0, every
+# other process 28.9-70.9 (the same hosts).
+DRYRUN_FIRST = ("rwkv6-1.6b", "recurrentgemma-9b")
 DRYRUN_CELL_S = 120.0            # host seconds an LM cell of the grid may take to plan
 DRYRUN_AGENTS = 200_000          # agents a rank of the TeraAgent step on the card
 TRAIN_PEAK_SLACK = 1.10          # measured train peak / the plan's estimate, at most
@@ -4909,15 +5289,23 @@ def phase_dryrun_grid():
     shutil.rmtree(out, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1")
-    # One process a (arch, mesh), the multi-pod meshes' (the slower) first.
-    jobs = [(a, m) for m in ("multi", "single") for a in sorted({a for a, _ in
-                                                                dryrun.grid_cells()})]
+    # One process a (arch, mesh), the multi-pod meshes' (the slower) first,
+    # and in each the slowest archs first.
+    archs = sorted(sorted({a for a, _ in dryrun.grid_cells()}),
+                   key=lambda a: a not in DRYRUN_FIRST)
+    meshes = {"multi": archs, "single": [a for a in archs if a in DRYRUN_SINGLE_MESH]}
+    jobs = [(a, m) for m in ("multi", "single") for a in meshes[m]]
+
+    job_s = {}
 
     def run(job):
         arch, mesh = job
-        return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+        t0 = time.perf_counter()
+        out_ = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
                                "--mesh", mesh, "--out", str(out)],
                               env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        job_s[f"{arch}/{mesh}"] = time.perf_counter() - t0
+        return out_
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(DRYRUN_JOBS) as pool:
@@ -4926,7 +5314,8 @@ def phase_dryrun_grid():
     failed = {a: (r.stdout[-1500:], r.stderr[-1500:]) for a, r in runs.items() if r.returncode}
     records = {(r["mesh"], r["arch"], r["shape"]): r
                for r in (json.loads(p.read_text()) for p in sorted(out.glob("*.json")))}
-    want = [(m, a, s) for m in ("single", "multi") for a, s in dryrun.grid_cells()]
+    want = [(m, a, s) for m in ("single", "multi") for a, s in dryrun.grid_cells()
+            if a in meshes[m]]
     skip = {c for c in want if c[1] != "teraagent"
             and not shape_applicable(get_config(c[1]), SHAPES[c[2]])[0]}
     wrong = [c for c in want if c not in records
@@ -4945,7 +5334,7 @@ def phase_dryrun_grid():
     total = lambda c: (records[c].get("collective_bytes_per_device") or {}).get("total")
     cells = [[*c, records[c]["status"], memory(c, "argument_bytes"), memory(c, "temp_bytes"),
               total(c), host_s(c)] for c in want]
-    emit("dryrun_grid", wall_s=wall, jobs=DRYRUN_JOBS, cells_total=len(want),
+    emit("dryrun_grid", wall_s=wall, jobs=DRYRUN_JOBS, job_s=job_s, cells_total=len(want),
          ok=len(want) - len(skip), skipped=len(skip),
          partitioned=sum(bool(total(c)) for c in want),
          host_s_total=sum(c[7] for c in cells), host_s_max_lm=max(
@@ -5318,6 +5707,20 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_sir_jit()
     seconds["sir_jit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    neurite_s = {}
+    launches = phase_neurite_small()
+    neurite_s["neurite_small"] = time.perf_counter() - t0
+    built, final, big, crowded = phase_neurite()
+    neurite_s["neurite"] = time.perf_counter() - t0 - sum(neurite_s.values())
+    launches = add_counts(add_counts(big, launches), phase_neurite_batch())
+    neurite_s["neurite_batch"] = time.perf_counter() - t0 - sum(neurite_s.values())
+    rows += neurite_kernel_rows(built, final, launches, crowded)
+    del built, final
+    torch.cuda.empty_cache()
+    neurite_s["kernels"] = time.perf_counter() - t0 - sum(neurite_s.values())
+    seconds["neurite"] = time.perf_counter() - t0
+    seconds["neurite_phases"] = neurite_s
     t0 = time.perf_counter()
 
     phase_dist_small()

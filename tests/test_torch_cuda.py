@@ -971,6 +971,55 @@ def test_spheroid_on_card_matches_cpu(card, variant):
     assert int(cpu.alive.sum()) != 300
 
 
+@pytest.mark.cuda
+def test_neurite_on_card_matches_cpu(card):
+    """The neurite model of examples/neurite_growth.py (8 neurons) with the
+    fused force impl, the cuda rank impl and §5.5 work compaction, 100 steps
+    on the card against the CPU: alive, kind and static flags exact;
+    positions, directions and path lengths atol 1e-4.  Then 8 steps on the
+    card with compaction and without (the fused kernel over every agent):
+    the same flags exact, positions atol 1e-4."""
+    import torch_usecases as U
+
+    model = dict(impl="fused", rank_impl="cuda")
+    finals = {}
+    counts = (cr_kernel.launches, cf_kernel.launches)
+    for dev in ("cuda", "cpu"):
+        finals[dev], _ = U.neurite(8, device=dev, **model).build().run(100)
+    torch.cuda.synchronize()
+    # A step's grid build and the Morton sort every 16 steps; no step's
+    # active set outgrows the example's active_capacity.
+    assert (cr_kernel.launches - counts[0], cf_kernel.launches - counts[1]) == (107, 0)
+    gpu, cpu = finals["cuda"].pool, finals["cpu"].pool
+    for f in ("alive", "kind", "static", "overflow"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    np.testing.assert_allclose(gpu.position.cpu().numpy(), cpu.position.numpy(), atol=1e-4)
+    for name in ("direction", "path_len"):
+        np.testing.assert_allclose(gpu.get(name).cpu().numpy(), cpu.get(name).numpy(),
+                                   atol=1e-4, err_msg=name)
+    U.neurite_bars(gpu, 8)
+    # The same run replayed from CUDA graphs: the model's behaviour must
+    # copy no host value to the card while a step is captured.
+    built = U.neurite(8, device="cuda", **model).build()
+    jit, _ = built.run_jit(100)
+    for f in ("alive", "kind", "static", "position", "diameter"):
+        assert torch.equal(getattr(jit.pool, f), getattr(gpu, f)), f
+    for name in ("direction", "path_len"):
+        assert torch.equal(jit.pool.get(name), gpu.get(name)), name
+
+    runs = {}
+    for capacity in (2048, None):
+        counts = cf_kernel.launches
+        runs[capacity], _ = U.neurite(8, device="cuda", active_capacity=capacity,
+                                      **model).build().run(8)
+        torch.cuda.synchronize()
+        assert cf_kernel.launches - counts == (0 if capacity else 8)
+    on, off = runs[2048].pool, runs[None].pool
+    for f in ("alive", "kind", "static"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+    np.testing.assert_allclose(on.position.cpu().numpy(), off.position.cpu().numpy(), atol=1e-4)
+
+
 # ------------------------------------------------------------- slot axis
 # One launch over a batch's 3 sessions against 3 solo launches, bit for bit;
 # session 1 has NaN positions and session 2 no live agent, and neither may

@@ -231,7 +231,10 @@ def neurite_extension(grid_name, speed, w_old, w_grad, w_rand, branch_prob,
 
         u = prng.uniform(k_branch, (cap,))
         branch = cones & (u < branch_prob)
-        x_axis = torch.tensor([1.0, 0.0, 0.0], device=pool.device).expand_as(direction)
+        # Filled on the device: a host tensor copied in would fail a CUDA
+        # graph's capture under run_jit.
+        x_axis = torch.zeros_like(direction)
+        x_axis[:, 0] = 1.0
         side = _unit(torch.linalg.cross(direction, x_axis, dim=-1))
         pool = add_agents(pool, spawn_mask=branch,
                           position=pool.position + side * 1.2 * pool.diameter[:, None],
@@ -244,20 +247,29 @@ def neurite_extension(grid_name, speed, w_old, w_grad, w_rand, branch_prob,
     return run
 
 
-def neurite(n_neurons, space=120.0, seed=0, device="cpu"):
+def neurite(n_neurons, space=120.0, seed=0, device="cpu", *, plate=None, cue_top=None,
+            capacity=8192, active_capacity=2048, impl="reference", rank_impl="tiled"):
     """The neurite model: cones on the bottom plate under a static cue that
-    rises with z, §5.5 work compaction, the path-length op."""
+    rises with z, §5.5 work compaction, the path-length op.
+
+    ``plate``: the ``(lo, hi)`` range of x and y the somata are drawn over
+    (default: 20 µm in from the walls).  ``cue_top``: the height where the
+    cue peaks (default: the top of the space); the cue lies on 5 µm voxels,
+    so it is the same function of z at any ``space``.  ``active_capacity``
+    ``None`` evaluates every agent each step (no compaction)."""
     rng = np.random.default_rng(seed)
-    xy = rng.uniform(20, space - 20, (n_neurons, 2))
+    lo, hi = (20.0, space - 20.0) if plate is None else map(float, plate)
+    xy = rng.uniform(lo, hi, (n_neurons, 2))
     pos = np.concatenate([xy, np.full((n_neurons, 1), 10.0)], axis=1).astype(np.float32)
-    res = 24
+    res = int(round(space / 5.0))
+    top = space if cue_top is None else float(cue_top)
     zs = (np.arange(res) + 0.5) * (space / res)
-    conc = np.exp(-((zs - space) ** 2) / (2 * 40.0**2))
+    conc = np.exp(-((zs - top) ** 2) / (2 * 40.0**2))
     cue = np.broadcast_to(conc[None, None, :], (res, res, res)).astype(np.float32)
     return (
         Simulation(space=(0.0, space), cell_size=4.0, boundary="closed", dt=0.5,
-                   capacity=8192, max_per_cell=128, seed=seed, diffusion_frequency=0,
-                   device=device)
+                   capacity=capacity, max_per_cell=128, seed=seed, diffusion_frequency=0,
+                   rank_impl=rank_impl, device=device)
         .add_agents(n_neurons, position=pos, diameter=2.0,
                     kind=np.full((n_neurons,), CONE, np.int32),
                     direction=np.tile(np.array([[0.0, 0.0, 1.0]], np.float32),
@@ -266,30 +278,39 @@ def neurite(n_neurons, space=120.0, seed=0, device="cpu"):
         .add_substance("guide", diffusion=0.0, resolution=res, concentration=cue)
         .use(neurite_extension("guide", speed=2.4, w_old=4.0, w_grad=1.5, w_rand=0.6,
                                branch_prob=0.02, target_z=104.0))
-        .mechanics(ForceParams(static_tolerance=1e-3), active_capacity=2048)
+        .mechanics(ForceParams(static_tolerance=1e-3), impl=impl,
+                   active_capacity=active_capacity)
         .op(path_length_op, name="path_length", phase="post")
     )
 
 
-def neurite_main(n_neurons=8, steps=100, seed=0):
-    """``examples/neurite_growth.py``'s ``main()`` on the port, with its bars."""
-    built = neurite(n_neurons, seed=seed).build()
-    state = built.state
-    for _ in range(4):
-        state, _ = built.run(steps // 4, state=state)
-    pool = state.pool
-    alive = int(pool.num_alive())
-    kinds = pool.kind[pool.alive].numpy()
+def neurite_bars(pool, n_neurons):
+    """``examples/neurite_growth.py``'s science bars on a final pool, per
+    neuron → ``(alive, static fraction)``."""
+    alive_mask = pool.alive.cpu()
+    alive = int(alive_mask.sum())
+    kinds = pool.kind.cpu()[alive_mask].numpy()
     n_trail = int((kinds == TRAIL).sum())
-    static_frac = float(pool.static.sum()) / max(alive, 1)
-    z = pool.position[pool.alive][:, 2].numpy()
-    path = pool.get("path_len")[pool.alive].numpy()
+    static_frac = float(pool.static.cpu().sum()) / max(alive, 1)
+    z = pool.position.cpu()[alive_mask][:, 2].numpy()
+    path = pool.get("path_len").cpu()[alive_mask].numpy()
     assert path.max() > 60.0, "path-length op did not accumulate along growth"
     assert n_trail > n_neurons * 30, "trail not deposited"
     assert alive > n_neurons * 45, "no bifurcations happened"
     assert z.max() > 60.0, "growth did not follow the chemical cue"
     assert static_frac > 0.6, "arbor did not become static (§5.5 regime)"
     return alive, static_frac
+
+
+def neurite_main(n_neurons=8, steps=100, seed=0, jit=False, **model):
+    """``examples/neurite_growth.py``'s ``main()`` on the port, with its bars:
+    four chunks of ``run`` (or of ``run_jit``, as the example steps)."""
+    built = neurite(n_neurons, seed=seed, **model).build()
+    run = built.run_jit if jit else built.run
+    state = built.state
+    for _ in range(4):
+        state, _ = run(steps // 4, state=state)
+    return neurite_bars(state.pool, n_neurons)
 
 
 # ------------------------------------------------------ soma clustering (quickstart)
