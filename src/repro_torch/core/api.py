@@ -49,6 +49,7 @@ from .forces import ForceParams
 from .grid import spec_for_space
 from .schedule import Operation, Scheduler
 from .slots import tree_map
+from .spans import span
 
 # Pool fields that are not free-form attrs (have dedicated arguments).
 _RESERVED_ATTRS = ("position", "diameter", "kind", "age", "alive", "static",
@@ -711,7 +712,8 @@ class BuiltSimulation:
 
     def _execute(self, n_steps: int, state: Optional[SimulationState], jit: bool = False):
         state = self.state if state is None else state
-        start = int(state.step)
+        # The compiled run's own read, counted and timed by its runner.
+        start = self._jitted.read_step(state) if jit else int(state.step)
         triples = tuple((o.name, o.fn, o.frequency) for o in self.observables
                         if o.frequency > 0)
         if jit:
@@ -745,11 +747,12 @@ class BuiltSimulation:
         """The compiled run → :meth:`run`'s ``(final_state, {name: rows})``,
         bit for bit: the step replayed from CUDA graphs by the model's
         runner.  Checkpointing as in :meth:`run`; the chunks reuse the
-        runner's graphs."""
-        if checkpoint_dir is None:
-            return self._execute(n_steps, state, jit=True)
-        return self._run_checkpointed(n_steps, state, True, checkpoint_dir,
-                                      checkpoint_every, keep, on_chunk)
+        runner's graphs.  A ``facade.run_jit`` span (``core/spans.py``)."""
+        with span("facade.run_jit"):
+            if checkpoint_dir is None:
+                return self._execute(n_steps, state, jit=True)
+            return self._run_checkpointed(n_steps, state, True, checkpoint_dir,
+                                          checkpoint_every, keep, on_chunk)
 
     def _run_checkpointed(self, n_steps, state, jit, checkpoint_dir, checkpoint_every,
                           keep, on_chunk, obs_acc=None, target_step=None):

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,6 +50,7 @@ from .agents import as_tensor
 from .engine import SimulationState
 from .schedule import Scheduler
 from .slots import select, slot_of, to_flat, to_slots, tree_map
+from .spans import span
 
 #: Budget sentinel: a step bound no session reaches (i32-safe).
 NO_BUDGET = 2**31 - 1
@@ -459,21 +461,28 @@ class BatchedSimulation:
               budgets: Optional[Sequence[int]] = None) -> BatchState:
         """Stack explicit session states into a fully-active batch (every
         state validated against the template, errors naming the slot).
-        ``budgets[b]`` bounds slot ``b`` to that many further steps."""
-        if not states:
-            raise ValueError("stack needs at least one state")
-        for b, st in enumerate(states):
-            self.validate_slot_state(st, b)
-        stacked = tree_map(lambda *ls: torch.stack([l.to(self.device) for l in ls]), *states)
-        batch = len(states)
-        stop = torch.full((batch,), NO_BUDGET, dtype=torch.int32, device=self.device)
-        if budgets is not None:
-            if len(budgets) != batch:
-                raise ValueError(f"{len(budgets)} budgets for {batch} states")
-            stop = stacked.step + torch.tensor(budgets, dtype=torch.int32, device=self.device)
-        return BatchState(states=stacked,
-                          active=torch.ones((batch,), dtype=torch.bool, device=self.device),
-                          stop_step=stop)
+        ``budgets[b]`` bounds slot ``b`` to that many further steps.  A
+        ``batch.stack`` span (``core/spans.py``); counted, with its host
+        seconds, in the runner's ``stats["stacks"]`` and ``["stack_s"]``."""
+        with span("batch.stack"):
+            t0 = time.perf_counter()
+            if not states:
+                raise ValueError("stack needs at least one state")
+            for b, st in enumerate(states):
+                self.validate_slot_state(st, b)
+            stacked = tree_map(lambda *ls: torch.stack([l.to(self.device) for l in ls]), *states)
+            batch = len(states)
+            stop = torch.full((batch,), NO_BUDGET, dtype=torch.int32, device=self.device)
+            if budgets is not None:
+                if len(budgets) != batch:
+                    raise ValueError(f"{len(budgets)} budgets for {batch} states")
+                stop = stacked.step + torch.tensor(budgets, dtype=torch.int32, device=self.device)
+            out = BatchState(states=stacked,
+                             active=torch.ones((batch,), dtype=torch.bool, device=self.device),
+                             stop_step=stop)
+            self._jitted.stats["stack_s"] += time.perf_counter() - t0
+            self._jitted.stats["stacks"] += 1
+            return out
 
     # -- slot lifecycle (between chunks; host-side) -------------------------
 
@@ -522,5 +531,6 @@ class BatchedSimulation:
         bit for bit: the step replayed from CUDA graphs by one runner for
         this ``BatchedSimulation``'s lifetime, whose graphs are kept per
         batch width (so widths coexist without evicting each other or the
-        solo runner)."""
-        return self._jitted(bstate, n_steps, observables=self._obs_triples() or None)
+        solo runner).  A ``batch.run_jit`` span (``core/spans.py``)."""
+        with span("batch.run_jit"):
+            return self._jitted(bstate, n_steps, observables=self._obs_triples() or None)

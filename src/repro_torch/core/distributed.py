@@ -101,13 +101,13 @@ from .schedule import (
     Operation,
     OpContext,
     Scheduler,
-    _naming,
     apply_boundary,
     apply_force,
     empty_health,
     force_pass,
 )
 from .slots import tree_map
+from .spans import span
 
 WIRE_DTYPES = {"int16": torch.int16, "int8": torch.int8}
 HALO_CODECS = ("none",) + tuple(WIRE_DTYPES)
@@ -970,7 +970,7 @@ def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: in
             with _on_rank(r):
                 s = dataclasses.replace(s, rng=prng.fold_in(s.rng, r))
                 counter = step if branches is None else s.step
-                with _naming("fold_rng"):
+                with span("op.fold_rng"):
                     rng = scheduler.fold_rng(s, counter)
             folded.append(s)
             ctxs.append(OpContext(
@@ -985,7 +985,7 @@ def step_ranks(mesh, scheduler: Scheduler, states: Sequence[DistState], step: in
                 continue
             run.op = op.name
             run.use(op.lane, states)
-            with _naming(f"op {op.name!r}"):
+            with span(f"op.{op.name}"):
                 if op.collective:
                     new = op.fn(mesh, ctxs, states)
                 else:

@@ -93,6 +93,22 @@ bit for bit, whichever branches the run takes.  The rules:
   (``eager_steps`` = ``runs`` − ``warm_starts`` + ``missing_steps`` +
   ``peer_steps`` + ``rolled_back_steps``), with the graphs' ``segments``
   and the replayed ``exchanges``.
+* **Spans and counters** (``core/spans.py``).  While ``torch.profiler``
+  records, every read is a ``runner.read`` span and every replay a
+  ``runner.replay`` span, and the ops and observables of an eager step or a
+  capture their own spans.
+  :attr:`Runner.stats` adds ``reads`` and ``read_s`` (the device-to-host
+  reads of the runs and the host seconds blocked in them: the host count,
+  each chunk's flag, and a caller's :meth:`Runner.read_step`) and
+  ``replay_s`` (the host seconds inside the replays); a batched runner's,
+  ``stacks`` and ``stack_s`` (its ``BatchedSimulation.stack`` calls and
+  their host seconds).  A solo or batched
+  runner keeps each graph's op map (``spans.mapping``: its kernel, memset
+  and memcpy nodes by op, observable and ``record``, taken at the capture),
+  and under the profiler enqueues a marker kernel before each replay and
+  logs the op map (``spans.mark_replay``), and one after a chunk's last
+  replay (``spans.close_replays``), so that a reader of the trace can give
+  each replay's device events to its ops.
 * **Launch counters.**  A kernel wrapper counts its launch when its Python
   runs, which for a captured kernel is at the capture: the runner takes
   each graph's count back after capture and adds it again at each replay.
@@ -131,8 +147,10 @@ import torch
 from ..checkpoint.checkpoint import _leaves_with_paths, _map_with_paths
 from .forces import Branches
 from .grid import bool_mask, device_constant
-from .schedule import Scheduler, _naming
+from . import spans
+from .schedule import Scheduler
 from .slots import select, to_flat, to_slots
+from .spans import span
 
 # Replays between two reads of the divergence flag: the most steps a
 # divergence rolls back and runs eagerly, and one device-to-host read (and
@@ -212,6 +230,9 @@ class _Layout:
                                     dtype=torch.bool, device=device)
         self.start = torch.zeros(counter.shape, dtype=torch.int32, device=device)
         self.graphs: Dict[tuple, object] = {}
+        # Each graph's op map (``spans.mapping``), by key; a distributed
+        # run's graphs have none.
+        self.op_maps: Dict[tuple, Optional[tuple]] = {}
         self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         self.obs_sig = None
         self.bufs: Dict[str, object] = {}
@@ -221,7 +242,7 @@ class _Layout:
         self.wires: Dict[tuple, tuple] = {}
 
     def drop_graphs(self):
-        self.graphs = {}
+        self.graphs, self.op_maps = {}, {}
         if self.pool is not None:
             self.pool = torch.cuda.graph_pool_handle()
 
@@ -278,7 +299,10 @@ class Runner:
         self.stats = {"runs": 0, "warm_starts": 0, "graphs": 0, "segments": 0, "replays": 0,
                       "exchanges": 0, "eager_steps": 0, "missing_steps": 0,
                       "peer_steps": 0, "rollbacks": 0, "rolled_back_steps": 0,
-                      "capture_s": 0.0}
+                      "capture_s": 0.0, "replay_s": 0.0, "reads": 0, "read_s": 0.0}
+        if batched:
+            # ``BatchedSimulation.stack``'s calls and host seconds.
+            self.stats.update(stacks=0, stack_s=0.0)
         self._gates = tuple(op for op in self.scheduler.ordered_ops() if op.frequency > 1)
         # Launches of the replays thrown away by rollbacks, by kernel: the
         # launch counters less these are the eager run's.
@@ -296,17 +320,32 @@ class Runner:
     def _counter(self, state) -> torch.Tensor:
         return state.states.step if self.batched else state.step
 
+    def _timed_read(self, read: Callable):
+        """``read()``, a device-to-host read, counted in ``stats["reads"]``
+        and its host seconds in ``stats["read_s"]``."""
+        with span("runner.read"):
+            t0 = time.perf_counter()
+            out = read()
+            self.stats["read_s"] += time.perf_counter() - t0
+        self.stats["reads"] += 1
+        return out
+
+    def read_step(self, state) -> int:
+        """``int(state.step)`` for the caller of the next run, as a timed
+        read of that run."""
+        return self._timed_read(lambda: int(state.step))
+
     def _read(self, state):
         """The host count: ``state.step`` (the ranks' common counter; a
         batch's counters, with its ``active`` and ``stop_step`` kept for
         :meth:`_live`), in one read."""
         if self.mesh is not None:
-            return int(state.step.reshape(-1)[0])
+            return self._timed_read(lambda: int(state.step.reshape(-1)[0]))
         if not self.batched:
-            return int(state.step)
-        steps, active, stop = torch.stack([
+            return self._timed_read(lambda: int(state.step))
+        steps, active, stop = self._timed_read(lambda: torch.stack([
             state.states.step.to(torch.int64), state.active.to(torch.int64),
-            state.stop_step.to(torch.int64)]).tolist()
+            state.stop_step.to(torch.int64)]).tolist())
         self._active, self._stop = tuple(bool(a) for a in active), tuple(stop)
         return tuple(steps)
 
@@ -445,7 +484,7 @@ class Runner:
                 slots = self._firing(host, live, k)
                 if not slots and not protos:
                     continue
-                with _naming(f"observable {name!r}"):
+                with span(f"observe.{name}"):
                     rows = _observe(fn, new.states, slots or (0,))
                 value = torch.stack([rows[b] for b in slots or (0,)])
                 every[name] = value[0]
@@ -453,11 +492,11 @@ class Runner:
                     record[name] = (slots, value)
             return record, every
         if self._collect is not None:
-            with _naming("collect"):
+            with span("observe.collect"):
                 record["collect"] = self._collect(new)
         for name, fn, k in self._obs:
             if protos or host % k == 0:
-                with _naming(f"observable {name!r}"):
+                with span(f"observe.{name}"):
                     every[name] = fn(new)
                 if host % k == 0:
                     record[name] = every[name]
@@ -587,6 +626,8 @@ class Runner:
         key if there is none yet.  Returns the branches taken."""
         branches = Branches()
         live = self._live(host)
+        if lay.pool is not None and self.mesh is None and spans.enabled():
+            spans.log_eager()
         self._step(lay, host, live, branches, first)
         self.stats["eager_steps"] += 1
         key = (self._pattern(host), branches.key())
@@ -622,7 +663,13 @@ class Runner:
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(pool=lay.pool)
             try:
-                body()
+                if self.mesh is None:
+                    with spans.mapping(spans.GraphNodes()) as op_map:
+                        body()
+                    lay.op_maps[key] = (None if op_map.entries is None
+                                        else tuple(op_map.entries))
+                else:
+                    body()
             except BaseException:
                 with contextlib.suppress(RuntimeError):
                     graph.capture_end()
@@ -673,27 +720,39 @@ class Runner:
         self.stats["segments"] += len(segs.graphs)
         return segs
 
-    def _replay(self, entry) -> dict:
-        """Replay a graph (a process mesh's: its segments, each followed by
-        its exchange); returns its launches, by kernel."""
+    def _replay(self, lay: _Layout, key: tuple) -> dict:
+        """Replay the graph of ``key`` (a process mesh's: its segments, each
+        followed by its exchange); returns its launches, by kernel.  Under
+        the profiler a graph of a solo or batched runner is preceded by the
+        marker kernel, and its op map logged (``spans.mark_replay``)."""
         from repro_torch import kernels
 
+        entry = lay.graphs[key]
         if callable(entry):
             before = kernels.read_launches()
             sent = self.mesh.stats.exchanges if self._process else 0
-            entry()
+            self._timed_replay(entry)
             if self._process:
                 self.stats["exchanges"] += self.mesh.stats.exchanges - sent
             after = kernels.read_launches()
             launches = {n: after[n] - before[n] for n in after}
         else:
             graph, launches = entry
-            graph.replay()
+            if self.mesh is None and spans.enabled():
+                spans.mark_replay(lay.op_maps.get(key))
+            self._timed_replay(graph.replay)
             if isinstance(graph, _Segments):
                 self.stats["exchanges"] += len(graph.exchanges)
             kernels.add_launches(launches)
         self.stats["replays"] += 1
         return launches
+
+    def _timed_replay(self, replay: Callable) -> None:
+        """``replay()``, its host seconds in ``stats["replay_s"]``."""
+        with span("runner.replay"):
+            t0 = time.perf_counter()
+            replay()
+            self.stats["replay_s"] += time.perf_counter() - t0
 
     # -- the run --------------------------------------------------------------
 
@@ -709,6 +768,8 @@ class Runner:
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate observable names in {names}")
         n = int(n_steps)
+        if not spans.enabled():
+            spans.unprofiled_run()
         self._collect = collect
         self._obs = tuple((name, f, k) for name, f, k in obs if k > 0)
         self._gated = tuple((name, f, k) for name, f, k in self._obs if k > 1)
@@ -772,16 +833,18 @@ class Runner:
                                                                min(n - i, CHUNK))])[0]
             missing, launched = False, collections.Counter()
             while i < n and self._any_live(host) and i - first < CHUNK:
-                entry = lay.graphs.get((self._pattern(host), branches))
-                if entry is None or (agreed is not None and i - first >= agreed):
+                key = (self._pattern(host), branches)
+                if key not in lay.graphs or (agreed is not None and i - first >= agreed):
                     missing = True
                     break
                 if i == first:
                     for s, d in zip(lay.leaves, lay.saved):
                         d.copy_(s)
                     lay.diverged.zero_()
-                launched.update(self._replay(entry))
+                launched.update(self._replay(lay, key))
                 host, i = self._advance(host), i + 1
+            if i > first and lay.pool is not None and self.mesh is None and spans.enabled():
+                spans.close_replays()
             if i > first and self._diverged(lay):
                 for s, d in zip(lay.saved, lay.leaves):
                     d.copy_(s)
@@ -815,7 +878,7 @@ class Runner:
         rank slots reduced first on the runner's stream, after every rank's
         lane has joined it; on a process mesh, then reduced over the
         processes, so that all roll the chunk back together."""
-        diverged = bool(lay.diverged.any())
+        diverged = self._timed_read(lambda: bool(lay.diverged.any()))
         if self._process:
             return bool(self.mesh.all_max([diverged])[0])
         return diverged

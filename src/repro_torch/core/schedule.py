@@ -31,7 +31,6 @@ PyTorch runs each op on its own and contracts nothing across ops.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -44,6 +43,7 @@ from .forces import Branches, mechanical_forces, update_static_flags_celllist
 from .grid import GridIndex, bool_mask, build_index, sort_agents
 from .neighbors import NeighborContext
 from .slots import select, slot_of, to_flat, to_slots, tree_map
+from .spans import CaptureError, span  # noqa: F401 (CaptureError: raised by a step)
 
 PHASES = ("pre", "agent", "post")
 GATES = ("cond", "mask")
@@ -200,16 +200,22 @@ class Operation:
             raise ValueError(f"frequency must be >= 0, got {self.frequency}")
 
 
+def runs_at(op: Operation, step: int) -> bool:
+    """Whether ``op``'s function runs on the host count ``step``: never at
+    frequency 0; a "cond" op on the multiples of its frequency only; a
+    "mask" op every step (:func:`run_op` keeps its result on those
+    multiples)."""
+    return op.frequency > 0 and (op.gate != "cond" or step % op.frequency == 0)
+
+
 def run_op(op: Operation, ctx: OpContext, state, step: Optional[int] = None):
     """Execute one op with its frequency gate applied, on ``step`` (the
     host count; default ``ctx.step``)."""
-    if op.frequency == 0:
-        return state
-    fires = (ctx.step if step is None else step) % op.frequency == 0
-    if op.gate == "cond" and not fires:
+    step = ctx.step if step is None else step
+    if not runs_at(op, step):
         return state
     new = op.fn(ctx, state)
-    return new if fires else state
+    return new if step % op.frequency == 0 else state
 
 
 # ---------------------------------------------------------------------------
@@ -267,14 +273,16 @@ class Scheduler:
         reads the device while the step is captured in a CUDA graph raises
         ``ValueError`` naming it."""
         counter = step if branches is None else state.step
-        with _naming("fold_rng"):
+        with span("op.fold_rng"):
             rng = self.fold_rng(state, counter)
         ctx = OpContext(config=self.config, step=counter, rng=rng, branches=branches)
         for op in self.ordered_ops():
             if op.collective:
                 raise ValueError(f"op {op.name!r} is collective: it runs in the "
                                  f"distributed executor only")
-            with _naming(f"op {op.name!r}"):
+            if not runs_at(op, step):
+                continue
+            with span(f"op.{op.name}"):
                 state = run_op(op, ctx, state, step)
         return dataclasses.replace(state, step=state.step + 1)
 
@@ -289,7 +297,7 @@ class Scheduler:
         op or ``fold_rng`` that reads the device during a capture raises
         ``CaptureError`` naming it."""
         live, steps = tuple(bool(x) for x in live), tuple(int(x) for x in steps)
-        with _naming("fold_rng"):
+        with span("op.fold_rng"):
             rng = self.fold_rng(state, state.step)
         ctx = OpContext(config=self.config, step=steps if branches is None else state.step,
                         rng=rng, live=live, branches=branches)
@@ -299,7 +307,7 @@ class Scheduler:
             fires = tuple(l and s % op.frequency == 0 for l, s in zip(live, steps))
             if op.gate == "cond" and not any(fires):
                 continue
-            with _naming(f"op {op.name!r}"):
+            with span(f"op.{op.name}"):
                 if op.batched:
                     new = op.fn(ctx, state)
                     if any(l and not f for l, f in zip(live, fires)):
@@ -351,27 +359,6 @@ class Scheduler:
     def remove_op(self, name: str) -> "Scheduler":
         i = self._index_of(name)
         return dataclasses.replace(self, ops=self.ops[:i] + self.ops[i + 1:])
-
-
-@contextlib.contextmanager
-def _naming(what: str):
-    """Turn an error raised while a CUDA graph is being captured into a
-    ``CaptureError`` (a ``ValueError``) naming ``what``: a device read is not
-    allowed there."""
-    try:
-        yield
-    except RuntimeError as err:
-        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-            raise CaptureError(
-                f"{what} failed while the step was captured in a CUDA graph ({err}); "
-                f"under run_jit a step must not read the device (.item(), int(), "
-                f"bool(), .tolist(), nonzero) or copy host values to it") from err
-        raise
-
-
-class CaptureError(ValueError):
-    """A step could not be captured in a CUDA graph; names the op, the
-    observable or ``fold_rng`` that read the device."""
 
 
 def _run_per_slot(op: Operation, ctx: OpContext, state, fires):

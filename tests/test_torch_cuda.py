@@ -1723,3 +1723,175 @@ def test_dist_run_jit_raises_when_an_op_reads_the_card(card):
         dsim.run_jit(3)
     torch.cuda.synchronize()
     dsim.run(2)              # the card is still usable
+
+
+# ------------------------------------------------------- spans and op maps
+
+def _trace_model(card, name):
+    """A small model of each benchmark configuration's kind: the soma tissue
+    (sorted every 4 steps), the Morton spheroid, and the soma tissue batched
+    over 3 slots; returns ``(runner of run, run(n), state)``."""
+    import torch_jit_cases as J
+
+    if name == "spheroid":
+        built, state = J.spheroid(card, impl="fused", tile_order="morton",
+                                  morton_window=4096 // 128 - 1)
+    else:
+        built = J.soma(card, n=4000, space=200.0, res=40, sort_frequency=4).build()
+        state = built.state
+    if name == "batch":
+        eng = built.batched()
+        return eng._jitted, lambda n, s: eng.run_jit(s, n), eng.sweep_state(batch=3)
+    return built._jitted, lambda n, s: built.run_jit(n, state=s), state
+
+
+def _layout(runner):
+    (lay,) = runner._layouts.values()
+    return lay
+
+
+class _EndCount:
+    """In ``spans.mapping``'s place: the graph's nodes counted once, at the
+    end of its capture."""
+
+    def __init__(self, count):
+        self.count, self.entries = count, None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, err, tb):
+        if kind is None:
+            self.entries = [("all", self.count())]
+        return False
+
+
+def _profiled(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def _device_events(prof):
+    """``(name, start µs, end µs)`` of the trace's device events, as the
+    benchmark's harness reads them."""
+    return [(e.name, float(e.time_range.start), float(e.time_range.end))
+            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["soma", "spheroid", "batch"])
+def test_op_maps_count_every_graph_node_and_leave_the_graphs_alone(card, model, monkeypatch):
+    """Each graph's op map sums to the kernel, memset and memcpy nodes that a
+    runner recording no op map counts at the end of the same key's capture."""
+    from repro_torch.core import spans
+
+    runner, run, state = _trace_model(card, model)
+    run(8, state)
+    maps = _layout(runner).op_maps
+    assert maps and all(m for m in maps.values())
+    sums = {k: sum(n for _, n in m) for k, m in maps.items()}
+    other, run, state = _trace_model(card, model)
+    monkeypatch.setattr(spans, "mapping", _EndCount)
+    run(8, state)
+    assert {k: m[0][1] for k, m in _layout(other).op_maps.items()} == sums
+    assert min(sums.values()) > 0
+
+
+# The spans' name prefixes (a profiler may show a span on the device's
+# timeline too, around the kernels launched in it).
+SPAN_KINDS = ("op.", "observe.", "runner.", "facade.", "batch.")
+
+
+def _eager_events_by_span(prof) -> dict:
+    """Device events of an eager step by the ``op.`` / ``observe.`` span in
+    which their launch ran (``record`` outside one), through the profiler's
+    correlation of each device event with its launch."""
+    import collections
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    launch = {e.correlation_id(): e.start_ns() for e in events
+              if e.device_type() != cuda and e.name().startswith("cu")}
+    named = [(e.start_ns(), e.end_ns(), e.name()) for e in events if e.device_type() != cuda
+             and e.name().startswith(("op.", "observe."))]
+    out = collections.Counter()
+    for e in events:
+        if e.device_type() != cuda or e.name().startswith(SPAN_KINDS):
+            continue
+        t = launch[e.correlation_id()]
+        inside = [(s, n) for s, end, n in named if s <= t <= end]
+        out[max(inside)[1] if inside else "record"] += 1
+    return dict(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["soma", "spheroid"])
+def test_each_op_map_segment_is_its_eager_step_under_the_profiler(card, model, monkeypatch):
+    """The step of each captured key, run eagerly under the profiler with the
+    same branches: its device events grouped by the op span that launched
+    them are the op map's segments."""
+    import collections
+
+    from repro_torch.core.forces import Branches
+
+    runner, run, state = _trace_model(card, model)
+    keys = {}
+    real = runner._capture
+
+    def capture(lay, key, host, live):
+        keys[key] = (host, live)
+        return real(lay, key, host, live)
+
+    monkeypatch.setattr(runner, "_capture", capture)
+    run(8, state)
+    lay = _layout(runner)
+    assert keys and set(keys) == set(lay.op_maps)
+    for key, (host, live) in keys.items():
+        want = collections.Counter()
+        for name, n in lay.op_maps[key]:
+            want[name] += n
+        lay.start.copy_(lay.static.step)
+
+        def step():
+            with runner._on_stream(lay):
+                runner._step(lay, host, live, Branches(dict(key[1]), lay.diverged))
+
+        got = _eager_events_by_span(_profiled(step))
+        assert got == {k: v for k, v in want.items() if v}, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["soma", "spheroid", "batch"])
+def test_a_profiled_run_of_replays_is_fully_attributed(card, model):
+    """Under the profiler each replay is preceded by one marker and logged
+    with its op map, and the chunk's last replay is followed by one more,
+    logged as ``CLOSE``: between a replay's marker and the next lie exactly
+    its op map's nodes, and every other event lies before the first marker
+    or after a closing one.  A run without the profiler logs nothing, and
+    the next profiled run's log starts anew."""
+    from repro_torch.core import spans
+
+    runner, run, state = _trace_model(card, model)
+    run(8, state)
+    before = dict(runner.stats)
+    events = sorted(_device_events(_profiled(lambda: run(8, state))), key=lambda e: e[1:])
+    replays = runner.stats["replays"] - before["replays"]
+    assert runner.stats["eager_steps"] == before["eager_steps"] and replays == 8
+    log = list(spans.LOG)
+    assert len(log) == replays + 1 and log[-1] == spans.CLOSE
+    assert all(isinstance(e, tuple) and e for e in log[:-1])
+    marks = [i for i, (n, _, _) in enumerate(events) if spans.MARKER in n]
+    assert len(marks) == len(log)
+    for j, entry in enumerate(log[:-1]):
+        assert marks[j + 1] - marks[j] - 1 == sum(n for _, n in entry)
+    assert len(events) - marks[-1] - 1 > 0
+    run(8, state)
+    torch.cuda.synchronize()
+    assert spans.LOG == log
+    _profiled(lambda: run(2, state))
+    assert len(spans.LOG) == 3 and spans.LOG[-1] == spans.CLOSE
